@@ -1,0 +1,99 @@
+"""Wave execution: gather pair blocks → pair kernel → per-cell sums.
+
+Port of ``repro/kernels/sph_pair/ops.py``: one ``density_pairs`` call runs
+every density task of the wave as one batched kernel launch.
+
+The reference scatter-adds each pair's i-side into cell ci and its j-side
+into cell cj. ``index_add_`` on CUDA does that with atomics in no fixed
+order, which would break run-twice bitwise determinism, so the sums here
+go through the pair list's *incoming* table (``cellgrid.incoming_table``):
+each cell adds its contributions in one fixed order — i-sides in pair
+order, then j-sides in pair order, the order of the reference's
+sequential scatter — one table column at a time.
+
+``pair_mask`` (npairs,) zeroes masked pair tasks (the time-bin engine's
+padding, which repeats pair 0): their contributions are multiplied by 0,
+as in the reference, and add +0.0.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...sph.cellgrid import PairList
+from .kernel import density_pair, force_pair
+
+
+def density_inputs(cells, pairs: PairList):
+    """The density kernel's eight (P, C[, 3]) blocks, gathered through
+    ci/cj, with cell j's positions image-shifted."""
+    ci, cj = pairs.ci.long(), pairs.cj.long()
+    gi = lambda a: a.index_select(0, ci)
+    gj = lambda a: a.index_select(0, cj)
+    pos_j = gj(cells.pos) + pairs.shift[:, None, :]
+    return (gi(cells.pos), gi(cells.h), gi(cells.mass), gi(cells.mask),
+            pos_j, gj(cells.h), gj(cells.mass), gj(cells.mask))
+
+
+def force_inputs(cells, pairs: PairList, rho, press, omega, cs):
+    """The force kernel's eighteen (P, C[, 3]) blocks."""
+    ci, cj = pairs.ci.long(), pairs.cj.long()
+    gi = lambda a: a.index_select(0, ci)
+    gj = lambda a: a.index_select(0, cj)
+    pos_j = gj(cells.pos) + pairs.shift[:, None, :]
+    return (gi(cells.pos), gi(cells.vel), gi(cells.h), gi(press), gi(rho),
+            gi(omega), gi(cs), gi(cells.mass), gi(cells.mask),
+            pos_j, gj(cells.vel), gj(cells.h), gj(press), gj(rho),
+            gj(omega), gj(cs), gj(cells.mass), gj(cells.mask))
+
+
+def _live(pairs: PairList, pair_mask, dtype):
+    notself = (pairs.ci != pairs.cj).to(dtype)
+    live = torch.ones_like(notself) if pair_mask is None else pair_mask
+    return live, notself * live
+
+
+def _cell_sums(side_i, side_j, incoming, ncells: int) -> torch.Tensor:
+    """Σ of each cell's contributions in table order, from +0.
+
+    ``side_i``/``side_j`` are (P, C, F) per-pair contributions (already
+    multiplied by their masks); returns (ncells, C, F), zero in cells no
+    pair touches. Each touched cell is written once, so the result does
+    not depend on thread scheduling.
+    """
+    cells, table = incoming
+    stacked = torch.cat([side_i, side_j,
+                         side_i.new_zeros((1,) + side_i.shape[1:])])
+    acc = stacked.new_zeros((table.shape[0],) + side_i.shape[1:])
+    for k in range(table.shape[1]):
+        acc = acc + stacked.index_select(0, table[:, k])
+    out = stacked.new_zeros((ncells,) + side_i.shape[1:])
+    return out.index_copy_(0, cells, acc)
+
+
+def density_pairs(cells, pairs: PairList, *, kernel: str = "cubic",
+                  pair_mask=None):
+    """All density_pair/density_self tasks → (rho, drho_dh, nngb)."""
+    rho_i, drho_i, nn_i, rho_j, drho_j, nn_j = density_pair(
+        *density_inputs(cells, pairs), kernel=kernel)
+    ncells = cells.mass.shape[0]
+    live_i, live_j = _live(pairs, pair_mask, cells.pos.dtype)
+    side_i = torch.stack([rho_i, drho_i, nn_i], -1) * live_i[:, None, None]
+    side_j = torch.stack([rho_j, drho_j, nn_j], -1) * live_j[:, None, None]
+    sums = _cell_sums(side_i, side_j, pairs.incoming, ncells)
+    return sums[..., 0], sums[..., 1], sums[..., 2]
+
+
+def force_pairs(cells, pairs: PairList, rho, press, omega, cs, *,
+                kernel: str = "cubic", alpha_visc: float = 0.0,
+                pair_mask=None):
+    """All force_pair/force_self tasks → (dv, du)."""
+    dv_i, du_i, dv_j, du_j = force_pair(
+        *force_inputs(cells, pairs, rho, press, omega, cs), kernel=kernel,
+        alpha_visc=alpha_visc)
+    ncells = cells.mass.shape[0]
+    live_i, live_j = _live(pairs, pair_mask, cells.pos.dtype)
+    side_i = torch.cat([dv_i, du_i[..., None]], -1) * live_i[:, None, None]
+    side_j = torch.cat([dv_j, du_j[..., None]], -1) * live_j[:, None, None]
+    sums = _cell_sums(side_i, side_j, pairs.incoming, ncells)
+    return sums[..., :3], sums[..., 3]
