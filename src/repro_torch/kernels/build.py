@@ -6,7 +6,8 @@ PyTorch headers, so a build takes seconds). Builds happen at first use, into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``), under a
 file name that carries a hash of the sources and flags: a changed source is
 rebuilt, an unchanged one is loaded again. Within a process each library is
-loaded once.
+loaded once. Each library has its own lock, so callers that ask for several
+libraries from several threads run one ``nvcc`` each, all at once.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "--fmad=false", "-shared",
                            "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 # what the last build of each library reported: seconds, ptxas resource lines
 BUILD_LOG: Dict[str, Dict[str, object]] = {}
 
@@ -53,31 +55,49 @@ def _digest(sources: Sequence[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def _out_path(name: str, sources: Sequence[Path]) -> Path:
+    return BUILD_DIR / f"lib{name}-{_digest(sources)}.so"
+
+
+def _build(name: str, sources: Sequence[Path]) -> Path:
+    """Compile ``name`` unless it is built; raise with the compiler's
+    output if ``nvcc`` fails. Returns the library's path."""
+    out = _out_path(name, sources)
+    if out.exists():
+        BUILD_LOG.setdefault(name, {"seconds": 0.0, "ptxas": [],
+                                    "cached": True})
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {name}:\n{proc.stdout}")
+    os.replace(tmp, out)
+    BUILD_LOG[name] = {
+        "seconds": time.perf_counter() - t0,
+        "ptxas": [ln.strip() for ln in proc.stdout.splitlines()
+                  if "registers" in ln or "spill" in ln
+                  or "Compiling entry" in ln],
+    }
+    return out
+
+
 def load_library(name: str, sources: Sequence[Path]) -> ctypes.CDLL:
     """Build ``name`` from ``sources`` at first use (or find it built) and
-    load it."""
-    with _LOCK:
-        if name in _LOADED:
-            return _LOADED[name]
-        out = BUILD_DIR / f"lib{name}-{_digest(sources)}.so"
-        if out.exists():
-            BUILD_LOG[name] = {"seconds": 0.0, "ptxas": [], "cached": True}
-        else:
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, sources)]
-            t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed building {name}:\n{log}")
-            os.replace(tmp, out)
-            BUILD_LOG[name] = {
-                "seconds": time.perf_counter() - t0,
-                "ptxas": [ln.strip() for ln in log.splitlines()
-                          if "registers" in ln or "spill" in ln
-                          or "Compiling entry" in ln],
-            }
-        _LOADED[name] = ctypes.CDLL(str(out))
+    load it. Safe to call from several threads: builds of different
+    libraries run at the same time."""
+    with _LOCKS_LOCK:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        if name not in _LOADED:
+            _LOADED[name] = ctypes.CDLL(str(_build(name, sources)))
         return _LOADED[name]
+
+
+def check_launch(rc: int, name: str) -> None:
+    """Raise if a kernel library's launch function returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")

@@ -18,7 +18,7 @@ from pathlib import Path
 
 import torch
 
-from ..build import load_library
+from ..build import check_launch, load_library
 from .ref import density_pair_ref, force_pair_ref
 
 SOURCES = [Path(__file__).parent / "csrc" / "sph_pair.cu"]
@@ -72,11 +72,6 @@ def _kernel_id(kernel: str) -> int:
         raise ValueError(f"unknown kernel {kernel!r}; have {list(KERNEL_IDS)}")
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
-
-
 def density_pair(pos_i, h_i, m_i, mask_i, pos_j, h_j, m_j, mask_j,
                  *, kernel: str = "cubic"):
     """Batched cell-pair density, both directions per pair task.
@@ -99,7 +94,7 @@ def density_pair(pos_i, h_i, m_i, mask_i, pos_j, h_j, m_j, mask_j,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sph_density_pair(*(t.data_ptr() for t in args + tuple(outs)),
                                   P, C, kid, stream)
-    _raise_on(rc, "density_pair")
+    check_launch(rc, "density_pair")
     density_pair.launches += 1
     return tuple(outs)
 
@@ -137,7 +132,7 @@ def force_pair(pos_i, vel_i, h_i, press_i, rho_i, om_i, cs_i, m_i, mask_i,
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.sph_force_pair(*(t.data_ptr() for t in args + outs),
                                 P, C, kid, alpha, -alpha, 2.0 * alpha, stream)
-    _raise_on(rc, "force_pair")
+    check_launch(rc, "force_pair")
     force_pair.launches += 1
     return outs
 

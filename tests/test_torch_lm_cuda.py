@@ -1,0 +1,116 @@
+"""The ssd_scan and flash_attention CUDA kernels against their plain
+versions, on the card.
+
+Every test here needs an NVIDIA GPU: each carries the ``cuda`` marker and
+skips without one. The file imports no JAX (the machine with the card has
+none), so it runs there as
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_lm_cuda.py
+
+The plain versions, held against the JAX reference on the CPU by
+tests/test_torch_lm_kernels.py, are the oracle: each kernel must agree with
+its plain version on the same inputs within rtol = atol = 2e-4 (the
+reference's kernel tolerance; the two sum in different orders), at the
+model's widths, with ragged lengths, GQA and windows, and give bitwise-equal
+results when run twice (no atomics).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as FK
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
+from repro_torch.kernels.ssd_scan import kernel as SK
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+from torch_threads import one_torch_thread  # noqa: F401
+
+TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def ssd_inputs(B, S, H, hp, N, seed=0):
+    """The inputs of tests/test_kernel_ssd_scan.py:11."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, S, H, hp)).astype(np.float32),
+            (0.05 + 0.1 * rng.random((B, S, H))).astype(np.float32),
+            (-(0.1 + rng.random(H))).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32),
+            rng.random(H).astype(np.float32)]
+
+
+def qkv_inputs(B, S, T, H, K, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, S, H, hd)).astype(np.float32),
+            rng.standard_normal((B, T, K, hd)).astype(np.float32),
+            rng.standard_normal((B, T, K, hd)).astype(np.float32)]
+
+
+def tt(arrays, device="cpu"):
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hp,N,with_h0", [
+    (2, 256, 4, 64, 64, False),
+    (1, 200, 3, 16, 16, True),       # ragged S, the reduced model's widths
+    (2, 77, 2, 32, 64, True),
+    (1, 64, 5, 64, 16, False),
+])
+def test_cuda_ssd_kernel_matches_plain(cuda_device, B, S, H, hp, N, with_h0):
+    args = tt(ssd_inputs(B, S, H, hp, N, seed=S), cuda_device)
+    h0 = (torch.randn(B, H, N, hp, device=cuda_device) if with_h0 else None)
+    n0 = SK.ssd_scan.launches
+    y, h = ssd_scan(*args, h0=h0)
+    y2, h2 = ssd_scan(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert SK.ssd_scan.launches == n0 + 2
+    assert SK.library().ssd_scan_chunk() == SK.KERNEL_CHUNK
+    assert torch.equal(y, y2) and torch.equal(h, h2)       # no atomics
+    y_p, h_p = ssd_scan_ref(*args, h0=h0)
+    np.testing.assert_allclose(y.cpu().numpy(), y_p.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(h.cpu().numpy(), h_p.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,window", [
+    (2, 256, 256, 4, 4, 64, True, None),
+    (1, 200, 200, 8, 2, 32, True, None),     # ragged, GQA
+    (1, 130, 300, 4, 1, 16, True, 64),       # offset queries, window, MQA
+    (2, 128, 128, 2, 2, 128, False, None),
+    (1, 96, 96, 4, 4, 64, False, 32),
+])
+def test_cuda_flash_kernel_matches_plain(cuda_device, B, S, T, H, K, hd,
+                                         causal, window):
+    q, k, v = tt(qkv_inputs(B, S, T, H, K, hd, seed=S + T), cuda_device)
+    n0 = FK.flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert FK.flash_attention.launches == n0 + 2
+    assert torch.equal(got, again)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
+    q, k, v = tt(qkv_inputs(1, 64, 64, 2, 2, 64), cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    qw, kw, vw = tt(qkv_inputs(1, 64, 64, 2, 2, 48), cuda_device)
+    with pytest.raises(ValueError, match="head width"):
+        flash_attention(qw, kw, vw)
+    args = tt(ssd_inputs(1, 64, 2, 8, 4), cuda_device)
+    with pytest.raises(ValueError, match="not built"):
+        ssd_scan(*args)
