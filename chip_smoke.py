@@ -24,21 +24,26 @@ wrong. Phases, one line each:
    kernels' launch counts read around it;
 7. run-twice bitwise determinism of a one-cycle Sedov 16³ run;
 
-and for the zamba2-1.2b serving slice (``python -m repro_torch.launch.serve``):
+and for the serving slices (``python -m repro_torch.launch.serve``),
+zamba2-1.2b (Mamba-2 + shared attention) and falcon-mamba-7b (Mamba-1):
 
-8. ``ssd_scan`` and ``flash_attention`` against their plain versions at the
-   serve path's shapes (B = 4, S = 2048), plus a GQA + window case and
-   ragged lengths;
+8. ``ssd_scan``, ``flash_attention`` and ``selective_scan`` against their
+   plain versions at the serve paths' shapes (B = 4, S = 2048), plus a
+   GQA + window case and ragged lengths (with an initial state for the
+   scans);
 9. their times beside the bound, the plain version's time and, for
    attention, ``scaled_dot_product_attention`` on the same tensors (a
    yardstick the port never calls);
-10. the serve path: zamba2-1.2b at full width (random weights from a seeded
-    generator), 4 prompts of 2048 tokens, prefill then 31 greedy decode
-    steps (each step timed, and the whole decode window), with the
-    kernels' launch counts read around the prefill and around the decode
-    loop; the full-width prefill run twice gives bitwise equal logits;
-11. zamba2-1.2b-reduced on the card and on the CPU, teacher-forced prefill
-    and 8 decode steps plus greedy generation, compared.
+10. the serve path of each model at full width (random weights from a
+    seeded generator), 4 prompts of 2048 tokens, prefill then 31 greedy
+    decode steps (each step timed, and the whole decode window), with
+    every LM kernel's launch count set to 0 just before and read just
+    after the prefill and the decode loop; the full-width prefill run twice
+    gives bitwise equal logits; each model's parameters are freed before
+    the next phase;
+11. each model's reduced configuration on the card and on the CPU,
+    teacher-forced prefill and 8 decode steps plus greedy generation,
+    compared.
 
 All libraries are built at the start, one ``nvcc`` each, in parallel
 (each wrapper's ``library()`` from its own thread). Then the ``kernels``
@@ -91,13 +96,16 @@ MAIN_MAX_DEPTH = 4
 # smaller runs.
 DRIFT_BOUND = 0.10
 
-# The zamba2-1.2b serving slice.
+# The serving slices: zamba2-1.2b (ssd_scan, flash_attention) and
+# falcon-mamba-7b (selective_scan).
 LM_ARCH = "zamba2-1.2b"
+MAMBA1_ARCH = "falcon-mamba-7b"
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_SEED = 0
 # kernel against plain version: the reference's kernel tolerance
-# (tests/test_kernel_ssd_scan.py, test_kernel_flash_attention.py), relative
-# to the output's scale; the two sum in different orders
+# (tests/test_kernel_ssd_scan.py, test_kernel_flash_attention.py; the
+# selective scan's own is tighter, 2e-5), relative to the output's scale;
+# the two sum in different orders
 LM_RTOL = 2e-4
 # card against CPU on the reduced model: the CPU tests' pin against the JAX
 # reference (tests/test_torch_lm_serve.py)
@@ -442,6 +450,19 @@ def ssd_inputs(B, S, H, hp, N, dev, seed=0):
     return [torch.from_numpy(a).to(dev) for a in arrs]
 
 
+def scan_inputs(B, S, dI, N, dev, seed=0):
+    """The inputs of tests/test_kernel_mamba_scan.py:make_inputs, made on
+    the host from a seed and moved to ``dev``."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, S, dI)).astype(np.float32),
+            (0.05 + 0.1 * rng.random((B, S, dI))).astype(np.float32),
+            (-rng.random((dI, N)) - 0.1).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32),
+            rng.random(dI).astype(np.float32)]
+    return [torch.from_numpy(a).to(dev) for a in arrs]
+
+
 def qkv_inputs(B, S, T, H, K, hd, dev, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     return [torch.randn(shape, generator=g, device=dev)
@@ -454,6 +475,22 @@ def lm_shapes(cfg, B: int, S: int):
     return ((B, S, cfg.d_inner // cfg.ssm_headdim, cfg.ssm_headdim,
              cfg.d_state),
             (B, S, cfg.n_heads, cfg.n_kv, cfg.head_dim))
+
+
+def scan_shape(cfg, B: int, S: int):
+    """The Mamba-1 serve path's selective_scan shape (B, S, dI, N)."""
+    return B, S, cfg.d_inner, cfg.d_state
+
+
+def scan_ops_bytes(B, S, dI, N, with_h0=False):
+    """Operations and bytes of the selective scan as a function: per
+    (b, t, d, n) dt·A, exp, the decay multiply and the input and C FMAs (7,
+    an FMA counted as 2), per (b, t, d) dt·u and D·u plus its add (3);
+    bytes: u, dt, B, C, A, D (and h0) read once, y and h written once."""
+    ops = B * S * dI * (7 * N + 3)
+    moved = 4 * (3 * B * S * dI + 2 * B * S * N + dI * N + dI
+                 + B * dI * N * (2 if with_h0 else 1))
+    return float(ops), float(moved)
 
 
 def ssd_chunked_ops(S, N, hp, Q):
@@ -533,7 +570,33 @@ def lm_check_kernels(dev):
              "window": window, "max_abs_err": e, "rtol": LM_RTOL, "ok": ok})
         assert ok, "flash_attention disagrees with its plain version"
         errs["flash_attention"] = max(errs["flash_attention"], e)
+    errs["selective_scan"] = lm_check_scan(dev)
     return errs
+
+
+def lm_check_scan(dev) -> float:
+    """Phase 8, selective_scan: at the falcon-mamba-7b serve shape, and
+    ragged (S and dI not multiples of the kernel's tiles) with an initial
+    state."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.mamba_scan import (selective_scan,
+                                                selective_scan_ref)
+    B, S, dI, N = scan_shape(get_config(MAMBA1_ARCH), LM_BATCH, LM_PROMPT)
+    worst = 0.0
+    for S_, dI_, with_h0 in ((S, dI, False), (S - 77, dI - 40, True)):
+        args = scan_inputs(B, S_, dI_, N, dev, seed=S_)
+        h0 = (torch.randn(B, dI_, N, device=dev,
+                          generator=torch.Generator(dev).manual_seed(1))
+              if with_h0 else None)
+        got = selective_scan(*args, h0=h0)
+        want = selective_scan_ref(*args, h0=h0)
+        e, ok = max_err(got, want, LM_RTOL)
+        say({"phase": "lm_parity", "kernel": "selective_scan",
+             "shape": [B, S_, dI_, N], "h0": with_h0, "max_abs_err": e,
+             "rtol": LM_RTOL, "ok": ok})
+        assert ok, "selective_scan disagrees with its plain version"
+        worst = max(worst, e)
+    return worst
 
 
 def lm_time_kernels(dev):
@@ -568,6 +631,16 @@ def lm_time_kernels(dev):
                                                    is_causal=True), reps=20),
         operations=ops, bytes=moved, shape=[fB, fS, fS, fH, fK, fhd])
     del q, k, v, qt, kt, vt
+    from repro_torch.kernels.mamba_scan import (selective_scan,
+                                                selective_scan_ref)
+    shape = scan_shape(get_config(MAMBA1_ARCH), LM_BATCH, LM_PROMPT)
+    args = scan_inputs(*shape, dev)
+    ops, moved = scan_ops_bytes(*shape)
+    rows["selective_scan"] = dict(
+        ms=cuda_time_ms(lambda: selective_scan(*args), reps=20),
+        plain_ms=cuda_time_ms(lambda: selective_scan_ref(*args), reps=3),
+        library_ms=None, operations=ops, bytes=moved, shape=list(shape))
+    del args
     for name, r in rows.items():
         t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = r["operations"] / PEAK_F32_FLOPS * 1e3
@@ -579,18 +652,45 @@ def lm_time_kernels(dev):
     return rows
 
 
-def lm_serve_path(dev):
-    """Phase 10: zamba2-1.2b at full width through the port's serving
-    entry points (``prefill``, ``decode_step``), as
+def lm_kernel_modules():
+    """The LM kernels' wrapper modules by kernel name."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.mamba_scan import kernel as MK
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    return {"ssd_scan": (SK, SK.ssd_scan),
+            "flash_attention": (FK, FK.flash_attention),
+            "selective_scan": (MK, MK.selective_scan)}
+
+
+def lm_expected_launches(cfg) -> dict:
+    """Launches of each LM kernel in one full prefill of ``cfg``."""
+    if cfg.ssm == "mamba1":
+        return {"ssd_scan": 0, "flash_attention": 0,
+                "selective_scan": cfg.n_layers}
+    return {"ssd_scan": cfg.n_layers,
+            "flash_attention": cfg.n_layers // cfg.shared_attn_every,
+            "selective_scan": 0}
+
+
+def lm_serve_path(dev, arch: str):
+    """Phase 10: ``arch`` at full width through the port's serving entry
+    points (``prefill``, ``greedy_decode``), as
     ``python -m repro_torch.launch.serve`` drives them."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.ssd_scan import kernel as SK
     from repro_torch.models import init_params
     from repro_torch.models.convert import leaves
     from repro_torch.serve.serve_step import greedy_decode, prefill
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=torch.float32)
+    kernels = lm_kernel_modules()
+
+    def reset():
+        for mod, _ in kernels.values():
+            mod.reset_launches()
+
+    def read():
+        return {name: fn.launches for name, (_, fn) in kernels.items()}
+
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
     gen = torch.Generator(device=dev).manual_seed(LM_SEED)
     t0 = time.perf_counter()
     params = init_params(cfg, gen)
@@ -609,19 +709,16 @@ def lm_serve_path(dev):
         del caches
         synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        SK.reset_launches()
-        FK.reset_launches()
+        reset()
         t0 = time.perf_counter()
         logits, caches, rolling = prefill(params, cfg, prompts,
                                           cache_len=cache_len)
         synchronize(dev)
         t_prefill = time.perf_counter() - t0
-        prefill_launches = {"ssd_scan": SK.ssd_scan.launches,
-                            "flash_attention": FK.flash_attention.launches}
+        prefill_launches = read()
         same = torch.equal(first, logits)
         finite = bool(torch.isfinite(logits).all())
-        SK.reset_launches()
-        FK.reset_launches()
+        reset()
         marks = [time.perf_counter()]
         step_finite = []
 
@@ -632,8 +729,7 @@ def lm_serve_path(dev):
 
         tokens = greedy_decode(params, cfg, logits, caches, LM_PROMPT,
                                LM_NEW, rolling=rolling, on_step=on_step)
-        decode_launches = {"ssd_scan": SK.ssd_scan.launches,
-                           "flash_attention": FK.flash_attention.launches}
+        decode_launches = read()
     finite &= all(bool(f) for f in step_finite)
     step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     window_s = marks[-1] - marks[0]
@@ -652,16 +748,15 @@ def lm_serve_path(dev):
          "decode_launches": decode_launches,
          "prefill_twice_bitwise_equal": same,
          "sample_tokens": tokens[0, :16].tolist()})
-    n_shared = cfg.n_layers // cfg.shared_attn_every
     assert finite, "non-finite logits on the serve path"
     assert same, "two full-width prefills gave different logits"
-    assert prefill_launches == {"ssd_scan": cfg.n_layers,
-                                "flash_attention": n_shared}, prefill_launches
-    assert decode_launches == {"ssd_scan": 0, "flash_attention": 0}
-    del params, caches, logits
+    want = lm_expected_launches(cfg)
+    assert prefill_launches == want, (prefill_launches, want)
+    assert not any(decode_launches.values()), decode_launches
+    del params, caches, logits, first
     torch.cuda.empty_cache()
     return {k: prefill_launches[k] + decode_launches[k]
-            for k in prefill_launches}
+            for k, v in want.items() if v}
 
 
 def lm_run(params, cfg, tokens, prompt_len):
@@ -683,15 +778,17 @@ def lm_run(params, cfg, tokens, prompt_len):
     return np.stack(steps), greedy.cpu().numpy()
 
 
-def lm_card_matches_cpu(dev, prompt_len: int = 100, steps: int = 8):
-    """Phase 11: zamba2-1.2b-reduced on the card and on the CPU (plain
-    versions, which the CPU tests hold against the JAX reference):
-    teacher-forced logits within 1e-4 of their scale, greedy tokens equal."""
+def lm_card_matches_cpu(dev, arch: str, prompt_len: int = 100,
+                        steps: int = 8):
+    """Phase 11: ``arch``'s reduced configuration on the card and on the
+    CPU (plain versions, which the CPU tests hold against the JAX
+    reference): teacher-forced logits within 1e-4 of their scale, greedy
+    tokens equal."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.models.convert import tree_map
-    cfg = dataclasses.replace(get_config(LM_ARCH, reduced=True),
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
                               dtype=torch.float32)
     params = init_params(cfg, torch.Generator().manual_seed(LM_SEED))
     tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
@@ -731,13 +828,12 @@ def main() -> int:
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
 
-    from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.kernels.ssd_scan import kernel as SK
+    mods = [K] + [mod for mod, _ in lm_kernel_modules().values()]
     t0 = time.perf_counter()
-    # each library() builds at first use; from three threads, three nvcc
-    # processes run at once
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(lambda mod: mod.library(), (K, SK, FK)))
+    # each library() builds at first use; from one thread each, one nvcc
+    # process each runs at once
+    with ThreadPoolExecutor(len(mods)) as pool:
+        list(pool.map(lambda mod: mod.library(), mods))
     say({"phase": "build", "seconds": time.perf_counter() - t0,
          "log": build.BUILD_LOG})
 
@@ -754,19 +850,24 @@ def main() -> int:
 
     errs.update(lm_check_kernels(dev))
     timing.update(lm_time_kernels(dev))
-    launches.update(lm_serve_path(dev))
-    lm_card_matches_cpu(dev)
+    for arch in (LM_ARCH, MAMBA1_ARCH):
+        launches.update(lm_serve_path(dev, arch))
+    for arch in (LM_ARCH, MAMBA1_ARCH):
+        lm_card_matches_cpu(dev, arch)
 
     sph = "src/repro_torch/kernels/sph_pair/csrc/sph_pair.cu"
     source = {"density_pair": sph, "force_pair": sph,
               "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
               "flash_attention": "src/repro_torch/kernels/flash_attention/"
-                                 "csrc/flash_attention.cu"}
+                                 "csrc/flash_attention.cu",
+              "selective_scan": "src/repro_torch/kernels/mamba_scan/csrc/"
+                                "selective_scan.cu"}
     replaces = {"density_pair": "src/repro/kernels/sph_pair/kernel.py:132",
                 "force_pair": "src/repro/kernels/sph_pair/kernel.py:224",
                 "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:82",
                 "flash_attention":
-                    "src/repro/kernels/flash_attention/kernel.py:80"}
+                    "src/repro/kernels/flash_attention/kernel.py:80",
+                "selective_scan": "src/repro/kernels/mamba_scan/kernel.py:51"}
     say({"kernels": [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": launches[name],

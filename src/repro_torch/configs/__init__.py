@@ -5,15 +5,15 @@ of the reference's registry (``repro.configs``) raises, naming the ROADMAP
 item that ports it.
 """
 
-from . import zamba2_1_2b
+from . import falcon_mamba_7b, zamba2_1_2b
 
 _MODULES = {
     "zamba2-1.2b": zamba2_1_2b,
+    "falcon-mamba-7b": falcon_mamba_7b,
 }
 
 # the reference's other architectures and the ROADMAP item that ports each
 _LATER = {
-    "falcon-mamba-7b": "queue 1 item 7 (Mamba-1 + selective_scan)",
     "qwen1.5-32b": "queue 1 item 13 (rest of the LM zoo)",
     "gemma-7b": "queue 1 item 13 (rest of the LM zoo)",
     "gemma3-27b": "queue 1 item 13 (rest of the LM zoo)",

@@ -6,7 +6,8 @@ dimension. PyTorch runs eagerly, so the port keeps one parameter dict per
 layer and walks the layers in a plain loop; its caches are per-layer lists,
 the reference's decode layout (``make_caches(..., stacked=False)``).
 
-Block kinds of this slice: ``mamba2`` (Mamba-2/SSD mixer, zamba2's
+Block kinds of the ported slices: ``mamba1`` (Mamba-1 mixer with B/C/dt
+RMS norms, falcon-mamba-7b), ``mamba2`` (Mamba-2/SSD mixer, zamba2's
 backbone) and ``mamba2s`` (zamba2's shared attention block, params reused
 across invocations, with a per-invocation LoRA, then Mamba-2). Every other
 kind of the reference raises, naming the ROADMAP item that ports it.
@@ -24,18 +25,18 @@ from ..device import resolve_device
 from .config import ModelConfig
 from .layers import (AttnSpec, attention, init_attention, init_mlp,
                      make_cache, mlp, normal, rmsnorm, rope_tables)
-from .mamba import (init_mamba2, make_mamba2_state, mamba2_forward,
-                    mamba2_step)
+from .mamba import (init_mamba1, init_mamba2, make_mamba1_state,
+                    make_mamba2_state, mamba1_forward, mamba1_step,
+                    mamba2_forward, mamba2_step)
 
 Params = Dict[str, Any]
-PORTED_KINDS = ("mamba2", "mamba2s")
+PORTED_KINDS = ("mamba1", "mamba2", "mamba2s")
 
 
 def _later(kind: str) -> NotImplementedError:
-    item = ("7 (Mamba-1 + selective_scan)" if kind == "mamba1"
-            else "13 (rest of the LM zoo)")
     return NotImplementedError(
-        f"block kind {kind!r} is not ported yet: ROADMAP queue 1 item {item}")
+        f"block kind {kind!r} is not ported yet: ROADMAP queue 1 item 13 "
+        f"(rest of the LM zoo)")
 
 
 # ------------------------------------------------------------------ helpers
@@ -111,7 +112,13 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
         raise _later(kind)
     dt = cfg.dtype
     d = cfg.d_model
-    p = {"ln1": torch.ones((d,), dtype=dt, device=gen.device),
+    ln1 = torch.ones((d,), dtype=dt, device=gen.device)
+    if kind == "mamba1":
+        return {"ln1": ln1,
+                "mix": init_mamba1(gen, d, d_state=cfg.d_state,
+                                   d_conv=cfg.d_conv, expand=cfg.expand,
+                                   bcdt_rms=True, dtype=dt)}
+    p = {"ln1": ln1,
          "mix": init_mamba2(gen, d, d_state=cfg.d_state, d_conv=cfg.d_conv,
                             expand=cfg.expand, headdim=cfg.ssm_headdim,
                             dtype=dt)}
@@ -166,12 +173,16 @@ def make_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
                 device=None) -> Tuple[list, Dict[str, bool]]:
     """Zero caches for decode, one per layer (the reference's
     ``stacked=False`` layout), on the card unless ``device`` says otherwise.
-    Returns (caches, rolling map); no kind of this slice has a rolling
+    Returns (caches, rolling map); no ported kind has a rolling
     cache, so the map is empty."""
     _check_ported(cfg)
     device = resolve_device(device)
 
     def block_cache(kind: str):
+        if kind == "mamba1":
+            return make_mamba1_state(batch, cfg.d_model, d_state=cfg.d_state,
+                                     d_conv=cfg.d_conv, expand=cfg.expand,
+                                     dtype=cfg.dtype, device=device)
         ssm = make_mamba2_state(batch, cfg.d_model, d_state=cfg.d_state,
                                 d_conv=cfg.d_conv, expand=cfg.expand,
                                 headdim=cfg.ssm_headdim, dtype=cfg.dtype,
@@ -199,13 +210,24 @@ class BlockIO:
 
 
 def apply_block(p: Params, x, kind: str, io: BlockIO, cache):
-    """One block (``repro/models/model.py:379-414`` for the kinds of this
-    slice). Returns (x, new_cache)."""
+    """One block (``repro/models/model.py:367-414`` for the ported
+    kinds). Returns (x, new_cache)."""
     if kind not in PORTED_KINDS:
         raise _later(kind)
     cfg = io.cfg
     decode = io.mode == "decode"
     prefill = io.mode == "prefill"
+    if kind == "mamba1":
+        h = _norm(cfg, p["ln1"], x)
+        if decode and x.shape[1] == 1:
+            y, new_state = mamba1_step(p["mix"], h, cache,
+                                       d_state=cfg.d_state, bcdt_rms=True)
+        else:
+            y, new_state = mamba1_forward(
+                p["mix"], h, d_state=cfg.d_state, bcdt_rms=True,
+                state=cache if decode else None,
+                return_state=decode or prefill)
+        return x + y, new_state
     if kind == "mamba2s":
         kv_cache = cache[0] if cache is not None else None
         ssm_cache = cache[1] if cache is not None else None

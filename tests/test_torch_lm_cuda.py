@@ -1,5 +1,5 @@
-"""The ssd_scan and flash_attention CUDA kernels against their plain
-versions, on the card.
+"""The ssd_scan, flash_attention and selective_scan CUDA kernels against
+their plain versions, on the card.
 
 Every test here needs an NVIDIA GPU: each carries the ``cuda`` marker and
 skips without one. The file imports no JAX (the machine with the card has
@@ -8,11 +8,11 @@ none), so it runs there as
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_lm_cuda.py
 
 The plain versions, held against the JAX reference on the CPU by
-tests/test_torch_lm_kernels.py, are the oracle: each kernel must agree with
-its plain version on the same inputs within rtol = atol = 2e-4 (the
-reference's kernel tolerance; the two sum in different orders), at the
-model's widths, with ragged lengths, GQA and windows, and give bitwise-equal
-results when run twice (no atomics).
+tests/test_torch_lm_kernels.py and tests/test_torch_lm_mamba1.py, are the
+oracle: each kernel must agree with its plain version on the same inputs
+within rtol = atol = 2e-4 (the reference's kernel tolerance; the two sum in
+different orders), at the model's widths, with ragged lengths, GQA and
+windows, and give bitwise-equal results when run twice (no atomics).
 """
 
 import numpy as np
@@ -22,6 +22,9 @@ import torch
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
+from repro_torch.kernels.mamba_scan import kernel as MK
+from repro_torch.kernels.mamba_scan import (selective_scan,
+                                            selective_scan_ref)
 from repro_torch.kernels.ssd_scan import kernel as SK
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 from torch_threads import one_torch_thread  # noqa: F401
@@ -38,6 +41,17 @@ def ssd_inputs(B, S, H, hp, N, seed=0):
             rng.standard_normal((B, S, N)).astype(np.float32),
             rng.standard_normal((B, S, N)).astype(np.float32),
             rng.random(H).astype(np.float32)]
+
+
+def scan_inputs(B, S, dI, N, seed=0):
+    """The inputs of tests/test_kernel_mamba_scan.py:make_inputs."""
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, S, dI)).astype(np.float32),
+            (0.05 + 0.1 * rng.random((B, S, dI))).astype(np.float32),
+            (-rng.random((dI, N)) - 0.1).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32),
+            rng.standard_normal((B, S, N)).astype(np.float32),
+            rng.random(dI).astype(np.float32)]
 
 
 def qkv_inputs(B, S, T, H, K, hd, seed=0):
@@ -114,3 +128,43 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     args = tt(ssd_inputs(1, 64, 2, 8, 4), cuda_device)
     with pytest.raises(ValueError, match="not built"):
         ssd_scan(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,dI,N,with_h0", [
+    (2, 256, 128, 16, False),
+    (1, 200, 100, 16, True),         # ragged S and dI (not a CTA's width)
+    (3, 48, 24, 4, False),
+    (2, 77, 130, 8, True),
+    (1, 40, 128, 8, True),           # the reduced falcon's widths
+    (2, 1000, 1000, 16, True),
+])
+def test_cuda_scan_kernel_matches_plain(cuda_device, B, S, dI, N, with_h0):
+    args = tt(scan_inputs(B, S, dI, N, seed=S + dI), cuda_device)
+    h0 = (torch.randn(B, dI, N, device=cuda_device) if with_h0 else None)
+    n0 = MK.selective_scan.launches
+    y, h = selective_scan(*args, h0=h0)
+    y2, h2 = selective_scan(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert MK.selective_scan.launches == n0 + 2
+    assert torch.equal(y, y2) and torch.equal(h, h2)       # no atomics
+    y_p, h_p = selective_scan_ref(*args, h0=h0)
+    np.testing.assert_allclose(y.cpu().numpy(), y_p.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(h.cpu().numpy(), h_p.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_scan_wrapper_raises_on_what_the_kernel_does_not_take(
+        cuda_device):
+    args = tt(scan_inputs(1, 64, 32, 16), cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        selective_scan(*(a.bfloat16() for a in args))
+    with pytest.raises(ValueError, match="contiguous"):
+        u_t = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+        selective_scan(u_t, *args[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        selective_scan(*args, h0=torch.zeros(1, 16, 32, device=cuda_device)
+                       .transpose(1, 2))
+    for N in (2, 12, 32):
+        with pytest.raises(ValueError, match="not built"):
+            selective_scan(*tt(scan_inputs(1, 16, 8, N), cuda_device))

@@ -296,7 +296,7 @@ def test_config_matches_reference():
     assert get_config("zamba2-1.2b-reduced").name == "zamba2-1.2b-reduced"
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "gemma-7b",
+@pytest.mark.parametrize("arch", ["qwen1.5-32b", "gemma-7b",
                                   "mixtral-8x7b-reduced"])
 def test_other_architectures_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,19 +1,22 @@
-"""Where the zamba2-1.2b serve path spends the card's time.
+"""Where a serve path spends the card's time.
 
-    python3 tools/profile_serve.py [batch=4] [prompt_len=2048] [steps=8]
+    python3 tools/profile_serve.py [--arch zamba2-1.2b] [batch=4]
+        [prompt_len=2048] [steps=8]
 
-Builds ``chip_smoke.py``'s serve configuration (zamba2-1.2b at full width,
-f32, random weights from a seeded generator) on the CUDA device, warms up
+Builds ``chip_smoke.py``'s serve configuration of ``--arch`` (zamba2-1.2b
+or falcon-mamba-7b at full width, f32, random weights from a seeded
+generator) on the CUDA device, warms up
 with one prefill, then profiles the first decode step (the first use of
 the decode shapes), one prefill and ``steps`` decode steps under
 ``torch.profiler`` (CUDA activity only), each window on its own. Prints
 one JSON line per window: its wall seconds, the device time summed over
 every device-side event (kernels, copies, fills), the device's idle share
-(1 − device time / wall), the time of the port's two LM kernels, and the
+(1 − device time / wall), the time of each of the port's LM kernels, and the
 ten largest device-time entries. If the profiler
 reports no device time, says so instead. Stops without a CUDA device.
 """
 
+import argparse
 import dataclasses
 import json
 import os
@@ -34,7 +37,8 @@ from repro_torch.models import init_params  # noqa: E402
 from repro_torch.serve.serve_step import (  # noqa: E402
     decode_step, greedy_decode, prefill)
 
-KERNELS = {"ssd_scan": "ssd_scan_kernel", "flash_attention": "flash_kernel"}
+KERNELS = {"ssd_scan": "ssd_scan_kernel", "flash_attention": "flash_kernel",
+           "selective_scan": "selective_scan_kernel"}
 
 
 def device_us(evt) -> float:
@@ -60,14 +64,15 @@ def report(window: str, prof, wall: float, extra: dict) -> None:
                        for k, us, n in top]}), flush=True)
 
 
-def main(batch: int = 4, prompt_len: int = 2048, steps: int = 8) -> None:
+def main(arch: str = LM_ARCH, batch: int = 4, prompt_len: int = 2048,
+         steps: int = 8) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype=torch.float32)
+    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
     gen = torch.Generator(device=dev).manual_seed(LM_SEED)
     params = init_params(cfg, gen)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
@@ -103,4 +108,9 @@ def main(batch: int = 4, prompt_len: int = 2048, steps: int = 8) -> None:
 
 
 if __name__ == "__main__":
-    main(*[int(a) for a in sys.argv[1:4]])
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default=LM_ARCH)
+    ap.add_argument("sizes", nargs="*", type=int,
+                    help="batch, prompt_len, steps")
+    args = ap.parse_args()
+    main(args.arch, *args.sizes[:3])
