@@ -11,15 +11,18 @@ wrong. Phases, one line each:
 1. the card (``nvidia-smi`` name and power limit), torch version, TF32 off;
 2. the kernel build and its seconds;
 3. each kernel against its plain version on real Sedov 64³ pair blocks
-   (C = 40, a chunk of 8,192 pairs around the blast centre), the pair
-   momentum antisymmetry, and a padded, masked pair list contributing +0.0;
+   (C = 40, a chunk of 8,192 pairs around the blast centre), ``force_pair``
+   bit for bit on every output slot, live or dead; the same on the pair
+   blocks of Sedov 6³ (C = 88, the reference's conformance size); the pair
+   momentum antisymmetry; and a padded, masked pair list contributing +0.0;
 4. kernel times (median of CUDA-event timed launches) at the full pair list
-   (P = 307,328), beside the bound and the plain version's time;
+   (P = 307,328), beside the bound (for ``force_pair`` the live slots' work,
+   with the all-slot figure beside it) and the plain version's time;
 5. the main path: Sedov 64³ through the hierarchical time-bin ladder
    (``build_simulation(SimulationSpec(integrator="timebin"))``, max_depth
    cut to 4, see MAIN_MAX_DEPTH) for two cycles, with the kernels' launch
-   counts read around it; then the same small run (Sedov 10³ at depth 4)
-   on the card and on the CPU, compared;
+   counts read around it; then the same small runs (Sedov 10³ and 6³ at
+   depth 4) on the card and on the CPU, compared;
 6. the global-dt engine on the same initial conditions, 3 steps, with the
    kernels' launch counts read around it;
 7. run-twice bitwise determinism of a one-cycle Sedov 16³ run;
@@ -33,7 +36,9 @@ zamba2-1.2b (Mamba-2 + shared attention) and falcon-mamba-7b (Mamba-1):
    scans);
 9. their times beside the bound, the plain version's time and, for
    attention, ``scaled_dot_product_attention`` on the same tensors (a
-   yardstick the port never calls);
+   yardstick the port never calls); attention's bound is its work at f32
+   accuracy on the tensor cores (three TF32 products each), with the f32
+   FMA figure beside it;
 10. the serve path of each model at full width (random weights from a
     seeded generator), 4 prompts of 2048 tokens, prefill then 31 greedy
     decode steps (each step timed, and the whole decode window), with
@@ -71,9 +76,14 @@ import torch  # noqa: E402
 
 from repro_torch.device import synchronize  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core f32 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core f32
+# FLOP/s, dense TF32 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+# flash_attention keeps f32 accuracy on the tensor cores by splitting each
+# product into three TF32 products
+TF32_SPLIT = 3
 # f32 operations per live (i, j) element of a pair's tile, counted from
 # csrc/sph_pair.cu (an FMA counts 2, sqrt and division 1 each): density
 # evaluates W, dW/dr and the three sums for both directions; force adds
@@ -139,16 +149,16 @@ def card_line() -> str:
     return out[0]
 
 
-def sedov_setup(dev):
-    """Sedov 64³ binned on the card, its full pair list, and the density /
-    ghost fields the force kernel reads."""
+def sedov_setup(dev, n_side: int = NSIDE):
+    """Sedov ``n_side``³ binned on the card, its full pair list, and the
+    density / ghost fields the force kernel reads."""
     from repro_torch.sph import SPHConfig
     from repro_torch.sph.cellgrid import bin_particles, build_pair_list, \
         choose_grid
     from repro_torch.sph.engine import _density_pass
     from repro_torch.sph.ic import sedov_ic
     from repro_torch.sph.physics import ghost_update
-    ic = sedov_ic(NSIDE)
+    ic = sedov_ic(n_side)
     # the hot centre gets the viscosity inputs a blast has: radial motion
     d = ic["pos"] - 0.5
     ic["vel"] = (d * np.exp(-np.sum(d * d, 1) / 0.01)[:, None]).astype(
@@ -197,9 +207,55 @@ def max_err(got, want, rtol):
     return err, ok
 
 
+def bits_equal(got, want) -> bool:
+    """Every element of every output equal as an int32 bit pattern (NaN
+    for NaN, −0 for −0)."""
+    return all(torch.equal(g.contiguous().view(torch.int32),
+                           w.contiguous().view(torch.int32))
+               for g, w in zip(got, want))
+
+
+def check_force(force_in, block: str, C: int) -> float:
+    """``force_pair`` against its plain version on one set of pair blocks:
+    within tolerance on live slots, bit for bit on every slot, and the pair
+    momentum antisymmetry. Returns the largest live-slot difference."""
+    from repro_torch.kernels.sph_pair import kernel as K, ref
+    worst = 0.0
+    for alpha in (0.0, 1.0):
+        got = K.force_pair(*force_in, alpha_visc=alpha)
+        want = ref.force_pair_ref(*force_in, alpha_visc=alpha)
+        mask_i, mask_j = force_in[8], force_in[17]
+        masks = (mask_i[..., None], mask_i, mask_j[..., None], mask_j)
+        e, ok = max_err([g * m for g, m in zip(got, masks)],
+                        [w * m for w, m in zip(want, masks)],
+                        RTOL["force_pair"])
+        same = bits_equal(got, want)
+        # Newton's third law per pair, in float64: |Σ m dv_i + Σ m dv_j|
+        # against 2⁻²³ of Σ|m dv| (each dv entry is rounded once)
+        wi = (force_in[7] * mask_i).double()[..., None]
+        wj = (force_in[16] * mask_j).double()[..., None]
+        pi = wi * got[0].double()
+        pj = wj * got[2].double()
+        net = (pi.sum(1) + pj.sum(1)).abs()
+        scale = pi.abs().sum(1) + pj.abs().sum(1)
+        ratio = float((net / scale.clamp_min(1e-300)).max())
+        anti_ok = bool((net <= 2.0 ** -23 * scale + 1e-30).all())
+        say({"phase": "parity", "kernel": "force_pair", "block": block,
+             "alpha_visc": alpha, "pairs": int(mask_i.shape[0]), "C": C,
+             "max_abs_err": e, "ok": ok, "bitwise_all_slots": same,
+             "antisymmetry_max_rel": ratio, "antisymmetry_ok": anti_ok})
+        assert ok, f"force_pair (alpha={alpha}) disagrees with plain version"
+        assert same, f"force_pair (alpha={alpha}, {block}) is not bitwise " \
+                     f"its plain version on every slot"
+        assert anti_ok, "force_pair breaks pair momentum antisymmetry"
+        worst = max(worst, e)
+    return worst
+
+
 def check_kernels(dev, spec, cells, pairs, thermo):
-    """Phase 3: each kernel against its plain version, antisymmetry, and
-    masked padding."""
+    """Phase 3: each kernel against its plain version (``force_pair`` bit
+    for bit on every slot, at C = 40 and C = 88), antisymmetry, and masked
+    padding."""
     from repro_torch.kernels.sph_pair import kernel as K, ops, ref
     idx = centre_chunk(spec, pairs)
     sub = subset(pairs, idx, spec.ncells, dev)
@@ -215,30 +271,13 @@ def check_kernels(dev, spec, cells, pairs, thermo):
              "ok": ok})
         assert ok, f"density_pair ({kern}) disagrees with its plain version"
         errs["density_pair"] = max(errs["density_pair"], e)
-    for alpha in (0.0, 1.0):
-        got = K.force_pair(*force_in, alpha_visc=alpha)
-        want = ref.force_pair_ref(*force_in, alpha_visc=alpha)
-        mask_i, mask_j = force_in[8], force_in[17]
-        masks = (mask_i[..., None], mask_i, mask_j[..., None], mask_j)
-        e, ok = max_err([g * m for g, m in zip(got, masks)],
-                        [w * m for w, m in zip(want, masks)],
-                        RTOL["force_pair"])
-        # Newton's third law per pair, in float64: |Σ m dv_i + Σ m dv_j|
-        # against 2⁻²³ of Σ|m dv| (each dv entry is rounded once)
-        wi = (force_in[7] * mask_i).double()[..., None]
-        wj = (force_in[16] * mask_j).double()[..., None]
-        pi = wi * got[0].double()
-        pj = wj * got[2].double()
-        net = (pi.sum(1) + pj.sum(1)).abs()
-        scale = pi.abs().sum(1) + pj.abs().sum(1)
-        ratio = float((net / scale.clamp_min(1e-300)).max())
-        anti_ok = bool((net <= 2.0 ** -23 * scale + 1e-30).all())
-        say({"phase": "parity", "kernel": "force_pair", "alpha_visc": alpha,
-             "pairs": len(idx), "max_abs_err": e, "ok": ok,
-             "antisymmetry_max_rel": ratio, "antisymmetry_ok": anti_ok})
-        assert ok, f"force_pair (alpha={alpha}) disagrees with plain version"
-        assert anti_ok, "force_pair breaks pair momentum antisymmetry"
-        errs["force_pair"] = max(errs["force_pair"], e)
+    errs["force_pair"] = check_force(force_in, "sedov64_centre_chunk",
+                                     spec.capacity)
+    # the reference's conformance size, past the first kernel's C <= 83
+    spec6, cells6, pairs6, thermo6 = sedov_setup(dev, 6)
+    errs["force_pair"] = max(errs["force_pair"], check_force(
+        ops.force_inputs(cells6, pairs6, *thermo6), "sedov6_all_pairs",
+        spec6.capacity))
     # padded, masked subset (the time-bin layout) adds exactly +0.0
     live = idx[: CHUNK // 2 + 123]
     npad = 1 << int(np.ceil(np.log2(len(live))))
@@ -278,14 +317,45 @@ def nbytes(tensors) -> int:
     return int(sum(t.numel() * t.element_size() for t in tensors))
 
 
+def force_ops_bytes(n_i, n_j, C: int):
+    """Operations and bytes of ``force_pair`` as a function of the live
+    slots (``n_i``, ``n_j``: each pair's live slots on either side):
+    OPS_PER_ELEMENT per live (i, j) element; bytes: each live slot's inputs
+    other than its mask (12 floats), every slot's mask (read to know it is
+    dead) and every output slot (dv and du, both sides)."""
+    P = len(n_i)
+    ops = float((n_i * n_j).sum()) * OPS_PER_ELEMENT["force_pair"]
+    moved = 4.0 * (12 * float((n_i + n_j).sum()) + 2 * P * C + 8 * P * C)
+    return ops, moved
+
+
+def within_reach(force_in, chunk: int = CHUNK) -> int:
+    """Live (i, j) elements with r² > EPS and r < max(h_i, h_j): the only
+    ones whose force terms are not all zero (the rest the kernel skips)."""
+    from repro_torch.sph.physics import EPS, pairwise_r2, sqrt_rn
+    n = 0
+    for a in range(0, force_in[0].shape[0], chunk):
+        pos_i, h_i, mask_i, pos_j, h_j, mask_j = (
+            force_in[k][a:a + chunk] for k in (0, 2, 8, 9, 11, 17))
+        r2 = pairwise_r2(pos_i, pos_j)
+        near = sqrt_rn(r2 + EPS) < torch.maximum(h_i[:, :, None],
+                                                 h_j[:, None, :])
+        live = (mask_i[:, :, None] != 0) & (mask_j[:, None, :] != 0)
+        n += int((live & near & (r2 > EPS)).sum())
+    return n
+
+
 def time_kernels(spec, cells, pairs, thermo):
     """Phase 4: kernel and plain-version times at the full pair list, with
-    the bound reckoned from this run's inputs."""
+    the bound reckoned from this run's inputs: ``force_pair``'s from its
+    live slots (the work it needs), beside the all-slot figure (every
+    padded input read) that bound the first kernel."""
     from repro_torch.kernels.sph_pair import kernel as K, ops, ref
     dens_in = ops.density_inputs(cells, pairs)
     force_in = ops.force_inputs(cells, pairs, *thermo)
     occ = cells.mask.sum(1).double()
-    live = float((occ[pairs.ci.long()] * occ[pairs.cj.long()]).sum())
+    n_i, n_j = occ[pairs.ci.long()], occ[pairs.cj.long()]
+    live = float((n_i * n_j).sum())
     rows = {}
     for name, fn, plain, args in (
             ("density_pair", K.density_pair, ref.density_pair_ref, dens_in),
@@ -294,8 +364,13 @@ def time_kernels(spec, cells, pairs, thermo):
         ms = cuda_time_ms(lambda: fn(*args), reps=10)
         plain_ms = cuda_time_ms(lambda: plain(*args), reps=1)
         out = fn(*args)
-        moved = nbytes(args) + nbytes(out)
+        all_slots = nbytes(args) + nbytes(out)
         ops_n = live * OPS_PER_ELEMENT[name]
+        moved = all_slots
+        extra = {}
+        if name == "force_pair":
+            ops_n, moved = force_ops_bytes(n_i, n_j, spec.capacity)
+            extra["elements_within_reach"] = within_reach(args)
         t_bytes = moved / PEAK_BYTES_PER_S * 1e3
         t_ops = ops_n / PEAK_F32_FLOPS * 1e3
         rows[name] = dict(ms=ms, plain_ms=plain_ms,
@@ -303,7 +378,10 @@ def time_kernels(spec, cells, pairs, thermo):
                           bound_by="bytes" if t_bytes >= t_ops
                           else "operations",
                           bytes=moved, operations=ops_n,
-                          live_slot_pairs=live)
+                          live_slot_pairs=live,
+                          all_slot_bound_ms=max(
+                              all_slots / PEAK_BYTES_PER_S * 1e3, t_ops),
+                          **extra)
         say({"phase": "timing", "kernel": name, "P": int(pairs.ci.shape[0]),
              "C": spec.capacity, **rows[name],
              "share_of_bound": rows[name]["bound_ms"] / ms})
@@ -359,15 +437,15 @@ def card_matches_cpu(dev, n_side: int = 10, max_depth: int = 4):
     (plain versions, which the CPU tests hold against the JAX reference)
     agrees — counts exactly, fields within the tests' trajectory tolerance
     (1e-4 of each field's scale). Sedov 10³ keeps the CPU half to seconds
-    while its ladder still takes interior sub-steps; the conformance size
-    6³ would bin into 2³ cells of capacity 88, past what the force kernel's
-    shared memory holds (C ≤ 83)."""
+    while its ladder still takes interior sub-steps; the reference's
+    conformance size, 6³, bins into 2³ cells of capacity 88."""
     from repro_torch.sph import build_simulation
     from repro_torch.sph.convert import to_numpy
     spec = sedov_spec(n_side, max_depth=max_depth)
     runs = []
     for d in (dev, "cpu"):
         sim = build_simulation(spec, device=d)
+        capacity = sim.engine.spec.capacity
         stats = [sim.step() for _ in range(2)]
         counts = [[st[k] for k in ("depth", "substeps", "force_substeps",
                                    "updates", "pair_tasks")] for st in stats]
@@ -381,7 +459,8 @@ def card_matches_cpu(dev, n_side: int = 10, max_depth: int = 4):
         x, y = a[k].astype(np.float64), b[k].astype(np.float64)
         scale = max(float(np.abs(y).max()), 1e-30)
         worst = max(worst, float(np.abs(x - y).max()) / scale)
-    say({"phase": "card_vs_cpu", "n_side": n_side, "max_depth": max_depth,
+    say({"phase": "card_vs_cpu", "n_side": n_side, "C": capacity,
+         "max_depth": max_depth,
          "cycles": 2,
          "counts_equal": ca == cb, "bitwise_equal": bool(same),
          "max_rel_diff": worst})
@@ -646,6 +725,13 @@ def lm_time_kernels(dev):
         t_ops = r["operations"] / PEAK_F32_FLOPS * 1e3
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        if name == "flash_attention":
+            # f32 accuracy on the tensor cores: three TF32 products each
+            t_tc = TF32_SPLIT * r["operations"] / PEAK_TF32_FLOPS * 1e3
+            r["fma_bound_ms"] = r["bound_ms"]
+            r["bound_ms"] = max(t_bytes, t_tc)
+            r["bound_by"] = ("bytes" if t_bytes >= t_tc
+                             else "operations (3×TF32)")
         say({"phase": "lm_timing", "kernel": name, **r,
              "share_of_bound": r["bound_ms"] / r["ms"]})
     torch.cuda.empty_cache()
@@ -845,6 +931,7 @@ def main() -> int:
 
     launches = main_path(dev)
     card_matches_cpu(dev)
+    card_matches_cpu(dev, n_side=6)     # the conformance size, C = 88
     global_path(dev)
     determinism(dev)
 

@@ -3,10 +3,11 @@
 
 ``flash_attention`` takes the reference's arguments
 (``repro/kernels/flash_attention/kernel.py:flash_attention``) less its tile
-sizes, which the kernel fixes at 64 × 64. For tensors on a CUDA device it
-launches the hand-written kernel on the current stream and raises if the
-kernel does not take the arguments or the launch fails; for tensors on the
-CPU it calls the plain PyTorch version (``ref.py``). There is no other path.
+sizes, which the kernel fixes (64 query rows, 64 keys; 32 keys at hd 128).
+For tensors on a CUDA device it launches the hand-written kernel on the
+current stream and raises if the kernel does not take the arguments or the
+launch fails; for tensors on the CPU it calls the plain PyTorch version
+(``ref.py``). There is no other path.
 
 ``flash_attention.launches`` counts kernel launches (one per launch,
 nowhere else), so a run can show that it went through the kernel.
@@ -80,6 +81,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                             f"kernel takes torch.float32 (bf16 is later work)")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned (the kernel loads 16-byte rows)")
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     lib = library()

@@ -23,7 +23,6 @@ from .ref import density_pair_ref, force_pair_ref
 
 SOURCES = [Path(__file__).parent / "csrc" / "sph_pair.cu"]
 KERNEL_IDS = {"cubic": 0, "wendland_c2": 1}
-SMEM_LIMIT = 232448        # bytes of shared memory a CTA may use on Hopper
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,8 +38,6 @@ def library() -> ctypes.CDLL:
         lib.sph_force_pair.argtypes = ([_P] * 22 + [_I, _I, _I]
                                        + [_F, _F, _F, _P])
         lib.sph_force_pair.restype = _I
-        lib.sph_force_pair_smem.argtypes = [_I]
-        lib.sph_force_pair_smem.restype = ctypes.c_size_t
         lib._repro_typed = True
     return lib
 
@@ -117,11 +114,6 @@ def force_pair(pos_i, vel_i, h_i, press_i, rho_i, om_i, cs_i, m_i, mask_i,
     if dev.type == "cpu":
         return force_pair_ref(*args, kernel=kernel, alpha_visc=alpha_visc)
     lib = library()
-    smem = lib.sph_force_pair_smem(C)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"force_pair: capacity C={C} needs {smem} bytes of shared "
-            f"memory per CTA, more than Hopper's {SMEM_LIMIT}")
     kw = dict(dtype=torch.float32, device=dev)
     outs = (torch.empty((P, C, 3), **kw), torch.empty((P, C), **kw),
             torch.empty((P, C, 3), **kw), torch.empty((P, C), **kw))

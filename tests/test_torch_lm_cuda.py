@@ -116,6 +116,31 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, B, S, T, H, K, hd,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("B,S,T,H,K,causal,window", [
+    (1, 77, 77, 4, 2, True, None),           # ragged, GQA 2:1
+    (1, 100, 261, 6, 3, True, 50),           # T > S, window, GQA
+    (2, 150, 90, 2, 2, True, None),          # S > T: rows with no live key
+    (1, 65, 129, 2, 1, False, None),         # MQA, no mask, ragged tiles
+    (1, 200, 200, 4, 4, False, 70),          # window alone
+])
+def test_cuda_flash_kernel_every_head_width_and_mask(cuda_device, hd, B, S, T,
+                                                     H, K, causal, window):
+    """The tensor-core kernel against its plain version at S and T that are
+    not multiples of its tiles, at every head width it is built for."""
+    q, k, v = tt(qkv_inputs(B, S, T, H, K, hd, seed=hd + S + T), cuda_device)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    if causal and S > T:                     # the first S - T rows see no key
+        assert not bool(got[:, :S - T].any())
+        assert bool(got[:, S - T:].abs().sum(-1).gt(0).all())
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     q, k, v = tt(qkv_inputs(1, 64, 64, 2, 2, 64), cuda_device)
     with pytest.raises(TypeError):

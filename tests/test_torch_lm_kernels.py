@@ -120,6 +120,55 @@ def test_plain_flash_uneven_and_offset_queries(S, T, window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def tf32_rna(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the nearest of
+    10 mantissa bits, ties away from zero (the low 13 bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_product(a, b, split):
+    """a @ b as the kernel's mma.sync forms it: the operands rounded to TF32
+    (split: big + small, three products small·big + big·small + big·big),
+    each product exact, the sum rounded once to f32."""
+    ab, bb = tf32_rna(a), tf32_rna(b)
+    d = lambda x: x.double()
+    if not split:
+        return (d(ab) @ d(bb)).float()
+    as_, bs = tf32_rna(a - ab), tf32_rna(b - bb)
+    return (d(as_) @ d(bb) + d(ab) @ d(bs) + d(ab) @ d(bb)).float()
+
+
+def test_split_tf32_attention_keeps_f32_accuracy():
+    """The CUDA kernel's arithmetic at hd 64, emulated bit-exactly in its
+    rounding to TF32: with the three-product split, Q Kᵀ and P V stay within
+    2e-5 of the output's scale of a float64 oracle (the card-vs-plain pin is
+    2e-4, the card-vs-CPU logits pin 1e-4); a single TF32 product lands near
+    1e-3, which is why the kernel splits."""
+    q, k, v = (torch.from_numpy(a[0].transpose(1, 0, 2)) for a in
+               qkv_inputs(1, 256, 256, 2, 2, 64, seed=7))   # (H, S, hd)
+    S = q.shape[1]
+    causal = torch.ones(S, S, dtype=torch.bool).tril()
+    oracle = torch.softmax(
+        (q.double() @ k.double().transpose(1, 2) / 8.0).masked_fill(
+            ~causal, float("-inf")), -1) @ v.double()
+    scale = float(oracle.abs().max())
+    errs = {}
+    for split in (True, False):
+        s = tf32_product(q, k.transpose(1, 2), split) * np.float32(1 / 8.0)
+        p = torch.softmax(s.masked_fill(~causal, float("-inf")), -1)
+        o = tf32_product(p, v, split)
+        errs[split] = float((o.double() - oracle).abs().max()) / scale
+    print(f"split-TF32 error {errs[True]:.3g}, single TF32 {errs[False]:.3g} "
+          f"(of the output's scale)")
+    assert errs[True] <= 2e-5
+    assert errs[False] > 10 * errs[True]
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12])
+    assert tf32_rna(x).tolist() == [1.0 + 2.0 ** -10, 1.0 + 2.0 ** -9,
+                                    -(1.0 + 2.0 ** -10), 1.0]
+
+
 def test_flash_wrapper_rejects_bad_arguments():
     q, k, v = tt(qkv_inputs(1, 16, 16, 4, 2, 8))
     with pytest.raises(ValueError, match="multiple"):

@@ -106,7 +106,8 @@ def test_density_plain_matches_pallas(P, C, kernel):
                                    atol=2 * 2e-5 * scale, err_msg=n)
 
 
-@pytest.mark.parametrize("P,C", [(2, 8), (4, 16), (3, 32)])
+@pytest.mark.parametrize("P,C", [(2, 8), (4, 16), (3, 32),
+                                 (2, 96)])   # a capacity past the old 83
 @pytest.mark.parametrize("alpha", [0.0, 0.8])
 def test_force_plain_matches_pallas(P, C, alpha):
     args = _force_inputs(P, C, seed=P * 7 + C)
