@@ -33,12 +33,12 @@ zamba2-1.2b (Mamba-2 + shared attention) and falcon-mamba-7b (Mamba-1):
 8. ``ssd_scan``, ``flash_attention`` and ``selective_scan`` against their
    plain versions at the serve paths' shapes (B = 4, S = 2048), plus a
    GQA + window case and ragged lengths (with an initial state for the
-   scans);
+   scans); each scan run twice, bitwise equal;
 9. their times beside the bound, the plain version's time and, for
    attention, ``scaled_dot_product_attention`` on the same tensors (a
-   yardstick the port never calls); attention's bound is its work at f32
-   accuracy on the tensor cores (three TF32 products each), with the f32
-   FMA figure beside it;
+   yardstick the port never calls); the bound of attention and of the SSD
+   scan is their work at f32 accuracy on the tensor cores (three TF32
+   products each) or their bytes, with the f32 FMA figure beside it;
 10. the serve path of each model at full width (random weights from a
     seeded generator), 4 prompts of 2048 tokens, prefill then 31 greedy
     decode steps (each step timed, and the whole decode window), with
@@ -81,9 +81,10 @@ from repro_torch.device import synchronize  # noqa: E402
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
-# flash_attention keeps f32 accuracy on the tensor cores by splitting each
-# product into three TF32 products
+# flash_attention and ssd_scan keep f32 accuracy on the tensor cores by
+# splitting each product into three TF32 products
 TF32_SPLIT = 3
+TENSOR_CORE_KERNELS = ("flash_attention", "ssd_scan")
 # f32 operations per live (i, j) element of a pair's tile, counted from
 # csrc/sph_pair.cu (an FMA counts 2, sqrt and division 1 each): density
 # evaluates W, dW/dr and the three sums for both directions; force adds
@@ -612,6 +613,23 @@ def flash_ops_bytes(B, S, T, H, K, hd, causal, window):
     return ops, moved
 
 
+def lm_bound(name, ops, moved) -> dict:
+    """The least time of an LM kernel's work: bytes over the memory rate
+    against operations over the peak rate of the units that do them. The
+    kernels on the tensor cores (``TENSOR_CORE_KERNELS``) keep f32 accuracy
+    with three TF32 products each; the f32 FMA figure stands beside their
+    bound as ``fma_bound_ms``."""
+    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    if name not in TENSOR_CORE_KERNELS:
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    t_tc = TF32_SPLIT * ops / PEAK_TF32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_tc),
+            "bound_by": "bytes" if t_bytes >= t_tc else "operations (3×TF32)",
+            "fma_bound_ms": max(t_bytes, t_ops)}
+
+
 def lm_check_kernels(dev):
     """Phase 8: each LM kernel against its plain version at the serve
     path's shapes, plus GQA + window and ragged lengths."""
@@ -629,12 +647,15 @@ def lm_check_kernels(dev):
                           generator=torch.Generator(dev).manual_seed(1))
               if with_h0 else None)
         got = ssd_scan(*args, h0=h0)
+        same = bits_equal(got, ssd_scan(*args, h0=h0))
         want = ssd_scan_ref(*args, chunk=cfg.ssm_chunk, h0=h0)
         e, ok = max_err(got, want, LM_RTOL)
         say({"phase": "lm_parity", "kernel": "ssd_scan",
              "shape": [sB, S, sH, shp, sN], "h0": with_h0,
-             "max_abs_err": e, "rtol": LM_RTOL, "ok": ok})
+             "max_abs_err": e, "rtol": LM_RTOL, "ok": ok,
+             "run_twice_bitwise_equal": same})
         assert ok, "ssd_scan disagrees with its plain version"
+        assert same, "ssd_scan differs from run to run"
         errs["ssd_scan"] = max(errs["ssd_scan"], e)
     for B, S, T, H, K, causal, window in (
             (fB, fS, fS, fH, fK, True, None),          # the serve path's
@@ -668,12 +689,14 @@ def lm_check_scan(dev) -> float:
                           generator=torch.Generator(dev).manual_seed(1))
               if with_h0 else None)
         got = selective_scan(*args, h0=h0)
+        same = bits_equal(got, selective_scan(*args, h0=h0))
         want = selective_scan_ref(*args, h0=h0)
         e, ok = max_err(got, want, LM_RTOL)
         say({"phase": "lm_parity", "kernel": "selective_scan",
              "shape": [B, S_, dI_, N], "h0": with_h0, "max_abs_err": e,
-             "rtol": LM_RTOL, "ok": ok})
+             "rtol": LM_RTOL, "ok": ok, "run_twice_bitwise_equal": same})
         assert ok, "selective_scan disagrees with its plain version"
+        assert same, "selective_scan differs from run to run"
         worst = max(worst, e)
     return worst
 
@@ -721,17 +744,7 @@ def lm_time_kernels(dev):
         library_ms=None, operations=ops, bytes=moved, shape=list(shape))
     del args
     for name, r in rows.items():
-        t_bytes = r["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = r["operations"] / PEAK_F32_FLOPS * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        if name == "flash_attention":
-            # f32 accuracy on the tensor cores: three TF32 products each
-            t_tc = TF32_SPLIT * r["operations"] / PEAK_TF32_FLOPS * 1e3
-            r["fma_bound_ms"] = r["bound_ms"]
-            r["bound_ms"] = max(t_bytes, t_tc)
-            r["bound_by"] = ("bytes" if t_bytes >= t_tc
-                             else "operations (3×TF32)")
+        r.update(lm_bound(name, r["operations"], r["bytes"]))
         say({"phase": "lm_timing", "kernel": name, **r,
              "share_of_bound": r["bound_ms"] / r["ms"]})
     torch.cuda.empty_cache()

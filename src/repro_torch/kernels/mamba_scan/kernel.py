@@ -93,6 +93,10 @@ def selective_scan(u, dt, A, Bm, Cm, D, *,
                             f"work)")
         if not t.is_contiguous():
             raise ValueError(f"selective_scan: {name} is not contiguous")
+    # the kernel copies u, dt, B and C in 16-byte pieces: a view that
+    # starts off a 16-byte boundary is copied to a fresh allocation
+    u, dt, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (u, dt, Bm, Cm))
     B_, S, dI = u.shape
     N = A.shape[1]
     if N not in KERNEL_N:

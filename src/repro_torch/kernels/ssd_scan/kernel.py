@@ -98,6 +98,10 @@ def ssd_scan(u, dt, A, Bm, Cm, D, *, chunk: Optional[int] = None,
                             f"takes torch.float32 (bf16 is later work)")
         if not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} is not contiguous")
+    # the kernel copies u, B and C in 16-byte pieces: a view that starts
+    # off a 16-byte boundary is copied to a fresh allocation
+    u, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (u, Bm, Cm))
     B_, S, H, hp = u.shape
     N = Bm.shape[-1]
     lib = library()

@@ -193,3 +193,70 @@ def test_cuda_scan_wrapper_raises_on_what_the_kernel_does_not_take(
     for N in (2, 12, 32):
         with pytest.raises(ValueError, match="not built"):
             selective_scan(*tt(scan_inputs(1, 16, 8, N), cuda_device))
+
+
+def run_twice_against_plain(kernel, plain, args, h0):
+    """Kernel twice (bitwise equal: no atomics) and its plain version on
+    the same inputs, within TOL."""
+    y, h = kernel(*args, h0=h0)
+    y2, h2 = kernel(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    y_p, h_p = plain(*args, h0=h0)
+    np.testing.assert_allclose(y.cpu().numpy(), y_p.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(h.cpu().numpy(), h_p.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("B,S,dI,with_h0", [
+    (2, 1, 24, True),          # one step
+    (1, 37, 13, True),         # dI % 4 != 0 and dI < 32: 4-byte copies
+    (2, 300, 70, False),       # dI % 4 != 0 over several CTAs
+    (1, 17, 36, True),         # 16-byte copies, the last CTA part-filled
+])
+def test_cuda_scan_kernel_edges(cuda_device, N, B, S, dI, with_h0):
+    """The selective scan where its tiles meet the edges: ragged dI (the
+    4-byte copy path), a single step, steps past S in the last tile."""
+    args = tt(scan_inputs(B, S, dI, N, seed=S + dI + N), cuda_device)
+    h0 = (torch.randn(B, dI, N, device=cuda_device) if with_h0 else None)
+    run_twice_against_plain(selective_scan, selective_scan_ref, args, h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("hp", [16, 32, 64])
+@pytest.mark.parametrize("S", [1, 130])
+def test_cuda_ssd_kernel_every_width(cuda_device, N, hp, S):
+    """The tensor-core SSD scan at every (N, hp) it is built for, with an
+    initial state: one step, and S not a multiple of its 64-step chunk."""
+    args = tt(ssd_inputs(2, S, 3, hp, N, seed=N + hp + S), cuda_device)
+    h0 = torch.randn(2, 3, N, hp, device=cuda_device)
+    run_twice_against_plain(ssd_scan, ssd_scan_ref, args, h0)
+
+
+def unaligned(t):
+    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
+    boundary (a view into a larger buffer)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.cuda
+def test_cuda_scans_take_views_off_a_16_byte_boundary(cuda_device):
+    """The scans copy u, dt, B and C in 16-byte pieces; the wrappers give
+    them an aligned copy of a view that starts elsewhere, and the result is
+    the aligned call's bit for bit."""
+    args = tt(scan_inputs(2, 50, 64, 16, seed=3), cuda_device)
+    want = selective_scan(*args)
+    got = selective_scan(*[unaligned(a) if i in (0, 1, 3, 4) else a
+                           for i, a in enumerate(args)])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    args = tt(ssd_inputs(2, 70, 3, 32, 16, seed=3), cuda_device)
+    want = ssd_scan(*args)
+    got = ssd_scan(*[unaligned(a) if i in (0, 3, 4) else a
+                     for i, a in enumerate(args)])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))

@@ -127,15 +127,23 @@ def tf32_rna(x):
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def tf32_product(a, b, split):
-    """a @ b as the kernel's mma.sync forms it: the operands rounded to TF32
-    (split: big + small, three products small·big + big·small + big·big),
-    each product exact, the sum rounded once to f32."""
-    ab, bb = tf32_rna(a), tf32_rna(b)
+def tf32_trunc(x):
+    """x cut to TF32: its low 13 bits cleared, as the tensor cores read an
+    f32 register given to them as a TF32 operand."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_product(a, b, split, to_tf32=tf32_rna):
+    """a @ b as a kernel's mma.sync forms it: the operands made TF32 by
+    ``to_tf32`` (split: big + small, three products small·big + big·small +
+    big·big), each product exact, the sum rounded once to f32.
+    flash_attention rounds both parts (``tf32_rna``); ssd_scan cuts both
+    (``tf32_trunc``: big by a mask, small by the tensor cores)."""
+    ab, bb = to_tf32(a), to_tf32(b)
     d = lambda x: x.double()
     if not split:
         return (d(ab) @ d(bb)).float()
-    as_, bs = tf32_rna(a - ab), tf32_rna(b - bb)
+    as_, bs = to_tf32(a - ab), to_tf32(b - bb)
     return (d(as_) @ d(bb) + d(ab) @ d(bs) + d(ab) @ d(bb)).float()
 
 
@@ -169,6 +177,73 @@ def test_split_tf32_attention_keeps_f32_accuracy():
                                     -(1.0 + 2.0 ** -10), 1.0]
 
 
+def split_tf32_ssd(u, dt, a, Bm, Cm, d, split, Q=64):
+    """One (batch, head) strip of the SSD scan as the CUDA kernel forms it
+    (u (S, hp), dt (S,), Bm/Cm (S, N); a, d scalars): chunks of Q, the
+    cumulative decay in log2 units, and its four products C·Bᵀ, M·u,
+    (exp(L)·C)·h and (B·w)ᵀ·u through ``tf32_product`` with the operands
+    cut to TF32 (``tf32_trunc``)."""
+    def product(x, y):
+        return tf32_product(x, y, split, tf32_trunc)
+
+    S, hp = u.shape
+    N = Bm.shape[1]
+    h = torch.zeros(N, hp)
+    ys = []
+    a2 = np.float32(a) * np.float32(1.4426950408889634)
+    for c0 in range(0, S, Q):
+        uc, dc, bc, cc = u[c0:c0 + Q], dt[c0:c0 + Q], Bm[c0:c0 + Q], \
+            Cm[c0:c0 + Q]
+        L = torch.cumsum(dc * a2, 0)
+        causal = torch.ones(len(dc), len(dc), dtype=torch.bool).tril()
+        decay = torch.exp2(torch.where(causal, L[:, None] - L[None, :],
+                                       -float("inf")))
+        M = product(cc, bc.T) * decay * dc[None, :]
+        y = product(M, uc) + product(cc * torch.exp2(L)[:, None], h)
+        ys.append(y + uc * np.float32(d))
+        w = torch.exp2(L[-1] - L) * dc
+        h = torch.exp2(L[-1]) * h + product((bc * w[:, None]).T, uc)
+    return torch.cat(ys), h
+
+
+def test_split_tf32_ssd_keeps_f32_accuracy():
+    """The SSD kernel's arithmetic at N = hp = 64 over 8 chunks of 64 (the
+    state carried through seven), emulated in its TF32 operands (big cut
+    by a mask, small cut by the tensor cores): with the three-product split
+    for all four products, y and the final state stay within 2e-5 of their
+    scale of a float64 sequential oracle (the card-vs-plain pin is 2e-4);
+    a single TF32 product lands above that pin, which is why the kernel
+    splits. Permuting the k index, as the kernel does, reorders exact
+    products only."""
+    u, dt, A, Bm, Cm, D = (torch.from_numpy(x) for x in
+                           ssd_inputs(1, 512, 2, 64, 64, seed=11))
+    errs = {}
+    for split in (True, False):
+        worst = 0.0
+        for hh in range(2):
+            uh, dh = u[0, :, hh], dt[0, :, hh]
+            y, h = split_tf32_ssd(uh, dh, float(A[hh]), Bm[0], Cm[0],
+                                  float(D[hh]), split)
+            # float64 oracle: the recurrence step by step
+            hs = torch.zeros(64, 64, dtype=torch.float64)
+            yo = []
+            for t in range(uh.shape[0]):
+                hs = (torch.exp(dh[t].double() * float(A[hh])) * hs
+                      + dh[t].double() * Bm[0, t].double()[:, None]
+                      * uh[t].double()[None, :])
+                yo.append(Cm[0, t].double() @ hs + float(D[hh]) * uh[t])
+            yo = torch.stack(yo)
+            for got, want in ((y, yo), (h, hs)):
+                worst = max(worst, float((got.double() - want).abs().max())
+                            / float(want.abs().max()))
+        errs[split] = worst
+    print(f"SSD split-TF32 error {errs[True]:.3g}, single TF32 "
+          f"{errs[False]:.3g} (of the outputs' scale)")
+    assert errs[True] <= 2e-5
+    assert errs[False] > 10 * errs[True]
+    assert errs[False] > 2e-4
+
+
 def test_flash_wrapper_rejects_bad_arguments():
     q, k, v = tt(qkv_inputs(1, 16, 16, 4, 2, 8))
     with pytest.raises(ValueError, match="multiple"):
@@ -185,7 +260,7 @@ def test_chip_smoke_bounds_count_the_live_work():
     pairs its mask keeps, 4·hd operations each; the SSD scan the least count
     of its chunked form over chunk lengths (Q×Q products on s ≤ t only, no
     padded steps) or of the sequential recurrence; bytes read and written
-    once."""
+    once; on the tensor cores three TF32 products each."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, root)
     import chip_smoke as C
@@ -211,3 +286,21 @@ def test_chip_smoke_bounds_count_the_live_work():
     assert ops == 2 * 5 * 8 * 16 * 100              # sequential form least
     assert moved == 4 * (2 * 100 * 2 * 16 + 2 * 100 * 8 + 100 * 2 + 2 * 2
                          + 2 * 8 * 16)
+
+    # the tensor-core kernels' bound: three TF32 products each or the
+    # bytes, the f32 FMA figure beside it; at the zamba2-1.2b prefill shape
+    # the SSD scan is bound by its 0.28 GB
+    ops, moved = C.ssd_ops_bytes(4, 2048, 64, 64, 64)
+    b = C.lm_bound("ssd_scan", ops, moved)
+    assert b["bound_ms"] == max(moved / 3.35e12, 3 * ops / 495e12) * 1e3
+    assert b["bound_by"] == "bytes"
+    assert b["fma_bound_ms"] == max(moved / 3.35e12, ops / 67e12) * 1e3
+    assert abs(b["bound_ms"] - 0.083) < 0.001
+    assert abs(b["fma_bound_ms"] - 0.141) < 0.001
+    ops, moved = C.flash_ops_bytes(4, 2048, 2048, 32, 32, 64, True, None)
+    b = C.lm_bound("flash_attention", ops, moved)
+    assert b["bound_by"] == "operations (3×TF32)"
+    assert abs(b["bound_ms"] - 0.417) < 0.001
+    ops, moved = C.scan_ops_bytes(4, 2048, 8192, 16)
+    b = C.lm_bound("selective_scan", ops, moved)
+    assert b == {"bound_ms": moved / 3.35e12 * 1e3, "bound_by": "bytes"}

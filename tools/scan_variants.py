@@ -1,22 +1,38 @@
-"""What bounds the selective-scan kernel: time variants of its source.
+"""What bounds the two scan kernels: time variants of their sources.
 
-    python3 tools/scan_variants.py [reps=20]
+    python3 tools/scan_variants.py [reps=20] [selective_scan|ssd_scan]
 
 Builds variants of ``src/repro_torch/kernels/mamba_scan/csrc/
-selective_scan.cu`` into ``build/variants/`` (one ``nvcc`` each, in
-parallel, with the port's flags) and times each at the falcon-mamba-7b
-prefill shape (B 4, S 2048, dI 8192, N 16) on the CUDA device, in turns
-(each variant, then each again in reverse order; median of ``reps``
-CUDA-event timed launches per turn), beside the shipped source:
+selective_scan.cu`` and ``src/repro_torch/kernels/ssd_scan/csrc/
+ssd_scan.cu`` into ``build/variants/`` (one ``nvcc`` each, in parallel,
+with the port's flags) and times each at its main-path shape on the CUDA
+device, in turns (the shipped source and each variant, then the same in
+reverse order; median of ``reps`` CUDA-event timed launches per turn); a
+second argument names one kernel:
 
-* ``fast_expf``: ``__expf`` in place of the accurate ``expf``;
-* ``spt8``: 8 states a thread (2 lanes a channel, not 4);
-* ``spt16``: 16 states a thread (one lane a channel).
+* the selective scan at the falcon-mamba-7b prefill shape (B 4, S 2048,
+  dI 8192, N 16): ``expf`` (the accurate base-e exponential in place of
+  one ``ex2.approx`` of dt·A·log2 e), ``lanes8`` (8 lanes a channel, two
+  states a lane, in place of 4 lanes and four states), ``uncapped``
+  (registers not held to 64, so fewer than 8 CTAs an SM);
+* the SSD scan at the zamba2-1.2b prefill shape (B 4, S 2048, 64 heads,
+  hp = N = 64): ``cvt_rna`` (big and small each rounded to TF32 by
+  ``cvt.rna.tf32.f32``, as the kernel first did, in place of big cut by a
+  mask and small passed as it is), ``every_block`` (every warp computes C·Bᵀ and M·u over
+  all eight 8-step blocks of the chunk, masked, not only those at or below
+  its diagonal), ``eight_warps`` (eight warps a CTA, two on each 16 rows of
+  a chunk, each on half the columns, registers held to 128; in place of
+  four, one on each 16 rows), ``single_tf32`` (one TF32 product in place of the
+  three-product split: what the split costs; not accurate enough to ship),
+  ``split_per_warp`` (the state kept in shared memory in f32 and split by
+  every warp at each use, in place of once a chunk for the CTA),
+  ``one_cta`` (shared memory asked for so that one CTA runs an SM, not
+  two).
 
-Prints one JSON line per variant (its ms per turn, registers, and its
-largest error against the plain version), after the card line. The
-variants are diagnostics only; the port ships the source as it is. Stops
-without a CUDA device.
+Prints one JSON line per variant (its ms per turn, registers and spills,
+and its largest error against the plain version), after the card line.
+The variants are diagnostics only; the port ships the sources as they are.
+Stops without a CUDA device.
 """
 
 import ctypes
@@ -33,121 +49,167 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from chip_smoke import card_line, scan_inputs  # noqa: E402
+from chip_smoke import card_line, scan_inputs, ssd_inputs  # noqa: E402
 from repro_torch.kernels.build import NVCC_FLAGS, find_nvcc  # noqa: E402
 from repro_torch.kernels.mamba_scan import kernel as MK  # noqa: E402
 from repro_torch.kernels.mamba_scan import selective_scan_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as SK  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan_ref  # noqa: E402
 
-SHAPE = (4, 2048, 8192, 16)
 OUT = os.path.join(ROOT, "build", "variants")
+SCAN_SHAPE = (4, 2048, 8192, 16)        # B, S, dI, N
+SSD_SHAPE = (4, 2048, 64, 64, 64)       # B, S, H, hp, N
 
-FLOAT4 = """      const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][r][g * SPT]);
-      const float4 cv = *reinterpret_cast<const float4*>(&Cs[buf][r][g * SPT]);
-      const float bn[SPT] = {bv.x, bv.y, bv.z, bv.w};
-      const float cn[SPT] = {cv.x, cv.y, cv.z, cv.w};"""
-SCALAR = """      float bn[SPT], cn[SPT];
-#pragma unroll
-      for (int j = 0; j < SPT; ++j) {
-        bn[j] = Bs[buf][r][g * SPT + j];
-        cn[j] = Cs[buf][r][g * SPT + j];
+SSD_SPLIT_STORE = """        uint32_t b0, s0, b1, s1;
+        split(hacc[k][2 * r], b0, s0);
+        split(hacc[k][2 * r + 1], b1, s1);
+        *reinterpret_cast<uint2*>(Hb + at) = make_uint2(b0, b1);
+        *reinterpret_cast<uint2*>(Hs + at) = make_uint2(s0, s1);"""
+SSD_F32_STORE = """        *reinterpret_cast<float2*>(Hb + at) =
+            make_float2(hacc[k][2 * r], hacc[k][2 * r + 1]);"""
+SSD_SPLIT_READ = """        mma3(yacc[d], ab, as, Hb[hr + 8 * d], Hb[hr + US + 8 * d],
+             Hs[hr + 8 * d], Hs[hr + US + 8 * d]);"""
+SSD_WARP_READ = """      {
+        uint32_t hb0, hs0, hb1, hs1;
+        split(__uint_as_float(Hb[hr + 8 * d]), hb0, hs0);
+        split(__uint_as_float(Hb[hr + US + 8 * d]), hb1, hs1);
+        mma3(yacc[d], ab, as, hb0, hb1, hs0, hs1);
       }"""
-SMALL_N = """    case 4:
-      return (int)launch<4>(u, dt, A, Bm, Cm, D, h0, y, hout, B, S, dI, st);
-    case 8:
-      return (int)launch<8>(u, dt, A, Bm, Cm, D, h0, y, hout, B, S, dI, st);
-"""
+
+SSD_TRUNC_SPLIT = """  big = __float_as_uint(x) & 0xFFFFE000u;
+  small = __float_as_uint(x - __uint_as_float(big));"""
+SSD_CVT_SPLIT = """  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(small) : "f"(rest));"""
+
+VARIANTS = {
+    "selective_scan": (MK.SOURCES[0], "ILi16E", {
+        "expf": [("a[j] = A[row + j] * kLog2e;", "a[j] = A[row + j];"),
+                 ("ex2(dtt * a[j])", "expf(dtt * a[j])")],
+        "lanes4": [("SPT = N < 8 ? N : 8;", "SPT = 4;"),
+                   ("constexpr int kMinCtas = 4;", "constexpr int kMinCtas = 8;")],
+        "lanes8": [("SPT = N < 8 ? N : 8;", "SPT = 2;"),
+                   ("constexpr int kMinCtas = 4;", "constexpr int kMinCtas = 8;")],
+        "lanes1": [("SPT = N < 8 ? N : 8;", "SPT = N;"),
+                   ("constexpr int kMinCtas = 4;", "constexpr int kMinCtas = 2;")],
+        "uncapped": [("constexpr int kMinCtas = 4;",
+                      "constexpr int kMinCtas = 1;")],
+    }),
+    "ssd_scan": (SK.SOURCES[0], "ILi64ELi64E", {
+        "cvt_rna": [(SSD_TRUNC_SPLIT, SSD_CVT_SPLIT)],
+        "every_block": [("if (j < nsb) {", "{")],
+        "eight_warps": [("constexpr int NW = 4;", "constexpr int NW = 8;")],
+        "single_tf32": [("  mma(d, as, bb0, bb1);\n  mma(d, ab, bs0, bs1);\n",
+                         "")],
+        "split_per_warp": [(SSD_SPLIT_STORE, SSD_F32_STORE),
+                           (SSD_SPLIT_READ, SSD_WARP_READ)],
+        "one_cta": [("const size_t smem = Cfg<N, HP>::bytes;",
+                     "const size_t smem = 120 * 1024;   // one CTA an SM"),
+                    ("__launch_bounds__(NT, 2)", "__launch_bounds__(NT, 1)")],
+    }),
+}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def edit(src: str, pairs) -> str:
-    for a, b in pairs:
-        if a not in src:
-            raise SystemExit(f"scan_variants: the source no longer has {a!r}")
-        src = src.replace(a, b)
-    return src
-
-
-def variants(src: str) -> dict:
-    def spt(n):   # n states a thread; only N = 16 instantiated
-        return edit(src, [("constexpr int SPT = 4;",
-                           f"constexpr int SPT = {n};"),
-                          (FLOAT4, SCALAR), (SMALL_N, "")])
-    return {"shipped": src,
-            "fast_expf": edit(src, [("expf(dtt * a[j])",
-                                     "__expf(dtt * a[j])")]),
-            "spt8": spt(8), "spt16": spt(16)}
-
-
-def build(name: str, src: str):
-    cu = os.path.join(OUT, f"{name}.cu")
-    so = os.path.join(OUT, f"{name}.so")
+def build(kernel, name, src, entry, edits):
+    text = open(src).read()
+    for old, new in edits:
+        if old not in text:
+            raise SystemExit(f"scan_variants: {kernel} no longer has {old!r}")
+        text = text.replace(old, new)
+    cu = os.path.join(OUT, f"{kernel}_{name}.cu")
+    so = os.path.join(OUT, f"{kernel}_{name}.so")
     with open(cu, "w") as f:
-        f.write(src)
+        f.write(text)
     proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", so, cu],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode != 0:
-        raise SystemExit(f"nvcc failed on {name}:\n{proc.stdout}")
+        raise SystemExit(f"nvcc failed on {kernel} {name}:\n{proc.stdout}")
     lines = proc.stdout.splitlines()
     at = next(i for i, ln in enumerate(lines)
-              if "Compiling entry" in ln and "ILi16E" in ln)   # N = 16
-    regs = next(ln.strip() for ln in lines[at:] if "registers" in ln)
+              if "Compiling entry" in ln and entry in ln)
+    regs = [ln.strip() for ln in lines[at + 1:at + 4]
+            if "registers" in ln or "spill" in ln]
     lib = ctypes.CDLL(so)
-    lib.selective_scan_f32.argtypes = ([ctypes.c_void_p] * 9
-                                       + [ctypes.c_int] * 4
-                                       + [ctypes.c_void_p])
-    return lib, regs
+    fn = getattr(lib, f"{kernel}_f32")
+    fn.argtypes = [_P] * 9 + [_I] * (4 if kernel == "selective_scan"
+                                     else 5) + [_P]
+    fn.restype = _I
+    return fn, regs
 
 
-def main(reps: int = 20) -> None:
+def timed(run, reps):
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        run()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def main(reps: int = 20, only: str = "") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("scan_variants: needs a CUDA device")
     dev = torch.device("cuda")
     os.makedirs(OUT, exist_ok=True)
-    with open(MK.SOURCES[0]) as f:
-        srcs = variants(f.read())
-    with ThreadPoolExecutor(len(srcs)) as pool:
-        built = dict(zip(srcs, pool.map(lambda kv: build(*kv), srcs.items())))
-    B, S, dI, N = SHAPE
-    args = scan_inputs(*SHAPE, dev)
-    y_ref, h_ref = selective_scan_ref(*args)
-    y = torch.empty_like(args[0])
-    h = torch.empty((B, dI, N), device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def run(lib):
-        rc = lib.selective_scan_f32(*(a.data_ptr() for a in args), None,
-                                    y.data_ptr(), h.data_ptr(), B, S, dI, N,
-                                    stream)
-        if rc != 0:
-            raise SystemExit(f"scan_variants: launch failed ({rc})")
-
-    def timed(lib):
-        run(lib)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            run(lib)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return float(np.median(times))
-
+    kernels = [k for k in VARIANTS if not only or k == only]
+    jobs = [(kernel, name, *VARIANTS[kernel][:2], edits)
+            for kernel in kernels
+            for name, edits in [("shipped", [])] + list(
+                VARIANTS[kernel][2].items())]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda j: build(*j), jobs))
     print(card_line(), flush=True)
-    ms = {name: [] for name in built}
-    for name in list(built) + list(built)[::-1]:
-        ms[name].append(timed(built[name][0]))
-    for name, (lib, regs) in built.items():
-        run(lib)
-        torch.cuda.synchronize()
-        print(json.dumps({
-            "variant": name, "shape": list(SHAPE), "ms": ms[name],
-            "registers": regs,
-            "max_abs_err_y": float((y - y_ref).abs().max()),
-            "max_abs_err_h": float((h - h_ref).abs().max())}), flush=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for kernel in kernels:
+        if kernel == "selective_scan":
+            B, S, dI, N = SCAN_SHAPE
+            args = scan_inputs(*SCAN_SHAPE, dev)
+            want = selective_scan_ref(*args)
+            outs = (torch.empty_like(args[0]),
+                    torch.empty((B, dI, N), device=dev))
+            dims, shape = (B, S, dI, N), list(SCAN_SHAPE)
+        else:
+            B, S, H, hp, N = SSD_SHAPE
+            args = ssd_inputs(*SSD_SHAPE, dev)
+            want = ssd_scan_ref(*args, chunk=SK.KERNEL_CHUNK)
+            outs = (torch.empty_like(args[0]),
+                    torch.empty((B, H, N, hp), device=dev))
+            dims, shape = (B, S, H, N, hp), list(SSD_SHAPE)
+        mine = [(j[1], fn, regs) for j, (fn, regs) in zip(jobs, built)
+                if j[0] == kernel]
+
+        def runner(fn):
+            def run():
+                rc = fn(*(a.data_ptr() for a in args), None,
+                        *(o.data_ptr() for o in outs), *dims, stream)
+                if rc != 0:
+                    raise SystemExit(f"scan_variants: launch failed ({rc})")
+            return run
+
+        ms = {name: [] for name, _, _ in mine}
+        for name, fn, _ in mine + mine[::-1]:
+            ms[name].append(timed(runner(fn), reps))
+        for name, fn, regs in mine:
+            runner(fn)()
+            torch.cuda.synchronize()
+            print(json.dumps({
+                "kernel": kernel, "variant": name, "shape": shape,
+                "ms": ms[name], "ptxas": regs,
+                "max_abs_err_y": float((outs[0] - want[0]).abs().max()),
+                "max_abs_err_h": float((outs[1] - want[1]).abs().max())}),
+                flush=True)
+        del args, want, outs
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
-    main(*[int(a) for a in sys.argv[1:2]])
+    main(*[int(a) for a in sys.argv[1:2]], *sys.argv[2:3])
