@@ -11,13 +11,18 @@ wrong. Phases, one line each:
 1. the card (``nvidia-smi`` name and power limit), torch version, TF32 off;
 2. the kernel build and its seconds;
 3. each kernel against its plain version on real Sedov 64³ pair blocks
-   (C = 40, a chunk of 8,192 pairs around the blast centre), ``force_pair``
-   bit for bit on every output slot, live or dead; the same on the pair
-   blocks of Sedov 6³ (C = 88, the reference's conformance size); the pair
-   momentum antisymmetry; and a padded, masked pair list contributing +0.0;
+   (C = 40, a chunk of 8,192 pairs around the blast centre), bit for bit on
+   every output slot, live or dead; the same on the pair blocks of Sedov 6³
+   (C = 88, the reference's conformance size); ``density_pair_cells`` (the
+   density entry that gathers through the pair list as it loads) bit for bit
+   the block entry on the same pairs; the pair momentum antisymmetry; and a
+   padded, masked pair list contributing +0.0;
 4. kernel times (median of CUDA-event timed launches) at the full pair list
-   (P = 307,328), beside the bound (for ``force_pair`` the live slots' work,
-   with the all-slot figure beside it) and the plain version's time;
+   (P = 307,328), beside the bound (the live slots' work; for the density
+   the fused route's bytes) and the plain version's time; for the density
+   the fused entry (the main path's), the block entry, and the old route
+   (the gather, then the block entry), with the elements within reach and
+   the share of the element phase its lanes spend waiting on the busiest;
 5. the main path: Sedov 64³ through the hierarchical time-bin ladder
    (``build_simulation(SimulationSpec(integrator="timebin"))``, max_depth
    cut to 4, see MAIN_MAX_DEPTH) for two cycles, with the kernels' launch
@@ -253,29 +258,61 @@ def check_force(force_in, block: str, C: int) -> float:
     return worst
 
 
-def check_kernels(dev, spec, cells, pairs, thermo):
-    """Phase 3: each kernel against its plain version (``force_pair`` bit
-    for bit on every slot, at C = 40 and C = 88), antisymmetry, and masked
-    padding."""
-    from repro_torch.kernels.sph_pair import kernel as K, ops, ref
-    idx = centre_chunk(spec, pairs)
-    sub = subset(pairs, idx, spec.ncells, dev)
-    dens_in = ops.density_inputs(cells, sub)
-    force_in = ops.force_inputs(cells, sub, *thermo)
-    errs = {"density_pair": 0.0, "force_pair": 0.0}
+def density_blocks(cells, pairs):
+    """The density's eight (P, C[, 3]) blocks gathered through one pair
+    list (what the block entry takes; the main path gathers in the
+    kernel)."""
+    from repro_torch.kernels.sph_pair.ref import gather_density_blocks
+    return gather_density_blocks(cells.pos, cells.h, cells.mass, cells.mask,
+                                 pairs.ci, pairs.cj, pairs.shift)
+
+
+def check_density(cells, pairs, block: str, C: int) -> float:
+    """``density_pair`` against its plain version on the blocks gathered
+    through one pair list, both smoothing kernels: within tolerance and bit
+    for bit on every slot; and ``density_pair_cells`` on the cell arrays and
+    the list bit for bit the block entry. Returns the largest difference."""
+    from repro_torch.kernels.sph_pair import kernel as K, ref
+    dens_in = density_blocks(cells, pairs)
+    worst = 0.0
     for kern in ("cubic", "wendland_c2"):
         got = K.density_pair(*dens_in, kernel=kern)
         want = ref.density_pair_ref(*dens_in, kernel=kern)
+        fused = K.density_pair_cells(cells.pos, cells.h, cells.mass,
+                                     cells.mask, pairs.ci, pairs.cj,
+                                     pairs.shift, kernel=kern)
         e, ok = max_err(got, want, RTOL["density_pair"])
-        say({"phase": "parity", "kernel": "density_pair", "smoothing": kern,
-             "pairs": len(idx), "C": spec.capacity, "max_abs_err": e,
-             "ok": ok})
+        same = bits_equal(got, want)
+        fused_same = bits_equal(fused, got)
+        say({"phase": "parity", "kernel": "density_pair", "block": block,
+             "smoothing": kern, "pairs": int(pairs.ci.shape[0]), "C": C,
+             "max_abs_err": e, "ok": ok, "bitwise_all_slots": same,
+             "cells_entry_bitwise_block_entry": fused_same})
         assert ok, f"density_pair ({kern}) disagrees with its plain version"
-        errs["density_pair"] = max(errs["density_pair"], e)
+        assert same, f"density_pair ({kern}, {block}) is not bitwise its " \
+                     f"plain version on every slot"
+        assert fused_same, f"density_pair_cells ({kern}, {block}) differs " \
+                           f"from the block entry"
+        worst = max(worst, e)
+    return worst
+
+
+def check_kernels(dev, spec, cells, pairs, thermo):
+    """Phase 3: each kernel against its plain version, bit for bit on every
+    slot at C = 40 and C = 88 (the density's fused entry against its block
+    entry too), antisymmetry, and masked padding."""
+    from repro_torch.kernels.sph_pair import ops
+    idx = centre_chunk(spec, pairs)
+    sub = subset(pairs, idx, spec.ncells, dev)
+    force_in = ops.force_inputs(cells, sub, *thermo)
+    errs = {"density_pair": check_density(cells, sub, "sedov64_centre_chunk",
+                                          spec.capacity)}
     errs["force_pair"] = check_force(force_in, "sedov64_centre_chunk",
                                      spec.capacity)
-    # the reference's conformance size, past the first kernel's C <= 83
+    # the reference's conformance size, past the first kernels' C <= 83
     spec6, cells6, pairs6, thermo6 = sedov_setup(dev, 6)
+    errs["density_pair"] = max(errs["density_pair"], check_density(
+        cells6, pairs6, "sedov6_all_pairs", spec6.capacity))
     errs["force_pair"] = max(errs["force_pair"], check_force(
         ops.force_inputs(cells6, pairs6, *thermo6), "sedov6_all_pairs",
         spec6.capacity))
@@ -330,6 +367,68 @@ def force_ops_bytes(n_i, n_j, C: int):
     return ops, moved
 
 
+def density_ops_bytes(n_i, n_j, C: int, cells: int):
+    """Operations and bytes of the fused ``density_pair_cells`` as a
+    function of the live slots (``n_i``, ``n_j``: each pair's live slots on
+    either side): OPS_PER_ELEMENT per live (i, j) element; bytes: the
+    ``cells`` touched cells' slots once (pos, h, m, mask: 6 f32 a slot),
+    ci, cj and shift (5 words a pair) and the six (P, C) outputs."""
+    P = len(n_i)
+    ops = float((n_i * n_j).sum()) * OPS_PER_ELEMENT["density_pair"]
+    moved = 4.0 * (6 * cells * C + 5 * P + 6 * P * C)
+    return ops, moved
+
+
+def lane_waiting(hits_i, hits_j, L_i, L_j):
+    """How evenly the density kernel's lanes share the elements they
+    compute: ``hits_i``/``hits_j`` (P, C) each slot's elements, ``L_i``/
+    ``L_j`` (P,) the live ends. Tasks go to lanes in the kernel's order
+    (live rows, live columns, dead rows, dead columns), 32 a round, and a
+    round lasts as long as its busiest lane. Returns (elements, the busiest
+    lanes' elements summed over rounds, the share of lane slots idle)."""
+    P, C = hits_i.shape
+    a = torch.arange(C, device=hits_i.device)[None, :]
+    li, lj = L_i.long()[:, None], L_j.long()[:, None]
+    at_i = torch.where(a < li, a, lj + a)
+    at_j = torch.where(a < lj, li + a, C + a)
+    rounds = -(-2 * C // 32)
+    tasks = hits_i.new_zeros((P, 32 * rounds))
+    tasks.scatter_(1, at_i, hits_i).scatter_(1, at_j, hits_j)
+    total = float(tasks.sum())
+    busiest = float(tasks.view(P, rounds, 32).amax(-1).sum())
+    return total, busiest, 1.0 - total / (32.0 * busiest)
+
+
+def density_reach(cells, pairs, chunk: int = CHUNK) -> dict:
+    """The elements the density kernel computes at this pair list: each
+    slot's partners below the other side's live end within its own h (its
+    superset test marks few more), and how they spread over the lanes."""
+    from repro_torch.kernels.sph_pair.ref import gather_density_blocks
+    from repro_torch.sph.physics import EPS, pairwise_r2, sqrt_rn
+    C = cells.mask.shape[1]
+    slots = torch.arange(1, C + 1, device=cells.mask.device)
+    ends = torch.where(cells.mask != 0, slots, 0).amax(1)
+    stats = [0.0, 0.0]
+    for a in range(0, pairs.ci.shape[0], chunk):
+        ci, cj = pairs.ci[a:a + chunk], pairs.cj[a:a + chunk]
+        shift = pairs.shift[a:a + chunk]
+        pos_i, h_i, _, _, pos_j, h_j, _, _ = gather_density_blocks(
+            cells.pos, cells.h, cells.mass, cells.mask, ci, cj, shift)
+        L_i, L_j = ends[ci.long()], ends[cj.long()]
+        r = sqrt_rn(pairwise_r2(pos_i, pos_j) + EPS)
+        below_i = slots[None, :] <= L_i[:, None]
+        below_j = slots[None, :] <= L_j[:, None]
+        hits_i = ((r < h_i[:, :, None]) & below_j[:, None, :]).sum(2)
+        hits_j = ((r < h_j[:, None, :]) & below_i[:, :, None]).sum(1)
+        total, busiest, _ = lane_waiting(hits_i.float(), hits_j.float(),
+                                         L_i, L_j)
+        stats[0] += total
+        stats[1] += busiest
+    return {"elements_within_reach": stats[0],
+            "busiest_lane_elements": stats[1],
+            "lane_waiting_share": 1.0 - stats[0] / (32.0 * stats[1])}
+
+
 def within_reach(force_in, chunk: int = CHUNK) -> int:
     """Live (i, j) elements with r² > EPS and r < max(h_i, h_j): the only
     ones whose force terms are not all zero (the rest the kernel skips)."""
@@ -348,30 +447,44 @@ def within_reach(force_in, chunk: int = CHUNK) -> int:
 
 def time_kernels(spec, cells, pairs, thermo):
     """Phase 4: kernel and plain-version times at the full pair list, with
-    the bound reckoned from this run's inputs: ``force_pair``'s from its
-    live slots (the work it needs), beside the all-slot figure (every
-    padded input read) that bound the first kernel."""
+    the bound reckoned from this run's inputs and live slots (the work each
+    needs), beside the all-slot figure (every padded block read) that bound
+    the first kernels. The density row is the fused entry's, which the main
+    path runs, its plain version the gather and ``density_pair_ref``; the
+    block entry and the old route (the gather, then the block entry) are
+    timed beside it."""
     from repro_torch.kernels.sph_pair import kernel as K, ops, ref
-    dens_in = ops.density_inputs(cells, pairs)
+    dens_in = density_blocks(cells, pairs)
+    cell_in = (cells.pos, cells.h, cells.mass, cells.mask, pairs.ci,
+               pairs.cj, pairs.shift)
     force_in = ops.force_inputs(cells, pairs, *thermo)
     occ = cells.mask.sum(1).double()
     n_i, n_j = occ[pairs.ci.long()], occ[pairs.cj.long()]
     live = float((n_i * n_j).sum())
+    touched = int(torch.unique(torch.cat([pairs.ci, pairs.cj])).numel())
     rows = {}
-    for name, fn, plain, args in (
-            ("density_pair", K.density_pair, ref.density_pair_ref, dens_in),
+    for name, fn, plain, args, blocks in (
+            ("density_pair", K.density_pair_cells, ref.density_pair_cells_ref,
+             cell_in, dens_in),
             ("force_pair", lambda *a: K.force_pair(*a, alpha_visc=1.0),
-             lambda *a: ref.force_pair_ref(*a, alpha_visc=1.0), force_in)):
+             lambda *a: ref.force_pair_ref(*a, alpha_visc=1.0), force_in,
+             force_in)):
         ms = cuda_time_ms(lambda: fn(*args), reps=10)
         plain_ms = cuda_time_ms(lambda: plain(*args), reps=1)
-        out = fn(*args)
-        all_slots = nbytes(args) + nbytes(out)
-        ops_n = live * OPS_PER_ELEMENT[name]
-        moved = all_slots
+        all_slots = nbytes(blocks) + nbytes(fn(*args))
         extra = {}
         if name == "force_pair":
             ops_n, moved = force_ops_bytes(n_i, n_j, spec.capacity)
             extra["elements_within_reach"] = within_reach(args)
+        else:
+            ops_n, moved = density_ops_bytes(n_i, n_j, spec.capacity,
+                                             touched)
+            extra["block_entry_ms"] = cuda_time_ms(
+                lambda: K.density_pair(*dens_in), reps=10)
+            extra["gather_then_block_entry_ms"] = cuda_time_ms(
+                lambda: K.density_pair(*density_blocks(cells, pairs)),
+                reps=10)
+            extra.update(density_reach(cells, pairs))
         t_bytes = moved / PEAK_BYTES_PER_S * 1e3
         t_ops = ops_n / PEAK_F32_FLOPS * 1e3
         rows[name] = dict(ms=ms, plain_ms=plain_ms,
@@ -387,6 +500,14 @@ def time_kernels(spec, cells, pairs, thermo):
              "C": spec.capacity, **rows[name],
              "share_of_bound": rows[name]["bound_ms"] / ms})
     return rows
+
+
+def launch_counts(K) -> dict:
+    """Each pair kernel's launches by wrapper: the density kernel has two
+    entries, the fused one (the main path's) and the block one."""
+    return {"density_pair_cells": K.density_pair_cells.launches,
+            "density_pair": K.density_pair.launches,
+            "force_pair": K.force_pair.launches}
 
 
 def main_path(dev, max_depth: int = MAIN_MAX_DEPTH):
@@ -416,8 +537,7 @@ def main_path(dev, max_depth: int = MAIN_MAX_DEPTH):
              "particle_updates": st["updates"],
              "updates_per_s": st["updates"] / st["wall"],
              "pair_tasks": st["pair_tasks"], "t": st["t"]})
-    launches = {"density_pair": K.density_pair.launches,
-                "force_pair": K.force_pair.launches}
+    launches = launch_counts(K)
     e1, p1 = sim.diagnostics()
     state = sim.state
     fields = dict(state._asdict(), **state.cells._asdict())
@@ -429,8 +549,10 @@ def main_path(dev, max_depth: int = MAIN_MAX_DEPTH):
          "launches": launches})
     assert finite, "non-finite state after the main path"
     assert drift < DRIFT_BOUND, f"energy drift {drift} over {DRIFT_BOUND}"
-    assert all(v > 0 for v in launches.values()), launches
-    return launches
+    assert launches["density_pair_cells"] > 0, launches
+    assert launches["force_pair"] > 0, launches
+    return {"density_pair": launches["density_pair_cells"]
+            + launches["density_pair"], "force_pair": launches["force_pair"]}
 
 
 def card_matches_cpu(dev, n_side: int = 10, max_depth: int = 4):
@@ -480,15 +602,15 @@ def global_path(dev):
     e0, _ = sim.diagnostics()
     walls = [sim.step()["wall"] for _ in range(3)]
     e1, _ = sim.diagnostics()
-    launches = {"density_pair": K.density_pair.launches,
-                "force_pair": K.force_pair.launches}
+    launches = launch_counts(K)
     c = sim.state.cells
     finite = all(bool(torch.isfinite(t).all()) for t in c)
     say({"phase": "global_dt", "steps": 3, "dt": spec.dt, "wall_s": walls,
          "energy_drift": abs(e1 - e0) / abs(e0), "finite": finite,
          "launches": launches})
     assert finite and abs(e1 - e0) / abs(e0) < 0.05
-    assert all(v >= 3 for v in launches.values()), launches
+    assert launches["density_pair_cells"] >= 3, launches
+    assert launches["force_pair"] >= 3, launches
 
 
 def determinism(dev):

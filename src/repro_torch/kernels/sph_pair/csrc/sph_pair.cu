@@ -10,14 +10,53 @@
 // column j (the j-side outputs), each reduced over the other side's slots in
 // ascending order, as the plain PyTorch version (../ref.py) does.
 //
-// density_pair: one CTA per pair task and one (C x C) distance tile in shared
-// memory; thread t reduces row t and column t. Per pair the inputs are read
-// once (C slots of 12 f32) and about 100 f32 operations are done per element
-// of the tile; as executed, over the whole padded tile, it is bound by
-// operations on the CUDA cores (the K = 3 contraction is no tensor-core
-// shape). Counted on live slots only the bytes bound it. Its redesign (live
-// slots only, several pairs a CTA, the gather through ci/cj fused into the
-// loads) is later work.
+// density_pair: one warp per pair task, four pairs a CTA, the design of
+// force_pair below fitted to the density's element (about 100 f32
+// operations: a square root, two IEEE divisions, W and dW/dr). The first
+// version (one CTA per pair, the whole C x C distance tile in shared memory,
+// every element computed) ran at 5 % of its bound, and the eight (P, C[, 3])
+// blocks it read were gathered through ci/cj by separate passes (590 MB at
+// Sedov 64^3). Now the warp finds each side's live end L by ballot and stages
+// slots [0, L) of both sides ((x, y, z, |x|^2) as one 16-byte load, then
+// m * mask, mask and h). A lane takes a slot, a row (the i-side) or a column
+// (the j-side), live slots first, and marks in a cheap pass over the other
+// side's live slots the elements that may lie within its own h (a superset
+// test on the dot-form r^2, with force_pair's margin) and computes just
+// those, in ascending order. At Sedov 64^3 a lane marks 0 to ~30 elements,
+// so in that phase 68 % of lane slots wait on the busiest lane; spreading
+// the warp's marked elements over its lanes (each one's terms handed back
+// through shared memory to its slot's lane) was measured slower, as were
+// two lanes a slot and two elements a step (tools/kernel_variants.py,
+// PERF.md): the time is not in idle issue slots. The gather is fused into
+// the loads: side i of pair p is cell ci[p], side j cell cj[p] with shift[p]
+// added to its positions as they are read (one f32 add a component, as the
+// plain gather adds it); an index outside [0, ncells) stops the kernel with
+// a device-side assertion, as index_select's own check does on the card.
+// The block entry passes no indices (row p of its blocks) and no shift.
+// What it must move is then the cell arrays once
+// (21 MB at Sedov 64^3) and its six (P, C) outputs (295 MB), which set its
+// bound.
+//
+// Why the skipped terms change no bit (finite inputs). Slot a's sums run
+// from +0 over the other side's slots b in ascending order, adding
+// (m mask)_b W_ab, (m mask)_b dW/dh_ab and [W_ab > 0] mask_b. An element out
+// of reach (q = r / h_a >= 1) has W = +0 and dW/dr = +0, so
+// dW/dh = -(3 * 0 + r * 0) / h_a = -0 (h_a > 0), and its terms are +-0, +-0
+// and +0; a dead partner (b >= L: mask 0, so m * mask = +-0) gives +-0 terms
+// too. A sum that starts at +0 never becomes -0 (a rounded sum is -0 only
+// when both addends are), and x + (+-0) = x for every other x: leaving such
+// terms out keeps each sum's bits. The test is a superset: q < 1 needs
+// r = sqrtf(r2 + eps) < h, so r2 + eps < h^2 < (h * h) * 1.000001f whatever
+// the roundings (2^-22 relative against a margin of 1e-6); h <= 0 marks
+// every element, and an element marked needlessly adds its own exact zeros.
+// Slots past L are dead, and get their outputs as the plain version gives
+// them: their sums over the other side's live slots within their own h. As
+// r >= sqrtf(eps), a slot with 0 < h <= sqrtf(eps) (the engine pads with
+// h = 1e-6) has no partner within reach, and its outputs are +0 without a
+// pass. Slots below L with mask 0 (holes) are live slots with m * mask = 0.
+// Factors of h alone (W's and dW/dr's normalisations) are computed once a
+// slot, as the same expressions. Shared memory is about 2 * 7 * C floats a
+// warp, so any C up to 4,150 runs (fewer pairs a CTA above C = 1,037).
 //
 // force_pair: one warp per pair task, four pairs a CTA, eight CTAs an SM.
 // What bounded the first version (one CTA per pair, all C^2 elements of eight
@@ -45,9 +84,10 @@
 // spread over the lanes. Times on the H100: PERF.md and chip_smoke.py.
 //
 // Rounding. The file is compiled with --fmad=false, so no a*b+c is contracted
-// into an FMA: every operation rounds where the plain version's eager PyTorch
-// ops round, and the cutoff tests (w > 0, r < max(h_i, h_j), r < h) see the
-// same r bits. The double-float momentum contraction needs TwoProd to be exact:
+// into an FMA, and '/' and sqrtf are IEEE (no fast math): every operation
+// rounds where the plain version's eager PyTorch ops round, in its order,
+// and the cutoff tests (w > 0, q < 1, r < max(h_i, h_j), r < h) see the same
+// r bits. No atomics: each output is written once, by one lane. The double-float momentum contraction needs TwoProd to be exact:
 // it is written p = a*b, e = fmaf(a, b, -p) (an explicit FMA, exact), which
 // equals the reference's Dekker split bit for bit. Both directions contract
 // the same g and r_hat bits (an element is a pure function of its (i, j)
@@ -56,6 +96,8 @@
 //
 // C interface (loaded with ctypes): each entry point launches on the given
 // stream and returns the cudaError_t of the launch (0 on success).
+
+#include <cassert>
 
 #include <cuda_runtime.h>
 
@@ -69,24 +111,23 @@ constexpr int kThreads = 128;
 __device__ __forceinline__ float cube(float x) { return x * (x * x); }
 __device__ __forceinline__ float pow4(float x) { float x2 = x * x; return x2 * x2; }
 
+// W(r, h) given sigma = W's normalisation at h (a function of h alone);
 // 0: cubic spline, 1: Wendland C2 (support radius h, as repro/sph/smoothing.py)
 template <int KERNEL>
-__device__ __forceinline__ float w_fn(float r, float h) {
+__device__ __forceinline__ float w_sig(float r, float h, float sigma) {
   const float q = r / h;
+  float w;
   if (KERNEL == 0) {
-    const float sigma = kCubicNorm / ((h * h) * h);
     const float w1 = (1.0f - (6.0f * q) * q) + ((6.0f * q) * q) * q;
     const float w2 = 2.0f * cube(1.0f - q);
-    const float w = (q <= 0.5f) ? w1 : w2;
-    return (q < 1.0f) ? sigma * w : 0.0f;
+    w = (q <= 0.5f) ? w1 : w2;
   } else {
-    const float sigma = kWendlandNorm / ((h * h) * h);
-    const float w = pow4(1.0f - q) * ((4.0f * q) + 1.0f);
-    return (q < 1.0f) ? sigma * w : 0.0f;
+    w = pow4(1.0f - q) * ((4.0f * q) + 1.0f);
   }
+  return (q < 1.0f) ? sigma * w : 0.0f;
 }
 
-// dW/dr's normalisation, a function of h alone (force_pair computes it once
+// dW/dr's normalisation, a function of h alone (both kernels compute it once
 // per slot)
 template <int KERNEL>
 __device__ __forceinline__ float dwdr_norm(float h) {
@@ -154,82 +195,173 @@ __device__ __forceinline__ void df_renormalise(float& s_hi, float& s_lo) {
   s_hi = s2;
 }
 
+// One past the last slot whose mask is nonzero (0 for an empty cell): every
+// slot from there on is dead. Called by the whole warp.
+__device__ __forceinline__ int live_end(const float* mask, int C, int lane) {
+  int L = 0;
+  for (int c0 = 0; c0 < C; c0 += 32) {
+    const int s = c0 + lane;
+    const unsigned b = __ballot_sync(0xffffffffu, s < C && mask[s] != 0.0f);
+    if (b) L = c0 + 32 - __clz((int)b);
+  }
+  return L;
+}
+
 // ------------------------------------------------------------------ density
+// Where each side's slots lie: side i of pair p is row ci[p] of the i-side
+// slot arrays, side j row cj[p] of the j-side ones (row p where the index is
+// null: the block entry, whose arrays are gathered already; the fused
+// entry's indices lie in [0, ncells)). The j-side's positions get shift[p]
+// added as they are read (no add where it is null).
+struct DensityArgs {
+  const float *pos_i, *h_i, *m_i, *mask_i;   // (rows, C, 3) and (rows, C)
+  const float *pos_j, *h_j, *m_j, *mask_j;
+  const int *ci, *cj;                        // (P,) or null
+  const float* shift;                        // (P, 3) or null
+  float *rho_i, *drho_i, *nngb_i, *rho_j, *drho_j, *nngb_j;   // (P, C)
+  int P, C, ncells;
+};
+
+constexpr int kDensityWarps = 4;   // pairs a CTA (fewer where C outgrows shared memory)
+// floats of one side's staged slots: pos and |x|^2 (one 16-byte load a
+// partner), then m * mask, mask and h, padded to 16 bytes
+__host__ __device__ __forceinline__ int dside_floats(int C) {
+  return 4 * C + 4 * ((3 * C + 3) / 4);
+}
+
+struct DSide {   // one side's live slots, staged in the warp's shared memory
+  float4* x;     // (x, y, z, |x|^2)
+  float *mw, *k, *h;
+};
+
+__device__ __forceinline__ DSide dside_at(float* base, int C) {
+  DSide s;
+  s.x = reinterpret_cast<float4*>(base);
+  s.mw = base + 4 * C;
+  s.k = s.mw + C;
+  s.h = s.k + C;
+  return s;
+}
+
+// slots [0, L) of the slot row starting at `base`, positions shifted by
+// (s0, s1, s2) when `shifted`
+__device__ __forceinline__ void dstage(const DSide& s, const float* pos, const float* h,
+                                       const float* m, const float* mask, size_t base,
+                                       int L, bool shifted, float s0, float s1,
+                                       float s2, int lane) {
+  for (int t = lane; t < L; t += 32) {
+    const float* xt = pos + (base + t) * 3;
+    float4 x = make_float4(xt[0], xt[1], xt[2], 0.0f);
+    if (shifted) x.x = x.x + s0, x.y = x.y + s1, x.z = x.z + s2;
+    x.w = (x.x * x.x + x.y * x.y) + x.z * x.z;
+    s.x[t] = x;
+    const float k = mask[base + t];
+    s.h[t] = h[base + t];
+    s.k[t] = k;
+    s.mw[t] = m[base + t] * k;
+  }
+}
+
+// r^2 between an own slot x = (x, y, z, |x|^2) and partner b of Q, as dot_r2
+__device__ __forceinline__ float r2_to(float4 x, const DSide& Q, int b) {
+  const float4 xp = Q.x[b];
+  const float cross = (x.x * xp.x + x.y * xp.y) + x.z * xp.z;
+  const float r2 = (x.w + xp.w) - 2.0f * cross;
+  return (r2 < 0.0f) ? 0.0f : r2;
+}
+
+// The three terms element (own slot x, partner b of Q) adds to the slot's
+// sums, as _density_chunk forms them: (m mask)_b W, (m mask)_b dW/dh and
+// [W > 0] mask_b; sw and sd are W's and dW/dr's normalisations at h.
 template <int KERNEL>
-__global__ void __launch_bounds__(kThreads)
-density_pair_kernel(const float* __restrict__ pos_i, const float* __restrict__ h_i,
-                    const float* __restrict__ m_i, const float* __restrict__ mask_i,
-                    const float* __restrict__ pos_j, const float* __restrict__ h_j,
-                    const float* __restrict__ m_j, const float* __restrict__ mask_j,
-                    float* __restrict__ rho_i, float* __restrict__ drho_i,
-                    float* __restrict__ nngb_i, float* __restrict__ rho_j,
-                    float* __restrict__ drho_j, float* __restrict__ nngb_j, int C) {
-  extern __shared__ float sm[];
-  const int S = C | 1;                 // odd row stride: no bank conflicts on rows
-  float* r = sm;                       // C x S
-  float* xi = r + C * S;               // C x 3
-  float* xj = xi + 3 * C;
-  float* hi = xj + 3 * C;
-  float* hj = hi + C;
-  float* mwi = hj + C;                 // m * mask
-  float* mwj = mwi + C;
-  float* ki = mwj + C;                 // mask
-  float* kj = ki + C;
-  float* sqi = kj + C;
-  float* sqj = sqi + C;
+__device__ __forceinline__ float4 density_terms(float4 x, float h, float sw, float sd,
+                                                const DSide& Q, int b) {
+  const float r = sqrtf(r2_to(x, Q, b) + kEps);
+  const float w = w_sig<KERNEL>(r, h, sw);
+  const float mw = Q.mw[b];
+  return make_float4(mw * w, mw * (-((3.0f * w) + r * dwdr_sig<KERNEL>(r, h, sd)) / h),
+                     (w > 0.0f ? 1.0f : 0.0f) * Q.k[b], 0.0f);
+}
 
-  const size_t base = (size_t)blockIdx.x * C;
-  for (int t = threadIdx.x; t < 3 * C; t += blockDim.x) {
-    xi[t] = pos_i[base * 3 + t];
-    xj[t] = pos_j[base * 3 + t];
-  }
-  for (int t = threadIdx.x; t < C; t += blockDim.x) {
-    hi[t] = h_i[base + t];
-    hj[t] = h_j[base + t];
-    ki[t] = mask_i[base + t];
-    kj[t] = mask_j[base + t];
-    mwi[t] = m_i[base + t] * ki[t];
-    mwj[t] = m_j[base + t] * kj[t];
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < C; t += blockDim.x) {
-    sqi[t] = sq3(xi + 3 * t);
-    sqj[t] = sq3(xj + 3 * t);
-  }
-  __syncthreads();
+__device__ __forceinline__ void add3(float4& sum, float4 t) {
+  sum.x = sum.x + t.x;
+  sum.y = sum.y + t.y;
+  sum.z = sum.z + t.z;
+}
 
-  // phase 1: the distance tile, shared by both directions
-  for (int e = threadIdx.x; e < C * C; e += blockDim.x) {
-    const int i = e / C, j = e - (e / C) * C;
-    const float r2 = dot_r2(sqi[i], sqj[j], xi + 3 * i, xj + 3 * j);
-    r[i * S + j] = sqrtf(r2 + kEps);
-  }
-  __syncthreads();
+// One warp per pair task, blockDim.x / 32 pairs per CTA; each warp stages its
+// pair's live slots in its own part of shared memory and synchronises only
+// itself. Tasks: the live rows (i-side slots below Li), the live columns
+// (j-side slots below Lj), then the dead rows and columns, 32 a round. In
+// each round the warp steps through the partners 32 at a time; each lane
+// marks its slot's elements in a segment and computes them.
+template <int KERNEL>
+__global__ void __launch_bounds__(32 * kDensityWarps) density_pair_kernel(const DensityArgs a) {
+  extern __shared__ float4 dsm[];
+  const int C = a.C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (p >= a.P) return;   // the whole warp leaves; there is no CTA barrier
+  const int ci = a.ci ? a.ci[p] : p, cj = a.cj ? a.cj[p] : p;
+  assert((unsigned)ci < (unsigned)a.ncells && (unsigned)cj < (unsigned)a.ncells);
+  const size_t bi = (size_t)ci * C, bj = (size_t)cj * C;
+  const bool shifted = a.shift != nullptr;
+  const float s0 = shifted ? a.shift[3 * p] : 0.0f;
+  const float s1 = shifted ? a.shift[3 * p + 1] : 0.0f;
+  const float s2 = shifted ? a.shift[3 * p + 2] : 0.0f;
+  float* scratch = reinterpret_cast<float*>(dsm) + (size_t)warp * 2 * dside_floats(C);
+  const DSide I = dside_at(scratch, C);
+  const DSide J = dside_at(scratch + dside_floats(C), C);
+  const int Li = live_end(a.mask_i + bi, C, lane);
+  const int Lj = live_end(a.mask_j + bj, C, lane);
+  dstage(I, a.pos_i, a.h_i, a.m_i, a.mask_i, bi, Li, false, 0.0f, 0.0f, 0.0f, lane);
+  dstage(J, a.pos_j, a.h_j, a.m_j, a.mask_j, bj, Lj, shifted, s0, s1, s2, lane);
+  __syncwarp();
 
-  // phase 2: row reductions (i <- j) and column reductions (j <- i)
-  for (int it = threadIdx.x; it < 2 * C; it += blockDim.x) {
-    const bool row = it < C;
-    const int a = row ? it : it - C;
-    const float h = row ? hi[a] : hj[a];
-    const float* mw = row ? mwj : mwi;
-    const float* kk = row ? kj : ki;
-    float rho = 0.0f, drho = 0.0f, nn = 0.0f;
-    for (int b = 0; b < C; ++b) {
-      const float rr = row ? r[a * S + b] : r[b * S + a];
-      const float w = w_fn<KERNEL>(rr, h);
-      rho = rho + mw[b] * w;
-      const float dwdh = -((3.0f * w) + rr * dwdr_fn<KERNEL>(rr, h)) / h;
-      drho = drho + mw[b] * dwdh;
-      nn = nn + (w > 0.0f ? 1.0f : 0.0f) * kk[b];
+  for (int t0 = 0; t0 < 2 * C; t0 += 32) {
+    const int t = t0 + lane;
+    const bool live = t < Li + Lj;
+    const bool row = t < Li || (!live && t < C + Lj);
+    const int own = t < Li ? t : live ? t - Li : row ? t - Lj : t - C;
+    const DSide O = row ? I : J, Q = row ? J : I;   // by value: pointers in registers
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float h = 1.0f, sw = 0.0f, sd = 0.0f;
+    int n = 0;
+    if (t < 2 * C) {
+      h = live ? O.h[own] : (row ? a.h_i + bi : a.h_j + bj)[own];
+      // r >= sqrtf(eps): a slot with 0 < h <= sqrtf(eps) (the engine pads
+      // with h = 1e-6) has no partner within reach
+      n = (h > 0.0f && h <= sqrtf(kEps)) ? 0 : (row ? Lj : Li);
+      if (live) {
+        x = O.x[own];
+      } else if (n) {
+        const float* pos = (row ? a.pos_i + 3 * bi : a.pos_j + 3 * bj) + 3 * own;
+        x = make_float4(pos[0], pos[1], pos[2], 0.0f);
+        if (!row && shifted) x.x = x.x + s0, x.y = x.y + s1, x.z = x.z + s2;
+        x.w = (x.x * x.x + x.y * x.y) + x.z * x.z;
+      }
     }
-    if (row) {
-      rho_i[base + a] = rho;
-      drho_i[base + a] = drho;
-      nngb_i[base + a] = nn;
-    } else {
-      rho_j[base + a] = rho;
-      drho_j[base + a] = drho;
-      nngb_j[base + a] = nn;
+    if (n) {   // functions of h alone, the same expressions as the plain version's
+      sw = (KERNEL == 0 ? kCubicNorm : kWendlandNorm) / ((h * h) * h);
+      sd = dwdr_norm<KERNEL>(h);
+    }
+    // q < 1 needs r = sqrtf(r2 + eps) < h, so r2 + eps < h^2 < reach
+    const float reach = h > 0.0f ? (h * h) * 1.000001f : __int_as_float(0x7f800000);
+    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // rho, drho, nngb
+    const int nmax = __reduce_max_sync(0xffffffffu, n);
+    for (int b0 = 0; b0 < nmax; b0 += 32) {
+      unsigned hit = 0;
+      const int m = min(32, n - b0);
+      for (int k = 0; k < m; ++k)
+        if (r2_to(x, Q, b0 + k) + kEps < reach) hit |= 1u << k;
+      for (; hit; hit &= hit - 1)
+        add3(sum, density_terms<KERNEL>(x, h, sw, sd, Q, b0 + __ffs((int)hit) - 1));
+    }
+    if (t < 2 * C) {
+      const size_t q = (size_t)p * C + own;
+      (row ? a.rho_i : a.rho_j)[q] = sum.x;
+      (row ? a.drho_i : a.drho_j)[q] = sum.y;
+      (row ? a.nngb_i : a.nngb_j)[q] = sum.z;
     }
   }
 }
@@ -264,18 +396,6 @@ __device__ __forceinline__ Side side_at(float* base, int C) {
   s.sq = s.k + C;
   s.sg = s.sq + C;
   return s;
-}
-
-// One past the last slot whose mask is nonzero (0 for an empty cell): every
-// slot from there on is dead. Called by the whole warp.
-__device__ __forceinline__ int live_end(const float* mask, int C, int lane) {
-  int L = 0;
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    const int s = c0 + lane;
-    const unsigned b = __ballot_sync(0xffffffffu, s < C && mask[s] != 0.0f);
-    if (b) L = c0 + 32 - __clz((int)b);
-  }
-  return L;
 }
 
 // slots [0, L) of one side of the pair starting at slot `base`
@@ -509,11 +629,11 @@ int set_smem(K kernel, size_t smem) {
 
 constexpr size_t kSmemLimit = 232448;   // bytes of shared memory a CTA may use
 
-template <typename K>
-int launch_force(K kernel, const ForceArgs& args, cudaStream_t stream) {
-  // fewer pairs a CTA only where a capacity's slots outgrow shared memory
-  int warps = kThreads / 32;
-  const size_t per_warp = sizeof(float) * 2 * kSideFloats * (size_t)args.C;
+// One warp a pair, `warps` pairs a CTA, each warp with `per_warp` bytes of
+// shared memory: fewer pairs a CTA only where a capacity's slots outgrow it.
+template <typename K, typename A>
+int launch_warps(K kernel, const A& args, int warps, size_t per_warp,
+                 cudaStream_t stream) {
   while (warps > 1 && warps * per_warp > kSmemLimit) warps >>= 1;
   const size_t smem = warps * per_warp;
   if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
@@ -523,37 +643,38 @@ int launch_force(K kernel, const ForceArgs& args, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+template <typename K>
+int launch_force(K kernel, const ForceArgs& args, cudaStream_t stream) {
+  return launch_warps(kernel, args, kThreads / 32,
+                      sizeof(float) * 2 * kSideFloats * (size_t)args.C, stream);
+}
+
+template <typename K>
+int launch_density(K kernel, const DensityArgs& args, cudaStream_t stream) {
+  return launch_warps(kernel, args, kDensityWarps,
+                      sizeof(float) * 2 * (size_t)dside_floats(args.C), stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// shared memory of one density_pair CTA at capacity C
-size_t sph_density_pair_smem(int C) {
-  const int S = C | 1;
-  return sizeof(float) * ((size_t)C * S + 14 * (size_t)C);
-}
-
+// Both density entries: the block entry passes gathered (P, C[, 3]) blocks
+// as the i- and j-side arrays with ci, cj and shift null (ncells = P); the
+// fused entry passes the cell arrays (ncells rows) as both sides, with the
+// pair list.
 int sph_density_pair(const float* pos_i, const float* h_i, const float* m_i,
                      const float* mask_i, const float* pos_j, const float* h_j,
-                     const float* m_j, const float* mask_j, float* rho_i,
-                     float* drho_i, float* nngb_i, float* rho_j, float* drho_j,
-                     float* nngb_j, int P, int C, int kernel, void* stream) {
+                     const float* m_j, const float* mask_j, const int* ci,
+                     const int* cj, const float* shift, float* rho_i, float* drho_i,
+                     float* nngb_i, float* rho_j, float* drho_j, float* nngb_j, int P,
+                     int C, int ncells, int kernel, void* stream) {
   if (P == 0) return 0;
-  const size_t smem = sph_density_pair_smem(C);
+  DensityArgs args{pos_i, h_i, m_i, mask_i, pos_j, h_j, m_j, mask_j, ci, cj, shift,
+                   rho_i, drho_i, nngb_i, rho_j, drho_j, nngb_j, P, C, ncells};
   cudaStream_t s = (cudaStream_t)stream;
-  int rc;
-  if (kernel == 0) {
-    if ((rc = set_smem(density_pair_kernel<0>, smem))) return rc;
-    density_pair_kernel<0><<<P, kThreads, smem, s>>>(
-        pos_i, h_i, m_i, mask_i, pos_j, h_j, m_j, mask_j, rho_i, drho_i, nngb_i,
-        rho_j, drho_j, nngb_j, C);
-  } else {
-    if ((rc = set_smem(density_pair_kernel<1>, smem))) return rc;
-    density_pair_kernel<1><<<P, kThreads, smem, s>>>(
-        pos_i, h_i, m_i, mask_i, pos_j, h_j, m_j, mask_j, rho_i, drho_i, nngb_i,
-        rho_j, drho_j, nngb_j, C);
-  }
-  return (int)cudaGetLastError();
+  if (kernel == 0) return launch_density(density_pair_kernel<0>, args, s);
+  return launch_density(density_pair_kernel<1>, args, s);
 }
 
 int sph_force_pair(const float* pos_i, const float* vel_i, const float* h_i,

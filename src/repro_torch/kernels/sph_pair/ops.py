@@ -1,7 +1,9 @@
-"""Wave execution: gather pair blocks → pair kernel → per-cell sums.
+"""Wave execution: pair kernel over the pair list → per-cell sums.
 
 Port of ``repro/kernels/sph_pair/ops.py``: one ``density_pairs`` call runs
-every density task of the wave as one batched kernel launch.
+every density task of the wave as one batched kernel launch, which reads
+the cell arrays through ``ci``/``cj`` itself (``density_pair_cells``);
+``force_pairs`` still gathers its eighteen (P, C[, 3]) blocks first.
 
 The reference scatter-adds each pair's i-side into cell ci and its j-side
 into cell cj. ``index_add_`` on CUDA does that with atomics in no fixed
@@ -21,18 +23,7 @@ from __future__ import annotations
 import torch
 
 from ...sph.cellgrid import PairList
-from .kernel import density_pair, force_pair
-
-
-def density_inputs(cells, pairs: PairList):
-    """The density kernel's eight (P, C[, 3]) blocks, gathered through
-    ci/cj, with cell j's positions image-shifted."""
-    ci, cj = pairs.ci.long(), pairs.cj.long()
-    gi = lambda a: a.index_select(0, ci)
-    gj = lambda a: a.index_select(0, cj)
-    pos_j = gj(cells.pos) + pairs.shift[:, None, :]
-    return (gi(cells.pos), gi(cells.h), gi(cells.mass), gi(cells.mask),
-            pos_j, gj(cells.h), gj(cells.mass), gj(cells.mask))
+from .kernel import density_pair_cells, force_pair
 
 
 def force_inputs(cells, pairs: PairList, rho, press, omega, cs):
@@ -74,8 +65,9 @@ def _cell_sums(side_i, side_j, incoming, ncells: int) -> torch.Tensor:
 def density_pairs(cells, pairs: PairList, *, kernel: str = "cubic",
                   pair_mask=None):
     """All density_pair/density_self tasks → (rho, drho_dh, nngb)."""
-    rho_i, drho_i, nn_i, rho_j, drho_j, nn_j = density_pair(
-        *density_inputs(cells, pairs), kernel=kernel)
+    rho_i, drho_i, nn_i, rho_j, drho_j, nn_j = density_pair_cells(
+        cells.pos, cells.h, cells.mass, cells.mask, pairs.ci, pairs.cj,
+        pairs.shift, kernel=kernel)
     ncells = cells.mass.shape[0]
     live_i, live_j = _live(pairs, pair_mask, cells.pos.dtype)
     side_i = torch.stack([rho_i, drho_i, nn_i], -1) * live_i[:, None, None]

@@ -17,7 +17,8 @@ Pairs are processed in chunks: a (P, C, C, 3) temporary at the full Sedov
 once.
 
 The wrappers in ``kernel.py`` call these for tensors on the CPU; the CUDA
-check in ``chip_smoke.py`` holds the kernels against them on the card.
+check in ``chip_smoke.py`` holds the kernels against them on the card, bit
+for bit.
 """
 
 from __future__ import annotations
@@ -139,6 +140,26 @@ def density_pair_ref(pos_i, h_i, m_i, mask_i, pos_j, h_j, m_j, mask_j,
         for o, v in zip(outs, res):
             o[sl] = v
     return tuple(outs)
+
+
+def gather_density_blocks(pos, h, mass, mask, ci, cj, shift):
+    """The density's eight (P, C[, 3]) blocks from the cell arrays: cells
+    ``ci`` on the i-side, cells ``cj`` on the j-side with ``shift`` (P, 3)
+    added to their positions (the periodic image)."""
+    ci, cj = ci.long(), cj.long()
+    gi = lambda a: a.index_select(0, ci)
+    gj = lambda a: a.index_select(0, cj)
+    return (gi(pos), gi(h), gi(mass), gi(mask),
+            gj(pos) + shift[:, None, :], gj(h), gj(mass), gj(mask))
+
+
+def density_pair_cells_ref(pos, h, mass, mask, ci, cj, shift, *,
+                           kernel: str = "cubic") -> Tuple[torch.Tensor, ...]:
+    """``density_pair_ref`` on the blocks gathered through ``ci``/``cj``:
+    what the fused kernel computes from the cell arrays."""
+    return density_pair_ref(
+        *gather_density_blocks(pos, h, mass, mask, ci, cj, shift),
+        kernel=kernel)
 
 
 def _force_chunk(pos_i, vel_i, h_i, P_i, rho_i, om_i, cs_i, m_i, mask_i,

@@ -12,7 +12,7 @@ integrator      backend       engine
 :class:`SimulationSpec` has exactly the reference's fields, so one spec
 means the same run in both packages. The distributed backends, the
 observability hooks (``observe``) and the fleet signatures are later slices
-of the port (ROADMAP queue 1, items 6–9) and raise here.
+of the port (ROADMAP queue 1, items 9–12) and raise here.
 """
 
 from __future__ import annotations
@@ -219,7 +219,7 @@ class SimulationSpec:
         if self.observe is not False:
             raise NotImplementedError(
                 "repro_torch: observe is not ported yet (ROADMAP queue 1, "
-                "item 6: observability); use observe=False")
+                "item 9: observability); use observe=False")
 
     def with_(self, **changes) -> "SimulationSpec":
         """A copy with the given fields replaced (specs are frozen)."""
@@ -338,7 +338,7 @@ def build_simulation(spec: SimulationSpec,
     the standard dict form).
     """
     if spec.backend == "distributed":
-        item = 7 if spec.integrator == "global" else 8
+        item = 10 if spec.integrator == "global" else 11
         raise NotImplementedError(
             f"repro_torch: the {spec.integrator} × distributed quadrant is "
             f"not ported yet (ROADMAP queue 1, item {item})")

@@ -1,6 +1,6 @@
-"""What bounds flash_attention and force_pair: time variants of their sources.
+"""What bounds flash_attention and the pair kernels: time variants of their sources.
 
-    python3 tools/kernel_variants.py [reps=10]
+    python3 tools/kernel_variants.py [reps=10] [kernel ...]
 
 Builds variants of ``src/repro_torch/kernels/flash_attention/csrc/
 flash_attention.cu`` and ``src/repro_torch/kernels/sph_pair/csrc/
@@ -18,12 +18,23 @@ order; median of ``reps`` CUDA-event timed launches per turn):
 * force at the full Sedov 64³ pair list (P = 307,328, C = 40, α = 1):
   ``every_element`` (the full element for every live partner, as if all
   were within reach: what the cutoff pass saves), ``uncapped`` (registers
-  not held to 64, so seven CTAs an SM, not eight).
+  not held to 64, so seven CTAs an SM, not eight);
+* density at the same pair list through its fused entry (cell arrays, ci,
+  cj, shift): ``shared`` (the warp's marked elements spread over its lanes,
+  32 at a time, each one's terms handed back to its slot's lane, not each
+  lane computing its own slot's), ``shared_lanes2`` and ``shared_lanes4``
+  (the same, with two or four lanes sharing a slot's cutoff pass),
+  ``two_a_step`` (each lane's marked elements two at a time, so their
+  dependent chains overlap), ``pairs2`` and ``pairs8`` (two or eight pairs
+  a CTA, not four), ``every_element`` (every live partner marked and
+  computed).
 
-Prints one JSON line per variant (its ms per turn, registers, and its
-largest difference from the shipped kernel's output), after the card line.
+Prints one JSON line per variant (its ms per turn, registers, its largest
+difference from the shipped kernel's output and whether it is the shipped
+output bit for bit), after the card line.
 The variants are diagnostics only; the port ships the sources as they are.
-Stops without a CUDA device.
+Naming kernels (``flash_attention``, ``force_pair``, ``density_pair``)
+times only theirs. Stops without a CUDA device.
 """
 
 import ctypes
@@ -48,6 +59,112 @@ KDIR = os.path.join(ROOT, "src", "repro_torch", "kernels")
 FLASH = os.path.join(KDIR, "flash_attention", "csrc", "flash_attention.cu")
 PAIR = os.path.join(KDIR, "sph_pair", "csrc", "sph_pair.cu")
 
+
+def shared_edits(lanes: int):
+    """The density's element phase shared out: ``lanes`` lanes (1, 2 or 4)
+    split a slot's cutoff pass, and the warp computes its marked elements
+    32 at a time, one a lane, whatever slot they belong to; each element's
+    terms go back through shared memory to its slot's lane, which adds
+    them in ascending order (the same bits)."""
+    scratch = ("  float* scratch = reinterpret_cast<float*>(dsm) + "
+               "(size_t)warp * 2 * dside_floats(C);\n"
+               "  const DSide I = dside_at(scratch, C);\n"
+               "  const DSide J = dside_at(scratch + dside_floats(C), C);\n")
+    loop = ("  for (int t0 = 0; t0 < 2 * C; t0 += 32) {\n"
+            "    const int t = t0 + lane;\n")
+    elements = (
+        "    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);   // rho, drho, nngb\n"
+        "    const int nmax = __reduce_max_sync(0xffffffffu, n);\n"
+        "    for (int b0 = 0; b0 < nmax; b0 += 32) {\n"
+        "      unsigned hit = 0;\n"
+        "      const int m = min(32, n - b0);\n"
+        "      for (int k = 0; k < m; ++k)\n"
+        "        if (r2_to(x, Q, b0 + k) + kEps < reach) hit |= 1u << k;\n"
+        "      for (; hit; hit &= hit - 1)\n"
+        "        add3(sum, density_terms<KERNEL>(x, h, sw, sd, Q, b0 + __ffs((int)hit) - 1));\n"
+        "    }\n"
+        "    if (t < 2 * C) {\n")
+    smem = "sizeof(float) * 2 * (size_t)dside_floats(args.C), stream);"
+    kernel = ("template <int KERNEL>\n__global__ void __launch_bounds__(32 * "
+              "kDensityWarps) density_pair_kernel")
+    share = """\
+constexpr int kShareFloats = 3 * 4 * 32 + 2 * 32;
+struct Share {   // each lane's slot, (h, sigmas, side), terms, marks, offsets
+  float4 *own, *hs, *terms;
+  unsigned* hit;
+  int* off;
+};
+__device__ __forceinline__ Share share_at(float* base) {
+  Share s;
+  s.own = reinterpret_cast<float4*>(base);
+  s.hs = s.own + 32;
+  s.terms = s.hs + 32;
+  s.hit = reinterpret_cast<unsigned*>(s.terms + 32);
+  s.off = reinterpret_cast<int*>(s.hit + 32);
+  return s;
+}
+
+"""
+    shared_elements = f"""\
+    S.own[lane] = x;
+    S.hs[lane] = make_float4(h, sw, sd, row ? 1.0f : 0.0f);
+    float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const int nmax = __reduce_max_sync(0xffffffffu, n);
+    for (int b0 = 0; b0 < nmax; b0 += 32) {{
+      unsigned hit = 0;
+      const int m = min(32, n - b0);
+      for (int k = sub; k < m; k += {lanes})
+        if (r2_to(x, Q, b0 + k) + kEps < reach) hit |= 1u << k;
+      for (int o = 1; o < {lanes}; o <<= 1) hit |= __shfl_xor_sync(0xffffffffu, hit, o);
+      const int cnt = sub == 0 ? __popc(hit) : 0;
+      int end = cnt;
+      for (int o = 1; o < 32; o <<= 1) {{
+        const int v = __shfl_up_sync(0xffffffffu, end, o);
+        if (lane >= o) end += v;
+      }}
+      const int off = end - cnt;
+      const int total = __shfl_sync(0xffffffffu, end, 31);
+      if (total == 0) continue;
+      S.hit[lane] = hit;
+      S.off[lane] = off;
+      __syncwarp();
+      for (int e0 = 0; e0 < total; e0 += 32) {{
+        const int e = e0 + lane;
+        if (e < total) {{
+          int o = 0;
+          for (int step = 16; step; step >>= 1)
+            if (S.off[o + step] <= e) o += step;
+          unsigned mk = S.hit[o];
+          for (int j = e - S.off[o]; j; --j) mk &= mk - 1;
+          const float4 hs = S.hs[o];
+          S.terms[lane] = density_terms<KERNEL>(S.own[o], hs.x, hs.y, hs.z,
+                                                hs.w != 0.0f ? J : I,
+                                                b0 + __ffs((int)mk) - 1);
+        }}
+        __syncwarp();
+        for (int q = max(off, e0); q < min(end, e0 + 32); ++q) add3(sum, S.terms[q - e0]);
+        __syncwarp();
+      }}
+    }}
+    if (t < 2 * C && sub == 0) {{
+"""
+    return [
+        (kernel, share + kernel),
+        (scratch,
+         "  float* scratch = reinterpret_cast<float*>(dsm) + "
+         "(size_t)warp * (kShareFloats + 2 * dside_floats(C));\n"
+         "  const Share S = share_at(scratch);\n"
+         "  const DSide I = dside_at(scratch + kShareFloats, C);\n"
+         "  const DSide J = dside_at(scratch + kShareFloats + dside_floats(C), C);\n"),
+        (loop, f"  const int sub = lane % {lanes};\n"
+               f"  for (int t0 = 0; t0 < 2 * C; t0 += 32 / {lanes}) {{\n"
+               f"    const int t = t0 + lane / {lanes};\n"),
+        (elements, shared_elements),
+        (smem, "sizeof(float) * (kShareFloats + 2 * (size_t)dside_floats(args.C)), "
+               "stream);"),
+    ]
+
+
 VARIANTS = {
     "flash_attention": (FLASH, {
         "expf": [("float x = s[n][2 * r + c] * scale2;",
@@ -69,6 +186,30 @@ VARIANTS = {
             ("__launch_bounds__(kThreads, 8) force_pair_kernel",
              "__launch_bounds__(kThreads) force_pair_kernel")],
     }),
+    "density_pair": (PAIR, {
+        "shared": shared_edits(1),
+        "shared_lanes2": shared_edits(2),
+        "shared_lanes4": shared_edits(4),
+        "two_a_step": [(
+            "      for (; hit; hit &= hit - 1)\n"
+            "        add3(sum, density_terms<KERNEL>(x, h, sw, sd, Q, b0 + __ffs((int)hit) - 1));",
+            "      while (hit) {\n"
+            "        const int b = b0 + __ffs((int)hit) - 1;\n"
+            "        hit &= hit - 1;\n"
+            "        const int c = hit ? b0 + __ffs((int)hit) - 1 : -1;\n"
+            "        hit &= hit - 1;\n"
+            "        const float4 tb = density_terms<KERNEL>(x, h, sw, sd, Q, b);\n"
+            "        add3(sum, tb);\n"
+            "        if (c >= 0) add3(sum, density_terms<KERNEL>(x, h, sw, sd, Q, c));\n"
+            "      }")],
+        "pairs2": [("constexpr int kDensityWarps = 4;",
+                    "constexpr int kDensityWarps = 2;")],
+        "pairs8": [("constexpr int kDensityWarps = 4;",
+                    "constexpr int kDensityWarps = 8;")],
+        "every_element": [
+            ("if (r2_to(x, Q, b0 + k) + kEps < reach) hit |= 1u << k;",
+             "hit |= 1u << k;")],
+    }),
 }
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -77,8 +218,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def build(name, src, edits):
     text = open(src).read()
     for old, new in edits:
-        if old not in text:
-            raise RuntimeError(f"{name}: pattern not in the source: {old!r}")
+        if text.count(old) != 1:
+            raise RuntimeError(f"{name}: pattern not once in the source: "
+                               f"{old!r}")
         text = text.replace(old, new)
     path = os.path.join(OUT, f"{name}.cu")
     with open(path, "w") as f:
@@ -127,6 +269,24 @@ def force_caller(lib, args):
     return run
 
 
+def density_caller(lib, cells, pairs):
+    lib.sph_density_pair.argtypes = [_P] * 17 + [_I] * 4 + [_P]
+    cell_in = [cells.pos, cells.h, cells.mass, cells.mask]
+    (ncells, C), P = cells.mask.shape, pairs.ci.shape[0]
+    outs = [torch.empty((P, C), dtype=torch.float32, device="cuda")
+            for _ in range(6)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        rc = lib.sph_density_pair(
+            *(t.data_ptr() for t in cell_in + cell_in),
+            pairs.ci.data_ptr(), pairs.cj.data_ptr(), pairs.shift.data_ptr(),
+            *(t.data_ptr() for t in outs), P, C, ncells, 0, stream)
+        assert rc == 0, rc
+        return outs
+    return run
+
+
 def time_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -142,13 +302,14 @@ def time_ms(fn, reps):
     return float(np.median(out))
 
 
-def main(reps: int = 10) -> int:
+def main(reps: int = 10, *kernels: str) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
         return 2
     os.makedirs(OUT, exist_ok=True)
+    chosen = {k: v for k, v in VARIANTS.items() if not kernels or k in kernels}
     jobs = [(f"{kern}_{v}", src, edits)
-            for kern, (src, vs) in VARIANTS.items()
+            for kern, (src, vs) in chosen.items()
             for v, edits in [("shipped", [])] + list(vs.items())]
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(lambda j: build(*j), jobs))
@@ -156,14 +317,15 @@ def main(reps: int = 10) -> int:
     from repro_torch.kernels.sph_pair import ops
     spec, cells, pairs, thermo = sedov_setup("cuda")
     force_in = ops.force_inputs(cells, pairs, *thermo)
-    for kern in VARIANTS:
+    for kern in chosen:
         mine = [(n, lib, regs) for n, lib, regs in built
                 if n.startswith(kern)]
         runs = {}
         for n, lib, _ in mine:
             cl = ctypes.CDLL(lib)
             runs[n] = (flash_caller(cl) if kern == "flash_attention"
-                       else force_caller(cl, force_in))
+                       else force_caller(cl, force_in) if kern == "force_pair"
+                       else density_caller(cl, cells, pairs))
         ref = [t.clone() for t in runs[f"{kern}_shipped"]()]
         turns = {n: [] for n in runs}
         for order in (list(runs), list(runs)[::-1]):
@@ -172,12 +334,15 @@ def main(reps: int = 10) -> int:
         for n, _, regs in mine:
             got = runs[n]()
             diff = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            same = all(torch.equal(g.view(torch.int32), r.view(torch.int32))
+                       for g, r in zip(got, ref))
             print(json.dumps({"variant": n, "ms": turns[n], "registers": regs,
-                              "max_abs_diff_vs_shipped": diff}), flush=True)
+                              "max_abs_diff_vs_shipped": diff,
+                              "bitwise_shipped": same}), flush=True)
         del runs
         torch.cuda.empty_cache()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(*(int(a) for a in sys.argv[1:])))
+    sys.exit(main(*(int(a) if a.isdigit() else a for a in sys.argv[1:])))
