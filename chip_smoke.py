@@ -30,6 +30,18 @@ wrong. Phases, one line each:
    depth 4) on the card and on the CPU, compared;
 6. the global-dt engine on the same initial conditions, 3 steps, with the
    kernels' launch counts read around it;
+6b. the global × distributed quadrant (``build_simulation(SimulationSpec(
+    integrator="global", backend="distributed", ranks=4))``, the ranks
+    stacked on the card) at Sedov 48³ (cut from 64³: see DIST_NSIDE): the
+    decomposition once (task graph, partition, plan: host seconds, each
+    rank's work, cells and particles, cut edges, halo sizes and bytes),
+    then 3 steps from one state with each halo scheme (``make_dist_step``
+    from that plan) and through the API, each step's host seconds, device
+    span and launches read around it; the schemes and the API bitwise
+    equal, one launch of each pair kernel a step, and the local global-dt
+    engine tracked within the reference's conformance contract;
+6c. the same run twice at Sedov 16³, bitwise; 6d. the card against the
+    CPU at Sedov 10³, within 1e-4 of each field's scale;
 7. run-twice bitwise determinism of a one-cycle Sedov 16³ run;
 
 and for the serving slices (``python -m repro_torch.launch.serve``),
@@ -111,6 +123,14 @@ MAIN_MAX_DEPTH = 4
 # the port matches it to 1e-6), so the bound is 10 %, not the 5 % of
 # smaller runs.
 DRIFT_BOUND = 0.10
+# The global × distributed phase: Sedov 48³, not the main path's 64³. Its
+# decomposition runs the partitioner, pure Python and a copy of the
+# reference's, whose time grows as about the 1.4th power of the cells: ~5
+# min at 64³, which would not fit the run's time limit.
+DIST_NSIDE = 48
+DIST_RANKS = 4
+DIST_STEPS = 3
+DIST_DT = 1e-5          # phase 6's
 
 # The serving slices: zamba2-1.2b (ssd_scan, flash_attention) and
 # falcon-mamba-7b (selective_scan).
@@ -139,12 +159,13 @@ def say(obj: dict) -> None:
 
 def sedov_spec(n_side: int = NSIDE, **kw):
     """The main path's Sedov spec (``alpha_visc=1.0``, ``cfl=0.15``, local
-    backend); ``kw`` sets the integrator, ``max_depth`` or ``dt``."""
+    backend); ``kw`` sets the integrator, the backend, ``max_depth``,
+    ``dt`` or the distributed policy."""
     from repro_torch.sph import SimulationSpec, SPHConfig
     kw.setdefault("integrator", "timebin")
+    kw.setdefault("backend", "local")
     return SimulationSpec(scenario="sedov", scenario_params={"n_side": n_side},
-                          physics=SPHConfig(alpha_visc=1.0, cfl=0.15),
-                          backend="local", **kw)
+                          physics=SPHConfig(alpha_visc=1.0, cfl=0.15), **kw)
 
 
 def card_line() -> str:
@@ -613,6 +634,209 @@ def global_path(dev):
     assert launches["force_pair"] >= 3, launches
 
 
+def dist_spec(n_side: int, halo: str = "allgather", ranks: int = DIST_RANKS,
+              **kw):
+    """The distributed phase's spec: global dt (phase 6's), ``ranks``
+    ranks stacked on the card."""
+    return sedov_spec(n_side, integrator="global", backend="distributed",
+                      ranks=ranks, halo=halo, dt=DIST_DT, **kw)
+
+
+def dist_state(cells, accel, dudt, rho) -> list:
+    return list(cells) + [accel, dudt, rho]
+
+
+def partition_figures(eng) -> dict:
+    """The paper's numbers for one decomposition: each rank's work (the
+    cell graph's node weights summed) and its load with the cut edges
+    (computed on both sides), their imbalance (max / mean), cells and
+    particles per rank, cut edges, the plan's sizes and the halo bytes."""
+    plan, part = eng.plan, eng.decomp.partition
+    nd, a = plan.ndev, plan.assignment
+    node_w, edge_w = eng.taskgraph.cell_graph()
+    vw = np.zeros(len(a))
+    for c, w in node_w.items():
+        vw[c] = w
+    work = np.bincount(a, weights=vw, minlength=nd)
+    occ = eng.gather_cells().mask.sum(1).cpu().numpy()
+    cut = [(u, v) for (u, v) in edge_w if a[u] != a[v]]
+    C = eng.dcells.mask.shape[1]
+    valid = int(plan.import_valid.sum())
+    # floats a slot ships: pos, h, mass, mask; then vel, ρ, P, Ω, c_s
+    floats = {"positions": 6, "densities": 7}
+    return {
+        "rank_work": work.tolist(),
+        "work_imbalance": float(work.max() / work.mean()),
+        "rank_load_with_cut": part.part_loads.tolist(),
+        "load_imbalance": float(part.imbalance),
+        "rank_cells": np.bincount(a, minlength=nd).tolist(),
+        "rank_particles": np.bincount(a, weights=occ,
+                                      minlength=nd).astype(int).tolist(),
+        "cut_edges": len(cut), "edges": len(edge_w),
+        "cut_weight": float(part.edge_cut),
+        "K": plan.K, "B": plan.B, "Bi": plan.Bi, "Pmax": plan.Pmax,
+        "ring_rounds": plan.ring_rounds,
+        "plan_entries": int(plan.pair_w.sum()),
+        "import_slots": valid,
+        # per exchange: the imported cells' rows (what must reach the
+        # ranks), the reference's all_gather (every rank receives every
+        # export buffer) and the ring's windows (R rounds of every buffer)
+        "halo_bytes": {ex: {
+            "imported": 4 * f * C * valid,
+            "allgather_delivered": 4 * f * C * nd * nd * plan.B,
+            "ring_windows": 4 * f * C * plan.ring_rounds * nd * plan.B}
+            for ex, f in floats.items()}}
+
+
+def run_dist_steps(step, cells, accel, dudt, dev, K):
+    """DIST_STEPS steps of ``step`` from one state, each timed: host
+    seconds until the call returns (the host's work and launches), the
+    card's span between CUDA events around it, the wall until a
+    synchronize; and each step's launches of the pair kernels."""
+    from repro_torch.sph.engine import f32
+    rows, rho = [], None
+    for _ in range(DIST_STEPS):
+        K.reset_launches()
+        synchronize(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        cells, accel, dudt, rho = step(cells, accel, dudt, f32(DIST_DT, dev))
+        host = time.perf_counter() - t0
+        b.record()
+        synchronize(dev)
+        rows.append({"host_s": host, "wall_s": time.perf_counter() - t0,
+                     "device_span_s": a.elapsed_time(b) / 1e3,
+                     "launches": launch_counts(K)})
+    return dist_state(cells, accel, dudt, rho), rows
+
+
+def global_distributed(dev):
+    """Phase 6b: the global × distributed quadrant, DIST_RANKS ranks
+    stacked on the card, at Sedov DIST_NSIDE³. The decomposition (task
+    graph, partition, plan) runs once, in ``build_simulation``; the step
+    is built from that plan for both halo schemes and each runs
+    DIST_STEPS steps from the same state, then the API's own step runs
+    the same steps. Gates: the schemes and the API's run bitwise equal;
+    one launch of each pair kernel a step; the local global-dt engine
+    tracked within the reference's conformance contract; run-twice
+    bitwise at Sedov 16³; the card equal to the CPU at Sedov 10³."""
+    from repro_torch.kernels.sph_pair import kernel as K
+    from repro_torch.sph import build_simulation
+    from repro_torch.sph.distributed import gather_from_devices, \
+        make_dist_step
+    say({"phase": "dist_cut", "n_side": DIST_NSIDE, "main_path_n_side": NSIDE,
+         "reason": "the partitioner (pure Python, a copy of the "
+                   "reference's) takes ~5 min at 64³; 48³ keeps the run "
+                   "inside its time limit"})
+    t0 = time.perf_counter()
+    sim = build_simulation(dist_spec(DIST_NSIDE), device=dev)
+    synchronize(dev)
+    eng = sim.engine
+    say({"phase": "dist_decompose", "n_side": DIST_NSIDE,
+         "ranks": DIST_RANKS, "cells": eng.spec.ncells,
+         "C": eng.spec.capacity, "tasks": len(eng.taskgraph),
+         "setup_s": eng.setup_s, "build_s": time.perf_counter() - t0,
+         **partition_figures(eng)})
+    cells0 = eng.dcells
+    runs = {}
+    for halo in ("allgather", "ring"):
+        step, init = make_dist_step(eng.plan, eng.cfg, eng.spec.box,
+                                    halo=halo, device=dev)
+        accel, dudt, _ = init(cells0)
+        state, rows = run_dist_steps(step, cells0, accel, dudt, dev, K)
+        runs[halo] = state
+        say({"phase": "dist_steps", "halo": halo, "steps": rows,
+             "median_host_s": float(np.median([r["host_s"] for r in rows])),
+             "median_device_span_s": float(np.median(
+                 [r["device_span_s"] for r in rows])),
+             "median_wall_s": float(np.median([r["wall_s"] for r in rows]))})
+        for r in rows:
+            assert (r["launches"]["density_pair_cells"],
+                    r["launches"]["force_pair"],
+                    r["launches"]["density_pair"]) == (1, 1, 0), r
+    K.reset_launches()
+    walls = [sim.step()["wall"] for _ in range(DIST_STEPS)]
+    api_launches = launch_counts(K)
+    api = dist_state(eng.dcells, eng.accel, eng.dudt, eng.rho)
+    same = bits_equal(runs["allgather"], runs["ring"])
+    api_same = bits_equal(api, runs["allgather"])
+    # the local engine from the same IC and dt (no re-binning: the
+    # distributed engine never re-bins), within the reference's contract
+    local = build_simulation(sedov_spec(DIST_NSIDE, integrator="global",
+                                        dt=DIST_DT, rebin_every=100),
+                             device=dev)
+    for _ in range(DIST_STEPS):
+        local.step()
+    e_l, p_l = local.diagnostics()
+    e_d, p_d = sim.diagnostics()
+    g = gather_from_devices(eng.dcells, eng.plan, eng.spec.ncells)
+    lc = local.engine.state.cells
+    track = {"energy_rel": abs(e_d - e_l) / abs(e_l),
+             "momentum_abs": float(np.abs(p_d - p_l).max())}
+    ok = track["energy_rel"] <= 1e-5 and track["momentum_abs"] <= 1e-5
+    for name in ("pos", "u"):
+        x, y = getattr(g, name).double(), getattr(lc, name).double()
+        track[name + "_max_abs"] = float((x - y).abs().max())
+        ok &= bool(((x - y).abs() <= 2e-6 + 2e-5 * y.abs()).all())
+    finite = all(bool(torch.isfinite(t).all()) for t in api)
+    say({"phase": "dist_check", "allgather_equals_ring_bitwise": same,
+         "api_steps_bitwise_the_direct_steps": api_same,
+         "api_wall_s": walls, "api_launches": api_launches,
+         "finite": finite, "tracks_local_engine": ok, **track})
+    assert same, "allgather and ring halos give different states"
+    assert api_same, "build_simulation's steps differ from make_dist_step's"
+    assert api_launches["density_pair_cells"] == DIST_STEPS, api_launches
+    assert api_launches["force_pair"] == DIST_STEPS, api_launches
+    assert finite and ok, f"distributed run leaves the local engine: {track}"
+    del sim, eng, local, runs, api, cells0
+    torch.cuda.empty_cache()
+    dist_determinism(dev)
+    dist_card_matches_cpu(dev)
+    return DIST_STEPS
+
+
+def dist_determinism(dev, n_side: int = 16):
+    """Phase 6c: the distributed spec run twice on the card, bitwise."""
+    from repro_torch.sph import build_simulation
+    states = []
+    for _ in range(2):
+        sim = build_simulation(dist_spec(n_side, halo="ring"), device=dev)
+        for _ in range(DIST_STEPS):
+            sim.step()
+        e = sim.engine
+        states.append(dist_state(e.dcells, e.accel, e.dudt, e.rho))
+    same = bits_equal(*states)
+    say({"phase": "dist_determinism", "n_side": n_side, "ranks": DIST_RANKS,
+         "steps": DIST_STEPS, "bitwise_equal": same})
+    assert same, "two identical distributed runs differ"
+
+
+def dist_card_matches_cpu(dev, n_side: int = 10):
+    """Phase 6d: the distributed run on the card and on the CPU (the plain
+    versions, which the CPU tests hold against the JAX reference) within
+    1e-4 of each field's scale, as phase 5b holds the local paths."""
+    from repro_torch.sph import build_simulation
+    states = []
+    for d in (dev, "cpu"):
+        sim = build_simulation(dist_spec(n_side, halo="ring"), device=d)
+        for _ in range(2):
+            sim.step()
+        e = sim.engine
+        states.append([t.cpu() for t in dist_state(e.dcells, e.accel,
+                                                   e.dudt, e.rho)])
+    worst = 0.0
+    for x, y in zip(*states):
+        scale = max(float(y.abs().max()), 1e-30)
+        worst = max(worst, float((x.double() - y.double()).abs().max())
+                    / scale)
+    same = bits_equal(*states)
+    say({"phase": "dist_card_vs_cpu", "n_side": n_side, "ranks": DIST_RANKS,
+         "steps": 2, "bitwise_equal": same, "max_rel_diff": worst})
+    assert worst <= 1e-4, "card and CPU distributed runs disagree"
+
+
 def determinism(dev):
     """Phase 7: the same spec run twice gives bitwise-equal state."""
     from repro_torch.sph import build_simulation
@@ -1068,6 +1292,7 @@ def main() -> int:
     card_matches_cpu(dev)
     card_matches_cpu(dev, n_side=6)     # the conformance size, C = 88
     global_path(dev)
+    global_distributed(dev)
     determinism(dev)
 
     errs.update(lm_check_kernels(dev))

@@ -44,22 +44,33 @@ def _live(pairs: PairList, pair_mask, dtype):
     return live, notself * live
 
 
-def _cell_sums(side_i, side_j, incoming, ncells: int) -> torch.Tensor:
-    """Σ of each cell's contributions in table order, from +0.
+def table_sums(parts, incoming, nout: int) -> torch.Tensor:
+    """Σ of each output row's contributions in table order, from +0.
 
-    ``side_i``/``side_j`` are (P, C, F) per-pair contributions (already
-    multiplied by their masks); returns (ncells, C, F), zero in cells no
-    pair touches. Each touched cell is written once, so the result does
-    not depend on thread scheduling.
+    ``parts`` are (R_k, C, F) contribution arrays, stacked in order into
+    rows 0 … R − 1; ``incoming`` is ``(rows, table)``: the output rows some
+    contribution lands in, ascending, and for each its contributions' rows
+    in the order they are added, padded with R (a zero row). Returns
+    (nout, C, F), zero in rows no contribution lands in. Each touched row
+    is written once, so the result does not depend on thread scheduling.
     """
-    cells, table = incoming
-    stacked = torch.cat([side_i, side_j,
-                         side_i.new_zeros((1,) + side_i.shape[1:])])
-    acc = stacked.new_zeros((table.shape[0],) + side_i.shape[1:])
+    rows, table = incoming
+    stacked = torch.cat(list(parts) + [parts[0].new_zeros(
+        (1,) + parts[0].shape[1:])])
+    acc = stacked.new_zeros((table.shape[0],) + stacked.shape[1:])
     for k in range(table.shape[1]):
         acc = acc + stacked.index_select(0, table[:, k])
-    out = stacked.new_zeros((ncells,) + side_i.shape[1:])
-    return out.index_copy_(0, cells, acc)
+    out = stacked.new_zeros((nout,) + stacked.shape[1:])
+    return out.index_copy_(0, rows, acc)
+
+
+def _cell_sums(side_i, side_j, incoming, ncells: int) -> torch.Tensor:
+    """Σ of each cell's contributions in table order, from +0:
+    ``side_i``/``side_j`` (P, C, F) per-pair contributions (already
+    multiplied by their masks) stacked as ``incoming_table`` numbers its
+    rows, i-sides then j-sides; (ncells, C, F), zero in cells no pair
+    touches."""
+    return table_sums((side_i, side_j), incoming, ncells)
 
 
 def density_pairs(cells, pairs: PairList, *, kernel: str = "cubic",

@@ -1,18 +1,23 @@
 """One front-end over the engines: ``SimulationSpec`` → simulation.
 
-Port of ``repro.sph.api`` for the local quadrants:
+Port of ``repro.sph.api`` for three of the four quadrants:
 
-==============  ============  =============================================
-integrator      backend       engine
-==============  ============  =============================================
-``"global"``    ``"local"``   ``engine.Simulation`` (KDK waves)
-``"timebin"``   ``"local"``   ``timebins.TimeBinSimulation`` (KDK ladder)
-==============  ============  =============================================
+==============  =================  ========================================
+integrator      backend            engine
+==============  =================  ========================================
+``"global"``    ``"local"``        ``engine.Simulation`` (KDK waves)
+``"timebin"``   ``"local"``        ``timebins.TimeBinSimulation`` (KDK
+                                   ladder)
+``"global"``    ``"distributed"``  ``distributed.DistSimulation`` (graph-
+                                   partitioned cells, ``ranks`` stacked on
+                                   the one device; halos allgather / ring)
+==============  =================  ========================================
 
 :class:`SimulationSpec` has exactly the reference's fields, so one spec
-means the same run in both packages. The distributed backends, the
-observability hooks (``observe``) and the fleet signatures are later slices
-of the port (ROADMAP queue 1, items 9–12) and raise here.
+means the same run in both packages. The time-bin × distributed quadrant
+(ROADMAP queue 1, item 11), the observability hooks (``observe``, item 9)
+and the fleet signatures (item 12) are later slices of the port and raise
+here.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 
-from ..device import DeviceLike
+from ..device import DeviceLike, resolve_device
 from ..observability.tracer import NULL_TRACER
 from .engine import SPHConfig
 
@@ -137,9 +142,11 @@ class FrozenParams(Mapping):
 class SimulationSpec:
     """Frozen description of a run; field for field the reference's.
 
-    Fields of quadrants the port does not run yet (the distributed
-    policy) are validated as the reference validates them; building such a
-    spec raises in :func:`build_simulation`.
+    Fields of the quadrant the port does not run yet (the time-bin ×
+    distributed policy: ``transport``, ``residency``, ``schedule``, …) are
+    validated as the reference validates them; building such a spec raises
+    in :func:`build_simulation`. ``mesh_axis`` names nothing in the port:
+    the ranks are a tensor dimension, not a device mesh.
     """
     scenario: str = "uniform"
     scenario_params: Mapping[str, Any] = field(default_factory=dict)
@@ -322,9 +329,62 @@ class _LocalTimeBin(_SimulationBase):
         return stats
 
 
+class _DistGlobal(_SimulationBase):
+    """global × distributed: graph-partitioned cells, ``ranks`` ranks
+    stacked on one device (``ranks=None`` means 1)."""
+
+    def __init__(self, spec: SimulationSpec, ic: Dict[str, np.ndarray],
+                 device: DeviceLike):
+        from .cellgrid import bin_particles, build_pair_list, choose_grid
+        from .distributed import DistSimulation
+        self.spec = spec
+        self.box = float(ic["box"])
+        n = len(ic["pos"])
+        dev = resolve_device(device)
+        gspec = choose_grid(self.box, float(np.max(ic["h"])), n,
+                            capacity_margin=spec.capacity_margin)
+        cells, self.perm = bin_particles(gspec, ic["pos"], ic["vel"],
+                                         ic["mass"], ic["u"], ic["h"],
+                                         device=dev)
+        # the plan is built on the host: the pair list stays there
+        pairs = build_pair_list(gspec)
+        with _engine_layer():
+            self.engine = DistSimulation(cells, pairs, gspec,
+                                         ranks=spec.ranks or 1,
+                                         cfg=spec.physics, halo=spec.halo,
+                                         seed=spec.seed, device=dev)
+        self._time = 0.0
+
+    @property
+    def state(self):
+        return self.engine.dcells
+
+    @property
+    def time(self) -> float:
+        return self._time
+
+    def _dt(self) -> float:
+        if self.spec.dt is not None:
+            return float(self.spec.dt)
+        from .physics import cfl_timestep_block
+        c = self.engine.gather_cells()
+        dts = cfl_timestep_block(c.h, c.u, c.vel, c.mask,
+                                 gamma=self.spec.physics.gamma,
+                                 cfl=self.spec.physics.cfl)
+        return float(dts.min())
+
+    def step(self) -> Dict[str, Any]:
+        with self._tracer.timed("step") as sp:
+            dt = self._dt()
+            self.engine.step(dt)
+            self._time += dt
+        return {"t": self._time, "dt": dt, "wall": sp.elapsed}
+
+
 _QUADRANTS = {
     ("global", "local"): _LocalGlobal,
     ("timebin", "local"): _LocalTimeBin,
+    ("global", "distributed"): _DistGlobal,
 }
 
 
@@ -337,11 +397,10 @@ def build_simulation(spec: SimulationSpec,
     ``ic`` overrides the scenario lookup (pre-built initial conditions in
     the standard dict form).
     """
-    if spec.backend == "distributed":
-        item = 10 if spec.integrator == "global" else 11
+    if (spec.integrator, spec.backend) not in _QUADRANTS:
         raise NotImplementedError(
-            f"repro_torch: the {spec.integrator} × distributed quadrant is "
-            f"not ported yet (ROADMAP queue 1, item {item})")
+            f"repro_torch: the {spec.integrator} × {spec.backend} quadrant "
+            f"is not ported yet (ROADMAP queue 1, item 11)")
     if ic is None:
         ic = make_ic(spec.scenario, **dict(spec.scenario_params))
     return _QUADRANTS[(spec.integrator, spec.backend)](spec, ic, device)

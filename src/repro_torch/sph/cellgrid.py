@@ -164,17 +164,30 @@ def incoming_table(ci: np.ndarray, cj: np.ndarray, ncells: int,
     keys = np.concatenate([np.asarray(ci[:n], np.int64),
                            np.asarray(cj[:n], np.int64)])
     rows = np.concatenate([np.arange(n), P + np.arange(n)])
+    return gather_table(keys, rows, ncells, 2 * P)
+
+
+def gather_table(keys: np.ndarray, rows: np.ndarray, nkeys: int, pad: int
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Rows grouped by key: (cells, table).
+
+    ``keys`` (N,) in [0, nkeys) names where each of ``rows`` (N,) lands.
+    ``cells`` (T,) lists the keys that occur, ascending; ``table`` (T, K)
+    each one's rows in their given order, padded with ``pad``.
+    """
+    keys = np.asarray(keys, np.int64)
+    rows = np.asarray(rows, np.int64)
     order = np.argsort(keys, kind="stable")
-    counts = np.bincount(keys, minlength=ncells)
+    counts = np.bincount(keys, minlength=nkeys)
     cells = np.nonzero(counts)[0]
-    K = max(int(counts.max()) if n else 0, 1)
-    rank = np.zeros(ncells, np.int64)
+    K = max(int(counts.max()) if len(keys) else 0, 1)
+    rank = np.zeros(nkeys, np.int64)
     rank[cells] = np.arange(len(cells))
     starts = np.concatenate([[0], np.cumsum(counts[cells])[:-1]]).astype(
         np.int64)
     row_of = rank[keys[order]]
-    slot = np.arange(2 * n) - starts[row_of]
-    table = np.full((len(cells), K), 2 * P, dtype=np.int64)
+    slot = np.arange(len(keys)) - starts[row_of]
+    table = np.full((len(cells), K), pad, dtype=np.int64)
     table[row_of, slot] = rows[order]
     return cells, table
 

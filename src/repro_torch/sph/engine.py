@@ -7,8 +7,9 @@ re-binning. The pair passes always go through the sph_pair wrappers
 (``kernels/sph_pair/ops.py``): the Hopper kernels for CUDA tensors, their
 plain PyTorch versions for CPU tensors.
 
-``build_taskgraph`` needs the reference's ``core`` package (task graph,
-cost model) and waits for the slice that brings the port's copy of it.
+``build_taskgraph`` builds the paper's Fig. 1 task graph over the cell
+grid on the host (the port's ``core`` copy), the graph the distributed
+engine's domain decomposition partitions.
 """
 
 from __future__ import annotations
@@ -20,9 +21,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import CostModel, TaskGraph
 from ..device import DeviceLike, resolve_device, synchronize
 from ..observability.tracer import NULL_TRACER
-from .cellgrid import PairList, ParticleCells, bin_particles, \
+from .cellgrid import GridSpec, PairList, ParticleCells, bin_particles, \
     build_pair_list, choose_grid, unbin
 from .physics import GAMMA, cfl_timestep_block, ghost_update, \
     smoothing_length_update
@@ -164,6 +166,113 @@ def diagnostics(cells: ParticleCells) -> Tuple[float, np.ndarray]:
     ie = np.sum(m * u)
     mom = np.sum(m[..., None] * v, axis=(0, 1))
     return float(ke + ie), mom
+
+
+# -------------------------------------------------------------- task graph
+def host_array(a) -> np.ndarray:
+    """A tensor (on any device) or array-like as a host numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def build_taskgraph(spec: GridSpec, pairs: PairList,
+                    occupancy: np.ndarray,
+                    cost_model: Optional[CostModel] = None, *,
+                    cell_bins: Optional[np.ndarray] = None,
+                    level: Optional[int] = None,
+                    occupancy_by_bin: Optional[np.ndarray] = None,
+                    time_average: bool = False) -> TaskGraph:
+    """SWIFT's Fig. 1 task hierarchy for the current grid.
+
+    Per cell: sort → … → ghost → … → kick; per pair (and per self-cell):
+    density and force tasks with the dependencies of eqs. (2)–(4). Costs are
+    the cost model's asymptotic estimates over the *actual* occupancies —
+    the graph the domain decomposition partitions.
+
+    Time-bin extensions (see ``timebins.py``):
+
+    * ``cell_bins`` (ncells,) — each cell's deepest occupied time bin
+      (−1 for empty cells). With ``level`` set, every task gets an
+      *activation mask*: a per-cell task is active iff its cell holds a
+      particle in a bin ≥ level; a pair task is active iff either cell
+      does (an inactive neighbour still contributes to an active cell's
+      sums, so the pair must run). ``wave_schedule(..., active_only=True)``
+      then compiles a program over only the due work.
+    * ``time_average`` with ``occupancy_by_bin`` (ncells, nbins) — task
+      costs become cycle-averaged active work (bin b pays on a fraction
+      2**(b−d) of sub-steps), so ``decompose_cells`` balances what
+      actually runs rather than where particles merely sit.
+    """
+    cm = cost_model or CostModel(rates={})
+    g = TaskGraph()
+    nc = spec.ncells
+    occ = host_array(occupancy).astype(np.int64)
+    if time_average and occupancy_by_bin is None:
+        raise ValueError("time_average=True requires occupancy_by_bin")
+    bins_arr = None
+    if cell_bins is not None:
+        bins_arr = np.asarray(cell_bins, dtype=np.int64)
+    obb = None
+    max_bin = 0
+    if occupancy_by_bin is not None:
+        obb = np.asarray(occupancy_by_bin, dtype=np.int64)
+        max_bin = obb.shape[1] - 1
+    elif bins_arr is not None:
+        max_bin = int(bins_arr.max()) if bins_arr.size else 0
+
+    def cell_active(c: int) -> bool:
+        if bins_arr is None or level is None:
+            return True
+        return bool(bins_arr[c] >= level)
+
+    def cell_cost(kind: str, c: int) -> float:
+        if time_average:
+            return cm.timebin_units(kind, obb[c], max_bin=max_bin)
+        return cm.units(kind, max(int(occ[c]), 1))
+
+    def inter_cost(kind: str, a: int, b: Optional[int] = None) -> float:
+        if time_average:
+            return cm.timebin_units(kind, obb[a],
+                                    obb[b] if b is not None else None,
+                                    max_bin=max_bin)
+        if b is None:
+            return cm.units(kind, int(occ[a]))
+        return cm.units(kind, int(occ[a]), int(occ[b]))
+
+    sort = [g.add_task("sort", resources=(c,), writes=(c,),
+                       cost=cell_cost("sort", c), active=cell_active(c))
+            for c in range(nc)]
+    ghost = [g.add_task("ghost", resources=(c,), writes=(c,),
+                        cost=cell_cost("ghost", c), active=cell_active(c))
+             for c in range(nc)]
+    kick = [g.add_task("kick", resources=(c,), writes=(c,),
+                       cost=cell_cost("kick", c), active=cell_active(c))
+            for c in range(nc)]
+    ci = host_array(pairs.ci)
+    cj = host_array(pairs.cj)
+    for a, b in zip(ci, cj):
+        a, b = int(a), int(b)
+        if a == b:
+            act = cell_active(a)
+            d = g.add_task("density_self", resources=(a,), writes=(a,),
+                           cost=inter_cost("density_self", a), active=act)
+            f = g.add_task("force_self", resources=(a,), writes=(a,),
+                           cost=inter_cost("force_self", a), active=act)
+            res = (a,)
+        else:
+            act = cell_active(a) or cell_active(b)
+            d = g.add_task("density_pair", resources=(a, b), writes=(a, b),
+                           cost=inter_cost("density_pair", a, b), active=act)
+            f = g.add_task("force_pair", resources=(a, b), writes=(a, b),
+                           cost=inter_cost("force_pair", a, b), active=act)
+            res = (a, b)
+        for c in res:
+            g.add_dependency(d, sort[c])     # density after sort
+            g.add_dependency(ghost[c], d)    # ghost after every density
+            g.add_dependency(f, ghost[c])    # force after ghost
+            g.add_dependency(kick[c], f)     # kick after every force
+    return g
 
 
 # ------------------------------------------------------------------ driver

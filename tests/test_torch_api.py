@@ -3,7 +3,7 @@
 * ``SimulationSpec`` and ``SPHConfig`` have exactly the reference's fields
   and defaults, so one spec means the same run in both packages.
 * Entry points run on the CUDA device unless told otherwise, and raise
-  without one; the quadrants and hooks of later slices raise.
+  without one; the quadrant and hooks of later slices raise.
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything of
   the reference package ``repro``.
 """
@@ -77,10 +77,24 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 @pytest.mark.parametrize("integrator", ["global", "timebin"])
 def test_distributed_backends_raise(integrator):
+    """timebin × distributed is a later slice and raises, naming its
+    ROADMAP item; global × distributed is ported: it raises only where the
+    card is asked for and absent, and runs on the CPU when asked to."""
     spec = P.SimulationSpec(scenario="uniform", scenario_params={"n_side": 4},
-                            integrator=integrator, backend="distributed")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.build_simulation(spec, device="cpu")
+                            integrator=integrator, backend="distributed",
+                            dt=1e-3)
+    if integrator == "timebin":
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+            P.build_simulation(spec, device="cpu")
+        return
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            P.build_simulation(spec)
+    sim = P.build_simulation(spec, device="cpu")
+    sim.step()
+    e, p = sim.diagnostics()
+    assert np.isfinite(e) and np.all(np.isfinite(p))
+    assert sim.state.pos.device.type == "cpu"
 
 
 def test_observe_raises():

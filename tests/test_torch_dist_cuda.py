@@ -1,0 +1,80 @@
+"""The global × distributed quadrant on the card.
+
+Four ranks stacked on the one CUDA device, Sedov 10³ (4³ cells, C = 48):
+each step launches ``density_pair_cells`` once and ``force_pair`` once for
+all ranks' plan entries; the two halo schemes give the same bits; two runs
+give the same bits; and the card's run equals the CPU's (the kernels'
+plain versions, which tests/test_torch_distributed.py holds against the
+JAX reference) within 1e-4 of each field's scale, as ``chip_smoke.py``'s
+``card_vs_cpu`` phase holds the local paths. This file imports no JAX, so
+it runs on the card as
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_dist_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels.sph_pair import kernel as K
+from repro_torch.sph import SimulationSpec, SPHConfig, build_simulation
+from torch_threads import one_torch_thread  # noqa: F401
+
+STEPS = 2
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def spec(halo: str = "ring", n_side: int = 10, ranks: int = 4):
+    return SimulationSpec(scenario="sedov",
+                          scenario_params={"n_side": n_side},
+                          physics=SPHConfig(alpha_visc=1.0, cfl=0.15),
+                          integrator="global", backend="distributed",
+                          ranks=ranks, halo=halo, dt=1e-4)
+
+
+def run(device, **kw):
+    """Build, take STEPS steps; the final stacked state on the host."""
+    sim = build_simulation(spec(**kw), device=device)
+    for _ in range(STEPS):
+        sim.step()
+    e = sim.engine
+    return [t.cpu() for t in tuple(e.dcells) + (e.accel, e.dudt, e.rho)]
+
+
+def bits_equal(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("halo", ["allgather", "ring"])
+def test_cuda_dist_step_launches_each_pair_kernel_once(cuda_device, halo):
+    sim = build_simulation(spec(halo), device=cuda_device)
+    K.reset_launches()
+    sim.step()
+    assert (K.density_pair_cells.launches, K.force_pair.launches,
+            K.density_pair.launches) == (1, 1, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_allgather_equals_ring_and_runs_twice_bitwise(cuda_device):
+    a = run(cuda_device, halo="allgather")
+    b = run(cuda_device, halo="ring")
+    c = run(cuda_device, halo="ring")
+    assert bits_equal(a, b)
+    assert bits_equal(b, c)
+
+
+@pytest.mark.cuda
+def test_cuda_matches_cpu(cuda_device):
+    card, cpu = run(cuda_device), run("cpu")
+    for x, y in zip(card, cpu):
+        x, y = x.double().numpy(), y.double().numpy()
+        scale = max(float(np.abs(y).max()), 1e-30)
+        assert float(np.abs(x - y).max()) <= 1e-4 * scale
