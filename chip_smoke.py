@@ -42,6 +42,17 @@ wrong. Phases, one line each:
     engine tracked within the reference's conformance contract;
 6c. the same run twice at Sedov 16³, bitwise; 6d. the card against the
     CPU at Sedov 10³, within 1e-4 of each field's scale;
+6e. the time-bin × distributed quadrant (``build_simulation(SimulationSpec(
+    integrator="timebin", backend="distributed", ranks=4,
+    transport="collective"))``, one extended state per rank on the card,
+    activity-aware halos) at Sedov 48³ (cut as 6b), depth 4, two cycles:
+    the decomposition's seconds, K, H, the cut and its rounds; per cycle
+    the wall, depth, sub-steps, updates, shipped against full halo slots,
+    repartitions, launches and the wire's counters; gated bit for bit
+    against the local ladder, on each pair kernel's launches (once per
+    rank per force sub-step), on finite state and energy drift; then at
+    Sedov 16³ the host wire and both collective modes bitwise equal, a
+    run twice bitwise, and at Sedov 10³ the card against the CPU;
 7. run-twice bitwise determinism of a one-cycle Sedov 16³ run;
 
 and for the serving slices (``python -m repro_torch.launch.serve``),
@@ -837,6 +848,166 @@ def dist_card_matches_cpu(dev, n_side: int = 10):
     assert worst <= 1e-4, "card and CPU distributed runs disagree"
 
 
+# ------------------------------------------- time-bin × distributed (6e)
+TB_COUNTS = ("depth", "substeps", "force_substeps", "updates", "pair_tasks",
+             "halo_exported_slots", "halo_full_slots")
+
+
+def tb_spec(n_side: int, **kw):
+    """Phase 6e's spec: the main path's ladder (``max_depth`` cut to
+    MAIN_MAX_DEPTH) over DIST_RANKS ranks; ``kw`` sets the wire."""
+    kw.setdefault("transport", "collective")
+    return sedov_spec(n_side, backend="distributed", ranks=DIST_RANKS,
+                      max_depth=MAIN_MAX_DEPTH, **kw)
+
+
+def tb_snapshot(sim) -> list:
+    st = sim.state
+    return list(st.cells) + list(st[1:])
+
+
+def tb_stats_equal(a: list, b: list) -> bool:
+    return all([x[k] for k in TB_COUNTS] == [y[k] for k in TB_COUNTS]
+               and np.array_equal(x["bin_hist"], y["bin_hist"])
+               for x, y in zip(a, b))
+
+
+def tb_run(dev, n_side: int, **kw):
+    sim = build_tb(tb_spec(n_side, **kw), dev)
+    stats = [sim.step() for _ in range(SIM_CYCLES)]
+    return stats, [t.cpu() for t in tb_snapshot(sim)]
+
+
+def build_tb(spec, dev):
+    from repro_torch.sph import build_simulation
+    return build_simulation(spec, device=dev)
+
+
+def timebin_distributed(dev):
+    """Phase 6e: the time-bin × distributed quadrant, DIST_RANKS per-rank
+    states on the card, at Sedov DIST_NSIDE³ over the collective wire
+    (``mode="auto"``), two cycles of the depth-4 ladder. Gates: (a) bit for
+    bit the local ladder's state and counts; (b) per cycle, each pair
+    kernel launched once per rank per force sub-step and the block entry
+    never; (c) finite, energy drift under DRIFT_BOUND; (d) at Sedov 16³ the
+    host wire and the collective wire in both modes bitwise equal, with
+    equal stats; (e) the same run twice, bitwise; (f) the card against the
+    CPU at Sedov 10³ within 1e-4 of each field's scale, counts exactly."""
+    from repro_torch.kernels.sph_pair import kernel as K
+    say({"phase": "tbdist_cut", "n_side": DIST_NSIDE,
+         "main_path_n_side": NSIDE, "max_depth": MAIN_MAX_DEPTH,
+         "reason": "the partitioner (pure Python, a copy of the "
+                   "reference's) takes ~5 min at 64³; 48³ keeps the run "
+                   "inside its time limit"})
+    spec = tb_spec(DIST_NSIDE)
+    t0 = time.perf_counter()
+    sim = build_tb(spec, dev)
+    synchronize(dev)
+    eng = sim.engine
+    plan = eng._get_plan()
+    tstats = eng.transport_stats()
+    say({"phase": "tbdist_decompose", "n_side": DIST_NSIDE,
+         "ranks": DIST_RANKS, "particles": eng.n,
+         "cells": eng.spec.ncells, "C": eng.spec.capacity,
+         "pairs": len(eng._ci), "setup_s": eng.setup_s,
+         "build_s": time.perf_counter() - t0, "K": plan.K, "H": plan.H,
+         "cut_cells": len(plan.cut), "cut_slots": plan.cut_slots,
+         "export_edges": plan.export_edges(),
+         "rounds": eng._transport.rounds, "transport": tstats["kind"],
+         "mode": tstats["mode"]})
+    e0, _ = sim.diagnostics()
+    cycles, launches = [], {"density_pair": 0, "force_pair": 0}
+    for c in range(SIM_CYCLES):
+        K.reset_launches()
+        synchronize(dev)
+        st = sim.step()
+        got = launch_counts(K)
+        tr = eng.transport_stats()
+        row = {"phase": "tbdist_cycle", "cycle": c, "wall_s": st["wall"],
+               **{k: st[k] for k in TB_COUNTS},
+               "updates_per_s": st["updates"] / st["wall"],
+               "shipped_share": st["halo_exported_slots"]
+               / max(st["halo_full_slots"], 1),
+               "repartitions": eng.repartitions,
+               "repartition_s": eng.repartition_seconds,
+               "launches": got,
+               "transport": {k: tr[k] for k in (
+                   "kind", "mode", "rounds", "exchanges", "shipped_rows",
+                   "host_bytes", "programs")},
+               # distinct input signatures: the phase programs', and
+               # over the exchange programs (one per program and bucket)
+               "compiles": {k: v for k, v in tr["compiles"].items()
+                            if not k.startswith("program:")},
+               "exchange_program_signatures": sum(
+                   v for k, v in tr["compiles"].items()
+                   if k.startswith("program:"))}
+        say(row)
+        cycles.append(st)
+        n = DIST_RANKS * st["force_substeps"]
+        assert (got["density_pair_cells"], got["force_pair"],
+                got["density_pair"]) == (n, n, 0), (got, n)       # (b)
+        launches["density_pair"] += got["density_pair_cells"]
+        launches["force_pair"] += got["force_pair"]
+    e1, p1 = sim.diagnostics()
+    dist = [t.cpu() for t in tb_snapshot(sim)]
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in dist)
+    drift = abs(e1 - e0) / abs(e0)
+    del sim, eng
+    torch.cuda.empty_cache()
+    local = build_tb(spec.with_(backend="local", ranks=None), dev)
+    lstats = [local.step() for _ in range(SIM_CYCLES)]
+    same = bits_equal(dist, [t.cpu() for t in tb_snapshot(local)])
+    same_counts = all(
+        [x[k] for k in ("depth", "substeps", "force_substeps", "updates")]
+        == [y[k] for k in ("depth", "substeps", "force_substeps",
+                           "updates")]
+        and np.array_equal(x["bin_hist"], y["bin_hist"])
+        for x, y in zip(cycles, lstats))
+    del local
+    torch.cuda.empty_cache()
+    say({"phase": "tbdist_check", "bitwise_local_ladder": same,
+         "counts_equal_local_ladder": same_counts,
+         "local_wall_s": [st["wall"] for st in lstats],
+         "energy_drift": drift, "momentum": [float(x) for x in p1],
+         "finite": finite})
+    assert same and same_counts, "the distributed ladder left the local one"
+    assert finite, "non-finite state after the distributed ladder"
+    assert drift < DRIFT_BOUND, f"energy drift {drift} over {DRIFT_BOUND}"
+    # (d) the wires at 16³; (e) the ppermute run again
+    runs = {w: tb_run(dev, 16, transport=t, transport_mode=m)
+            for w, (t, m) in {"host": ("host", "auto"),
+                              "ppermute": ("collective", "ppermute"),
+                              "allgather": ("collective", "allgather"),
+                              "ppermute_again": ("collective", "ppermute")
+                              }.items()}
+    wires = (bits_equal(runs["host"][1], runs["ppermute"][1])
+             and bits_equal(runs["host"][1], runs["allgather"][1]))
+    wire_stats = (tb_stats_equal(runs["host"][0], runs["ppermute"][0])
+                  and tb_stats_equal(runs["host"][0], runs["allgather"][0]))
+    twice = bits_equal(runs["ppermute"][1], runs["ppermute_again"][1])
+    say({"phase": "tbdist_wires", "n_side": 16, "ranks": DIST_RANKS,
+         "cycles": SIM_CYCLES, "host_equals_collective_bitwise": wires,
+         "stats_equal": wire_stats, "run_twice_bitwise": twice,
+         "shipped_vs_full": [[st["halo_exported_slots"],
+                              st["halo_full_slots"]]
+                             for st in runs["host"][0]]})
+    assert wires and wire_stats, "the wires disagree"
+    assert twice, "two identical distributed time-bin runs differ"
+    # (f) the card against the CPU
+    (sa, card), (sb, cpu) = tb_run(dev, 10), tb_run("cpu", 10)
+    worst = 0.0
+    for x, y in zip(card, cpu):
+        scale = max(float(y.double().abs().max()), 1e-30)
+        worst = max(worst, float((x.double() - y.double()).abs().max())
+                    / scale)
+    counts = tb_stats_equal(sa, sb)
+    say({"phase": "tbdist_card_vs_cpu", "n_side": 10, "ranks": DIST_RANKS,
+         "cycles": SIM_CYCLES, "counts_equal": counts,
+         "bitwise_equal": bits_equal(card, cpu), "max_rel_diff": worst})
+    assert counts and worst <= 1e-4, "card and CPU runs disagree"
+    return launches
+
+
 def determinism(dev):
     """Phase 7: the same spec run twice gives bitwise-equal state."""
     from repro_torch.sph import build_simulation
@@ -1293,6 +1464,8 @@ def main() -> int:
     card_matches_cpu(dev, n_side=6)     # the conformance size, C = 88
     global_path(dev)
     global_distributed(dev)
+    for name, n in timebin_distributed(dev).items():
+        launches[name] += n
     determinism(dev)
 
     errs.update(lm_check_kernels(dev))

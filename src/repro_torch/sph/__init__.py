@@ -4,13 +4,17 @@ Enter through ``SimulationSpec`` + ``build_simulation`` (``api.py``), as
 in the reference; ``build_simulation(..., device=None)`` runs on the CUDA
 device and raises if there is none, ``device="cpu"`` runs the plain
 PyTorch path. The global × distributed engine
-(``distributed.DistSimulation``) stacks its ranks on that one device.
+(``distributed.DistSimulation``) stacks its ranks on that one device; the
+time-bin × distributed engine (``dist_timebins.DistTimeBinSimulation``)
+keeps one extended state per rank on it.
 """
 
 from .api import (SCENARIOS, FrozenParams, SimulationSpec, build_simulation,
                   make_ic, register_scenario)
 from .cellgrid import (GridSpec, PairList, ParticleCells, bin_particles,
                        build_pair_list, choose_grid, unbin)
+from .dist_timebins import (DistTimeBinSimulation, build_rank_plan,
+                            halo_export_schedule)
 from .distributed import (DistPlan, DistSimulation, build_dist_plan,
                           make_dist_step)
 from .engine import (SPHConfig, SPHState, Simulation, build_taskgraph,
@@ -29,6 +33,7 @@ __all__ = [
     "make_ic", "register_scenario",
     "GridSpec", "PairList", "ParticleCells", "bin_particles",
     "build_pair_list", "choose_grid", "unbin",
+    "DistTimeBinSimulation", "build_rank_plan", "halo_export_schedule",
     "DistPlan", "DistSimulation", "build_dist_plan", "make_dist_step",
     "SPHConfig", "SPHState", "Simulation", "build_taskgraph", "cfl_timestep",
     "cfl_timestep_particles", "compute_accelerations", "init_state", "step",

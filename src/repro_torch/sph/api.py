@@ -1,6 +1,6 @@
 """One front-end over the engines: ``SimulationSpec`` → simulation.
 
-Port of ``repro.sph.api`` for three of the four quadrants:
+Port of ``repro.sph.api`` for the four quadrants:
 
 ==============  =================  ========================================
 integrator      backend            engine
@@ -11,13 +11,18 @@ integrator      backend            engine
 ``"global"``    ``"distributed"``  ``distributed.DistSimulation`` (graph-
                                    partitioned cells, ``ranks`` stacked on
                                    the one device; halos allgather / ring)
+``"timebin"``   ``"distributed"``  ``dist_timebins.DistTimeBinSimulation``
+                                   (activity-aware halos, per-rank states
+                                   on the one device; host or collective
+                                   wire)
 ==============  =================  ========================================
 
 :class:`SimulationSpec` has exactly the reference's fields, so one spec
 means the same run in both packages. The time-bin × distributed quadrant
-(ROADMAP queue 1, item 11), the observability hooks (``observe``, item 9)
-and the fleet signatures (item 12) are later slices of the port and raise
-here.
+runs the reference's host residency and host schedule; its device
+residency, device schedule and segments (ROADMAP queue 1, item 11b), the
+observability hooks (``observe``, item 9) and the fleet signatures (item
+12) are later slices of the port and raise.
 """
 
 from __future__ import annotations
@@ -142,11 +147,12 @@ class FrozenParams(Mapping):
 class SimulationSpec:
     """Frozen description of a run; field for field the reference's.
 
-    Fields of the quadrant the port does not run yet (the time-bin ×
-    distributed policy: ``transport``, ``residency``, ``schedule``, …) are
-    validated as the reference validates them; building such a spec raises
-    in :func:`build_simulation`. ``mesh_axis`` names nothing in the port:
-    the ranks are a tensor dimension, not a device mesh.
+    The time-bin × distributed policy (``transport``, ``residency``,
+    ``schedule``, …) is validated as the reference validates it;
+    ``residency="device"`` (and with it ``schedule="device"`` and
+    ``segment_cycles > 1``) raises when the engine is built (ROADMAP queue
+    1, item 11b). ``mesh_axis`` names nothing in the port: the ranks share
+    one device.
     """
     scenario: str = "uniform"
     scenario_params: Mapping[str, Any] = field(default_factory=dict)
@@ -381,10 +387,42 @@ class _DistGlobal(_SimulationBase):
         return {"t": self._time, "dt": dt, "wall": sp.elapsed}
 
 
+class _DistTimeBin(_SimulationBase):
+    """timebin × distributed: activity-aware halos over a rank partition,
+    every rank's extended state on the one device. ``ranks=None`` means 1
+    (the reference counts its JAX devices instead)."""
+
+    def __init__(self, spec: SimulationSpec, ic: Dict[str, np.ndarray],
+                 device: DeviceLike):
+        from .dist_timebins import DistTimeBinSimulation
+        self.spec = spec
+        self.engine = DistTimeBinSimulation(
+            ic["pos"], ic["vel"], ic["mass"], ic["u"], ic["h"],
+            box=float(ic["box"]), cfg=spec.physics, nranks=spec.ranks or 1,
+            activity_aware=spec.activity_aware_halos,
+            repartition_threshold=spec.repartition_threshold,
+            seed=spec.seed, dt_max=spec.dt_max, max_depth=spec.max_depth,
+            bin_delta=spec.bin_delta, depth_headroom=spec.depth_headroom,
+            capacity_margin=spec.capacity_margin,
+            transport=spec.transport, transport_mode=spec.transport_mode,
+            residency=spec.residency, schedule=spec.schedule,
+            segment_cycles=spec.segment_cycles, device=device)
+
+    @property
+    def time(self) -> float:
+        return float(self.engine.state.time)
+
+    def step(self) -> Dict[str, Any]:
+        stats = self.engine.run_cycle()
+        stats["dt"] = stats["dt_max"]
+        return stats
+
+
 _QUADRANTS = {
     ("global", "local"): _LocalGlobal,
     ("timebin", "local"): _LocalTimeBin,
     ("global", "distributed"): _DistGlobal,
+    ("timebin", "distributed"): _DistTimeBin,
 }
 
 
@@ -397,10 +435,6 @@ def build_simulation(spec: SimulationSpec,
     ``ic`` overrides the scenario lookup (pre-built initial conditions in
     the standard dict form).
     """
-    if (spec.integrator, spec.backend) not in _QUADRANTS:
-        raise NotImplementedError(
-            f"repro_torch: the {spec.integrator} × {spec.backend} quadrant "
-            f"is not ported yet (ROADMAP queue 1, item 11)")
     if ic is None:
         ic = make_ic(spec.scenario, **dict(spec.scenario_params))
     return _QUADRANTS[(spec.integrator, spec.backend)](spec, ic, device)

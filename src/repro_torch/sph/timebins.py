@@ -129,6 +129,26 @@ def speed_norm(vel: np.ndarray):
     return np.sqrt((v0 * v0 + v1 * v1) + v2 * v2)
 
 
+def cell_max_bins(bins: np.ndarray, mask: np.ndarray) -> np.ndarray:
+    """Deepest occupied bin per cell, −1 for empty cells: (ncells,)."""
+    b = np.where(np.asarray(mask) > 0, np.asarray(bins), -1)
+    return b.max(axis=1).astype(np.int64)
+
+
+def cell_bin_histogram(bins: np.ndarray, mask: np.ndarray,
+                       nbins: int) -> np.ndarray:
+    """(ncells, nbins) occupancy histogram over time bins."""
+    bins = np.asarray(bins)
+    mask = np.asarray(mask) > 0
+    ncells = bins.shape[0]
+    out = np.zeros((ncells, nbins), dtype=np.int64)
+    for c in range(ncells):
+        bc = bins[c][mask[c]]
+        if len(bc):
+            out[c] = np.bincount(np.clip(bc, 0, nbins - 1), minlength=nbins)
+    return out
+
+
 def neighbour_table(ci: np.ndarray, cj: np.ndarray, ncells: int
                     ) -> np.ndarray:
     """(ncells, K) the cells each cell shares a pair with (padded with the

@@ -3,7 +3,7 @@
 * ``SimulationSpec`` and ``SPHConfig`` have exactly the reference's fields
   and defaults, so one spec means the same run in both packages.
 * Entry points run on the CUDA device unless told otherwise, and raise
-  without one; the quadrant and hooks of later slices raise.
+  without one; all four quadrants build; the hooks of later slices raise.
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything of
   the reference package ``repro``.
 """
@@ -77,16 +77,11 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 @pytest.mark.parametrize("integrator", ["global", "timebin"])
 def test_distributed_backends_raise(integrator):
-    """timebin × distributed is a later slice and raises, naming its
-    ROADMAP item; global × distributed is ported: it raises only where the
+    """Both distributed quadrants are ported: each raises only where the
     card is asked for and absent, and runs on the CPU when asked to."""
     spec = P.SimulationSpec(scenario="uniform", scenario_params={"n_side": 4},
                             integrator=integrator, backend="distributed",
-                            dt=1e-3)
-    if integrator == "timebin":
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-            P.build_simulation(spec, device="cpu")
-        return
+                            dt=1e-3, dt_max=2e-3, max_depth=2, ranks=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             P.build_simulation(spec)
@@ -94,7 +89,9 @@ def test_distributed_backends_raise(integrator):
     sim.step()
     e, p = sim.diagnostics()
     assert np.isfinite(e) and np.all(np.isfinite(p))
-    assert sim.state.pos.device.type == "cpu"
+    cells = sim.state if integrator == "global" else sim.state.cells
+    assert cells.pos.device.type == "cpu"
+    assert all(bool(torch.isfinite(t).all()) for t in cells)
 
 
 def test_observe_raises():
@@ -133,6 +130,9 @@ import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+for m in ("repro_torch.distributed.transport", "repro_torch.sph.collectives",
+          "repro_torch.sph.dist_timebins"):
+    assert m in sys.modules, m
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
              or k == "repro" or k.startswith("repro."))

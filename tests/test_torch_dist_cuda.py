@@ -1,13 +1,22 @@
-"""The global × distributed quadrant on the card.
+"""The two distributed quadrants on the card.
 
+**Global × distributed.**
 Four ranks stacked on the one CUDA device, Sedov 10³ (4³ cells, C = 48):
 each step launches ``density_pair_cells`` once and ``force_pair`` once for
 all ranks' plan entries; the two halo schemes give the same bits; two runs
 give the same bits; and the card's run equals the CPU's (the kernels'
 plain versions, which tests/test_torch_distributed.py holds against the
 JAX reference) within 1e-4 of each field's scale, as ``chip_smoke.py``'s
-``card_vs_cpu`` phase holds the local paths. This file imports no JAX, so
-it runs on the card as
+``card_vs_cpu`` phase holds the local paths.
+
+**Time-bin × distributed**, Sedov 10³, 4 ranks, depth 4: a cycle launches
+``density_pair_cells`` and ``force_pair`` once per rank per force
+sub-step (``nranks × force_substeps`` each) and the block entry never; the
+collective wire in both modes gives the host wire's bits; the run is bit
+for bit the local ladder's on the card; and the card's run equals the
+CPU's within 1e-4 of each field's scale, counts exactly.
+
+This file imports no JAX, so it runs on the card as
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_dist_cuda.py
 """
@@ -74,6 +83,70 @@ def test_cuda_allgather_equals_ring_and_runs_twice_bitwise(cuda_device):
 @pytest.mark.cuda
 def test_cuda_matches_cpu(cuda_device):
     card, cpu = run(cuda_device), run("cpu")
+    for x, y in zip(card, cpu):
+        x, y = x.double().numpy(), y.double().numpy()
+        scale = max(float(np.abs(y).max()), 1e-30)
+        assert float(np.abs(x - y).max()) <= 1e-4 * scale
+
+
+# ------------------------------------------------ time-bin × distributed
+def tb_spec(n_side: int = 10, **kw):
+    kw.setdefault("ranks", 4)
+    return SimulationSpec(scenario="sedov",
+                          scenario_params={"n_side": n_side},
+                          physics=SPHConfig(alpha_visc=1.0, cfl=0.15),
+                          integrator="timebin", backend="distributed",
+                          max_depth=4, **kw)
+
+
+def tb_run(device, cycles: int = 2, **kw):
+    """Build, run ``cycles`` cycles; (stats, state fields on the host)."""
+    sim = build_simulation(tb_spec(**kw), device=device)
+    stats = [sim.step() for _ in range(cycles)]
+    st = sim.state
+    fields = [t.cpu() for t in tuple(st.cells) + tuple(st[1:])]
+    return stats, fields
+
+
+COUNT_KEYS = ("depth", "substeps", "force_substeps", "updates",
+              "pair_tasks", "halo_exported_slots", "halo_full_slots")
+
+
+@pytest.mark.cuda
+def test_cuda_timebin_cycle_launch_counts(cuda_device):
+    sim = build_simulation(tb_spec(), device=cuda_device)
+    K.reset_launches()
+    st = sim.step()
+    n = 4 * st["force_substeps"]
+    assert st["force_substeps"] > 1
+    assert (K.density_pair_cells.launches, K.force_pair.launches,
+            K.density_pair.launches) == (n, n, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_timebin_wires_bitwise_and_local_ladder(cuda_device):
+    sa, a = tb_run(cuda_device, transport="host")
+    sb, b = tb_run(cuda_device, transport="collective",
+                   transport_mode="ppermute")
+    sc, c = tb_run(cuda_device, transport="collective",
+                   transport_mode="allgather")
+    assert bits_equal(a, b) and bits_equal(a, c)
+    for x, y, z in zip(sa, sb, sc):
+        assert [x[k] for k in COUNT_KEYS] == [y[k] for k in COUNT_KEYS] \
+            == [z[k] for k in COUNT_KEYS]
+    sim = build_simulation(tb_spec().with_(backend="local", ranks=None),
+                           device=cuda_device)
+    for _ in range(2):
+        sim.step()
+    st = sim.state
+    assert bits_equal(a, [t.cpu() for t in tuple(st.cells) + tuple(st[1:])])
+
+
+@pytest.mark.cuda
+def test_cuda_timebin_matches_cpu(cuda_device):
+    (sa, card), (sb, cpu) = tb_run(cuda_device), tb_run("cpu")
+    for x, y in zip(sa, sb):
+        assert [x[k] for k in COUNT_KEYS] == [y[k] for k in COUNT_KEYS]
     for x, y in zip(card, cpu):
         x, y = x.double().numpy(), y.double().numpy()
         scale = max(float(np.abs(y).max()), 1e-30)

@@ -325,8 +325,14 @@ def test_ranks_default_to_one_and_timebin_still_raises():
     spec = SimulationSpec(scenario="uniform", scenario_params={"n_side": 4},
                           integrator="global", backend="distributed", dt=1e-3)
     assert build_simulation(spec, device="cpu").engine.plan.ndev == 1
-    with pytest.raises(NotImplementedError, match="item 11"):
-        build_simulation(spec.with_(integrator="timebin"), device="cpu")
+    # the time-bin quadrant is ported too: ranks=None builds one rank;
+    # its device residency is a later slice and raises, naming it
+    tb = spec.with_(integrator="timebin", dt_max=2e-3, max_depth=2)
+    eng = build_simulation(tb, device="cpu").engine
+    assert eng.nranks == 1 and eng._get_plan().nranks == 1
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        build_simulation(tb.with_(transport="collective",
+                                  residency="device"), device="cpu")
     from repro_torch.sph.distributed import DistSimulation
     _, cells, pairs, _ = _port_plan(uniform_ic(4), 1)
     gs = choose_grid(1.0, float(uniform_ic(4)["h"].max()), 64,
