@@ -28,6 +28,14 @@ wrong. Phases, one line each:
    cut to 4, see MAIN_MAX_DEPTH) for two cycles, with the kernels' launch
    counts read around it; then the same small runs (Sedov 10³ and 6³ at
    depth 4) on the card and on the CPU, compared;
+5c. (run after 6e) the main path observed: the same run with
+   ``observe=True``, traced with the telemetry rows off (the fences
+   alone), and untraced again; each bit for bit phase 5 with its launches;
+   the trace valid, the JSONL log read back equal, the record's ledgers
+   the engine's probes, cost ratios present; the traced, fences-only and
+   untraced walls, what the fences and the telemetry cost, the schema-v3
+   record's span count, wall by phase, dead time and device-metrics
+   summary; then the trace rendered by ``repro_torch.analysis.report``;
 6. the global-dt engine on the same initial conditions, 3 steps, with the
    kernels' launch counts read around it;
 6b. the global × distributed quadrant (``build_simulation(SimulationSpec(
@@ -53,6 +61,13 @@ wrong. Phases, one line each:
     rank per force sub-step), on finite state and energy drift; then at
     Sedov 16³ the host wire and both collective modes bitwise equal, a
     run twice bitwise, and at Sedov 10³ the card against the CPU;
+6f. ``python -m repro_torch.observability``'s default run (time-bin ×
+    distributed, collective wire, host residency, 4 ranks) at Sedov 16³
+    in process, untraced, traced, fences-only and untraced again: bit for
+    bit, the same program signatures and launches, the CLI's checks
+    (trace, rows, record against the probes, per-rank per-phase work),
+    finite imbalance and dead time; then ``dump --inject-nan`` (the NaN sentinel trips, the
+    bundle validates) and ``advise`` over the metrics log;
 7. run-twice bitwise determinism of a one-cycle Sedov 16³ run;
 
 and for the serving slices (``python -m repro_torch.launch.serve``),
@@ -104,11 +119,10 @@ import torch  # noqa: E402
 
 from repro_torch.device import synchronize  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, non-tensor-core f32
-# FLOP/s, dense TF32 tensor-core FLOP/s
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
+# bounds: bytes over HBM3's rate against operations over the peak f32 or
+# dense TF32 rate (H100 SXM data sheet, repro_torch/analysis/roofline.py)
+from repro_torch.analysis.roofline import (  # noqa: E402
+    PEAK_TF32_FLOPS, Roofline)
 # flash_attention and ssd_scan keep f32 accuracy on the tensor cores by
 # splitting each product into three TF32 products
 TF32_SPLIT = 3
@@ -517,16 +531,14 @@ def time_kernels(spec, cells, pairs, thermo):
                 lambda: K.density_pair(*density_blocks(cells, pairs)),
                 reps=10)
             extra.update(density_reach(cells, pairs))
-        t_bytes = moved / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops_n / PEAK_F32_FLOPS * 1e3
+        roof = Roofline(moved, ops_n)
         rows[name] = dict(ms=ms, plain_ms=plain_ms,
-                          bound_ms=max(t_bytes, t_ops),
-                          bound_by="bytes" if t_bytes >= t_ops
-                          else "operations",
+                          bound_ms=roof.t_bound * 1e3,
+                          bound_by=roof.bottleneck,
                           bytes=moved, operations=ops_n,
                           live_slot_pairs=live,
-                          all_slot_bound_ms=max(
-                              all_slots / PEAK_BYTES_PER_S * 1e3, t_ops),
+                          all_slot_bound_ms=Roofline(
+                              all_slots, ops_n).t_bound * 1e3,
                           **extra)
         say({"phase": "timing", "kernel": name, "P": int(pairs.ci.shape[0]),
              "C": spec.capacity, **rows[name],
@@ -561,8 +573,10 @@ def main_path(dev, max_depth: int = MAIN_MAX_DEPTH):
                    "depth 10 on this IC (port and JAX reference alike)"})
     e0, p0 = sim.diagnostics()
     K.reset_launches()
+    walls = []
     for c in range(SIM_CYCLES):
         st = sim.step()
+        walls.append(st["wall"])
         say({"phase": "main_path_cycle", "cycle": c, "wall_s": st["wall"],
              "depth": st["depth"], "substeps": st["substeps"],
              "force_substeps": st["force_substeps"],
@@ -583,8 +597,14 @@ def main_path(dev, max_depth: int = MAIN_MAX_DEPTH):
     assert drift < DRIFT_BOUND, f"energy drift {drift} over {DRIFT_BOUND}"
     assert launches["density_pair_cells"] > 0, launches
     assert launches["force_pair"] > 0, launches
-    return {"density_pair": launches["density_pair_cells"]
-            + launches["density_pair"], "force_pair": launches["force_pair"]}
+    return {"launches": launches, "walls": walls,
+            "state": [t.cpu() for t in tb_snapshot(sim)]}
+
+
+def kernel_launches(counts: dict) -> dict:
+    """A launch_counts() reading as the kernels line's two SPH rows."""
+    return {"density_pair": counts["density_pair_cells"]
+            + counts["density_pair"], "force_pair": counts["force_pair"]}
 
 
 def card_matches_cpu(dev, n_side: int = 10, max_depth: int = 4):
@@ -1008,6 +1028,230 @@ def timebin_distributed(dev):
     return launches
 
 
+# ------------------------------------------------------------ observability
+# Phase 6f: the traced time-bin × distributed run at Sedov 16³, the only
+# size whose decomposition fits the script's time (the partitioner, pure
+# Python, takes about a minute at 48³ on the card's host).
+OBS_NSIDE = 16
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured: (result, text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+# the fences alone: tracing on, the telemetry rows off
+FENCES_ONLY = {"device_metrics": False}
+
+
+def observed_runs(spec, dev, runs):
+    """Build and step ``spec`` once per entry of ``runs`` (its ``observe``
+    value), SIM_CYCLES cycles each, with the pair kernels' launches set to
+    0 just before and read just after; returns each run's simulation, its
+    cycle walls, its launches and its final state on the host."""
+    from repro_torch.kernels.sph_pair import kernel as K
+    from repro_torch.sph import build_simulation
+    out = []
+    for traced in runs:
+        sim = build_simulation(spec.with_(observe=traced), device=dev)
+        synchronize(dev)
+        K.reset_launches()
+        walls = [sim.step()["wall"] for _ in range(SIM_CYCLES)]
+        out.append({"sim": sim, "walls": walls,
+                    "launches": launch_counts(K),
+                    "state": [t.cpu() for t in tb_snapshot(sim)]})
+    return out
+
+
+def overhead(walls: list, base: list) -> list:
+    """Per cycle: ``walls`` less the mean of the ``base`` runs' walls."""
+    return [t - sum(u) / len(u) for t, u in zip(walls, zip(*base))]
+
+
+def export_records(obs, out_dir: str):
+    """The observer's trace and metrics log written under ``out_dir``:
+    (trace document, trace path, metrics path, records read back)."""
+    from repro_torch.observability import read_metrics_jsonl
+    tpath = os.path.join(out_dir, "trace.json")
+    mpath = os.path.join(out_dir, "metrics.jsonl")
+    doc = obs.export_chrome_trace(tpath)
+    obs.write_metrics_jsonl(mpath)
+    return doc, tpath, mpath, read_metrics_jsonl(mpath)
+
+
+def record_summary(rec: dict) -> dict:
+    """What a v3 record says about where a cycle went."""
+    dmx = rec.get("device_metrics") or {}
+    return {"phase_wall_s": rec.get("phase_wall"),
+            "phase_count": rec.get("phase_count"),
+            "imbalance": rec.get("imbalance"),
+            "dead_frac": rec.get("dead_frac"),
+            "device_metrics": {k: dmx.get(k) for k in (
+                "per_rank_work", "imbalance", "flags", "tripped")},
+            "device_phase_units": rec.get("device_phase_units"),
+            "cost_ratios": rec.get("cost_ratios")}
+
+
+def observed_main_path(dev, phase5: dict):
+    """Phase 5c: the main path of phase 5 (Sedov 64³, depth 4, two
+    cycles, the same IC) with ``observe=True``, then traced with the
+    telemetry rows off (the fences alone), then untraced. Gates: each
+    run's state bit for bit phase 5's and the pair kernels' launches equal
+    to phase 5's (fences only wait); the trace valid; the
+    JSONL log read back equal to ``observer.records``; the record's byte
+    and compile ledgers those of the engine's probes (the local ladder has
+    none, so the record must carry none); measured-vs-modelled cost ratios
+    present. Prints the traced and untraced walls, the fences' cost and the
+    last record's breakdown, then renders the trace with the report."""
+    import tempfile
+    from repro_torch.analysis.report import trace_report
+    from repro_torch.observability import validate_chrome_trace
+    runs = observed_runs(sedov_spec(max_depth=MAIN_MAX_DEPTH), dev,
+                         (True, FENCES_ONLY, False))
+    traced, fences, untraced = runs
+    sim = traced["sim"]
+    obs, eng = sim.observer, sim.engine
+    bitwise = all(bits_equal(r["state"], phase5["state"]) for r in runs)
+    same_launches = all(r["launches"] == phase5["launches"] for r in runs)
+    with tempfile.TemporaryDirectory() as tmp:
+        doc, tpath, mpath, back = export_records(obs, tmp)
+        report = trace_report(tpath, mpath)
+    errors = validate_chrome_trace(doc)
+    probes = {}
+    for key, probe in (("transfers", getattr(eng, "transfers", None)),
+                       ("compiles", getattr(eng, "probe", None))):
+        have = [key in r for r in obs.records]
+        if probe is None:
+            probes[key] = "no probe on this engine" if not any(have) \
+                else "record has a ledger the engine lacks"
+        else:
+            want = probe.stats() if key == "transfers" else probe.counts()
+            probes[key] = "equal" if obs.records[-1].get(key) == want \
+                else "differ"
+    rec = obs.records[-1]
+    header = next((ln for ln in report.splitlines()
+                   if ln.lstrip().startswith("cycle ")), None)
+    untraced_walls = [phase5["walls"], untraced["walls"]]
+    say({"phase": "observed_main_path", "n_side": NSIDE,
+         "max_depth": MAIN_MAX_DEPTH, "cycles": SIM_CYCLES,
+         "traced_wall_s": traced["walls"],
+         "fences_only_wall_s": fences["walls"],
+         "untraced_wall_s": untraced_walls,
+         "fence_overhead_s": overhead(fences["walls"], untraced_walls),
+         "telemetry_overhead_s": overhead(traced["walls"],
+                                          [fences["walls"]]),
+         "bitwise_equal_main_path": bitwise,
+         "launches": traced["launches"], "launches_equal": same_launches,
+         "trace_errors": errors[:3], "jsonl_round_trip": back == obs.records,
+         "probes": probes, "spans": len(obs.tracer.spans),
+         "trace_events": len(doc["traceEvents"]),
+         **record_summary(rec),
+         "report_lines": len(report.splitlines()), "report_header": header})
+    assert bitwise, "the traced main path left the untraced one"
+    assert same_launches, "tracing changed the pair kernels' launches"
+    assert errors == [], errors[:3]
+    assert back == obs.records, "metrics.jsonl does not read back"
+    assert all(v in ("equal", "no probe on this engine")
+               for v in probes.values()), probes
+    assert rec["cost_ratios"], "no measured-vs-modelled cost ratios"
+    assert header is not None, "the report has no per-cycle table"
+    return kernel_launches(traced["launches"])
+
+
+def observed_timebin_distributed(dev):
+    """Phase 6f: ``python -m repro_torch.observability``'s default run (the
+    time-bin × distributed quadrant, collective wire, host residency,
+    DIST_RANKS ranks) at Sedov OBS_NSIDE³, two cycles each: untraced,
+    traced, fences-only (telemetry rows off), untraced again, in process. Gates: traced bit for bit untraced, with equal CompileProbe
+    counts and pair-kernel launches; the CLI's checks (trace valid, one row
+    per rank with a density and a force slice per force sub-step, record
+    ledgers equal to the probes, per-rank per-phase work present and summed
+    per cell, one metrics pull a cycle); imbalance and dead_frac finite.
+    Then ``dump --inject-nan``: the NaN sentinel trips and the bundle
+    validates; then ``advise`` over the metrics log."""
+    import math
+    import tempfile
+    from repro_torch.observability.__main__ import (advise_main, check_run,
+                                                    dump_main, run_spec)
+    from repro_torch.observability.flight import validate_bundle
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = run_spec(OBS_NSIDE, DIST_RANKS, out_dir=tmp)
+        # untraced first and last, so the base walls bracket the others
+        untraced, traced, fences, again = observed_runs(
+            spec, dev, (False, True, FENCES_ONLY, False))
+        base = [untraced["walls"], again["walls"]]
+        sim = traced["sim"]
+        obs = sim.observer
+        doc, _, mpath, back = export_records(obs, tmp)
+        failures = check_run(sim, doc, DIST_RANKS, SIM_CYCLES)
+        compiles = (traced["sim"].engine.probe.counts(),
+                    untraced["sim"].engine.probe.counts())
+        finite = all(math.isfinite(r[k]) for r in obs.records
+                     for k in ("imbalance", "dead_frac"))
+        advisor = [r["advisor"] for r in obs.records]
+        rc_adv, adv_text = quiet(advise_main, ["--metrics", mpath])
+        say({"phase": "observed_tbdist", "n_side": OBS_NSIDE,
+             "ranks": DIST_RANKS, "transport": spec.transport,
+             "residency": spec.residency, "cycles": SIM_CYCLES,
+             "traced_wall_s": traced["walls"],
+             "fences_only_wall_s": fences["walls"],
+             "untraced_wall_s": base,
+             "fence_overhead_s": overhead(fences["walls"], base),
+             "telemetry_overhead_s": overhead(traced["walls"],
+                                              [fences["walls"]]),
+             "bitwise_equal_untraced": all(
+                 bits_equal(r["state"], untraced["state"])
+                 for r in (traced, fences, again)),
+             "compiles_equal": compiles[0] == compiles[1],
+             "launches": traced["launches"],
+             "launches_equal": traced["launches"] == untraced["launches"]
+             == fences["launches"] == again["launches"],
+             "cli_checks_failed": failures, "finite": finite,
+             "jsonl_round_trip": back == obs.records,
+             "spans": len(obs.tracer.spans),
+             **record_summary(obs.records[-1]),
+             "bin_occupancy_imbalance":
+                 obs.records[-1].get("bin_occupancy_imbalance"),
+             "advisor": [{k: a[k] for k in ("current_imbalance",
+                                            "advised_imbalance",
+                                            "accepted")} if a else None
+                         for a in advisor],
+             "advise_rc": rc_adv,
+             "advise_lines": len(adv_text.splitlines())})
+        assert all(bits_equal(r["state"], untraced["state"])
+                   for r in (traced, fences, again)), \
+            "the traced distributed ladder left the untraced one"
+        assert compiles[0] == compiles[1], compiles
+        assert traced["launches"] == untraced["launches"] \
+            == fences["launches"] == again["launches"], \
+            "tracing changed the pair kernels' launches"
+        assert not failures, failures
+        assert finite and back == obs.records
+        assert rc_adv == 0 and all(a is not None for a in advisor)
+        launches = kernel_launches(traced["launches"])
+        del sim, obs, traced, untraced, fences, again
+        rc, text = quiet(dump_main, ["--inject-nan", "--n-side",
+                                     str(OBS_NSIDE), "--ranks",
+                                     str(DIST_RANKS), "--out-dir", tmp,
+                                     "--device", str(dev)])
+        dumped = json.loads(text)
+        manifests = [validate_bundle(d["bundle"]) for d in dumped["dumps"]]
+        say({"phase": "observed_flight_dump", "n_side": OBS_NSIDE,
+             "rc": rc, "tripped": dumped["tripped"],
+             "bundles": [{k: m[k] for k in ("reason", "cycle",
+                                            "ring_cycles", "records")}
+                         for m in manifests]})
+        assert rc == 0 and dumped["tripped"], "the NaN sentinel did not trip"
+        assert any(m["reason"] == "nan" for m in manifests), manifests
+    torch.cuda.empty_cache()
+    return launches
+
+
 def determinism(dev):
     """Phase 7: the same spec run twice gives bitwise-equal state."""
     from repro_torch.sph import build_simulation
@@ -1136,15 +1380,14 @@ def lm_bound(name, ops, moved) -> dict:
     kernels on the tensor cores (``TENSOR_CORE_KERNELS``) keep f32 accuracy
     with three TF32 products each; the f32 FMA figure stands beside their
     bound as ``fma_bound_ms``."""
-    t_bytes = moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    fma = Roofline(moved, ops)
     if name not in TENSOR_CORE_KERNELS:
-        return {"bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    t_tc = TF32_SPLIT * ops / PEAK_TF32_FLOPS * 1e3
-    return {"bound_ms": max(t_bytes, t_tc),
-            "bound_by": "bytes" if t_bytes >= t_tc else "operations (3×TF32)",
-            "fma_bound_ms": max(t_bytes, t_ops)}
+        return {"bound_ms": fma.t_bound * 1e3, "bound_by": fma.bottleneck}
+    tc = Roofline(moved, TF32_SPLIT * ops, PEAK_TF32_FLOPS)
+    return {"bound_ms": tc.t_bound * 1e3,
+            "bound_by": "bytes" if tc.bottleneck == "bytes"
+            else "operations (3×TF32)",
+            "fma_bound_ms": fma.t_bound * 1e3}
 
 
 def lm_check_kernels(dev):
@@ -1459,13 +1702,19 @@ def main() -> int:
     del cells, pairs, thermo
     torch.cuda.empty_cache()
 
-    launches = main_path(dev)
+    phase5 = main_path(dev)
+    launches = kernel_launches(phase5["launches"])
     card_matches_cpu(dev)
     card_matches_cpu(dev, n_side=6)     # the conformance size, C = 88
     global_path(dev)
     global_distributed(dev)
     for name, n in timebin_distributed(dev).items():
         launches[name] += n
+    for path in (lambda: observed_main_path(dev, phase5),
+                 lambda: observed_timebin_distributed(dev)):
+        for name, n in path().items():
+            launches[name] += n
+    del phase5
     determinism(dev)
 
     errs.update(lm_check_kernels(dev))

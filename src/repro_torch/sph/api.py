@@ -20,9 +20,15 @@ integrator      backend            engine
 :class:`SimulationSpec` has exactly the reference's fields, so one spec
 means the same run in both packages. The time-bin × distributed quadrant
 runs the reference's host residency and host schedule; its device
-residency, device schedule and segments (ROADMAP queue 1, item 11b), the
-observability hooks (``observe``, item 9) and the fleet signatures (item
-12) are later slices of the port and raise.
+residency, device schedule and segments (ROADMAP queue 1, item 11b) raise,
+and the fleet signatures (item 12) are a later slice of the port.
+
+``observe`` takes what the reference's takes (``False``, ``True``, an
+:class:`~repro_torch.observability.ObserveSpec` or a mapping of its
+fields): when enabled, :func:`build_simulation` attaches a
+:class:`~repro_torch.observability.RunObserver` whose tracer is wired
+through the engine and its transport, and ``sim.observer`` holds the
+per-cycle schema-v3 records and the trace.
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 import numpy as np
 
 from ..device import DeviceLike, resolve_device
+from ..observability.observer import ObserveSpec
 from ..observability.tracer import NULL_TRACER
-from .engine import SPHConfig
+from .engine import SPHConfig, host_array
 
 
 @contextlib.contextmanager
@@ -229,10 +236,17 @@ class SimulationSpec:
         if self.segment_cycles > 1 and self.schedule != "device":
             raise ValueError(
                 "segment_cycles > 1 requires schedule='device'")
-        if self.observe is not False:
-            raise NotImplementedError(
-                "repro_torch: observe is not ported yet (ROADMAP queue 1, "
-                "item 9: observability); use observe=False")
+        ob = self.observe
+        if not isinstance(ob, ObserveSpec):
+            if isinstance(ob, bool):
+                ob = ObserveSpec(enabled=ob)
+            elif isinstance(ob, Mapping):
+                ob = ObserveSpec(enabled=True, **dict(ob))
+            else:
+                raise ValueError(
+                    f"observe must be a bool, an ObserveSpec or a mapping "
+                    f"of its fields, got {self.observe!r}")
+            object.__setattr__(self, "observe", ob)
 
     def with_(self, **changes) -> "SimulationSpec":
         """A copy with the given fields replaced (specs are frozen)."""
@@ -241,18 +255,45 @@ class SimulationSpec:
 
 # ------------------------------------------------------------------- adapters
 class _SimulationBase:
-    """Shared ``run`` / log plumbing of the adapters."""
+    """Shared ``run`` / log / observability plumbing of the adapters."""
 
     spec: SimulationSpec
+    observer = None               # RunObserver when spec.observe is enabled
     _tracer = NULL_TRACER
 
     @property
     def time(self) -> float:
         raise NotImplementedError
 
-    def step(self) -> Dict[str, Any]:
-        """Advance one step (global dt) or one cycle (time bins)."""
+    def _step_impl(self) -> Dict[str, Any]:
         raise NotImplementedError
+
+    def step(self) -> Dict[str, Any]:
+        """Advance one step (global dt) or one cycle (time bins); closes
+        the observer's cycle record."""
+        stats = self._step_impl()
+        if self.observer is not None:
+            self.observer.end_cycle(self, stats)
+        return stats
+
+    def _init_observer(self) -> None:
+        """Attach a RunObserver and wire its tracer through the engine
+        layers (called by :func:`build_simulation` once the engine
+        exists)."""
+        ospec = self.spec.observe
+        if not ospec.enabled:
+            return
+        from ..observability.observer import RunObserver
+        self.observer = RunObserver(ospec)
+        tr = self.observer.tracer
+        self._tracer = tr
+        eng = self.engine
+        if hasattr(eng, "tracer"):
+            eng.tracer = tr
+        eng.device_metrics_enabled = bool(ospec.device_metrics)
+        transport = getattr(eng, "_transport", None)
+        if transport is not None:
+            transport.tracer = tr
 
     def diagnostics(self) -> Tuple[float, np.ndarray]:
         return self.engine.diagnostics()
@@ -279,6 +320,20 @@ class _SimulationBase:
         return log
 
 
+def _global_metrics_row(counts, values, rank, *, nreal, npairs, nslots=0):
+    """One global-dt step's telemetry row (host-mirror path): every real
+    particle is active every step, work units are the full pair list."""
+    from ..observability import device_metrics as dmetrics
+    counts[rank] += dmetrics.host_row(
+        substeps=1, drift_active=nreal, density_active=nreal,
+        force_active=nreal, pair_int=npairs, exch_slots=nslots)[0]
+    vi = dmetrics.VALUE_INDEX
+    values[rank, vi["density_units"]] += npairs
+    values[rank, vi["force_units"]] += npairs
+    values[rank, vi["exchange_units"]] += nslots
+    values[rank, vi["kick_units"]] += nreal
+
+
 class _LocalGlobal(_SimulationBase):
     """global × local: the single-host KDK engine."""
 
@@ -298,7 +353,7 @@ class _LocalGlobal(_SimulationBase):
     def time(self) -> float:
         return float(self.engine.state.time)
 
-    def step(self) -> Dict[str, Any]:
+    def _step_impl(self) -> Dict[str, Any]:
         with self._tracer.timed("step") as sp:
             if self.spec.dt is not None:
                 dt = float(self.spec.dt)
@@ -307,6 +362,38 @@ class _LocalGlobal(_SimulationBase):
                 dt = float(cfl_timestep(self.engine.state,
                                         self.spec.physics))
             self.engine.run(1, dt=dt)
+        eng = self.engine
+        if eng.device_metrics_enabled:
+            from ..observability import device_metrics as dmetrics
+            st = eng.state
+            c = st.cells
+            mask = host_array(c.mask)
+            counts, values = dmetrics.zero_rows(1)
+            ci = host_array(eng.pairs.ci)
+            npairs = int(ci.shape[0])
+            _global_metrics_row(counts, values, 0,
+                                nreal=int((mask > 0).sum()),
+                                npairs=npairs)
+            dmetrics.state_health(mask, host_array(c.vel), host_array(c.u),
+                                  host_array(st.rho), host_array(c.mass),
+                                  counts, values, rank=0)
+            # per-cell attribution: density/force charged at the pair's
+            # i-cell, drift = alive particles per cell (all active on the
+            # global-dt path), no exchange on a single rank.
+            cDI = dmetrics.CELL_INDEX
+            cellw, cellw_rank = dmetrics.zero_cell_work(mask.shape[0], 1)
+            np.add.at(cellw[:, cDI["density"]], ci, 1.0)
+            np.add.at(cellw[:, cDI["force"]], ci, 1.0)
+            cellw[:, cDI["drift"]] += (mask > 0).sum(axis=1)
+            cellw_rank[0] = cellw.sum(axis=0)
+            eng.device_cell_work_last = {
+                "columns": list(dmetrics.CELL_COLUMNS),
+                "cells": cellw, "per_rank": cellw_rank}
+            eng.device_metrics_last = (counts, values)
+            eng.device_metrics_pulls += 1
+        else:
+            eng.device_metrics_last = None
+            eng.device_cell_work_last = None
         return {"t": self.time, "dt": dt, "wall": sp.elapsed}
 
 
@@ -329,7 +416,7 @@ class _LocalTimeBin(_SimulationBase):
     def time(self) -> float:
         return float(self.engine.state.time)
 
-    def step(self) -> Dict[str, Any]:
+    def _step_impl(self) -> Dict[str, Any]:
         stats = self.engine.run_cycle()
         stats["dt"] = stats["dt_max"]
         return stats
@@ -379,11 +466,65 @@ class _DistGlobal(_SimulationBase):
                                  cfl=self.spec.physics.cfl)
         return float(dts.min())
 
-    def step(self) -> Dict[str, Any]:
+    def _step_impl(self) -> Dict[str, Any]:
         with self._tracer.timed("step") as sp:
             dt = self._dt()
             self.engine.step(dt)
             self._time += dt
+        eng = self.engine
+        if eng.device_metrics_enabled:
+            from ..observability import device_metrics as dmetrics
+            plan = eng.plan
+            nd, K = plan.ndev, plan.K
+            mask = host_array(eng.dcells.mask).reshape(nd, K, -1)
+            vel = host_array(eng.dcells.vel).reshape(nd, K, -1, 3)
+            u = host_array(eng.dcells.u).reshape(nd, K, -1)
+            rho = host_array(eng.rho).reshape(nd, K, -1)
+            mass = host_array(eng.dcells.mass).reshape(nd, K, -1)
+            counts, values = dmetrics.zero_rows(nd)
+            # slot -> global cell id per rank (storage assigns owned
+            # slots in ascending cell order; padded slots land on cell 0
+            # but only ever receive zero-valued adds).
+            assignment = np.asarray(plan.assignment)
+            storage = np.asarray(plan.storage)
+            ncells = len(assignment)
+            slot_cell = np.zeros((nd, K), np.int64)
+            slot_cell[assignment, storage] = np.arange(ncells)
+            cDI = dmetrics.CELL_INDEX
+            cellw, cellw_rank = dmetrics.zero_cell_work(ncells, nd)
+            for r in range(nd):
+                npairs = int(plan.pair_w[r].sum())
+                nslots = int(plan.export_valid[r].sum())
+                _global_metrics_row(
+                    counts, values, r,
+                    nreal=int((mask[r] > 0).sum()),
+                    npairs=npairs, nslots=nslots)
+                dmetrics.state_health(mask[r], vel[r], u[r], rho[r],
+                                      mass[r], counts, values, rank=r)
+                # density/force: one unit per valid directed pair entry,
+                # charged at the receiver's owned cell; exchange: one unit
+                # per valid export slot; drift: alive per owned slot.
+                pw = np.asarray(plan.pair_w[r]) > 0
+                recv_cells = slot_cell[r, np.asarray(plan.pair_recv[r])[pw]]
+                np.add.at(cellw[:, cDI["density"]], recv_cells, 1.0)
+                np.add.at(cellw[:, cDI["force"]], recv_cells, 1.0)
+                ev = np.asarray(plan.export_valid[r]) > 0
+                exp_cells = slot_cell[r, np.asarray(plan.export_slots[r])[ev]]
+                np.add.at(cellw[:, cDI["exchange"]], exp_cells, 1.0)
+                alive_r = (mask[r] > 0).sum(axis=1).astype(np.float64)
+                np.add.at(cellw[:, cDI["drift"]], slot_cell[r], alive_r)
+                cellw_rank[r, cDI["density"]] += npairs
+                cellw_rank[r, cDI["force"]] += npairs
+                cellw_rank[r, cDI["exchange"]] += nslots
+                cellw_rank[r, cDI["drift"]] += int((mask[r] > 0).sum())
+            eng.device_cell_work_last = {
+                "columns": list(dmetrics.CELL_COLUMNS),
+                "cells": cellw, "per_rank": cellw_rank}
+            eng.device_metrics_last = (counts, values)
+            eng.device_metrics_pulls += 1
+        else:
+            eng.device_metrics_last = None
+            eng.device_cell_work_last = None
         return {"t": self._time, "dt": dt, "wall": sp.elapsed}
 
 
@@ -412,7 +553,7 @@ class _DistTimeBin(_SimulationBase):
     def time(self) -> float:
         return float(self.engine.state.time)
 
-    def step(self) -> Dict[str, Any]:
+    def _step_impl(self) -> Dict[str, Any]:
         stats = self.engine.run_cycle()
         stats["dt"] = stats["dt_max"]
         return stats
@@ -437,4 +578,6 @@ def build_simulation(spec: SimulationSpec,
     """
     if ic is None:
         ic = make_ic(spec.scenario, **dict(spec.scenario_params))
-    return _QUADRANTS[(spec.integrator, spec.backend)](spec, ic, device)
+    sim = _QUADRANTS[(spec.integrator, spec.backend)](spec, ic, device)
+    sim._init_observer()
+    return sim

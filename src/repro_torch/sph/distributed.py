@@ -458,7 +458,7 @@ class DistSimulation:
                                                 halo=halo,
                                                 device=self.device)
         self.accel, self.dudt, self.rho = self._init(self.dcells)
-        # the device-metrics carry is the observability slice's (not ported)
+        # device-metrics carry (per rank), filled by the api adapter
         self.device_metrics_enabled = False
         self.device_metrics_last = None
         self.device_metrics_pulls = 0

@@ -3,7 +3,8 @@
 * ``SimulationSpec`` and ``SPHConfig`` have exactly the reference's fields
   and defaults, so one spec means the same run in both packages.
 * Entry points run on the CUDA device unless told otherwise, and raise
-  without one; all four quadrants build; the hooks of later slices raise.
+  without one; all four quadrants build; ``observe`` coerces as the
+  reference's does.
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything of
   the reference package ``repro``.
 """
@@ -94,9 +95,28 @@ def test_distributed_backends_raise(integrator):
     assert all(bool(torch.isfinite(t).all()) for t in cells)
 
 
-def test_observe_raises():
-    with pytest.raises(NotImplementedError, match="observ"):
-        P.SimulationSpec(observe=True)
+def test_observe_coerces_like_reference():
+    """``observe`` takes a bool, a mapping of ``ObserveSpec`` fields or an
+    ``ObserveSpec``, and coerces them as the reference does; anything else
+    is the reference's ``ValueError``."""
+    from repro.observability import ObserveSpec as RObs
+    from repro_torch.observability import ObserveSpec as PObs
+    assert [f.name for f in dataclasses.fields(PObs)] \
+        == [f.name for f in dataclasses.fields(RObs)]
+    for ob in (False, True, {"trace": False}, {"flight_dir": "x",
+                                               "flight_cycles": 3}):
+        got = P.SimulationSpec(observe=ob).observe
+        want = R.SimulationSpec(observe=ob).observe
+        assert isinstance(got, PObs)
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    ospec = PObs(enabled=True, device_metrics=False)
+    assert P.SimulationSpec(observe=ospec).observe is ospec
+    for bad in (3.14, "yes", None):
+        with pytest.raises(ValueError, match="observe") as got:
+            P.SimulationSpec(observe=bad)
+        with pytest.raises(ValueError, match="observe") as want:
+            R.SimulationSpec(observe=bad)
+        assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("integrator", ["global", "timebin"])
@@ -131,7 +151,15 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 import chip_smoke
 for m in ("repro_torch.distributed.transport", "repro_torch.sph.collectives",
-          "repro_torch.sph.dist_timebins"):
+          "repro_torch.sph.dist_timebins", "repro_torch.sph.adaptive",
+          "repro_torch.observability.metrics",
+          "repro_torch.observability.sinks",
+          "repro_torch.observability.device_metrics",
+          "repro_torch.observability.flight",
+          "repro_torch.observability.costs",
+          "repro_torch.observability.observer",
+          "repro_torch.observability.__main__",
+          "repro_torch.analysis.report", "repro_torch.analysis.roofline"):
     assert m in sys.modules, m
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"

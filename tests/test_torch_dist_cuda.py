@@ -14,12 +14,16 @@ JAX reference) within 1e-4 of each field's scale, as ``chip_smoke.py``'s
 sub-step (``nranks × force_substeps`` each) and the block entry never; the
 collective wire in both modes gives the host wire's bits; the run is bit
 for bit the local ladder's on the card; and the card's run equals the
-CPU's within 1e-4 of each field's scale, counts exactly.
+CPU's within 1e-4 of each field's scale, counts exactly. Traced
+(``observe=True``) runs are bit for bit untraced ones, with the same
+launches, on the local ladder and over the ranks.
 
 This file imports no JAX, so it runs on the card as
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_dist_cuda.py
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -151,3 +155,33 @@ def test_cuda_timebin_matches_cpu(cuda_device):
         x, y = x.double().numpy(), y.double().numpy()
         scale = max(float(np.abs(y).max()), 1e-30)
         assert float(np.abs(x - y).max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["local", "distributed"])
+def test_cuda_tracing_is_invisible(cuda_device, backend):
+    """``observe=True`` on the card: the fences only wait, so the traced
+    ladder is bit for bit the untraced one, with the same pair-kernel
+    launches (and, distributed, the same program signatures); the traced
+    distributed run passes ``python -m repro_torch.observability``'s
+    checks."""
+    from repro_torch.observability.__main__ import check_run
+    spec = tb_spec(transport="collective")
+    if backend == "local":
+        spec = spec.with_(backend="local", ranks=None)
+    runs = []
+    for observe in (False, True):
+        sim = build_simulation(spec.with_(observe=observe),
+                               device=cuda_device)
+        K.reset_launches()
+        for _ in range(2):
+            sim.step()
+        st = sim.state
+        runs.append((sim, [t.cpu() for t in tuple(st.cells) + tuple(st[1:])],
+                     (K.density_pair_cells.launches, K.force_pair.launches)))
+    (plain, a, la), (traced, b, lb) = runs
+    assert bits_equal(a, b) and la == lb and la[1] > 0
+    if backend == "distributed":
+        assert traced.engine.probe.counts() == plain.engine.probe.counts()
+        doc = traced.observer.export_chrome_trace(os.devnull)
+        assert check_run(traced, doc, 4, 2) == []
