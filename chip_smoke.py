@@ -69,6 +69,23 @@ wrong. Phases, one line each:
     finite imbalance and dead time; then ``dump --inject-nan`` (the NaN sentinel trips, the
     bundle validates) and ``advise`` over the metrics log;
 7. run-twice bitwise determinism of a one-cycle Sedov 16³ run;
+7b. fleet serving (``python -m repro_torch.fleet``'s serve path, traced,
+    ``--assert-compiles``): 16 requests, Sedov and Kelvin-Helmholtz
+    alternating (``--scenario mixed``), 32³ each, 4 steps, submitted in
+    bursts of 3, 7 and 6; each shape group served as stacked lanes. Gated:
+    every request done; each entry point built once, seeing one input
+    signature; the trace valid with one row per ``request_id``; each pair
+    kernel launched ``2·steps`` times per shape group (one stacked init,
+    ``steps − 1`` re-inits, ``steps`` batched steps) against the runner's
+    own record; then every request bit for bit its single run on the card,
+    those runs launching each kernel ``(2·steps + 1)`` times a request.
+    Prints the fleet's wall and particle-steps/s against the single runs',
+    the host seconds by phase (build, re-bin and stack, steps, results),
+    buckets, padding lanes, pool hits and latency p50/p95;
+7c. one batched step of 8 lanes (the 64³ main path's kernel shape)
+    against one lane's, CUDA events, lane 0 bit for bit;
+7d. a small fleet (4 mixed requests at 10³, 3 steps) on the card and on
+    the CPU, within 1e-4 of each field's scale;
 
 and for the serving slices (``python -m repro_torch.launch.serve``),
 zamba2-1.2b (Mamba-2 + shared attention) and falcon-mamba-7b (Mamba-1):
@@ -156,6 +173,17 @@ DIST_NSIDE = 48
 DIST_RANKS = 4
 DIST_STEPS = 3
 DIST_DT = 1e-5          # phase 6's
+
+# The fleet phase (``python -m repro_torch.fleet``): 16 requests, Sedov and
+# Kelvin-Helmholtz alternating, at 32³ (32,768 particles each: a 14³-cell,
+# C = 40 grid, so a bucket of 8 lanes is the 64³ main path's kernel shape,
+# P = 307,328), 4 steps each, submitted in bursts of 3, 7 and 6.
+FLEET_NSIDE = 32
+FLEET_REQUESTS = 16
+FLEET_STEPS = 4
+FLEET_WAVES = 3
+FLEET_LANES = 8         # the batched step timed against one lane's
+FLEET_REPS = 5
 
 # The serving slices: zamba2-1.2b (ssd_scan, flash_attention) and
 # falcon-mamba-7b (selective_scan).
@@ -1277,6 +1305,194 @@ def determinism(dev):
     assert same, "two identical runs differ"
 
 
+# ------------------------------------------------------------- fleet slice
+def fleet_argv(n_side: int, requests: int, steps: int, waves: int, *extra):
+    return ["--scenario", "mixed", "--requests", str(requests), "--steps",
+            str(steps), "--n-side", str(n_side), "--waves", str(waves),
+            *extra]
+
+
+def percentile(xs, q: float) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def fleet_serving(dev) -> dict:
+    """Phase 7b: ``python -m repro_torch.fleet``'s serve path on the card
+    (16 mixed requests at 32³, 4 steps, 3 waves, traced, entry points
+    asserted), its kernels' launches read around it; then every request
+    against its single run on the card (``check_parity``), their launches
+    read around that. Returns the fleet run's launches."""
+    import tempfile
+    from repro_torch.fleet.__main__ import check_parity, serve
+    from repro_torch.fleet.queue import RequestState
+    from repro_torch.kernels.sph_pair import kernel as K
+    from repro_torch.observability.sinks import validate_chrome_trace
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "fleet_trace.json")
+        K.reset_launches()
+        rc, out, runner, served = serve(
+            fleet_argv(FLEET_NSIDE, FLEET_REQUESTS, FLEET_STEPS, FLEET_WAVES,
+                       "--device", str(dev), "--assert-compiles",
+                       "--trace-out", trace))
+        launches = launch_counts(K)
+        with open(trace) as f:
+            doc = json.load(f)
+    stats = out["stats"]
+    groups = runner.groups
+    passes = sum(g["passes"] + g["fell_off_passes"] for g in groups)
+    counts = runner.compile_counts()
+    names = {e["tid"]: e["args"]["name"] for e in doc["traceEvents"]
+             if e.get("name") == "thread_name"}
+    slices = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    trace_errors = validate_chrome_trace(doc)
+    lat = [r.latency for r in served]
+    say({"phase": "fleet", "n_side": FLEET_NSIDE,
+         "requests": len(served), "steps": FLEET_STEPS,
+         "particles": stats["particle_steps"] // FLEET_STEPS,
+         "rc": rc, "wall_s": out["wall_s"],
+         "particle_steps_per_s": out["particle_steps_per_s"],
+         "host_s": stats["host_s"],
+         "groups": [{k: g[k] for k in ("shape_key", "lanes", "bucket",
+                                       "steps", "passes", "fell_off")}
+                    for g in groups],
+         "buckets": stats["buckets"], "padding_lanes": stats["padding_lanes"],
+         "pool": stats["pool"], "programs": stats["programs"],
+         "compile_counts": sorted(counts.values()),
+         "latency_p50_s": percentile(lat, 50),
+         "latency_p95_s": percentile(lat, 95),
+         "trace_events": len(doc["traceEvents"]),
+         "trace_errors": trace_errors, "launches": launches,
+         "runner_passes": passes})
+    assert rc == 0, "the fleet CLI failed (a request or --assert-compiles)"
+    assert len(served) == FLEET_REQUESTS
+    assert all(r.state is RequestState.DONE and r.result.batched
+               for r in served)
+    assert counts and all(c == 1 for c in counts.values()), counts
+    assert runner.programs.builds == len(counts)
+    assert trace_errors == [], trace_errors
+    assert set(names.values()) == {r.request_id for r in served}, names
+    assert slices and all(e["args"].get("request_id") in names.values()
+                          for e in slices)
+    # rebin_every=1: one stacked init, steps batched steps, steps - 1
+    # stacked re-inits per shape group, whatever its lanes
+    assert all(g["passes"] == 2 * g["steps"] for g in groups), groups
+    assert launches["density_pair_cells"] == passes, (launches, passes)
+    assert launches["force_pair"] == passes, (launches, passes)
+    assert launches["density_pair"] == 0, launches
+
+    K.reset_launches()
+    parity = check_parity(served, dev)
+    seq = launch_counts(K)
+    want = (2 * FLEET_STEPS + 1) * FLEET_REQUESTS
+    say({"phase": "fleet_parity", "mode": parity["mode"],
+         "checked": parity["checked"], "mismatches": parity["mismatches"],
+         "sequential_wall_s": parity["wall_s"],
+         "sequential_particle_steps_per_s":
+             parity["particle_steps"] / parity["wall_s"],
+         "fleet_wall_s": out["wall_s"],
+         "fleet_over_sequential_rate":
+             out["particle_steps_per_s"]
+             / (parity["particle_steps"] / parity["wall_s"]),
+         "launches": seq, "expected_launches": want})
+    assert parity["checked"] == FLEET_REQUESTS and not parity["mismatches"]
+    assert seq["density_pair_cells"] == want and seq["force_pair"] == want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def fleet_lanes(dev, bucket: int, n_side: int = FLEET_NSIDE):
+    """``bucket`` Sedov ``n_side``³ lanes (seeds 0, 1, …) stacked and
+    initialised on ``dev``: (state, stacked pairs, CFL dts, step) where
+    ``step()`` runs one batched step from that state."""
+    from repro_torch.fleet import lanes
+    from repro_torch.fleet.queue import RequestQueue
+    from repro_torch.fleet.runner import _build_member
+    from repro_torch.sph import SimulationSpec
+    q = RequestQueue()
+    ms = [_build_member(q.submit(SimulationSpec(
+        scenario="sedov", scenario_params={"n_side": n_side, "seed": i,
+                                           "e0": 1.0 + 0.1 * (i % 4)})))
+          for i in range(bucket)]
+    cfg = ms[0].req.spec.physics
+    pairs = lanes.stack_pair_list(ms[0].pairs, bucket, ms[0].gspec.ncells,
+                                  dev)
+    st = lanes.lane_init(lanes.stack_cells([m.cells for m in ms], dev),
+                         pairs, cfg, lanes.lane_times([0.0] * bucket, dev))
+    dts = lanes.lane_cfl(st, cfg, bucket)
+    return st, pairs, dts, lambda: lanes.lane_step(st, pairs, dts,
+                                                   ms[0].box, cfg)
+
+
+def fleet_step_timing(dev) -> None:
+    """Phase 7c: one batched step of FLEET_LANES Sedov 32³ lanes against
+    one lane's, CUDA events around each (median of FLEET_REPS after a warm
+    step), from the same stacked state and dts each time; lane 0 of the
+    batch bit for bit the lane stepped alone."""
+    rows, outs = {}, {}
+    for bucket in (FLEET_LANES, 1):
+        st, pairs, _, step = fleet_lanes(dev, bucket)
+        outs[bucket] = step()
+        torch.cuda.synchronize()
+        ms_ev, host = [], []
+        for _ in range(FLEET_REPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            step()
+            b.record()
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t0)
+            ms_ev.append(a.elapsed_time(b))
+        rows[bucket] = {"pairs": int(pairs.ci.shape[0]),
+                        "cells": int(st.cells.mass.shape[0]),
+                        "C": int(st.cells.mass.shape[1]),
+                        "step_event_ms": float(np.median(ms_ev)),
+                        "step_host_ms": 1e3 * float(np.median(host))}
+    nc = rows[1]["cells"]
+    batched, one = outs[FLEET_LANES], outs[1]
+    same = all(bits_equal([a[:nc]], [b]) for a, b in
+               zip(tuple(batched.cells) + (batched.accel, batched.dudt),
+                   tuple(one.cells) + (one.accel, one.dudt)))
+    say({"phase": "fleet_step", "lanes": FLEET_LANES, "n_side": FLEET_NSIDE,
+         "batched": rows[FLEET_LANES], "one_lane": rows[1],
+         "event_ms_per_lane_batched":
+             rows[FLEET_LANES]["step_event_ms"] / FLEET_LANES,
+         "lane0_bitwise_one_lane": same})
+    assert same, "a batched lane differs from the same lane stepped alone"
+    del outs, batched, one
+    torch.cuda.empty_cache()
+
+
+def fleet_card_matches_cpu(dev, n_side: int = 10, requests: int = 4,
+                           steps: int = 3) -> None:
+    """Phase 7d: a small mixed fleet through the CLI's serve path on the
+    card (with --check-parity: bit for bit the single runs there) and on
+    the CPU (the plain versions); each request's fields within 1e-4 of
+    their scale, the batching the same."""
+    from repro_torch.fleet.__main__ import serve
+    runs = []
+    for d, extra in ((str(dev), ("--check-parity", "--assert-compiles")),
+                     ("cpu", ())):
+        rc, out, _, served = serve(fleet_argv(n_side, requests, steps, 1,
+                                              "--device", d, *extra))
+        assert rc == 0, (d, out["parity"])
+        runs.append(served)
+    worst = 0.0
+    layout = True
+    for a, b in zip(*runs):
+        layout &= (a.result.batch_size, a.result.bucket, a.result.steps) == \
+            (b.result.batch_size, b.result.bucket, b.result.steps)
+        for k, x in a.result.particles.items():
+            y = b.result.particles[k].astype(np.float64)
+            scale = max(float(np.abs(y).max()), 1e-30)
+            worst = max(worst, float(np.abs(x - y).max()) / scale)
+    say({"phase": "fleet_card_vs_cpu", "n_side": n_side,
+         "requests": requests, "steps": steps, "same_batching": layout,
+         "max_rel_diff": worst})
+    assert layout and worst <= 1e-4, "card and CPU fleets disagree"
+
+
 # ---------------------------------------------------------------- LM slice
 def ssd_inputs(B, S, H, hp, N, dev, seed=0):
     """The inputs of tests/test_kernel_ssd_scan.py:11, made on the host from
@@ -1716,6 +1932,10 @@ def main() -> int:
             launches[name] += n
     del phase5
     determinism(dev)
+    for name, n in kernel_launches(fleet_serving(dev)).items():
+        launches[name] += n
+    fleet_step_timing(dev)
+    fleet_card_matches_cpu(dev)
 
     errs.update(lm_check_kernels(dev))
     timing.update(lm_time_kernels(dev))

@@ -20,8 +20,10 @@ integrator      backend            engine
 :class:`SimulationSpec` has exactly the reference's fields, so one spec
 means the same run in both packages. The time-bin × distributed quadrant
 runs the reference's host residency and host schedule; its device
-residency, device schedule and segments (ROADMAP queue 1, item 11b) raise,
-and the fleet signatures (item 12) are a later slice of the port.
+residency, device schedule and segments (ROADMAP queue 1, item 11b) raise.
+``SimulationSpec.program_signature()`` / ``signature_key()`` are the fleet's
+(:mod:`repro_torch.fleet.signature`): equal specs in the two packages get
+the same key, letter for letter.
 
 ``observe`` takes what the reference's takes (``False``, ``True``, an
 :class:`~repro_torch.observability.ObserveSpec` or a mapping of its
@@ -96,23 +98,6 @@ def _register_builtin_scenarios():
 _register_builtin_scenarios()
 
 
-def canonical(value: Any) -> Any:
-    """Recursively convert ``value`` to a canonical hashable form: mappings
-    become sorted ``(key, value)`` tuples, sequences tuples, numpy scalars
-    Python scalars, arrays (shape, dtype, bytes)."""
-    if isinstance(value, Mapping):
-        return tuple(sorted((str(k), canonical(v)) for k, v in value.items()))
-    if isinstance(value, (list, tuple)):
-        return tuple(canonical(v) for v in value)
-    if isinstance(value, (set, frozenset)):
-        return tuple(sorted(map(canonical, value), key=repr))
-    if isinstance(value, np.ndarray):
-        return ("ndarray", value.shape, str(value.dtype), value.tobytes())
-    if isinstance(value, np.generic):
-        return value.item()
-    return value
-
-
 class FrozenParams(Mapping):
     """Canonical immutable mapping for ``SimulationSpec.scenario_params``:
     items sorted by key with values in canonical hashable form, so equal
@@ -121,6 +106,7 @@ class FrozenParams(Mapping):
     __slots__ = ("_items", "_dict")
 
     def __init__(self, mapping: Mapping[str, Any] = ()):
+        from ..fleet.signature import canonical
         items = tuple(sorted((str(k), canonical(v))
                              for k, v in dict(mapping).items()))
         object.__setattr__(self, "_items", items)
@@ -251,6 +237,20 @@ class SimulationSpec:
     def with_(self, **changes) -> "SimulationSpec":
         """A copy with the given fields replaced (specs are frozen)."""
         return dataclasses.replace(self, **changes)
+
+    def program_signature(self) -> tuple:
+        """The program signature this spec maps to: quadrant × engine
+        policy × physics × scenario *shape* (value-only scenario params
+        excluded, so two Sedov requests differing only in ``e0`` share a
+        signature and can batch). See :mod:`repro_torch.fleet.signature`."""
+        from ..fleet.signature import signature
+        return signature(self)
+
+    def signature_key(self) -> str:
+        """Short stable digest of :meth:`program_signature` (logs, cache
+        keys, trace attrs)."""
+        from ..fleet.signature import signature_key
+        return signature_key(self)
 
 
 # ------------------------------------------------------------------- adapters

@@ -159,7 +159,11 @@ for m in ("repro_torch.distributed.transport", "repro_torch.sph.collectives",
           "repro_torch.observability.costs",
           "repro_torch.observability.observer",
           "repro_torch.observability.__main__",
-          "repro_torch.analysis.report", "repro_torch.analysis.roofline"):
+          "repro_torch.analysis.report", "repro_torch.analysis.roofline",
+          "repro_torch.fleet", "repro_torch.fleet.signature",
+          "repro_torch.fleet.queue", "repro_torch.fleet.batcher",
+          "repro_torch.fleet.lanes", "repro_torch.fleet.runner",
+          "repro_torch.fleet.__main__"):
     assert m in sys.modules, m
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
