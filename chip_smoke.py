@@ -58,16 +58,28 @@ wrong. Phases, one line each:
     the wall, depth, sub-steps, updates, shipped against full halo slots,
     repartitions, launches and the wire's counters; gated bit for bit
     against the local ladder, on each pair kernel's launches (once per
-    rank per force sub-step), on finite state and energy drift; then at
-    Sedov 16³ the host wire and both collective modes bitwise equal, a
-    run twice bitwise, and at Sedov 10³ the card against the CPU;
+    rank per force sub-step), on finite state and energy drift; then the
+    same spec at ``residency="device"`` (``tbdist_resident``: the ranks'
+    states stacked and resident on the card for the cycle, one fused
+    program a sub-step), built on the host run's decomposition: bit for
+    bit the host residency's state and stats, each pair kernel launched
+    once per force sub-step for all ranks, no state byte to the host
+    inside a cycle; the cycle walls and, from one profiled cycle each, the
+    device's idle share beside host residency's; then at Sedov 16³ the
+    host wire and both collective modes bitwise equal, a run twice
+    bitwise, the device residency in both modes bitwise the host
+    residency and twice bitwise, and at Sedov 10³ the card against the
+    CPU;
 6f. ``python -m repro_torch.observability``'s default run (time-bin ×
     distributed, collective wire, host residency, 4 ranks) at Sedov 16³
     in process, untraced, traced, fences-only and untraced again: bit for
     bit, the same program signatures and launches, the CLI's checks
     (trace, rows, record against the probes, per-rank per-phase work),
     finite imbalance and dead time; then ``dump --inject-nan`` (the NaN sentinel trips, the
-    bundle validates) and ``advise`` over the metrics log;
+    bundle validates) and ``advise`` over the metrics log; then the same
+    at ``--residency device``, untraced and traced (bit for bit, the CLI's
+    checks, per-rank work from the in-program rows, ``cost_calibration``
+    present) and the CLI itself;
 7. run-twice bitwise determinism of a one-cycle Sedov 16³ run;
 7b. fleet serving (``python -m repro_torch.fleet``'s serve path, traced,
     ``--assert-compiles``): 16 requests, Sedov and Kelvin-Helmholtz
@@ -921,14 +933,53 @@ def tb_stats_equal(a: list, b: list) -> bool:
 
 
 def tb_run(dev, n_side: int, **kw):
+    """Build and run SIM_CYCLES cycles: (stats, final state on the host,
+    the pair kernels' launches in the cycles, the build's init pass
+    left out)."""
+    from repro_torch.kernels.sph_pair import kernel as K
     sim = build_tb(tb_spec(n_side, **kw), dev)
+    K.reset_launches()
     stats = [sim.step() for _ in range(SIM_CYCLES)]
-    return stats, [t.cpu() for t in tb_snapshot(sim)]
+    return stats, [t.cpu() for t in tb_snapshot(sim)], launch_counts(K)
 
 
-def build_tb(spec, dev):
+def build_tb(spec, dev, assignment=None):
+    """``build_simulation(spec)``; with ``assignment``, the engine takes
+    that decomposition instead of partitioning again (the partitioner is
+    deterministic, so this is the same decomposition without its minute of
+    host time: a hook of this script, not an option of the engine)."""
     from repro_torch.sph import build_simulation
-    return build_simulation(spec, device=dev)
+    from repro_torch.sph.dist_timebins import DistTimeBinSimulation as D
+    if assignment is None:
+        return build_simulation(spec, device=dev)
+    own = D._initial_assignment
+    D._initial_assignment = lambda self: np.asarray(assignment).copy()
+    try:
+        return build_simulation(spec, device=dev)
+    finally:
+        D._initial_assignment = own
+
+
+def profiled_cycle(sim) -> dict:
+    """One more cycle under ``torch.profiler`` (CUDA activity only): its
+    wall, the device time summed over every device event, and the idle
+    share 1 − device time / wall ("not measured" if the profiler saw no
+    device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    synchronize(sim.engine.device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.step()
+        synchronize(sim.engine.device)
+        wall = time.perf_counter() - t0
+    busy = 0.0
+    for e in prof.key_averages():
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                busy += float(getattr(e, name)) / 1e6
+                break
+    return {"wall_s": wall, "device_s": busy or None,
+            "idle_share": 1.0 - busy / wall if busy else "not measured"}
 
 
 def timebin_distributed(dev):
@@ -952,6 +1003,7 @@ def timebin_distributed(dev):
     sim = build_tb(spec, dev)
     synchronize(dev)
     eng = sim.engine
+    assignment = eng._assignment.copy()
     plan = eng._get_plan()
     tstats = eng.transport_stats()
     say({"phase": "tbdist_decompose", "n_side": DIST_NSIDE,
@@ -1000,8 +1052,12 @@ def timebin_distributed(dev):
     dist = [t.cpu() for t in tb_snapshot(sim)]
     finite = all(bool(torch.isfinite(t.float()).all()) for t in dist)
     drift = abs(e1 - e0) / abs(e0)
+    host_profiled = profiled_cycle(sim)
     del sim, eng
     torch.cuda.empty_cache()
+    for name, n in timebin_resident(dev, spec, assignment, cycles, dist,
+                                    host_profiled).items():
+        launches[name] += n
     local = build_tb(spec.with_(backend="local", ranks=None), dev)
     lstats = [local.step() for _ in range(SIM_CYCLES)]
     same = bits_equal(dist, [t.cpu() for t in tb_snapshot(local)])
@@ -1022,27 +1078,49 @@ def timebin_distributed(dev):
     assert finite, "non-finite state after the distributed ladder"
     assert drift < DRIFT_BOUND, f"energy drift {drift} over {DRIFT_BOUND}"
     # (d) the wires at 16³; (e) the ppermute run again
-    runs = {w: tb_run(dev, 16, transport=t, transport_mode=m)
-            for w, (t, m) in {"host": ("host", "auto"),
-                              "ppermute": ("collective", "ppermute"),
-                              "allgather": ("collective", "allgather"),
-                              "ppermute_again": ("collective", "ppermute")
-                              }.items()}
+    # and the device residency in both collective modes, twice
+    wire_kw = {"host": ("host", "auto", "host"),
+               "ppermute": ("collective", "ppermute", "host"),
+               "allgather": ("collective", "allgather", "host"),
+               "ppermute_again": ("collective", "ppermute", "host"),
+               "ppermute_resident": ("collective", "ppermute", "device"),
+               "allgather_resident": ("collective", "allgather", "device"),
+               "ppermute_resident_again": ("collective", "ppermute",
+                                           "device")}
+    runs = {}
+    for w, (t, m, r) in wire_kw.items():
+        runs[w] = tb_run(dev, 16, transport=t, transport_mode=m, residency=r)
+        if r == "device":
+            got = runs[w][2]
+            for name, n in kernel_launches(got).items():
+                launches[name] += n
+            n = sum(st["force_substeps"] for st in runs[w][0])
+            assert (got["density_pair_cells"], got["force_pair"],
+                    got["density_pair"]) == (n, n, 0), (w, got, n)
     wires = (bits_equal(runs["host"][1], runs["ppermute"][1])
              and bits_equal(runs["host"][1], runs["allgather"][1]))
     wire_stats = (tb_stats_equal(runs["host"][0], runs["ppermute"][0])
                   and tb_stats_equal(runs["host"][0], runs["allgather"][0]))
     twice = bits_equal(runs["ppermute"][1], runs["ppermute_again"][1])
+    resident = all(bits_equal(runs["host"][1], runs[w][1])
+                   and tb_stats_equal(runs["host"][0], runs[w][0])
+                   for w in ("ppermute_resident", "allgather_resident"))
+    resident_twice = bits_equal(runs["ppermute_resident"][1],
+                                runs["ppermute_resident_again"][1])
     say({"phase": "tbdist_wires", "n_side": 16, "ranks": DIST_RANKS,
          "cycles": SIM_CYCLES, "host_equals_collective_bitwise": wires,
          "stats_equal": wire_stats, "run_twice_bitwise": twice,
+         "device_residency_equals_host_bitwise": resident,
+         "device_residency_run_twice_bitwise": resident_twice,
          "shipped_vs_full": [[st["halo_exported_slots"],
                               st["halo_full_slots"]]
                              for st in runs["host"][0]]})
     assert wires and wire_stats, "the wires disagree"
     assert twice, "two identical distributed time-bin runs differ"
+    assert resident, "device residency left host residency at 16³"
+    assert resident_twice, "two identical device-resident runs differ"
     # (f) the card against the CPU
-    (sa, card), (sb, cpu) = tb_run(dev, 10), tb_run("cpu", 10)
+    (sa, card, _), (sb, cpu, _) = tb_run(dev, 10), tb_run("cpu", 10)
     worst = 0.0
     for x, y in zip(card, cpu):
         scale = max(float(y.double().abs().max()), 1e-30)
@@ -1053,6 +1131,76 @@ def timebin_distributed(dev):
          "cycles": SIM_CYCLES, "counts_equal": counts,
          "bitwise_equal": bits_equal(card, cpu), "max_rel_diff": worst})
     assert counts and worst <= 1e-4, "card and CPU runs disagree"
+    return launches
+
+
+def timebin_resident(dev, spec, assignment, host_stats, host_state,
+                     host_profiled) -> dict:
+    """Phase 6e's device-residency run (``tbdist_resident``): the same spec
+    at ``residency="device"``, built on the host run's decomposition
+    (``build_tb``'s hook), SIM_CYCLES cycles with the pair kernels'
+    launches set to 0 before and read after each. Gates: bit for bit the
+    host-residency run's state and per-cycle stats; each pair kernel
+    launched once per force sub-step for all ranks (the closing one
+    included) and the block entry never; no dynamical state byte between
+    host and device inside a cycle, and only tables, flags and bins rows.
+    Prints the cycle walls and, from one more profiled cycle each, the
+    device's idle share beside host residency's."""
+    from repro_torch.kernels.sph_pair import kernel as K
+    t0 = time.perf_counter()
+    sim = build_tb(spec.with_(residency="device"), dev, assignment)
+    synchronize(dev)
+    build_s = time.perf_counter() - t0
+    eng = sim.engine
+    stats, per_cycle = [], []
+    launches = {"density_pair": 0, "force_pair": 0}
+    for c in range(SIM_CYCLES):
+        K.reset_launches()
+        synchronize(dev)
+        st = sim.step()
+        got = launch_counts(K)
+        stats.append(st)
+        per_cycle.append(got)
+        n = st["force_substeps"]
+        assert (got["density_pair_cells"], got["force_pair"],
+                got["density_pair"]) == (n, n, 0), (got, n)
+        for name, k in kernel_launches(got).items():
+            launches[name] += k
+    state = [t.cpu() for t in tb_snapshot(sim)]
+    same = bits_equal(state, host_state)
+    same_stats = tb_stats_equal(stats, host_stats) and all(
+        (x["t"], x["dt_max"]) == (y["t"], y["dt_max"])
+        for x, y in zip(stats, host_stats))
+    tr = eng.transfers.stats()
+    intra_keys = sorted(tr["intra_bytes"])
+    compiles = {k: v for k, v in eng.probe.counts().items()
+                if k.startswith("program:")}
+    profiled = profiled_cycle(sim)
+    say({"phase": "tbdist_resident", "n_side": DIST_NSIDE,
+         "ranks": DIST_RANKS, "residency": "device",
+         "decomposition": "the host run's (build hook)",
+         "build_s": build_s, "setup_s": eng.setup_s,
+         "wall_s": [st["wall"] for st in stats],
+         "host_residency_wall_s": [st["wall"] for st in host_stats],
+         "force_substeps": [st["force_substeps"] for st in stats],
+         "launches": per_cycle,
+         "host_residency_launches_per_cycle": [
+             DIST_RANKS * st["force_substeps"] for st in host_stats],
+         "profiled_cycle": profiled,
+         "host_residency_profiled_cycle": host_profiled,
+         "bitwise_host_residency": same, "stats_equal": same_stats,
+         "intra_state_bytes": tr["intra_state_bytes"],
+         "intra_bytes": tr["intra_bytes"],
+         "boundary_bytes": sum(tr["boundary_bytes"].values()),
+         "bins_refreshes": eng.bins_refreshes,
+         "fused_program_signatures": compiles,
+         "program_keys": sorted(map(str, eng.program_keys))})
+    assert same and same_stats, "device residency left host residency"
+    assert tr["intra_state_bytes"] == 0, tr
+    assert set(intra_keys) <= {"tables", "flags", "bins"}, intra_keys
+    assert all(v == 1 for v in compiles.values()), compiles
+    del sim, eng
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1263,6 +1411,8 @@ def observed_timebin_distributed(dev):
         assert rc_adv == 0 and all(a is not None for a in advisor)
         launches = kernel_launches(traced["launches"])
         del sim, obs, traced, untraced, fences, again
+        for name, n in observed_resident(dev, tmp).items():
+            launches[name] += n
         rc, text = quiet(dump_main, ["--inject-nan", "--n-side",
                                      str(OBS_NSIDE), "--ranks",
                                      str(DIST_RANKS), "--out-dir", tmp,
@@ -1277,6 +1427,72 @@ def observed_timebin_distributed(dev):
         assert rc == 0 and dumped["tripped"], "the NaN sentinel did not trip"
         assert any(m["reason"] == "nan" for m in manifests), manifests
     torch.cuda.empty_cache()
+    return launches
+
+
+def observed_resident(dev, tmp: str) -> dict:
+    """Phase 6f at device residency: the CLI's run with ``--residency
+    device`` (OBS_NSIDE³, DIST_RANKS ranks), untraced and traced in
+    process, then the CLI itself. Gates: traced bit for bit untraced, with
+    the same launches (one of each pair kernel per force sub-step) and
+    program signatures; the CLI's checks on the traced run (trace valid,
+    one fused slice per sub-step on every rank's row, the record's ledgers
+    the probes', the per-cell rows summing to the phase totals, exchange
+    included, one metrics pull a cycle); the record's per-rank work the
+    in-program rows' (density + force units of the pulled row);
+    ``cost_calibration`` present; the CLI exits 0."""
+    from repro_torch.observability import device_metrics as dm
+    from repro_torch.observability.__main__ import check_run, main, run_spec
+    spec = run_spec(OBS_NSIDE, DIST_RANKS, residency="device", out_dir=tmp)
+    untraced, traced = observed_runs(spec, dev, (False, True))
+    sim = traced["sim"]
+    obs, eng = sim.observer, sim.engine
+    out = os.path.join(tmp, "resident")
+    os.makedirs(out, exist_ok=True)
+    doc, _, _, back = export_records(obs, out)
+    failures = check_run(sim, doc, DIST_RANKS, SIM_CYCLES)
+    rec = obs.records[-1]
+    counts, values = eng.device_metrics_last
+    in_program = (values[:, dm.VALUE_INDEX["density_units"]]
+                  + values[:, dm.VALUE_INDEX["force_units"]]).tolist()
+    work = rec["device_metrics"]["per_rank_work"]
+    nsub = sum(r["force_substeps"] for r in obs.records)
+    rc, text = quiet(main, ["--residency", "device", "--n-side",
+                            str(OBS_NSIDE), "--ranks", str(DIST_RANKS),
+                            "--out-dir", os.path.join(tmp, "resident_cli"),
+                            "--device", str(dev)])
+    cli = json.loads(text)
+    bitwise = bits_equal(traced["state"], untraced["state"])
+    same_compiles = eng.probe.counts() \
+        == untraced["sim"].engine.probe.counts()
+    say({"phase": "observed_tbdist_resident", "n_side": OBS_NSIDE,
+         "ranks": DIST_RANKS, "residency": "device", "cycles": SIM_CYCLES,
+         "traced_wall_s": traced["walls"],
+         "untraced_wall_s": untraced["walls"],
+         "bitwise_equal_untraced": bitwise, "compiles_equal": same_compiles,
+         "launches": traced["launches"],
+         "launches_equal": traced["launches"] == untraced["launches"],
+         "force_substeps": nsub, "cli_checks_failed": failures,
+         "jsonl_round_trip": back == obs.records,
+         "per_rank_work": work, "in_program_work": in_program,
+         "cost_calibration": rec.get("cost_calibration"),
+         "bucket_events": rec.get("bucket_events"),
+         **record_summary(rec), "cli_rc": rc, "cli_ok": cli.get("ok"),
+         "cli_spans": cli.get("spans")})
+    assert bitwise, "the traced resident ladder left the untraced one"
+    assert same_compiles and traced["launches"] == untraced["launches"]
+    assert (traced["launches"]["density_pair_cells"],
+            traced["launches"]["force_pair"],
+            traced["launches"]["density_pair"]) == (nsub, nsub, 0), \
+        traced["launches"]
+    assert not failures, failures
+    assert back == obs.records
+    assert len(work) == DIST_RANKS and all(w > 0 for w in work)
+    assert work == in_program, (work, in_program)
+    assert rec.get("cost_calibration") is not None
+    assert rc == 0 and cli.get("ok"), text[-2000:]
+    launches = kernel_launches(traced["launches"])
+    del sim, obs, traced, untraced
     return launches
 
 

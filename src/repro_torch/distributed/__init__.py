@@ -5,13 +5,15 @@ queue 1 item 13) and are not here."""
 
 from .transport import (DYNAMIC_STATE_FIELDS, RESIDENCIES, TRANSPORTS,
                         BucketPolicy, CompileProbe, HostTransport,
-                        ProgramCache, ShipSlots, TransferProbe, Transport,
+                        ProgramCache, ResidentBuffers, ShipSlots,
+                        TransferProbe, Transport,
                         make_transport, next_pow2, pack_allgather,
                         pack_rounds)
 
 __all__ = [
     "DYNAMIC_STATE_FIELDS", "RESIDENCIES", "TRANSPORTS", "BucketPolicy",
-    "CompileProbe", "HostTransport", "ProgramCache", "ShipSlots",
+    "CompileProbe", "HostTransport", "ProgramCache", "ResidentBuffers",
+    "ShipSlots",
     "TransferProbe", "Transport", "make_transport", "next_pow2",
     "pack_allgather", "pack_rounds",
 ]

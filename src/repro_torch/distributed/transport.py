@@ -27,12 +27,12 @@ generic machinery:
 * :class:`TransferProbe` — per-field accounting of the bytes the engine
   moves across the host boundary, split into cycle-boundary and
   intra-cycle traffic.
+* :class:`ResidentBuffers` — the device-resident engine's stacked
+  ``(nranks, …)`` state buffers, whose only host access goes through the
+  probe.
 * :func:`make_transport` — factory over ``"host" | "collective"`` (the
   collective wire lives in ``repro_torch.sph.collectives``, imported
   lazily so this layer stays free of SPH specifics).
-
-The reference's ``ResidentBuffers`` (the device-resident fused engine's
-stacked buffers) belongs to ROADMAP queue 1 item 11b and is not here.
 """
 
 from __future__ import annotations
@@ -233,6 +233,59 @@ class TransferProbe:
                 "intra_bytes": dict(self.intra_bytes),
                 "intra_state_bytes": self.intra_state_bytes(),
                 "total_bytes": self.total_bytes()}
+
+
+def _nbytes(a) -> int:
+    if isinstance(a, torch.Tensor):
+        return a.numel() * a.element_size()
+    return int(np.asarray(a).nbytes)
+
+
+class ResidentBuffers:
+    """Named stacked device buffers of the device-resident engine.
+
+    Holds one ``(nranks, …)`` tensor per state field on the engine's
+    device for the duration of a cycle. The only mutation path is
+    :meth:`update` with a program's outputs (a device-side handoff, no
+    transfer); every other access goes through :meth:`put` / :meth:`pull`,
+    which record their bytes with the :class:`TransferProbe` — so the
+    ledger is complete by construction as long as the engine never
+    touches ``arrays`` directly.
+    """
+
+    def __init__(self, probe: TransferProbe):
+        self.probe = probe
+        self.arrays: Dict[str, torch.Tensor] = {}
+
+    def put(self, name: str, array, place: Callable, *,
+            boundary: bool = True) -> None:
+        """Place ``array`` (a host array, or the global mirror's stacked
+        rows, which the port keeps on the device) through ``place`` and
+        record its bytes."""
+        self.probe.record(name, _nbytes(array), boundary=boundary)
+        self.arrays[name] = place(array)
+
+    def pull(self, name: str, *, boundary: bool = True,
+             index: Optional[object] = None,
+             device: Optional[torch.device] = None):
+        """Bring a buffer (or only its ``index`` slice) back and record the
+        bytes that move: to the host as a numpy array, or, with
+        ``device``, as a tensor on it (the cycle's gather into the
+        global mirror, which lives on the card)."""
+        arr = self.arrays[name]
+        out = arr if index is None else arr[index]
+        self.probe.record(name, _nbytes(out), boundary=boundary)
+        if device is not None:
+            return out.to(device)
+        return out.cpu().numpy()
+
+    def update(self, mapping: Dict[str, torch.Tensor]) -> None:
+        """Adopt a program's outputs (they stay on the device: no
+        transfer)."""
+        self.arrays.update(mapping)
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.arrays[name]
 
 
 # ---------------------------------------------------------------- ship slots

@@ -11,7 +11,9 @@ simulation of B disjoint lanes:
 * the cell arrays stack along the cell axis, ``(B·ncells, C, …)``, lane
   ``l`` owning rows ``[l·ncells, (l+1)·ncells)``;
 * the pair list repeats per lane with ``ci``/``cj`` offset by
-  ``l·ncells`` (:func:`stack_pair_list`), so no pair crosses lanes;
+  ``l·ncells`` (:func:`~repro_torch.sph.cellgrid.stack_pair_list`, shared
+  with the device-resident distributed engine, whose ranks are lanes), so
+  no pair crosses lanes;
 * each lane's dt and time are entries of ``(B,)`` vectors, expanded per
   cell where the step multiplies by dt (:func:`lane_step`).
 
@@ -31,47 +33,11 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from ..sph.cellgrid import PairList, ParticleCells
+from ..sph.cellgrid import (PairList, ParticleCells,  # noqa: F401
+                            stack_pair_list)
 from ..sph.engine import SPHConfig, SPHState, cfl_timestep_particles, \
-    compute_accelerations, host_array, periodic_wrap
+    compute_accelerations, periodic_wrap
 from ..sph.physics import smoothing_length_update
-
-
-def stack_pair_list(pairs: PairList, bucket: int, ncells: int,
-                    device=None) -> PairList:
-    """``pairs`` (one lane's list over ``ncells`` cells) repeated for
-    ``bucket`` lanes, on ``device``.
-
-    Lane ``l``'s ``ci``/``cj`` are offset by ``l·ncells`` and its shifts
-    repeated. The single list's incoming table numbers its contribution
-    rows i-side ``p``, j-side ``P + p`` and the zero row ``2P``; in the
-    stacked list (``B·P`` pairs) lane ``l``'s become ``l·P + p``,
-    ``B·P + l·P + p`` and ``2·B·P``, and its cells ``l·ncells + c``. Every
-    lane has the same geometry, so this equals ``cellgrid.incoming_table``
-    of the stacked ``ci``/``cj`` exactly: the same width, the same
-    zero-row padding, lanes in ascending order.
-    """
-    B, P = int(bucket), int(pairs.ci.shape[0])
-    ci = host_array(pairs.ci).astype(np.int64)
-    cj = host_array(pairs.cj).astype(np.int64)
-    shift = host_array(pairs.shift)
-    rows, table = (host_array(a) for a in pairs.incoming)
-    lane = np.arange(B, dtype=np.int64)
-    cell_off = (lane * ncells)[:, None]
-    t = table[None]
-    lp = lane[:, None, None] * P
-    stacked = np.where(t < P, t + lp,
-                       np.where(t < 2 * P, t - P + B * P + lp, 2 * B * P))
-    return PairList(
-        ci=torch.from_numpy((ci[None] + cell_off).reshape(-1).astype(
-            np.int32)).to(device),
-        cj=torch.from_numpy((cj[None] + cell_off).reshape(-1).astype(
-            np.int32)).to(device),
-        shift=torch.from_numpy(np.tile(shift, (B, 1))).to(device),
-        incoming=(torch.from_numpy((rows[None] + cell_off).reshape(-1)).to(
-                      device),
-                  torch.from_numpy(stacked.reshape(-1, table.shape[1])).to(
-                      device)))
 
 
 def stack_cells(lanes: Sequence[ParticleCells], device=None) -> ParticleCells:

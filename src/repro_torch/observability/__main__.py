@@ -6,9 +6,9 @@ The acceptance harness of the port's observability:
     PYTHONPATH=src python -m repro_torch.observability --ranks 4 --cycles 1 \\
         --out-dir observability-artifacts [--device cpu]
 
-runs the time-bin × distributed engine (collective wire, host residency —
-the port's device residency is ROADMAP queue 1 item 11b, and
-``--residency device`` raises naming it) with tracing on, on the CUDA
+runs the time-bin × distributed engine (collective wire, host residency;
+``--residency device`` runs the fused device-resident sub-steps instead)
+with tracing on, on the CUDA
 device unless ``--device`` names another, exports the Chrome trace and the
 per-cycle metrics log, validates the trace against the minimal schema, and
 asserts the record's byte/compile counters agree exactly with the engine's
@@ -72,7 +72,8 @@ def _add_run_args(ap, cycles: int, out_dir: str) -> None:
     ap.add_argument("--out-dir", default=out_dir)
     ap.add_argument("--residency", default="host",
                     choices=("host", "device"),
-                    help="'device' is ROADMAP queue 1 item 11b and raises")
+                    help="'device' keeps the ranks' states on the card "
+                         "and runs one fused program per sub-step")
     ap.add_argument("--transport", default="collective",
                     choices=("host", "collective"))
     ap.add_argument("--n-side", type=int, default=6)
@@ -85,7 +86,9 @@ def check_run(sim, doc, ranks: int, cycles: int,
               device_metrics: bool = True):
     """The acceptance checks on a traced, stepped simulation and its
     exported Chrome-trace document ``doc``: returns the list of failures
-    (empty = every check passed)."""
+    (empty = every check passed). At device residency a sub-step is one
+    fused slice per rank, and the exchange column's per-cell sum is exact
+    too."""
     import numpy as np
     from repro_torch.observability import jsonify, validate_chrome_trace
     obs, eng = sim.observer, sim.engine
@@ -99,11 +102,14 @@ def check_run(sim, doc, ranks: int, cycles: int,
     if rows != set(range(ranks)):
         failures.append(f"expected one row per rank 0..{ranks - 1}, "
                         f"got {sorted(rows)}")
-    # one density and one force slice per force sub-step on every rank
+    # one phase slice per force sub-step on every rank: a density and a
+    # force slice, or one fused slice at device residency
+    resident = getattr(eng, "residency", "host") == "device"
+    per_sub = ("fused_substep", "fused_final") if resident \
+        else ("density", "force")
     nsub = sum(r["force_substeps"] for r in obs.records)
     for r in sorted(rows):
-        got = sum(1 for e in xs if e["tid"] == r
-                  and e["name"] in ("density", "force"))
+        got = sum(1 for e in xs if e["tid"] == r and e["name"] in per_sub)
         if got < nsub:
             failures.append(f"rank {r}: {got} phase slices < "
                             f"{nsub} force sub-steps")
@@ -126,8 +132,8 @@ def check_run(sim, doc, ranks: int, cycles: int,
         else:
             # per-cell attribution sums exactly to the phase-unit totals
             # (halo replicas fold onto their owner cell); the exchange
-            # column is receiver-side truth, exact only on the reference's
-            # device residency
+            # column is receiver-side truth, exact only at device
+            # residency (the host ladder splits shipped slots evenly)
             cw = eng.device_cell_work_last
             if cw is None:
                 failures.append("no device_cell_work_last on the engine")
@@ -136,7 +142,9 @@ def check_run(sim, doc, ranks: int, cycles: int,
                 per_rank = np.asarray(cw["per_rank"])
                 cols = list(cw["columns"])
                 du = rec.get("device_phase_units") or {}
-                for kind in ("density", "force"):
+                exact = ("density", "force") + (
+                    ("exchange",) if resident else ())
+                for kind in exact:
                     tot = float(cells[:, cols.index(kind)].sum())
                     want = float(du.get(kind, 0.0))
                     if abs(tot - want) > 1e-6 * max(want, 1.0):

@@ -50,7 +50,7 @@ class TaskCostLedger:
 
     ``record`` takes one cycle's aggregate work units (from the per-cell
     vectors' totals) and the wall of the programs that did them (the
-    reference's fused sub-step programs; the port's host-residency paths
+    device residency's fused sub-step programs; the host-residency paths
     time each phase instead and feed ``CostModel.observe`` directly). It
     apportions the wall across kinds by unit share and
     feeds ``CostModel.observe`` — the same information the pre-calibration

@@ -1,16 +1,16 @@
-"""Telemetry rows (numpy copy of the host-side pieces of
-``repro.observability.device_metrics``).
+"""Telemetry rows (port of ``repro.observability.device_metrics``).
 
 Two fixed-shape buffers per rank: ``counts`` (sub-step executions, active
 particles per phase, live pair counts, exchange slots, deepening / wake
 events, health sentinel trips) and ``values`` (per-phase work units and a
 state fingerprint), plus per-cell work vectors. The host-residency engines
-build them from host scalars they already hold and adopt one accumulated
-row a cycle (``device_metrics_last``); the observer digests it with
-:func:`summarize`, :func:`fingerprint` and :func:`phase_units`. The
-reference's in-program row functions (``measure_substep``, ``measure_cells``)
-run only inside its fused device-residency programs, which the port does
-not have yet (ROADMAP queue 1, item 11b).
+build them from host scalars they already hold; the device-resident
+engine's fused sub-step builds them on the device from the tensors its
+body already holds (:func:`measure_substep`, :func:`measure_cells`, one
+row per rank at once over the stacked ranks) and folds them there with
+:func:`combine`. Either way one accumulated row is adopted a cycle
+(``device_metrics_last``); the observer digests it with :func:`summarize`,
+:func:`fingerprint` and :func:`phase_units`.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 DEVICE_METRICS_VERSION = 2
 
@@ -79,6 +80,121 @@ def zero_rows(nranks: int = 1):
     return counts, values
 
 
+# -------------------------------------------------------------- in-program
+def _per_rank(x: torch.Tensor) -> torch.Tensor:
+    """(R, …) → (R, n): each rank's elements in one row."""
+    return x.reshape(x.shape[0], -1)
+
+
+def measure_substep(*, mask, active, vel, u, mass, rho,
+                    live_pairs, pair_int, pair_cut,
+                    exch_slots, exch_bytes, deepened, woken, kicked):
+    """Each rank's metrics row of one fused sub-step, on the device.
+
+    The tensors carry a leading rank dimension ``R``: ``mask``/``active``/
+    ``u``/``mass``/``rho`` (R, K, C), ``vel`` (R, K, C, 3) — each rank's
+    *owned* rows — and the scalars (R,). The reductions only read values
+    the sub-step's body already holds, so the state is untouched. Returns
+    ``(counts int32 (R, N_COUNTS), values float32 (R, N_VALUES))``, row
+    ``r`` the reference's single-rank row of rank ``r``.
+    """
+    R = mask.shape[0]
+    alive = mask > 0
+    f32, i32 = torch.float32, torch.int32
+
+    def any_rank(x):
+        return _per_rank(x).any(1)
+
+    nan_hit = (any_rank(torch.isnan(vel) & alive[..., None])
+               | any_rank(torch.isnan(u) & alive)
+               | any_rank(torch.isnan(rho) & alive))
+    inf_hit = (any_rank(torch.isinf(vel) & alive[..., None])
+               | any_rank(torch.isinf(u) & alive)
+               | any_rank(torch.isinf(rho) & alive))
+    neg_rho = any_rank((rho <= 0) & alive & (active > 0))
+
+    def col(x, dtype):
+        return torch.as_tensor(x, device=mask.device).to(dtype).reshape(R)
+
+    counts = torch.stack([
+        torch.ones(R, dtype=i32, device=mask.device),
+        _per_rank(alive).sum(1).to(i32),
+        _per_rank((active > 0) & alive).sum(1).to(i32),
+        col(kicked, i32), col(pair_int, i32), col(pair_cut, i32),
+        col(exch_slots, i32), col(exch_bytes, i32), col(deepened, i32),
+        col(woken, i32),
+        nan_hit.to(i32), inf_hit.to(i32), neg_rho.to(i32),
+    ], dim=1)
+
+    m = torch.where(alive, mass, 0.0)
+    speed = torch.sqrt(torch.sum(vel * vel, dim=-1))
+    energy = _per_rank(m * (u + 0.5 * speed * speed)).sum(1)
+    mom = torch.sqrt(torch.sum(
+        (m[..., None] * vel).reshape(R, -1, vel.shape[-1]).sum(1) ** 2,
+        dim=1))
+    values = torch.stack([
+        col(live_pairs, f32),
+        col(pair_int, f32) + col(pair_cut, f32),
+        col(exch_slots, f32),
+        col(kicked, f32),
+        energy.to(f32),
+        mom.to(f32),
+        _per_rank(torch.where(alive, speed, 0.0)).amax(1).to(f32),
+        _per_rank(torch.where(alive, rho, torch.inf)).amin(1).to(f32),
+    ], dim=1)
+    return counts, values
+
+
+def measure_cells(*, nrows: int, K: int, mask, pmask, ci, cj,
+                  exch_rows=None, exch_valid=None, nexch=1):
+    """Each rank's per-cell work vector of one sub-step, on the device.
+
+    ``mask`` (R, K, C) is each rank's owned rows, ``pmask``/``ci``/``cj``
+    (R, B) its pair table in extended-row numbering, ``exch_rows``/
+    ``exch_valid`` (R, …) the rows its exchange slots unpack into. Returns
+    a float32 ``(R, nrows, N_CELL_COLS)`` buffer over each rank's extended
+    rows, by the reference's attribution rules (the identities the tests
+    pin):
+
+    * drift — alive-particle count per owned row (rows ``[0, K)``); the
+      owned-row sum equals the ``drift_active`` count column.
+    * density/force — each live pair block is charged to its *owned*
+      endpoint (``ci`` when ``ci < K``, else ``cj``). The sums equal the
+      ``density_units``/``force_units`` value columns.
+    * exchange — ``nexch`` units per valid slot, charged receiver-side at
+      the row the slot unpacks into; the sum equals ``exchange_units``.
+
+    Row ``nrows`` of each rank is a scratch row: invalid entries land
+    there and are sliced away. Every value is a small integer, so the
+    float32 adds are exact in any order.
+    """
+    R = mask.shape[0]
+    dev = mask.device
+    f32 = torch.float32
+    width = nrows + 1
+    cw = torch.zeros((R * width, N_CELL_COLS), dtype=f32, device=dev)
+    base = (torch.arange(R, device=dev) * width)[:, None]
+
+    alive = _per_rank((mask > 0).to(f32).sum(-1))           # (R, K)
+    own = (base + torch.arange(K, device=dev)).reshape(-1)
+    cw[own, CELL_INDEX["drift"]] = alive.reshape(-1)
+
+    pm = _per_rank(pmask).to(f32)
+    ci, cj = _per_rank(ci).long(), _per_rank(cj).long()
+    owner = torch.where(ci < K, ci, cj)
+    tgt = (torch.where(pm > 0, owner, nrows) + base).reshape(-1)
+    for kind in ("density", "force"):
+        cw[:, CELL_INDEX[kind]].index_add_(0, tgt, pm.reshape(-1))
+
+    if exch_rows is not None:
+        ev = _per_rank(exch_valid).to(f32)
+        rows = _per_rank(exch_rows).long()
+        et = (torch.where(ev > 0, rows, nrows) + base).reshape(-1)
+        cw[:, CELL_INDEX["exchange"]].index_add_(
+            0, et, (ev * float(nexch)).reshape(-1))
+    return cw.reshape(R, width, N_CELL_COLS)[:, :nrows]
+
+
 def zero_cell_work(ncells: int, nranks: int = 1):
     """Host-side zero accumulator for per-cell attribution: a global
     ``(ncells, N_CELL_COLS)`` float64 buffer plus a per-rank
@@ -133,14 +249,34 @@ def cell_work_record(cell_work: Optional[Dict[str, object]]) \
     }
 
 
+_COMBINE_SEL: Dict[object, Tuple[torch.Tensor, ...]] = {}
+
+
 def combine(acc, row):
-    """Fold one sub-step row into a cycle accumulator (numpy rows).
+    """Fold one sub-step row into a cycle accumulator.
 
     Counts add; work-unit values add; fingerprint values take the
-    latest/extremum per ``_V_ACCUM``.
+    latest/extremum per ``_V_ACCUM``. numpy rows (the host paths) fold on
+    the host; tensor rows (the fused sub-steps') fold on their device with
+    no host read.
     """
     counts, values = acc
     rc, rv = row
+    if isinstance(values, torch.Tensor):
+        dev = values.device
+        if dev not in _COMBINE_SEL:
+            _COMBINE_SEL[dev] = tuple(
+                torch.tensor([a == kind for a in _V_ACCUM], device=dev)
+                for kind in ("sum", "last", "max"))
+        sel_sum, sel_last, sel_max = _COMBINE_SEL[dev]
+        rv = rv.to(values.dtype)
+        out = torch.where(sel_sum, values + rv,
+                          torch.where(sel_last, rv,
+                                      torch.where(sel_max,
+                                                  torch.maximum(values, rv),
+                                                  torch.minimum(values,
+                                                                rv))))
+        return counts + rc.to(counts.dtype), out
     counts = counts + np.asarray(rc, counts.dtype)
     rv = np.asarray(rv, values.dtype)
     sel_sum = np.asarray([a == "sum" for a in _V_ACCUM])

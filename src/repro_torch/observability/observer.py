@@ -116,10 +116,14 @@ class RunObserver:
         phase_wall: Dict[str, float] = {}
         phase_count: Dict[str, int] = {}
         phase_units: Dict[str, float] = {}
+        # phase wall with collective duplicates folded once — the seconds
+        # to apportion a fused program's cost across its phases
+        dedup_wall: Dict[str, float] = {}
         busy: Dict[int, float] = {}
         work: Dict[int, float] = {}
         cm = getattr(eng, "_cost_model", None) or self._own_cost_model
         seen_collective = set()
+        seen_wall = set()
         for s in spans:
             if s.name in UMBRELLA_SPANS:
                 continue
@@ -129,6 +133,10 @@ class RunObserver:
             phase_count[s.name] = phase_count.get(s.name, 0) + 1
             busy[s.rank] = busy.get(s.rank, 0.0) + dur
             collective = bool(a.get("collective"))
+            wkey = (s.name, s.t0, s.t1)
+            if not collective or wkey not in seen_wall:
+                dedup_wall[s.name] = dedup_wall.get(s.name, 0.0) + dur
+                seen_wall.add(wkey)
             if not collective:
                 work[s.rank] = work.get(s.rank, 0.0) + dur
             units = a.get("units", a.get("pairs"))
@@ -180,11 +188,15 @@ class RunObserver:
         transport = getattr(eng, "_transport", None)
         if transport is not None:
             rec["transport"] = transport.stats()
-            # the wire's bucket events (the reference adds its fused
-            # programs' policy, device residency only: item 11b)
-            buckets = getattr(transport, "buckets", None)
-            rec["bucket_events"] = (len(buckets.events)
-                                    if buckets is not None else 0)
+        # bucket events: the fused programs' policy and the wire's
+        nbucket = 0
+        fused = getattr(eng, "_fused_buckets", None)
+        if fused is not None:
+            nbucket += len(fused.events)
+        if transport is not None and hasattr(transport, "buckets"):
+            nbucket += len(transport.buckets.events)
+        if fused is not None or transport is not None:
+            rec["bucket_events"] = nbucket
         for k in ("bins_refreshes", "repartitions"):
             if hasattr(eng, k):
                 rec[k] = getattr(eng, k)
@@ -213,9 +225,8 @@ class RunObserver:
         cell_work = getattr(eng, "device_cell_work_last", None) \
             if self.spec.device_metrics else None
         rec["cell_work"] = dm.cell_work_record(cell_work)
-        # the joint rate fit is fed by the reference's fused programs
-        # (device residency, item 11b); host paths time each phase and
-        # leave it None, as the reference's host paths do
+        # the joint rate fit is fed by the fused programs (device
+        # residency); host paths time each phase and leave it None
         rec["cost_calibration"] = None
         rec["advisor"] = None
         if self.spec.device_metrics and dmx is not None:
@@ -240,6 +251,24 @@ class RunObserver:
             tripped = bool(summary["tripped"]) or drift
             rec["health"] = {"flags": summary["flags"],
                              "energy_drift": drift, "tripped": tripped}
+            # fused runs have no per-phase spans: feed the cost ledger one
+            # aggregate (units-by-kind, fused wall) sample a cycle — it
+            # keeps CostModel.observe flowing and refits the joint rates
+            # over its window
+            if "density" not in phase_wall and hasattr(cm, "observe"):
+                fused_wall = sum(dedup_wall.get(n, 0.0)
+                                 for n in ("fused_substep", "fused_final"))
+                if fused_wall > 0:
+                    if cell_work is not None:
+                        totals = np.asarray(
+                            cell_work["per_rank"], np.float64).sum(axis=0)
+                        units = {k: float(v) for k, v in
+                                 zip(cell_work["columns"], totals)}
+                    else:
+                        units = {k: float(du.get(k, 0.0))
+                                 for k in ("density", "force", "exchange")}
+                    rec["cost_calibration"] = self._get_ledger(cm).record(
+                        units, fused_wall)
             self.flight.record(self.cycle, counts, values)
             if tripped:
                 reason = drift and "energy-drift" or next(

@@ -12,15 +12,18 @@ integrator      backend            engine
                                    partitioned cells, ``ranks`` stacked on
                                    the one device; halos allgather / ring)
 ``"timebin"``   ``"distributed"``  ``dist_timebins.DistTimeBinSimulation``
-                                   (activity-aware halos, per-rank states
-                                   on the one device; host or collective
-                                   wire)
+                                   (activity-aware halos, the ranks'
+                                   states on the one device; host or
+                                   collective wire; host or device
+                                   residency)
 ==============  =================  ========================================
 
 :class:`SimulationSpec` has exactly the reference's fields, so one spec
 means the same run in both packages. The time-bin × distributed quadrant
-runs the reference's host residency and host schedule; its device
-residency, device schedule and segments (ROADMAP queue 1, item 11b) raise.
+runs the reference's host schedule at either residency
+(``residency="device"`` with ``transport="collective"``: the stacked states
+stay on the card for the cycle, one fused program a sub-step); its device
+schedule and segments (ROADMAP queue 1, item 11b-2) raise.
 ``SimulationSpec.program_signature()`` / ``signature_key()`` are the fleet's
 (:mod:`repro_torch.fleet.signature`): equal specs in the two packages get
 the same key, letter for letter.
@@ -142,10 +145,9 @@ class SimulationSpec:
 
     The time-bin × distributed policy (``transport``, ``residency``,
     ``schedule``, …) is validated as the reference validates it;
-    ``residency="device"`` (and with it ``schedule="device"`` and
-    ``segment_cycles > 1``) raises when the engine is built (ROADMAP queue
-    1, item 11b). ``mesh_axis`` names nothing in the port: the ranks share
-    one device.
+    ``schedule="device"`` (and with it ``segment_cycles > 1``) raises when
+    the engine is built (ROADMAP queue 1, item 11b-2). ``mesh_axis`` names
+    nothing in the port: the ranks share one device.
     """
     scenario: str = "uniform"
     scenario_params: Mapping[str, Any] = field(default_factory=dict)
@@ -530,8 +532,10 @@ class _DistGlobal(_SimulationBase):
 
 class _DistTimeBin(_SimulationBase):
     """timebin × distributed: activity-aware halos over a rank partition,
-    every rank's extended state on the one device. ``ranks=None`` means 1
-    (the reference counts its JAX devices instead)."""
+    every rank's extended state on the one device (per-rank states, or
+    stacked and resident for the cycle with ``residency="device"``).
+    ``ranks=None`` means 1 (the reference counts its JAX devices
+    instead)."""
 
     def __init__(self, spec: SimulationSpec, ic: Dict[str, np.ndarray],
                  device: DeviceLike):

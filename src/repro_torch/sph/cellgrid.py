@@ -17,7 +17,7 @@ order instead of with atomics, so a run repeats bit for bit.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -204,6 +204,82 @@ def make_pair_list(ci: np.ndarray, cj: np.ndarray, shift: np.ndarray,
         cj=torch.from_numpy(np.array(cj, np.int32)).to(device),
         shift=torch.from_numpy(np.array(shift, np.float32)).to(device),
         incoming=(torch.from_numpy(cells).to(device),
+                  torch.from_numpy(table).to(device)))
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def stack_incoming(tables: Sequence[Tuple[np.ndarray, np.ndarray]],
+                   npairs: int, ncells: int, *,
+                   width: Optional[int] = None, every_row: bool = False
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """Lanes' incoming tables as the one table of their stacked list.
+
+    Lane ``l``'s list has ``npairs`` (P) pairs over ``ncells`` cells, and
+    its table (:func:`incoming_table`) numbers its contribution rows i-side
+    ``p``, j-side ``P + p`` and the zero row ``2P``. In the stacked list
+    (``L·P`` pairs, lane ``l``'s cells offset by ``l·ncells``) these are
+    ``l·P + p``, ``L·P + l·P + p`` and ``2·L·P``: every cell keeps its own
+    lane's contributions in its lane's order. Tables narrower than
+    ``width`` (default: the widest) are padded with the zero row, which
+    adds +0.0 — a sum in table order from +0.0 never holds −0.0, so the
+    padding leaves every bit. With ``every_row`` the table lists all
+    ``L·ncells`` cells (untouched ones all zero row), so its shape depends
+    only on the lanes' sizes and ``width``.
+    """
+    L, P = len(tables), int(npairs)
+    W = max((t.shape[1] for _, t in tables), default=1) \
+        if width is None else int(width)
+    zero = 2 * L * P
+    rows_out, tabs = [], []
+    for lane, (rows, table) in enumerate(tables):
+        t = np.asarray(table, np.int64)
+        t = np.where(t < P, t + lane * P,
+                     np.where(t < 2 * P, t - P + (L + lane) * P, zero))
+        if t.shape[1] < W:
+            t = np.concatenate(
+                [t, np.full((t.shape[0], W - t.shape[1]), zero, np.int64)],
+                axis=1)
+        rows_out.append(np.asarray(rows, np.int64) + lane * ncells)
+        tabs.append(t)
+    rows = np.concatenate(rows_out)
+    table = np.concatenate(tabs).reshape(-1, W)
+    if every_row:
+        full = np.full((L * ncells, W), zero, np.int64)
+        full[rows] = table
+        rows, table = np.arange(L * ncells, dtype=np.int64), full
+    return rows, table
+
+
+def stack_pair_list(pairs: PairList, bucket: int, ncells: int,
+                    device=None) -> PairList:
+    """``pairs`` (one lane's list over ``ncells`` cells) repeated for
+    ``bucket`` lanes, on ``device``.
+
+    Lane ``l``'s ``ci``/``cj`` are offset by ``l·ncells`` and its shifts
+    repeated; its incoming table maps as :func:`stack_incoming` says. Every
+    lane has the same geometry, so this equals ``incoming_table`` of the
+    stacked ``ci``/``cj`` exactly: the same width, the same zero-row
+    padding, lanes in ascending order.
+    """
+    B, P = int(bucket), int(pairs.ci.shape[0])
+    ci = _host(pairs.ci).astype(np.int64)
+    cj = _host(pairs.cj).astype(np.int64)
+    incoming = tuple(_host(a) for a in pairs.incoming)
+    cell_off = (np.arange(B, dtype=np.int64) * ncells)[:, None]
+    rows, table = stack_incoming([incoming] * B, P, ncells)
+    return PairList(
+        ci=torch.from_numpy((ci[None] + cell_off).reshape(-1).astype(
+            np.int32)).to(device),
+        cj=torch.from_numpy((cj[None] + cell_off).reshape(-1).astype(
+            np.int32)).to(device),
+        shift=torch.from_numpy(np.tile(_host(pairs.shift), (B, 1))).to(
+            device),
+        incoming=(torch.from_numpy(rows).to(device),
                   torch.from_numpy(table).to(device)))
 
 

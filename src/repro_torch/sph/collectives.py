@@ -25,8 +25,18 @@ wire's states. Programs are cached by their static signature (bucket,
 rounds, field shapes) in a :class:`~repro_torch.distributed.transport.
 ProgramCache`.
 
-The reference's fused device-resident sub-step and cycle programs wait for
-ROADMAP queue 1 item 11b.
+**Fused sub-step programs** (:func:`build_fused_substep_program`): the
+device-resident engine runs a *whole force sub-step* — drift, density
+phase, exchange 1, force phase, kick and exchange 2 — as one function over
+the stacked per-rank extended states, flattened to ``(nranks·(K+H), C,
+…)`` so each pair kernel launches once for all ranks. The state stays on
+the card between cycle boundaries. The reference splits the force pair
+pass into interior and cut pairs so its compiler can overlap the interior
+pairs with exchange 1 (:func:`_split_force_pass`, kept here and held to
+the unsplit pass by a test); on one card and one stream the split buys
+nothing, so the fused body runs the unsplit pass over the post-exchange
+fields, which is bitwise the split one. The reference's device-scheduled
+cycle programs are ROADMAP queue 1 item 11b-2.
 """
 
 from __future__ import annotations
@@ -39,6 +49,12 @@ from ..core.comm_planner import ppermute_rounds
 from ..distributed.transport import (BucketPolicy, CompileProbe, ProgramCache,
                                      ShipSlots, Transport, pack_allgather,
                                      pack_rounds)
+from ..observability import device_metrics as dmetrics
+from .cellgrid import PairList, ParticleCells
+from .engine import _force_pass
+from .timebins import (STATE_AUX_FIELDS, STATE_CELL_FIELDS, TimeBinState,
+                       _apply_final_kick, _apply_force_kick, _drift,
+                       _substep_density_phase, substep_active_mask)
 
 
 # ------------------------------------------------------- stacked row copies
@@ -150,6 +166,211 @@ def build_allgather_program(nrows: int, bucket_out: int, bucket_in: int,
         assert unpack_src.shape[-1] == bucket_in
         return tuple(_allgather_copy(f, pack, unpack_src, unpack_rows,
                                      valid, nrows) for f in fields)
+
+    return program
+
+
+# ------------------------------------------------- interior/cut force split
+def _split_force_pass(cells: ParticleCells, pairs: PairList, pair_mask,
+                      pre, post, int_pos, int_valid, cut_pos, cut_valid,
+                      *, cfg):
+    """``engine._force_pass`` with the interior/cut work split.
+
+    ``pre``/``post`` are (rho, press, omega, cs) before/after exchange 1.
+    ``int_pos``/``cut_pos`` partition the live pair positions of ``pairs``
+    into interior pairs (both rows owned) and cut pairs (one row a halo
+    replica), each padded to its own bucket with ``*_valid`` zeros.
+
+    Interior pairs read only owned rows, which exchange 1 never writes, so
+    their contributions are computed from the *pre*-exchange fields; cut
+    pairs wait for the exchanged ones. Both subsets' contributions are
+    put back at their **pair-list position** (padding on a scratch slot)
+    and summed through the list's incoming table as ``_force_pass`` sums
+    them, so every row folds the same contributions in the same order —
+    bit for bit the unsplit pass over the ``post`` fields. Each subset is
+    one ``force_pair`` launch.
+    """
+    from ..kernels.sph_pair import ops
+    from ..kernels.sph_pair.kernel import force_pair
+    B = int(pairs.ci.shape[0])
+
+    def subset(fieldset, pos):
+        rho, press, omega, cs = fieldset
+        p = pos.long().clamp(0, max(B - 1, 0))
+        sub = pairs._replace(ci=pairs.ci[p], cj=pairs.cj[p],
+                             shift=pairs.shift[p])
+        return force_pair(*ops.force_inputs(cells, sub, rho, press, omega,
+                                            cs),
+                          kernel=cfg.kernel, alpha_visc=cfg.alpha_visc)
+
+    got_int = subset(pre, int_pos)
+    got_cut = subset(post, cut_pos)
+    safe_int = torch.where(int_valid > 0, int_pos.long(), B)
+    safe_cut = torch.where(cut_valid > 0, cut_pos.long(), B)
+
+    def assemble(int_vals, cut_vals):
+        full = int_vals.new_zeros((B + 1,) + tuple(int_vals.shape[1:]))
+        full[safe_int] = int_vals
+        full[safe_cut] = cut_vals
+        return full[:B]
+
+    dv_i, du_i, dv_j, du_j = (assemble(a, b)
+                              for a, b in zip(got_int, got_cut))
+    ncells = cells.mass.shape[0]
+    live_i, live_j = ops._live(pairs, pair_mask, cells.pos.dtype)
+    side_i = torch.cat([dv_i, du_i[..., None]], -1) * live_i[:, None, None]
+    side_j = torch.cat([dv_j, du_j[..., None]], -1) * live_j[:, None, None]
+    sums = ops._cell_sums(side_i, side_j, pairs.incoming, ncells)
+    return sums[..., :3], sums[..., 3]
+
+
+# --------------------------------------------------- fused sub-step programs
+# scalars shipped per particle slot in each exchange (for byte accounting):
+# exchange 1: rho, omega, press, cs; exchange 2: vel(3), u, bins, t_start,
+# accel(3), dudt
+_EX1_FIELDS = 4
+_EX2_FIELDS = 10
+
+
+def build_fused_substep_program(*, mode: str,
+                                rounds: Sequence[Sequence[Tuple[int, int]]],
+                                nranks: int, nrows: int, K: int, cfg,
+                                box: float, final: bool = False):
+    """One whole force sub-step over the stacked per-rank states.
+
+    The device-resident engine's unit of work: drift → density phase →
+    exchange 1 (rho, omega, press, cs) → force pass → kick/deepen →
+    exchange 2 (vel, u, bins, t_start, accel, dudt). With ``final=True``
+    it is the cycle-closing boundary instead: every particle active, the
+    closing kick, no exchange 2.
+
+    The program takes three dicts — ``state`` (each field ``(nranks,
+    nrows, C, …)``, ``time`` ``(nranks,)``), ``tables`` (this sub-step's
+    pair table in each rank's extended-row numbering, its stacked incoming
+    table, the interior/cut positions, the wake floors and the exchange
+    index tables) and ``scalars`` (dt/level/…) — and ``metrics``. The
+    ranks are flattened to ``(nranks·nrows, C, …)`` for the body, each
+    rank's pair ``(ci, cj)`` offset by its first row, so the density and
+    the force pass each launch their pair kernel once for all ranks; each
+    rank's time is expanded per row, so every element sees the operands of
+    the rank's own 0-d time.
+
+    Returns the updated state dict, a per-rank ``changed`` flag (int32, 1
+    iff an owned row's bin deepened — the one signal the host needs
+    mid-cycle), and, with ``metrics``, each rank's
+    :mod:`~repro_torch.observability.device_metrics` rows
+    (``counts``, ``values``, per-cell ``cells``) over its owned rows, else
+    ``None``. The rows only read what the body holds, so the state is the
+    same either way; the port has no compiled program for them to share,
+    so they are built only when asked for.
+    """
+    sources = _round_sources([list(rnd) for rnd in rounds], nranks)
+    on_device: Dict[torch.device, List[torch.Tensor]] = {}
+    N = nranks * nrows
+
+    def flat(x):
+        return x.reshape((N,) + tuple(x.shape[2:]))
+
+    def stacked(x):
+        return x.reshape((nranks, nrows) + tuple(x.shape[1:]))
+
+    def per_rank(x):
+        return x.reshape(nranks, -1)
+
+    def program(state, tables, scalars, metrics: bool = False):
+        dev = state["pos"].device
+        if dev not in on_device:
+            on_device[dev] = [s.to(dev) for s in sources]
+        srcs = on_device[dev]
+
+        def xchg(fields):
+            if mode == "ppermute":
+                outs = [_permute_copy(stacked(f), tables["e_pack"],
+                                      tables["e_unpack"], tables["e_valid"],
+                                      srcs, nrows) for f in fields]
+            else:
+                outs = [_allgather_copy(stacked(f), tables["e_pack"],
+                                        tables["e_usrc"], tables["e_urows"],
+                                        tables["e_valid"], nrows)
+                        for f in fields]
+            return [flat(o) for o in outs]
+
+        st = TimeBinState(
+            cells=ParticleCells(**{k: flat(state[k])
+                                   for k in STATE_CELL_FIELDS}),
+            time=state["time"].repeat_interleave(nrows)[:, None],
+            **{k: flat(state[k]) for k in STATE_AUX_FIELDS})
+        st = _drift(st, scalars["dt_drift"], box=box)
+        first = (torch.arange(nranks, device=dev) * nrows)[:, None]
+        pairs = PairList(
+            ci=(tables["ci"] + first).to(torch.int32).reshape(-1),
+            cj=(tables["cj"] + first).to(torch.int32).reshape(-1),
+            shift=tables["shift"].reshape(-1, 3),
+            incoming=(tables["in_rows"], tables["in_table"]))
+        pmask = tables["pmask"].reshape(-1)
+        wake = tables["wake"].reshape(-1)
+
+        if final:
+            active = st.cells.mask
+        else:
+            active = substep_active_mask(st, scalars["level"], wake)
+        rho, om, pr, cs = _substep_density_phase(st, pairs, pmask, active,
+                                                 cfg=cfg)
+        rho2, om2, pr2, cs2 = xchg([rho, om, pr, cs])
+        dv, du = _force_pass(st.cells, pairs, rho2, pr2, om2, cs2, cfg,
+                             pair_mask=pmask)
+        zeros = torch.zeros(nranks, dtype=torch.int32, device=dev)
+        if final:
+            st = _apply_final_kick(st, dv, du, rho2, om2, scalars["dt_max"],
+                                   cfg=cfg)
+            changed = deepened = woken = zeros
+            kicked = per_rank((active > 0) & (st.cells.mask > 0)).sum(1)
+            nexch = 1
+        else:
+            st, _ = _apply_force_kick(st, active, dv, du, rho2, om2, wake,
+                                      scalars["dt_max"], scalars["depth"],
+                                      scalars["u_floor"], cfg=cfg)
+            vel, uu, bb, ts, ac, dd = xchg(
+                [st.cells.vel, st.cells.u, st.bins, st.t_start, st.accel,
+                 st.dudt])
+            deepened = per_rank(stacked(bb)[:, :K]
+                                != state["bins"][:, :K]).sum(1).to(
+                                    torch.int32)
+            changed = (deepened > 0).to(torch.int32)
+            woken = (tables["wake"] > scalars["level"]).sum(1).to(
+                torch.int32)
+            kicked = per_rank(active).sum(1)
+            st = st._replace(cells=st.cells._replace(vel=vel, u=uu),
+                             bins=bb, t_start=ts, accel=ac, dudt=dd)
+            nexch = 2
+        met = None
+        if metrics:
+            cap = int(st.cells.mass.shape[1])
+            slot_bytes = _EX1_FIELDS * cap * 4
+            if nexch == 2:
+                slot_bytes += _EX2_FIELDS * cap * 4
+            nslots = per_rank(tables["e_valid"] > 0).sum(1)
+            own = lambda x: stacked(x)[:, :K]
+            counts, values = dmetrics.measure_substep(
+                mask=own(st.cells.mask), active=own(active),
+                vel=own(st.cells.vel), u=own(st.cells.u),
+                mass=own(st.cells.mass), rho=own(st.rho),
+                live_pairs=per_rank(tables["pmask"]).sum(1),
+                pair_int=per_rank(tables["int_valid"] > 0).sum(1),
+                pair_cut=per_rank(tables["cut_valid"] > 0).sum(1),
+                exch_slots=nslots * nexch, exch_bytes=nslots * slot_bytes,
+                deepened=deepened, woken=woken, kicked=kicked)
+            cells = dmetrics.measure_cells(
+                nrows=nrows, K=K, mask=own(st.cells.mask),
+                pmask=tables["pmask"], ci=tables["ci"], cj=tables["cj"],
+                exch_rows=(tables["e_unpack"] if mode == "ppermute"
+                           else tables["e_urows"]),
+                exch_valid=tables["e_valid"], nexch=nexch)
+            met = {"counts": counts, "values": values, "cells": cells}
+        out = {k: stacked(getattr(st.cells, k)) for k in STATE_CELL_FIELDS}
+        out.update({k: stacked(getattr(st, k)) for k in STATE_AUX_FIELDS})
+        out["time"] = st.time.reshape(nranks, nrows)[:, 0].contiguous()
+        return out, changed, met
 
     return program
 

@@ -30,23 +30,37 @@ order (``kernels/sph_pair/ops.py``), so an owned cell adds the same
 contributions in the same order as the single-host ladder — the engine is
 bit for bit ``TimeBinSimulation`` for any rank count and wire.
 
-Layout: a list of per-rank ``TimeBinState``s, each of ``(K + H, C, …)``
-tensors on the device (owned rows, then halo replicas), with one call of
-each phase per rank — so each rank's density and force phases launch the
-two pair kernels once each. The wire is a pluggable **transport**
-(``transport="host" | "collective"``): ``HostTransport`` copies rows
-through numpy, ``CollectiveTransport`` (``sph/collectives.py``) does the
-same copies on the device over the stacked ranks. Both are pure row copies
-and give the same bits.
+Two residencies (``residency="host" | "device"``):
+
+* **host** — a list of per-rank ``TimeBinState``s, each of ``(K + H, C,
+  …)`` tensors on the device (owned rows, then halo replicas), with one
+  call of each phase per rank — so each rank's density and force phases
+  launch the two pair kernels once each. The wire is a pluggable
+  **transport** (``transport="host" | "collective"``): ``HostTransport``
+  copies rows through numpy, ``CollectiveTransport``
+  (``sph/collectives.py``) does the same copies on the device over the
+  stacked ranks. Both are pure row copies and give the same bits.
+* **device** (collective wire) — the ranks' extended states stacked as
+  one ``(nranks, K + H, C, …)`` tensor per field
+  (:class:`~repro_torch.distributed.transport.ResidentBuffers`), on the
+  device for the whole cycle, and one fused program per force sub-step
+  (``collectives.build_fused_substep_program``) over all ranks: one launch
+  of each pair kernel a sub-step. Each rank's pair table is padded to one
+  bucket and its incoming table stacked as a fleet lane's
+  (``cellgrid.stack_incoming``), so each owned cell adds the same
+  contributions in the same order as at host residency: the two
+  residencies are bit for bit the same. Inside a cycle only control moves
+  between host and device — index tables, the per-rank ``changed`` flags,
+  and the ``bins`` rows of a deepening — and the transfer probe records
+  every byte.
 
 Repartitioning uses per-rank **bin occupancy**: the decomposition is
 retriggered when the time-averaged active work per rank
 (``core.decompose.timebin_node_weights``) drifts out of balance, and the
 new partition is computed from the cycle-averaged task costs.
 
-The reference's device residency (fused sub-step programs), device
-schedule and multi-cycle segments are ROADMAP queue 1 item 11b; asking for
-them raises.
+The reference's device schedule and multi-cycle segments are ROADMAP
+queue 1 item 11b-2; asking for them raises.
 """
 
 from __future__ import annotations
@@ -61,12 +75,16 @@ import torch
 from ..core import CostModel, decompose_cells
 from ..core.decompose import timebin_node_weights
 from ..device import synchronize
-from ..distributed.transport import (RESIDENCIES, TRANSPORTS, CompileProbe,
+from ..distributed.transport import (RESIDENCIES, TRANSPORTS, BucketPolicy,
+                                     CompileProbe, ResidentBuffers,
                                      ShipSlots, TransferProbe, make_transport,
-                                     next_pow2)
+                                     next_pow2, pack_allgather, pack_rounds)
 from ..observability import device_metrics as dmetrics
-from .cellgrid import PairList, ParticleCells, make_pair_list
-from .engine import SPHConfig, build_taskgraph, f32
+from .cellgrid import (PairList, ParticleCells, incoming_table,
+                       make_pair_list, stack_incoming)
+from .collectives import (_EX1_FIELDS, _EX2_FIELDS,
+                          build_fused_substep_program)
+from .engine import SPHConfig, build_taskgraph, f32, host_array
 from .timebins import (STATE_AUX_FIELDS, STATE_CELL_FIELDS,
                        TimeBinSimulation, TimeBinState, _final_force_phase,
                        _substep_density_phase, _substep_force_phase,
@@ -75,15 +93,9 @@ from .timebins import (STATE_AUX_FIELDS, STATE_CELL_FIELDS,
 
 _PAD_H = 1e-6          # padded-slot smoothing length (division-safe)
 
-# scalars shipped per particle slot in each exchange (for byte accounting):
-# exchange 1: rho, omega, press, cs; exchange 2: vel(3), u, bins, t_start,
-# accel(3), dudt
-_EX1_FIELDS = 4
-_EX2_FIELDS = 10
-
-_ITEM_11B = ("is not ported yet (ROADMAP queue 1, item 11b: device "
-             "residency, device schedule and segments of the time-bin × "
-             "distributed quadrant)")
+_ITEM_11B = ("is not ported yet (ROADMAP queue 1, item 11b-2: the device "
+             "schedule and segments of the time-bin × distributed "
+             "quadrant)")
 
 
 # ------------------------------------------------------------------ rank plan
@@ -276,8 +288,8 @@ class DistTimeBinSimulation(TimeBinSimulation):
             raise ValueError(
                 "segment_cycles > 1 fuses consecutive cycles into one "
                 "device segment and requires schedule='device'")
-        if residency == "device":
-            # schedule="device" and segment_cycles > 1 validate only here
+        if schedule == "device":
+            # segment_cycles > 1 validates only with schedule="device"
             raise NotImplementedError(
                 f"repro_torch: residency={residency!r}, schedule="
                 f"{schedule!r}, segment_cycles={int(segment_cycles)} "
@@ -323,8 +335,17 @@ class DistTimeBinSimulation(TimeBinSimulation):
         self.halo_exported_slots = 0
         self.halo_full_slots = 0
         self.halo_log: List[Dict[str, float]] = []
+        # intra-cycle host↔device ledger (the device residency's proof of
+        # residency) and its count of mid-cycle bins-mirror refreshes
         self.transfers = TransferProbe()
         self.bins_refreshes = 0
+        # fused-program buckets never shrink: demand dips must not mint
+        # new input signatures (growth still adds one, once per
+        # power-of-two crossing per stream)
+        self._fused_buckets = BucketPolicy(min_bucket=8,
+                                           shrink_patience=10 ** 9)
+        self._resident_rows_cache: Optional[Tuple[RankPlan, Tuple[
+            torch.Tensor, ...]]] = None
 
     # ------------------------------------------------------- phase wrappers
     @staticmethod
@@ -540,7 +561,10 @@ class DistTimeBinSimulation(TimeBinSimulation):
             tr.ctx.pop("substep", None)
         with tr.timed("cycle") as cyc:
             ctx = self._cycle_prologue()
-            body = self._cycle_substeps_host(ctx)
+            if self.residency == "device":
+                body = self._cycle_substeps_device(ctx)
+            else:
+                body = self._cycle_substeps_host(ctx)
             stats = self._cycle_epilogue(ctx, body)
         if tr.enabled:
             tr.ctx.pop("substep", None)
@@ -608,15 +632,22 @@ class DistTimeBinSimulation(TimeBinSimulation):
         }
 
     # ------------------------------------------------- device-metrics pull
-    def _metrics_pull(self, counts, values) -> None:
+    def _metrics_pull(self, counts, values, cells=None,
+                      plan: Optional[RankPlan] = None) -> None:
         """Adopt one cycle's accumulated telemetry rows as
         ``device_metrics_last`` — one ledgered boundary transfer a cycle.
-        (The reference also folds a per-cell work buffer of its device
-        residency here: ROADMAP queue 1 item 11b.)"""
-        counts_h = np.asarray(counts)
-        values_h = np.asarray(values)
-        self.transfers.record("metrics", counts_h.nbytes + values_h.nbytes,
-                              boundary=True)
+        The device residency's per-cell rows (``cells``, stacked extended
+        rows) ride in the same transfer and are folded onto global cells
+        through the plan's row maps into ``device_cell_work_last``."""
+        counts_h = host_array(counts)
+        values_h = host_array(values)
+        nbytes = counts_h.nbytes + values_h.nbytes
+        if cells is not None and plan is not None:
+            cells_h = host_array(cells)
+            nbytes += cells_h.nbytes
+            self.device_cell_work_last = dmetrics.fold_cell_rows(
+                cells_h, plan.owned, plan.halo, self.spec.ncells, plan.K)
+        self.transfers.record("metrics", nbytes, boundary=True)
         self.device_metrics_pulls += 1
         self.device_metrics_last = (counts_h, values_h)
 
@@ -921,6 +952,375 @@ class DistTimeBinSimulation(TimeBinSimulation):
         else:
             self.device_metrics_last = None
             self.device_cell_work_last = None
+        return {"updates": updates, "pair_tasks": pair_tasks,
+                "force_substeps": force_substeps,
+                "cycle_exported": cycle_exported,
+                "cycle_full": cycle_full}
+
+    # ------------------------------------------------- device-resident cycle
+    def _resident_rows(self, plan: RankPlan) -> Tuple[torch.Tensor, ...]:
+        """Stacked scatter / gather indices of a plan, on the device:
+        (global cells, their rows in the flattened ``(nranks·(K+H))``
+        buffers; global owned cells, their rows in the flattened owned
+        block ``(nranks·K)``), built once per plan."""
+        if self._resident_rows_cache is None \
+                or self._resident_rows_cache[0] is not plan:
+            nrows = plan.K + plan.H
+            src, dst, own, own_at = [], [], [], []
+            for r in range(plan.nranks):
+                o, hl = plan.owned[r], plan.halo[r]
+                src += [o, hl]
+                dst += [r * nrows + np.arange(len(o)),
+                        r * nrows + plan.K + np.arange(len(hl))]
+                own.append(o)
+                own_at.append(r * plan.K + np.arange(len(o)))
+            T = lambda parts: torch.from_numpy(np.concatenate(
+                parts).astype(np.int64)).to(self.device)
+            self._resident_rows_cache = (plan, (T(src), T(dst), T(own),
+                                                T(own_at)))
+        return self._resident_rows_cache[1]
+
+    def _scatter_resident(self, plan: RankPlan) -> ResidentBuffers:
+        """Global mirror → one stacked ``(nranks, K+H, …)`` buffer per
+        field for the whole cycle, padded as ``_scatter_state`` pads (the
+        two residencies must agree on every row). The global mirror lives
+        on the device, so this is a device copy; ``put`` ledgers it as the
+        cycle boundary's traffic."""
+        st = self.state
+        nrows = plan.K + plan.H
+        src, dst, _, _ = self._resident_rows(plan)
+        res = ResidentBuffers(self.transfers)
+        keep = lambda a: a
+
+        def ext_stacked(a, fill):
+            out = torch.full((plan.nranks * nrows,) + tuple(a.shape[1:]),
+                             fill, dtype=a.dtype, device=a.device)
+            out.index_copy_(0, dst, a.index_select(0, src))
+            return out.reshape((plan.nranks, nrows) + tuple(a.shape[1:]))
+
+        for name in self._CELL_FIELDS:
+            res.put(name, ext_stacked(getattr(st.cells, name),
+                                      self._FILLS[name]), keep)
+        for name in self._AUX_FIELDS:
+            res.put(name, ext_stacked(getattr(st, name),
+                                      self._FILLS[name]), keep)
+        res.put("time", st.time.reshape(1).repeat(plan.nranks), keep)
+        return res
+
+    def _gather_resident(self, plan: RankPlan, res: ResidentBuffers) -> None:
+        """Stacked owned rows → global mirror (halo replicas discarded:
+        only the owned rows are pulled)."""
+        st = self.state
+        dev = self.device
+        _, _, own, own_at = self._resident_rows(plan)
+        owned_rows = (slice(None), slice(0, plan.K))
+
+        def gather(name, current):
+            got = res.pull(name, index=owned_rows, device=dev)
+            got = got.reshape((-1,) + tuple(got.shape[2:]))
+            return current.clone().index_copy_(0, own,
+                                               got.index_select(0, own_at))
+
+        cells = ParticleCells(**{k: gather(k, getattr(st.cells, k))
+                                 for k in self._CELL_FIELDS})
+        self.state = TimeBinState(
+            cells=cells, time=res.pull("time", device=dev)[0],
+            **{k: gather(k, getattr(st, k)) for k in self._AUX_FIELDS})
+
+    def _fused_tables(self, plan: RankPlan,
+                      active_cells: Optional[np.ndarray], slots: ShipSlots,
+                      stream: str, wake_stacked: Optional[np.ndarray],
+                      level: int = 0) -> Tuple[Dict[str, torch.Tensor],
+                                               Tuple]:
+        """One sub-step's control tables for the fused program, and the
+        shape signature that keys it.
+
+        The pair subset is :meth:`_select_rank_pairs`'s (global pair
+        order), each rank's padded to one bucket ``B`` with masked repeats
+        of pair 0 and numbered in its extended rows; each rank's incoming
+        table (over its live pairs, as at host residency) is stacked as a
+        lane's, to a bucketed width and over every row, so the table's
+        shape follows the buckets only. The interior / cut positions (a
+        pair is cut iff it touches a halo row ≥ K) feed the metrics rows'
+        ``pair_int`` / ``pair_cut``; the exchange index tables come from
+        the transport's round schedule. Every bucket goes through the
+        no-shrink policy keyed per (stream, level). All of it is control —
+        int32/int64 indices and float32 masks — and is ledgered as
+        ``tables``, the resident path's intra-cycle uploads.
+        """
+        t = self._transport
+        nranks, K = plan.nranks, plan.K
+        nrows = plan.K + plan.H
+        idxs, nmax = self._select_rank_pairs(plan, active_cells)
+        splits = []
+        imax, cmax = 1, 1
+        for r in range(nranks):
+            idx = idxs[r]
+            halo_pair = ((plan.ci_ext[r][idx] >= K)
+                         | (plan.cj_ext[r][idx] >= K))
+            splits.append(halo_pair)
+            imax = max(imax, int((~halo_pair).sum()))
+            cmax = max(cmax, int(halo_pair.sum()))
+        B = self._fused_buckets.fit((stream, "pairs", level), nmax)
+        Bi = self._fused_buckets.fit((stream, "int", level), imax)
+        Bc = self._fused_buckets.fit((stream, "cut", level), cmax)
+
+        ci = np.zeros((nranks, B), np.int32)
+        cj = np.zeros((nranks, B), np.int32)
+        shift = np.zeros((nranks, B, 3), self._shift.dtype)
+        pmask = np.zeros((nranks, B), np.float32)
+        int_pos = np.zeros((nranks, Bi), np.int32)
+        int_valid = np.zeros((nranks, Bi), np.float32)
+        cut_pos = np.zeros((nranks, Bc), np.int32)
+        cut_valid = np.zeros((nranks, Bc), np.float32)
+        incoming = []
+        for r in range(nranks):
+            idx, halo_pair = idxs[r], splits[r]
+            nlive = len(idx)
+            idxp = np.concatenate(
+                [idx, np.zeros(B - nlive, dtype=idx.dtype)])
+            ci[r] = plan.ci_ext[r][idxp]
+            cj[r] = plan.cj_ext[r][idxp]
+            shift[r] = self._shift[idxp]
+            pmask[r, :nlive] = 1.0
+            ipos = np.nonzero(~halo_pair)[0]
+            cpos = np.nonzero(halo_pair)[0]
+            int_pos[r, :len(ipos)] = ipos
+            int_valid[r, :len(ipos)] = 1.0
+            cut_pos[r, :len(cpos)] = cpos
+            cut_valid[r, :len(cpos)] = 1.0
+            incoming.append(incoming_table(ci[r], cj[r], nrows, nlive))
+        Bw = self._fused_buckets.fit((stream, "width", level),
+                                     max(tb.shape[1] for _, tb in incoming))
+        in_rows, in_table = stack_incoming(incoming, B, nrows, width=Bw,
+                                           every_row=True)
+
+        tables = {"ci": ci, "cj": cj, "shift": shift, "pmask": pmask,
+                  "in_rows": in_rows, "in_table": in_table,
+                  "int_pos": int_pos, "int_valid": int_valid,
+                  "cut_pos": cut_pos, "cut_valid": cut_valid,
+                  "wake": wake_stacked if wake_stacked is not None
+                  else np.zeros((nranks, nrows), np.int32)}
+        if t.mode == "ppermute":
+            Be = self._fused_buckets.fit(("edge", stream),
+                                         slots.max_edge_slots)
+            pack, unpack, valid = pack_rounds(t.rounds, slots, nranks, Be)
+            tables.update(e_pack=pack, e_unpack=unpack, e_valid=valid)
+            exch_sig = ("ppermute", Be, t._perms_sig)
+        else:
+            Bo = self._fused_buckets.fit(("ag_out", stream),
+                                         slots.max_rank_exports(nranks))
+            Bn = self._fused_buckets.fit(("ag_in", stream),
+                                         slots.max_rank_imports(nranks))
+            pack, usrc, urows, valid = pack_allgather(slots, nranks, Bo, Bn)
+            tables.update(e_pack=pack, e_usrc=usrc, e_urows=urows,
+                          e_valid=valid)
+            exch_sig = ("allgather", Bo, Bn)
+        self.transfers.record(
+            "tables", sum(a.nbytes for a in tables.values()), boundary=False)
+        dev = self.device
+        tables = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                  for k, v in tables.items()}
+        sig = (nranks, nrows, K, B, Bi, Bc, Bw, exch_sig,
+               int(self.state.cells.mass.shape[1]))
+        return tables, sig
+
+    def _fused_program(self, sig: Tuple, *, final: bool):
+        """The fused sub-step program of this shape signature, built once
+        and cached with the transport's exchange programs, so the probe
+        counts each one's input signatures."""
+        t = self._transport
+        key = ("fused_final" if final else "fused_force",) + sig + (t.mode,)
+        return t.programs.get(key, lambda: build_fused_substep_program(
+            mode=t.mode, rounds=t.rounds, nranks=sig[0], nrows=sig[1],
+            K=sig[2], cfg=self.cfg, box=self.box, final=final))
+
+    def _scalar(self, x) -> torch.Tensor:
+        """A host float as a 0-d float32 tensor on the device, ledgered
+        with the tables (a sub-step's scalars are control too)."""
+        self.transfers.record("tables", 4, boundary=False)
+        return f32(x, self.device)
+
+    def _cycle_substeps_device(self, ctx: Dict[str, object]
+                               ) -> Dict[str, int]:
+        """The device-resident ladder: the stacked extended states stay on
+        the device for the whole cycle; every force sub-step is one fused
+        program over all ranks (drift → density → exchange → force → kick
+        → exchange). Host traffic inside the cycle is control tables in
+        and one ``changed`` flag per rank out, plus the ``bins`` rows of
+        the ranks that deepened."""
+        plan: RankPlan = ctx["plan"]
+        depth, nsub = ctx["depth"], ctx["nsub"]
+        dt_max_c, dt_min = ctx["dt_max_c"], ctx["dt_min"]
+        mask_host, u_floor = ctx["mask_host"], ctx["u_floor"]
+        nreal = ctx["nreal"]
+        tr = self.tracer
+        t0 = tr.now() if tr.enabled else 0.0
+        res = self._scatter_resident(plan)
+        if tr.enabled:
+            tr.fence(res["pos"])
+            tr.record_all(range(plan.nranks), "scatter", t0, collective=1)
+
+        updates = 0
+        pair_tasks = 0
+        force_substeps = 0
+        drifted_to = 0
+        cycle_exported = 0
+        cycle_full = 0
+        self.halo_log = []
+        bins_h = ctx["bins_host"].copy()
+        wake_floor = self._wake_floor(bins_h, mask_host)
+        wake_stacked: Optional[np.ndarray] = None
+        # a sub-step's tables depend only on (level, bins mirror): every
+        # sub-step of a level reuses the tables already on the device
+        # until a deepening invalidates them all — a depth-d cycle uploads
+        # O(d) table sets, not O(2**d)
+        table_cache: Dict[int, Tuple] = {}
+
+        def wake_tbl() -> np.ndarray:
+            nonlocal wake_stacked
+            if wake_stacked is None:
+                w = np.zeros((plan.nranks, plan.K + plan.H), np.int32)
+                for r in range(plan.nranks):
+                    own, hal = plan.owned[r], plan.halo[r]
+                    w[r, :len(own)] = wake_floor[own]
+                    w[r, plan.K:plan.K + len(hal)] = wake_floor[hal]
+                wake_stacked = w
+            return wake_stacked
+
+        def level_plan(level: int) -> Tuple:
+            if level not in table_cache:
+                active_p = ((bins_h >= level)
+                            | (bins_h < wake_floor[:, None])) \
+                    & (mask_host > 0)
+                if not active_p.any():
+                    table_cache[level] = (active_p, None, None, None, None)
+                else:
+                    active_cells = active_p.any(axis=1)
+                    ship = self._exchange_set(plan, active_cells)
+                    slots = plan.ship_slots(ship) if ship else ShipSlots()
+                    tables, sig = self._fused_tables(
+                        plan, active_cells, slots, "fused_sub", wake_tbl(),
+                        level=level)
+                    table_cache[level] = (active_p, active_cells, slots,
+                                          tables, sig)
+            return table_cache[level]
+
+        dm_on = self.device_metrics_enabled
+        acc: List = []          # [(counts, values), cells] on the device
+
+        def run_fused(tables, sig, scalars, final):
+            prog = self._fused_program(sig, final=final)
+            state_in = {name: res[name] for name in
+                        self._CELL_FIELDS + self._AUX_FIELDS + ("time",)}
+            out_state, changed, met = prog(state_in, tables, scalars,
+                                           metrics=dm_on)
+            res.update(out_state)
+            if met is not None:
+                row = (met["counts"], met["values"])
+                if not acc:
+                    acc.extend([row, met["cells"]])
+                else:
+                    # folded on the device: no host read
+                    acc[0] = dmetrics.combine(acc[0], row)
+                    acc[1] = acc[1] + met["cells"]
+            return changed
+
+        dt_max_t = self._scalar(dt_max_c)
+        u_floor_t = self._scalar(u_floor)
+        for n in range(1, nsub):
+            level = active_level(n, depth)
+            active_p, active_cells, slots, tables, sig = level_plan(level)
+            if not active_p.any():
+                continue
+            cycle_exported += slots.total
+            cycle_full += plan.cut_slots
+            self.halo_log.append({
+                "substep": self.substeps + n, "level": level,
+                "exported_slots": slots.total,
+                "full_slots": plan.cut_slots})
+
+            dt_d = (n - drifted_to) * dt_min
+            drifted_to = n
+            if tr.enabled:
+                tr.ctx["substep"] = n
+            self.program_keys.add(("fused_force", level, sig[3]))
+            scalars = {"dt_drift": self._scalar(dt_d), "level": level,
+                       "dt_max": dt_max_t, "depth": depth,
+                       "u_floor": u_floor_t}
+            ts = tr.now() if tr.enabled else 0.0
+            changed = run_fused(tables, sig, scalars, final=False)
+            if tr.enabled:
+                # one task on every rank's row; fenced so its device time
+                # lands inside this span, not the next
+                tr.fence(res["pos"])
+                tr.record_all(
+                    range(plan.nranks), "fused_substep", ts,
+                    level=level, bucket=sig[3],
+                    units=int((active_cells[self._ci]
+                               | active_cells[self._cj]).sum()),
+                    slots=slots.total,
+                    active_frac=float(active_p.sum()) / max(nreal, 1),
+                    collective=1)
+            changed_h = changed.cpu().numpy()
+            self.transfers.record("flags", changed_h.nbytes, boundary=False)
+            if changed_h.any():
+                # a deepening: refresh the bins mirror from the ranks that
+                # deepened only, then re-derive the wake floors — the one
+                # mid-cycle state-array pull, ledgered per row
+                with tr.span("bins_refresh"):
+                    for r in np.nonzero(changed_h)[0]:
+                        own = plan.owned[int(r)]
+                        if not len(own):
+                            continue
+                        row = res.pull("bins", boundary=False, index=int(r))
+                        bins_h[own] = row[:len(own)]
+                    self.bins_refreshes += 1
+                    table_cache.clear()
+                    new_floor = self._wake_floor(bins_h, mask_host)
+                    if not np.array_equal(new_floor, wake_floor):
+                        wake_floor = new_floor
+                        wake_stacked = None
+            updates += int(active_p.sum())
+            pair_tasks += int((active_cells[self._ci]
+                               | active_cells[self._cj]).sum())
+            force_substeps += 1
+
+        # final sync sub-step: everyone active, full pair lists, full cut
+        dt_d = (nsub - drifted_to) * dt_min
+        slots = plan.ship_slots(list(plan.cut)) if plan.cut else ShipSlots()
+        cycle_exported += slots.total
+        if plan.cut:
+            cycle_full += plan.cut_slots
+        tables, sig = self._fused_tables(plan, None, slots, "fused_final",
+                                         None)
+        self.program_keys.add(("fused_final", 0, sig[3]))
+        if tr.enabled:
+            tr.ctx["substep"] = nsub
+        scalars = {"dt_drift": self._scalar(dt_d), "level": 0,
+                   "dt_max": dt_max_t, "depth": depth, "u_floor": u_floor_t}
+        ts = tr.now() if tr.enabled else 0.0
+        run_fused(tables, sig, scalars, final=True)
+        if tr.enabled:
+            tr.fence(res["pos"])
+            tr.record_all(range(plan.nranks), "fused_final", ts,
+                          level=0, bucket=sig[3], units=len(self._ci),
+                          slots=slots.total, active_frac=1.0, collective=1)
+        updates += nreal
+        pair_tasks += len(self._ci)
+
+        if dm_on and acc:
+            # one pull a cycle: the accumulated rows, per-cell rows too
+            self._metrics_pull(*acc[0], cells=acc[1], plan=plan)
+        elif not dm_on:
+            self.device_metrics_last = None
+            self.device_cell_work_last = None
+
+        tg = tr.now() if tr.enabled else 0.0
+        self._gather_resident(plan, res)
+        synchronize(self.device)
+        if tr.enabled:
+            tr.record_all(range(plan.nranks), "gather", tg, collective=1)
         return {"updates": updates, "pair_tasks": pair_tasks,
                 "force_substeps": force_substeps,
                 "cycle_exported": cycle_exported,

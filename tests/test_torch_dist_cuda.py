@@ -16,7 +16,12 @@ collective wire in both modes gives the host wire's bits; the run is bit
 for bit the local ladder's on the card; and the card's run equals the
 CPU's within 1e-4 of each field's scale, counts exactly. Traced
 (``observe=True``) runs are bit for bit untraced ones, with the same
-launches, on the local ladder and over the ranks.
+launches, on the local ladder and over the ranks. At
+``residency="device"`` (the ranks' states stacked and resident for the
+cycle) the run is bit for bit host residency on the card in both
+collective modes, moves no state byte to the host inside a cycle, launches
+each pair kernel once per force sub-step for all ranks, and matches the
+CPU within 1e-4 of each field's scale.
 
 This file imports no JAX, so it runs on the card as
 
@@ -185,3 +190,54 @@ def test_cuda_tracing_is_invisible(cuda_device, backend):
         assert traced.engine.probe.counts() == plain.engine.probe.counts()
         doc = traced.observer.export_chrome_trace(os.devnull)
         assert check_run(traced, doc, 4, 2) == []
+
+
+# --------------------------------------- time-bin × distributed, resident
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["ppermute", "allgather"])
+def test_cuda_resident_bitwise_host_residency(cuda_device, mode):
+    """``residency="device"`` on the card: bit for bit host residency on
+    the card (state and counts), with no dynamical state crossing to the
+    host inside a cycle."""
+    kw = dict(transport="collective", transport_mode=mode)
+    sa, a = tb_run(cuda_device, **kw)
+    sim = build_simulation(tb_spec(residency="device", **kw),
+                           device=cuda_device)
+    sb = [sim.step() for _ in range(2)]
+    st = sim.state
+    b = [t.cpu() for t in tuple(st.cells) + tuple(st[1:])]
+    assert bits_equal(a, b)
+    for x, y in zip(sa, sb):
+        assert [x[k] for k in COUNT_KEYS] == [y[k] for k in COUNT_KEYS]
+    tr = sim.engine.transfers.stats()
+    assert tr["intra_state_bytes"] == 0
+    assert set(tr["intra_bytes"]) <= {"tables", "flags", "bins"}
+
+
+@pytest.mark.cuda
+def test_cuda_resident_launches_each_pair_kernel_once_a_substep(
+        cuda_device):
+    """One launch of each pair kernel per force sub-step for all ranks
+    (the closing one included), where host residency launches once per
+    rank."""
+    sim = build_simulation(tb_spec(transport="collective",
+                                   residency="device"), device=cuda_device)
+    for _ in range(2):
+        K.reset_launches()
+        st = sim.step()
+        n = st["force_substeps"]
+        assert n > 1
+        assert (K.density_pair_cells.launches, K.force_pair.launches,
+                K.density_pair.launches) == (n, n, 0)
+
+
+@pytest.mark.cuda
+def test_cuda_resident_matches_cpu(cuda_device):
+    kw = dict(transport="collective", residency="device")
+    (sa, card), (sb, cpu) = tb_run(cuda_device, **kw), tb_run("cpu", **kw)
+    for x, y in zip(sa, sb):
+        assert [x[k] for k in COUNT_KEYS] == [y[k] for k in COUNT_KEYS]
+    for x, y in zip(card, cpu):
+        x, y = x.double().numpy(), y.double().numpy()
+        scale = max(float(np.abs(y).max()), 1e-30)
+        assert float(np.abs(x - y).max()) <= 1e-4 * scale

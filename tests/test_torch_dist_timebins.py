@@ -23,7 +23,8 @@ host residency and host schedule, over the host wire).
   and 4 ranks, the host wire and the collective wire in both modes, with
   activity-aware halos off too; run twice, bitwise.
 * The reference's ``ValueError``s, and ``NotImplementedError`` naming
-  ROADMAP queue 1 item 11b for device residency and scheduling.
+  ROADMAP queue 1 item 11b-2 for the device schedule and segments (device
+  residency: ``tests/test_torch_dist_resident.py``).
 """
 
 import warnings
@@ -379,7 +380,6 @@ def test_value_errors_as_reference(bad):
 
 
 @pytest.mark.parametrize("policy", [
-    dict(residency="device", transport="collective"),
     dict(residency="device", transport="collective", schedule="device"),
     dict(residency="device", transport="collective", schedule="device",
          segment_cycles=2)])

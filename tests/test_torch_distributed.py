@@ -325,14 +325,24 @@ def test_ranks_default_to_one_and_timebin_still_raises():
     spec = SimulationSpec(scenario="uniform", scenario_params={"n_side": 4},
                           integrator="global", backend="distributed", dt=1e-3)
     assert build_simulation(spec, device="cpu").engine.plan.ndev == 1
-    # the time-bin quadrant is ported too: ranks=None builds one rank;
-    # its device residency is a later slice and raises, naming it
-    tb = spec.with_(integrator="timebin", dt_max=2e-3, max_depth=2)
-    eng = build_simulation(tb, device="cpu").engine
+    # the time-bin quadrant is ported too: ranks=None builds one rank, at
+    # either residency; the device residency's cycle is bit for bit the
+    # host residency's
+    tb = spec.with_(integrator="timebin", dt_max=2e-3, max_depth=2,
+                    transport="collective")
+    host = build_simulation(tb, device="cpu")
+    eng = host.engine
     assert eng.nranks == 1 and eng._get_plan().nranks == 1
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        build_simulation(tb.with_(transport="collective",
-                                  residency="device"), device="cpu")
+    resident = build_simulation(tb.with_(residency="device"), device="cpu")
+    assert resident.engine.nranks == 1
+    a, b = host.step(), resident.step()
+    assert b["residency"] == "device"
+    assert all(a[k] == b[k] for k in ("t", "depth", "force_substeps",
+                                      "updates", "pair_tasks"))
+    for x, y in zip(list(host.engine.state.cells) + list(
+            host.engine.state[1:]), list(resident.engine.state.cells)
+            + list(resident.engine.state[1:])):
+        assert torch.equal(x, y)
     from repro_torch.sph.distributed import DistSimulation
     _, cells, pairs, _ = _port_plan(uniform_ic(4), 1)
     gs = choose_grid(1.0, float(uniform_ic(4)["h"].max()), 64,

@@ -28,7 +28,8 @@ against the reference's ``repro.observability``.
   the reference's ``read_metrics_jsonl``, ``validate_bundle`` and report
   read the port's files unchanged; the NaN sentinel trips and writes a
   valid bundle; the CLI's three modes exit 0 on the CPU and
-  ``--residency device`` names ROADMAP queue 1 item 11b. (On the card:
+  ``--residency device`` runs the fused sub-steps and passes the same
+  checks. (On the card:
   ``tests/test_torch_dist_cuda.py`` and ``chip_smoke.py`` phases 5c, 6f.)
 * ``sph/adaptive.py`` is the reference's source, line for line, and its
   refined cell graph equals the reference's on Sedov 8³.
@@ -606,10 +607,21 @@ def test_cli_dump_and_advise(tmp_path, capsys):
     assert capsys.readouterr().out == want + "\n"
 
 
-def test_cli_device_residency_names_item_11b():
+def test_cli_device_residency_names_item_11b(tmp_path, capsys):
+    """``--residency device`` runs (it raised until the device residency
+    was ported): the fused run at its smallest size passes the CLI's own
+    checks, and its trace validates with one fused slice per sub-step."""
     from repro_torch.observability.__main__ import run
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        run(["--device", "cpu", "--residency", "device"])
+    assert run(["--device", "cpu", "--residency", "device", "--n-side",
+                "6", "--ranks", "2", "--out-dir", str(tmp_path)]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["ok"] and out["residency"] == "device"
+    assert out["cost_calibration"] is not None
+    doc = json.loads((tmp_path / "trace.json").read_text())
+    assert PO.validate_chrome_trace(doc) == []
+    names = {e["name"] for e in doc["traceEvents"] if e.get("ph") == "X"}
+    assert {"scatter", "fused_substep", "fused_final", "gather"} <= names
+    assert not names & {"density", "force"}
 
 
 # ---------------------------------------------------------------- adaptive

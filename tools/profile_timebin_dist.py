@@ -1,11 +1,13 @@
 """Where one cycle of the time-bin × distributed quadrant spends its time.
 
-    python3 tools/profile_timebin_dist.py [n_side=48] [ranks=4] [transport=collective]
+    python3 tools/profile_timebin_dist.py [n_side=48] [ranks=4] [transport=collective] [residency=host]
 
 Builds ``chip_smoke.py``'s phase-6e spec (``chip_smoke.tb_spec``: Sedov
 ``n_side``³, the depth-4 ladder, ``ranks`` per-rank states on the CUDA
-device, ``transport`` ``host`` or ``collective``; the decomposition runs
-once, in the build), runs one cycle to warm up and one unprofiled (its
+device, ``transport`` ``host`` or ``collective``, ``residency`` ``host`` or
+``device`` — the stacked resident states and one fused program a sub-step;
+the decomposition runs once, in the build), runs one cycle to warm up and
+one unprofiled (its
 wall is printed), then one under ``torch.profiler`` recording CUDA
 activity only, then one more recording host activity too, with the
 cycle's pieces labelled (``PIECES``: each engine method wrapped in a
@@ -44,7 +46,13 @@ from repro_torch.sph import build_simulation  # noqa: E402
 PIECES = ("_rank_pair_subsets", "exchange", "_pull_owned_bins",
           "_sub_density_p", "_sub_force_p", "_final_density_p",
           "_final_force_p", "_drift", "_scatter_state", "_gather_state",
-          "_plan_cycle", "_rebin_state", "_maybe_repartition")
+          "_plan_cycle", "_rebin_state", "_maybe_repartition",
+          # device residency: the stacked scatter and gather, each
+          # sub-step's tables, and each call of its fused program
+          # ("fused_call": the engine fetches it through _fused_program)
+          "_scatter_resident", "_gather_resident", "_fused_tables",
+          "_fused_program")
+FUSED_CALL = "fused_call"
 PORT_KERNELS = ("density_pair_kernel", "force_pair_kernel")
 
 
@@ -70,7 +78,14 @@ def labelled_cycle(sim) -> dict:
 
         def run(*a, _fn=fn, _name=name, **k):
             with record_function(_name):
-                return _fn(*a, **k)
+                out = _fn(*a, **k)
+            if _name != "_fused_program":
+                return out
+
+            def call(*pa, **pk):
+                with record_function(FUSED_CALL):
+                    return out(*pa, **pk)
+            return call
         saved.append((obj, name, fn))
         setattr(obj, name, run)
     try:
@@ -81,7 +96,7 @@ def labelled_cycle(sim) -> dict:
     finally:
         for obj, name, fn in saved:
             setattr(obj, name, fn)
-    names = set(PIECES)
+    names = set(PIECES) | {FUSED_CALL}
     events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
     ops = [e for e in events if e.name not in names and e.kernels]
     pieces = {}
@@ -99,11 +114,12 @@ def labelled_cycle(sim) -> dict:
 
 
 def main(n_side: int = 48, ranks: int = 4,
-         transport: str = "collective") -> None:
+         transport: str = "collective", residency: str = "host") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_timebin_dist: needs a CUDA device")
     warnings.simplefilter("ignore", DeprecationWarning)
-    spec = tb_spec(n_side, transport=transport).with_(ranks=ranks)
+    spec = tb_spec(n_side, transport=transport).with_(ranks=ranks,
+                                                      residency=residency)
     t0 = time.perf_counter()
     sim = build_simulation(spec)
     torch.cuda.synchronize()
@@ -129,6 +145,7 @@ def main(n_side: int = 48, ranks: int = 4,
     plan = eng._get_plan()
     print(json.dumps({
         "n_side": n_side, "ranks": ranks, "transport": transport,
+        "residency": residency,
         "device": torch.cuda.get_device_name(0),
         "K": plan.K, "H": plan.H, "cut_slots": plan.cut_slots,
         "build_s": build_s, "setup_s": eng.setup_s,
@@ -150,5 +167,5 @@ def main(n_side: int = 48, ranks: int = 4,
 
 
 if __name__ == "__main__":
-    args = sys.argv[1:4]
-    main(*(int(a) for a in args[:2]), *args[2:3])
+    args = sys.argv[1:5]
+    main(*(int(a) for a in args[:2]), *args[2:4])
