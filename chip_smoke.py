@@ -70,6 +70,19 @@ wrong. Phases, one line each:
     bitwise, the device residency in both modes bitwise the host
     residency and twice bitwise, and at Sedov 10³ the card against the
     CPU;
+6g. the same 48³ spec at ``schedule="device"`` (``tbdist_device_schedule``,
+    one line per K = 1 and 2, on the host run's decomposition): each
+    segment's programs under the CUDA sync debug mode (a host read inside
+    raises), bit for bit the host schedule's state and stats, each pair
+    kernel launched ``nsub_static`` times a cycle (dead trips too, plus
+    any replay's sub-steps) and the block entry never, no intra-segment
+    byte, 0 aborts at K = 1; the walls, the aborts and the flag that
+    tripped, and a profiled segment's idle share beside the host
+    schedule's; then ``tbdist_segments`` at Sedov 16³, 4 cycles against
+    the host schedule, bit for bit: a hot Sedov in one 4-cycle segment
+    (bins deepen inside it, no abort), Kelvin–Helmholtz (a crossing
+    aborts it, the replay bit for bit) and a NaN poisoned into a K = 1
+    run (each later segment aborts on the sentinel and replays);
 6f. ``python -m repro_torch.observability``'s default run (time-bin ×
     distributed, collective wire, host residency, 4 ranks) at Sedov 16³
     in process, untraced, traced, fences-only and untraced again: bit for
@@ -960,16 +973,17 @@ def build_tb(spec, dev, assignment=None):
         D._initial_assignment = own
 
 
-def profiled_cycle(sim) -> dict:
-    """One more cycle under ``torch.profiler`` (CUDA activity only): its
-    wall, the device time summed over every device event, and the idle
-    share 1 − device time / wall ("not measured" if the profiler saw no
-    device time)."""
+def profiled_cycle(sim, steps: int = 1) -> dict:
+    """``steps`` more cycles under ``torch.profiler`` (CUDA activity only):
+    their wall, the device time summed over every device event, and the
+    idle share 1 − device time / wall ("not measured" if the profiler saw
+    no device time)."""
     from torch.profiler import ProfilerActivity, profile
     synchronize(sim.engine.device)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        sim.step()
+        for _ in range(steps):
+            sim.step()
         synchronize(sim.engine.device)
         wall = time.perf_counter() - t0
     busy = 0.0
@@ -1055,8 +1069,12 @@ def timebin_distributed(dev):
     host_profiled = profiled_cycle(sim)
     del sim, eng
     torch.cuda.empty_cache()
-    for name, n in timebin_resident(dev, spec, assignment, cycles, dist,
-                                    host_profiled).items():
+    resident = timebin_resident(dev, spec, assignment, cycles, dist,
+                                host_profiled)
+    for name, n in resident["launches"].items():
+        launches[name] += n
+    for name, n in timebin_device_schedule(dev, spec, assignment, resident,
+                                           host_profiled).items():
         launches[name] += n
     local = build_tb(spec.with_(backend="local", ranks=None), dev)
     lstats = [local.step() for _ in range(SIM_CYCLES)]
@@ -1145,7 +1163,9 @@ def timebin_resident(dev, spec, assignment, host_stats, host_state,
     included) and the block entry never; no dynamical state byte between
     host and device inside a cycle, and only tables, flags and bins rows.
     Prints the cycle walls and, from one more profiled cycle each, the
-    device's idle share beside host residency's."""
+    device's idle share beside host residency's. Returns the launches,
+    the run's stats, final state and profiled cycle (phase 6g's
+    oracle)."""
     from repro_torch.kernels.sph_pair import kernel as K
     t0 = time.perf_counter()
     sim = build_tb(spec.with_(residency="device"), dev, assignment)
@@ -1201,6 +1221,200 @@ def timebin_resident(dev, spec, assignment, host_stats, host_state,
     assert all(v == 1 for v in compiles.values()), compiles
     del sim, eng
     torch.cuda.empty_cache()
+    return {"launches": launches, "stats": stats, "state": state,
+            "profiled": profiled}
+
+
+# -------------------------------- time-bin × distributed, device schedule
+# Phase 6g's 16³ conformance runs: the reference's hot Sedov (e0 = 30, a
+# loose CFL; tests/test_conformance.py:280-291) and Kelvin–Helmholtz shear
+# (:47-60). At 16³ the hot blast's particles cross cells from the second
+# cycle on at the conformance's dt_max = 0.01, so a 4-cycle segment would
+# abort; at dt_max = 0.0008 none crosses inside the 4 cycles, and the
+# bins still deepen inside the second (821 deepenings; the local ladder
+# on the CPU). The shear crosses a cell inside its first segment.
+SEG_NSIDE = 16
+SEG_CYCLES = 4
+SEG_SCENARIOS = {
+    "hot_sedov": dict(scenario="sedov",
+                      scenario_params={"n_side": SEG_NSIDE, "e0": 30.0},
+                      alpha=1.0, cfl=0.3, dt_max=0.0008, max_depth=3),
+    "kelvin_helmholtz": dict(scenario="kelvin_helmholtz",
+                             scenario_params={"n_side": SEG_NSIDE,
+                                              "v_shear": 0.5},
+                             alpha=1.0, cfl=0.2, dt_max=0.01, max_depth=3),
+}
+
+
+def seg_spec(name: str, **kw):
+    from repro_torch.sph import SimulationSpec, SPHConfig
+    base = dict(SEG_SCENARIOS[name])
+    phys = SPHConfig(alpha_visc=base.pop("alpha"), cfl=base.pop("cfl"))
+    return SimulationSpec(physics=phys, **base, integrator="timebin",
+                          backend="distributed", ranks=DIST_RANKS,
+                          transport="collective", residency="device", **kw)
+
+
+def tb_stats_same(a: list, b: list, K_cycles: int = 1) -> bool:
+    """Per-cycle stats equal: the counts, the histogram, t and dt_max. In
+    a segment of K_cycles > 1 the repartition check runs only at its end,
+    so a repartition the host schedule makes inside it moves the halo
+    counts (not the state): there the halo counts are left out, as the
+    reference's conformance test leaves them (tests/test_conformance.py:
+    332-363)."""
+    keys = TB_COUNTS if K_cycles == 1 else tuple(
+        k for k in TB_COUNTS if not k.startswith("halo_"))
+    return all([x[k] for k in keys] == [y[k] for k in keys]
+               and np.array_equal(x["bin_hist"], y["bin_hist"])
+               and (x["t"], x["dt_max"]) == (y["t"], y["dt_max"])
+               for x, y in zip(a, b))
+
+
+def poison_vel(eng) -> None:
+    """NaN one real particle's velocity component, in place."""
+    vel = eng.state.cells.vel.clone()
+    c, p = [int(i) for i in torch.nonzero(eng.state.cells.mask > 0)[0]]
+    vel[c, p, 0] = float("nan")
+    eng.state = eng.state._replace(cells=eng.state.cells._replace(vel=vel))
+
+
+def segment_conformance(dev) -> dict:
+    """Phase 6g's 16³ runs against the host schedule, SEG_CYCLES cycles
+    each: the hot Sedov in one K = SEG_CYCLES segment (no abort, bit for
+    bit), Kelvin–Helmholtz in one (an abort on a crossing, the replay bit
+    for bit), and a NaN poisoned into a K = 1 run after its first cycle
+    (each later segment aborts on the sentinel and replays bit for bit,
+    NaNs included). Returns the rows and the pair kernels' launches."""
+    from repro_torch.kernels.sph_pair import kernel as K
+    from repro_torch.sph import build_simulation
+    out, launches = {}, {"density_pair": 0, "force_pair": 0}
+
+    def run(spec, poison=False):
+        sim = build_simulation(spec, device=dev)
+        K.reset_launches()
+        stats = []
+        for c in range(SEG_CYCLES):
+            if poison and c == 1:
+                poison_vel(sim.engine)
+            stats.append(sim.step())
+        for name, n in kernel_launches(launch_counts(K)).items():
+            launches[name] += n
+        return sim.engine, stats, [t.cpu() for t in tb_snapshot(sim)]
+
+    for name, K_cycles, poison in (("hot_sedov", SEG_CYCLES, False),
+                                   ("kelvin_helmholtz", SEG_CYCLES, False),
+                                   ("hot_sedov", 1, True)):
+        host, hstats, hstate = run(seg_spec(name), poison)
+        eng, stats, state = run(seg_spec(name, schedule="device",
+                                         segment_cycles=K_cycles), poison)
+        row = {"cycles": SEG_CYCLES, "K": K_cycles,
+               "bitwise_host_schedule": bits_equal(state, hstate),
+               "stats_equal": tb_stats_same(stats, hstats, K_cycles),
+               "repartitions": [host.repartitions, eng.repartitions],
+               "segments": eng.segments, "segment_aborts": eng.segment_aborts,
+               "flags_last_segment": eng.segment_flags_last,
+               "replayed": [bool(s.get("replayed")) for s in stats],
+               "host_bins_refreshes": host.bins_refreshes,
+               "walls_s": [s["wall"] for s in stats],
+               "host_schedule_walls_s": [s["wall"] for s in hstats]}
+        out["nan_poison" if poison else name] = row
+        del host, eng
+        torch.cuda.empty_cache()
+    return out, launches
+
+
+def timebin_device_schedule(dev, spec, assignment, resident: dict,
+                            host_profiled: dict) -> dict:
+    """Phase 6g (``tbdist_device_schedule``): phase 6e's 48³ spec at
+    ``residency="device", schedule="device"`` on the host run's
+    decomposition (``build_tb``'s hook), each pair kernel's launches set
+    to 0 just before and read just after each segment, the segments'
+    programs under the CUDA sync debug mode (a host read inside a segment
+    raises). K = 1 for SIM_CYCLES cycles — gates: bit for bit 6e's
+    ``tbdist_resident`` run (the host schedule: state and per-cycle
+    stats), one segment a cycle and no abort, each pair kernel launched
+    ``nsub_static`` times a cycle (every trip of the static ladder, dead
+    ones too) and the block entry never, no intra-segment byte. K = 2 for
+    SIM_CYCLES cycles (one segment) — gates: bit for bit at the boundary,
+    whether the segment ran or aborted and replayed; the line names the
+    flag that tripped. Prints the walls and one profiled segment's idle
+    share beside the host schedule's and host residency's, then the 16³
+    runs of :func:`segment_conformance`."""
+    from repro_torch.kernels.sph_pair import kernel as K
+    launches = {"density_pair": 0, "force_pair": 0}
+    for K_cycles in (1, 2):
+        sim = build_tb(spec.with_(residency="device", schedule="device",
+                                  segment_cycles=K_cycles), dev, assignment)
+        eng = sim.engine
+        eng.sync_debug = True
+        stats, per_segment = [], []
+        for c in range(SIM_CYCLES):
+            if c % K_cycles == 0:
+                synchronize(dev)
+                K.reset_launches()
+            stats.append(sim.step())
+            if (c + 1) % K_cycles == 0:
+                got = launch_counts(K)
+                seg = stats[c + 1 - K_cycles:c + 1]
+                # the scan's trips (nsub_static = the segment's first
+                # cycle's ladder), then a replay's force sub-steps
+                want = K_cycles * seg[0]["substeps"] + sum(
+                    s["force_substeps"] for s in seg if s.get("replayed"))
+                per_segment.append({"launches": got, "expected": want})
+                assert (got["density_pair_cells"], got["force_pair"],
+                        got["density_pair"]) == (want, want, 0), (got, want)
+                for name, n in kernel_launches(got).items():
+                    launches[name] += n
+        state = [t.cpu() for t in tb_snapshot(sim)]
+        same = bits_equal(state, resident["state"])
+        same_stats = tb_stats_same(stats, resident["stats"], K_cycles)
+        tr = eng.transfers.stats()
+        segments, aborts = eng.segments, eng.segment_aborts
+        flags = eng.segment_flags_last
+        eng.sync_debug = False
+        profiled = profiled_cycle(sim, steps=K_cycles)
+        profiled.update(cycles=K_cycles,
+                        aborted=eng.segment_aborts > aborts,
+                        flags=eng.segment_flags_last)
+        say({"phase": "tbdist_device_schedule", "n_side": DIST_NSIDE,
+             "ranks": DIST_RANKS, "K": K_cycles, "cycles": SIM_CYCLES,
+             "decomposition": "the host run's (build hook)",
+             "sync_debug_mode": "error inside each segment",
+             "wall_s": [s["wall"] for s in stats],
+             "host_schedule_wall_s": [s["wall"] for s in resident["stats"]],
+             "launches": per_segment, "segments": segments,
+             "segment_aborts": aborts, "flags_last_segment": flags,
+             "replayed": [bool(s.get("replayed")) for s in stats],
+             "bitwise_host_schedule": same, "stats_equal": same_stats,
+             "intra_bytes": tr["intra_bytes"],
+             "boundary_bytes": tr["boundary_bytes"],
+             "profiled_segment": profiled,
+             "host_schedule_profiled_cycle": resident["profiled"],
+             "host_residency_profiled_cycle": host_profiled,
+             "program_signatures": {
+                 k: v for k, v in eng.probe.counts().items()
+                 if k.startswith("program:")}})
+        assert same and same_stats, f"K={K_cycles}: left the host schedule"
+        aborted = any(s.get("replayed") for s in stats)
+        if K_cycles == 1:
+            assert aborts == 0 and not aborted and segments == SIM_CYCLES
+        if not aborted:
+            assert tr["intra_bytes"] == {}, tr["intra_bytes"]
+        del sim, eng
+        torch.cuda.empty_cache()
+    seg, seg_launches = segment_conformance(dev)
+    say({"phase": "tbdist_segments", "n_side": SEG_NSIDE,
+         "ranks": DIST_RANKS, **seg})
+    for name, n in seg_launches.items():
+        launches[name] += n
+    hot, kh, nan = seg["hot_sedov"], seg["kelvin_helmholtz"], \
+        seg["nan_poison"]
+    assert all(r["bitwise_host_schedule"] and r["stats_equal"]
+               for r in seg.values()), seg
+    assert hot["segment_aborts"] == 0 and hot["host_bins_refreshes"] >= 1
+    assert kh["segment_aborts"] >= 1 and kh["flags_last_segment"]["crossed"]
+    assert nan["segment_aborts"] == SEG_CYCLES - 1
+    assert nan["flags_last_segment"]["sentinels"] > 0
     return launches
 
 

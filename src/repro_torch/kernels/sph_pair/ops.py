@@ -14,8 +14,10 @@ order, then j-sides in pair order, the order of the reference's
 sequential scatter — one table column at a time.
 
 ``pair_mask`` (npairs,) zeroes masked pair tasks (the time-bin engine's
-padding, which repeats pair 0): their contributions are multiplied by 0,
-as in the reference, and add +0.0.
+padding, which repeats pair 0, and the device schedule's inactive pairs
+of its full tables): their contributions are replaced by +0.0, which
+adds nothing to a sum from +0.0 — even where a masked pair's contribution
+is not finite, which a multiplication by 0 would keep.
 """
 
 from __future__ import annotations
@@ -42,6 +44,12 @@ def _live(pairs: PairList, pair_mask, dtype):
     notself = (pairs.ci != pairs.cj).to(dtype)
     live = torch.ones_like(notself) if pair_mask is None else pair_mask
     return live, notself * live
+
+
+def masked(side: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """(P, C, F) contributions with the rows of pairs whose ``live`` is 0
+    set to +0.0 (the others bit for bit, as a multiplication by 1)."""
+    return torch.where(live[:, None, None] > 0, side, 0.0)
 
 
 def table_sums(parts, incoming, nout: int) -> torch.Tensor:
@@ -81,8 +89,8 @@ def density_pairs(cells, pairs: PairList, *, kernel: str = "cubic",
         pairs.shift, kernel=kernel)
     ncells = cells.mass.shape[0]
     live_i, live_j = _live(pairs, pair_mask, cells.pos.dtype)
-    side_i = torch.stack([rho_i, drho_i, nn_i], -1) * live_i[:, None, None]
-    side_j = torch.stack([rho_j, drho_j, nn_j], -1) * live_j[:, None, None]
+    side_i = masked(torch.stack([rho_i, drho_i, nn_i], -1), live_i)
+    side_j = masked(torch.stack([rho_j, drho_j, nn_j], -1), live_j)
     sums = _cell_sums(side_i, side_j, pairs.incoming, ncells)
     return sums[..., 0], sums[..., 1], sums[..., 2]
 
@@ -96,7 +104,7 @@ def force_pairs(cells, pairs: PairList, rho, press, omega, cs, *,
         alpha_visc=alpha_visc)
     ncells = cells.mass.shape[0]
     live_i, live_j = _live(pairs, pair_mask, cells.pos.dtype)
-    side_i = torch.cat([dv_i, du_i[..., None]], -1) * live_i[:, None, None]
-    side_j = torch.cat([dv_j, du_j[..., None]], -1) * live_j[:, None, None]
+    side_i = masked(torch.cat([dv_i, du_i[..., None]], -1), live_i)
+    side_j = masked(torch.cat([dv_j, du_j[..., None]], -1), live_j)
     sums = _cell_sums(side_i, side_j, pairs.incoming, ncells)
     return sums[..., :3], sums[..., 3]

@@ -161,8 +161,9 @@ def measure_cells(*, nrows: int, K: int, mask, pmask, ci, cj,
     * density/force — each live pair block is charged to its *owned*
       endpoint (``ci`` when ``ci < K``, else ``cj``). The sums equal the
       ``density_units``/``force_units`` value columns.
-    * exchange — ``nexch`` units per valid slot, charged receiver-side at
-      the row the slot unpacks into; the sum equals ``exchange_units``.
+    * exchange — ``nexch`` units per valid slot (an int, or a 0-d tensor
+      where only the card knows it), charged receiver-side at the row the
+      slot unpacks into; the sum equals ``exchange_units``.
 
     Row ``nrows`` of each rank is a scratch row: invalid entries land
     there and are sliced away. Every value is a small integer, so the
@@ -191,7 +192,7 @@ def measure_cells(*, nrows: int, K: int, mask, pmask, ci, cj,
         rows = _per_rank(exch_rows).long()
         et = (torch.where(ev > 0, rows, nrows) + base).reshape(-1)
         cw[:, CELL_INDEX["exchange"]].index_add_(
-            0, et, (ev * float(nexch)).reshape(-1))
+            0, et, (ev * nexch).reshape(-1))
     return cw.reshape(R, width, N_CELL_COLS)[:, :nrows]
 
 

@@ -22,8 +22,10 @@ integrator      backend            engine
 means the same run in both packages. The time-bin × distributed quadrant
 runs the reference's host schedule at either residency
 (``residency="device"`` with ``transport="collective"``: the stacked states
-stay on the card for the cycle, one fused program a sub-step); its device
-schedule and segments (ROADMAP queue 1, item 11b-2) raise.
+stay on the card for the cycle, one fused program a sub-step), and at
+device residency also its device schedule (``schedule="device"``, with
+``segment_cycles`` cycles a segment: one program a cycle, planned on the
+card, the host reading nothing inside a segment).
 ``SimulationSpec.program_signature()`` / ``signature_key()`` are the fleet's
 (:mod:`repro_torch.fleet.signature`): equal specs in the two packages get
 the same key, letter for letter.
@@ -144,10 +146,9 @@ class SimulationSpec:
     """Frozen description of a run; field for field the reference's.
 
     The time-bin × distributed policy (``transport``, ``residency``,
-    ``schedule``, …) is validated as the reference validates it;
-    ``schedule="device"`` (and with it ``segment_cycles > 1``) raises when
-    the engine is built (ROADMAP queue 1, item 11b-2). ``mesh_axis`` names
-    nothing in the port: the ranks share one device.
+    ``schedule``, ``segment_cycles``, …) is validated as the reference
+    validates it. ``mesh_axis`` names nothing in the port: the ranks share
+    one device.
     """
     scenario: str = "uniform"
     scenario_params: Mapping[str, Any] = field(default_factory=dict)

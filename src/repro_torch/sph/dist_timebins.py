@@ -54,17 +54,31 @@ Two residencies (``residency="host" | "device"``):
   and the ``bins`` rows of a deepening — and the transfer probe records
   every byte.
 
+Two schedules at device residency (``schedule="host" | "device"``):
+
+* **host** — the host plans each cycle and walks its ladder, building
+  each sub-step's tables from its mirror of ``bins`` (above);
+* **device** — whole segments of ``segment_cycles`` cycles: the first
+  cycle is planned by the host, each further one on the device
+  (``collectives.build_plan_program``), and each cycle runs as one
+  program (``collectives.build_cycle_scan_program``) that derives its
+  ladder from the resident ``bins`` over static full-touch tables,
+  uploaded once a segment. Between that upload and one pull of every
+  cycle's counters, metrics rows and flags at the segment's end, the host
+  reads nothing. If a health sentinel, a cell crossing or the ladder's
+  capacity tripped, the pre-segment state comes back and the segment
+  replays on the host schedule (``segment_aborts``, ``replayed``): the
+  two schedules give the same bits, so a replay is only slower.
+
 Repartitioning uses per-rank **bin occupancy**: the decomposition is
 retriggered when the time-averaged active work per rank
 (``core.decompose.timebin_node_weights``) drifts out of balance, and the
 new partition is computed from the cycle-averaged task costs.
-
-The reference's device schedule and multi-cycle segments are ROADMAP
-queue 1 item 11b-2; asking for them raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -83,7 +97,8 @@ from ..observability import device_metrics as dmetrics
 from .cellgrid import (PairList, ParticleCells, incoming_table,
                        make_pair_list, stack_incoming)
 from .collectives import (_EX1_FIELDS, _EX2_FIELDS,
-                          build_fused_substep_program)
+                          build_cycle_scan_program,
+                          build_fused_substep_program, build_plan_program)
 from .engine import SPHConfig, build_taskgraph, f32, host_array
 from .timebins import (STATE_AUX_FIELDS, STATE_CELL_FIELDS,
                        TimeBinSimulation, TimeBinState, _final_force_phase,
@@ -92,10 +107,6 @@ from .timebins import (STATE_AUX_FIELDS, STATE_CELL_FIELDS,
                        mass_weighted_mean_u, substep_active_mask)
 
 _PAD_H = 1e-6          # padded-slot smoothing length (division-safe)
-
-_ITEM_11B = ("is not ported yet (ROADMAP queue 1, item 11b-2: the device "
-             "schedule and segments of the time-bin × distributed "
-             "quadrant)")
 
 
 # ------------------------------------------------------------------ rank plan
@@ -288,12 +299,6 @@ class DistTimeBinSimulation(TimeBinSimulation):
             raise ValueError(
                 "segment_cycles > 1 fuses consecutive cycles into one "
                 "device segment and requires schedule='device'")
-        if schedule == "device":
-            # segment_cycles > 1 validates only with schedule="device"
-            raise NotImplementedError(
-                f"repro_torch: residency={residency!r}, schedule="
-                f"{schedule!r}, segment_cycles={int(segment_cycles)} "
-                f"{_ITEM_11B}")
         self.residency = residency
         self.schedule = schedule
         self.segment_cycles = int(segment_cycles)
@@ -346,6 +351,19 @@ class DistTimeBinSimulation(TimeBinSimulation):
                                            shrink_patience=10 ** 9)
         self._resident_rows_cache: Optional[Tuple[RankPlan, Tuple[
             torch.Tensor, ...]]] = None
+        # schedule="device": whole segments run as device programs;
+        # run_cycle() pops one cycle's stats a call from this queue. A
+        # segment aborts to the host schedule, bit for bit recoverably,
+        # when a health sentinel, a crossing or the capacity flag trips.
+        self._segment_queue: List[Dict] = []
+        self.segments = 0
+        self.segment_aborts = 0
+        # the last segment's trip counts: health sentinels, crossed
+        # particles, capacity overflows (any nonzero one aborted it)
+        self.segment_flags_last: Optional[Dict[str, int]] = None
+        # with sync_debug on a CUDA device, a segment's programs run under
+        # torch.cuda.set_sync_debug_mode("error"): any host read raises
+        self.sync_debug = False
 
     # ------------------------------------------------------- phase wrappers
     @staticmethod
@@ -559,6 +577,24 @@ class DistTimeBinSimulation(TimeBinSimulation):
         if tr.enabled:
             tr.ctx["cycle"] = self.cycle_index
             tr.ctx.pop("substep", None)
+        if self.schedule == "device":
+            # whole segments run at once; each call pops one cycle's stats
+            if not self._segment_queue:
+                with tr.timed("cycle") as seg:
+                    self._segment_queue = self._run_segment()
+                wall = seg.elapsed / max(len(self._segment_queue), 1)
+                for s in self._segment_queue:
+                    s["wall"] = wall
+            stats = self._segment_queue.pop(0)
+            if "_met" in stats:
+                # the rows came in the segment's boundary pull (or a
+                # replayed cycle's own pull): adopting them moves nothing
+                self.device_metrics_last = stats.pop("_met")
+                self.device_cell_work_last = stats.pop("_cellw", None)
+                if not stats.get("replayed"):
+                    self.device_metrics_pulls += 1
+            self.cycle_index += 1
+            return stats
         with tr.timed("cycle") as cyc:
             ctx = self._cycle_prologue()
             if self.residency == "device":
@@ -1027,103 +1063,109 @@ class DistTimeBinSimulation(TimeBinSimulation):
             cells=cells, time=res.pull("time", device=dev)[0],
             **{k: gather(k, getattr(st, k)) for k in self._AUX_FIELDS})
 
+    def _pair_tables(self, plan: RankPlan, idxs: List[np.ndarray], fit
+                     ) -> Tuple[Dict[str, np.ndarray], Tuple[int, ...]]:
+        """The ranks' pair tables as the stacked programs take them, and
+        their widths ``(B, Bi, Bc, Bw)``.
+
+        Rank r's pairs ``idxs[r]`` (global pair order) are numbered in its
+        extended rows and padded to one width ``B`` with masked repeats of
+        pair 0; its incoming table (over its live pairs, as at host
+        residency) is stacked as a lane's (``cellgrid.stack_incoming``) to
+        a width ``Bw`` and over every row, so the shapes follow the widths
+        only. The interior / cut positions (a pair is cut iff it touches a
+        halo row ≥ K) feed the metrics rows' ``pair_int`` / ``pair_cut``.
+        ``fit(kind, demand)`` sizes each width (kind ``"pairs"``,
+        ``"int"``, ``"cut"`` or ``"width"``).
+        """
+        nranks, K = plan.nranks, plan.K
+        nrows = plan.K + plan.H
+        halo = [(plan.ci_ext[r][idx] >= K) | (plan.cj_ext[r][idx] >= K)
+                for r, idx in enumerate(idxs)]
+        B = fit("pairs", max(len(idx) for idx in idxs))
+        Bi = fit("int", max(int((~h).sum()) for h in halo))
+        Bc = fit("cut", max(int(h.sum()) for h in halo))
+        t = {"ci": np.zeros((nranks, B), np.int32),
+             "cj": np.zeros((nranks, B), np.int32),
+             "shift": np.zeros((nranks, B, 3), self._shift.dtype),
+             "pmask": np.zeros((nranks, B), np.float32),
+             "int_pos": np.zeros((nranks, Bi), np.int32),
+             "int_valid": np.zeros((nranks, Bi), np.float32),
+             "cut_pos": np.zeros((nranks, Bc), np.int32),
+             "cut_valid": np.zeros((nranks, Bc), np.float32)}
+        incoming = []
+        for r in range(nranks):
+            idx, halo_pair = idxs[r], halo[r]
+            nlive = len(idx)
+            idxp = np.concatenate(
+                [idx, np.zeros(B - nlive, dtype=idx.dtype)])
+            t["ci"][r] = plan.ci_ext[r][idxp]
+            t["cj"][r] = plan.cj_ext[r][idxp]
+            t["shift"][r] = self._shift[idxp]
+            t["pmask"][r, :nlive] = 1.0
+            for kind, pos in (("int", np.nonzero(~halo_pair)[0]),
+                              ("cut", np.nonzero(halo_pair)[0])):
+                t[kind + "_pos"][r, :len(pos)] = pos
+                t[kind + "_valid"][r, :len(pos)] = 1.0
+            incoming.append(incoming_table(t["ci"][r], t["cj"][r], nrows,
+                                           nlive))
+        Bw = fit("width", max(tb.shape[1] for _, tb in incoming))
+        t["in_rows"], t["in_table"] = stack_incoming(
+            incoming, B, nrows, width=Bw, every_row=True)
+        return t, (B, Bi, Bc, Bw)
+
+    def _exchange_tables(self, plan: RankPlan, slots: ShipSlots, fit
+                         ) -> Tuple[Dict[str, np.ndarray], Tuple]:
+        """The index tables of one exchange of ``slots`` over the
+        transport's round schedule (or its all-gather), and their part of
+        the shape signature; ``fit(kind, demand)`` sizes the buckets (kind
+        ``"edge"``, ``"ag_out"`` or ``"ag_in"``)."""
+        t, nranks = self._transport, plan.nranks
+        if t.mode == "ppermute":
+            Be = fit("edge", slots.max_edge_slots)
+            pack, unpack, valid = pack_rounds(t.rounds, slots, nranks, Be)
+            return ({"e_pack": pack, "e_unpack": unpack, "e_valid": valid},
+                    ("ppermute", Be, t._perms_sig))
+        Bo = fit("ag_out", slots.max_rank_exports(nranks))
+        Bn = fit("ag_in", slots.max_rank_imports(nranks))
+        pack, usrc, urows, valid = pack_allgather(slots, nranks, Bo, Bn)
+        return ({"e_pack": pack, "e_usrc": usrc, "e_urows": urows,
+                 "e_valid": valid}, ("allgather", Bo, Bn))
+
+    def _to_device(self, tables: Dict[str, np.ndarray]
+                   ) -> Dict[str, torch.Tensor]:
+        dev = self.device
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                for k, v in tables.items()}
+
     def _fused_tables(self, plan: RankPlan,
                       active_cells: Optional[np.ndarray], slots: ShipSlots,
                       stream: str, wake_stacked: Optional[np.ndarray],
                       level: int = 0) -> Tuple[Dict[str, torch.Tensor],
                                                Tuple]:
         """One sub-step's control tables for the fused program, and the
-        shape signature that keys it.
-
-        The pair subset is :meth:`_select_rank_pairs`'s (global pair
-        order), each rank's padded to one bucket ``B`` with masked repeats
-        of pair 0 and numbered in its extended rows; each rank's incoming
-        table (over its live pairs, as at host residency) is stacked as a
-        lane's, to a bucketed width and over every row, so the table's
-        shape follows the buckets only. The interior / cut positions (a
-        pair is cut iff it touches a halo row ≥ K) feed the metrics rows'
-        ``pair_int`` / ``pair_cut``; the exchange index tables come from
-        the transport's round schedule. Every bucket goes through the
+        shape signature that keys it: :meth:`_select_rank_pairs`'s subset
+        as :meth:`_pair_tables` lays it out, the wake floors, and the
+        exchange tables of ``slots``. Every bucket goes through the
         no-shrink policy keyed per (stream, level). All of it is control —
         int32/int64 indices and float32 masks — and is ledgered as
         ``tables``, the resident path's intra-cycle uploads.
         """
-        t = self._transport
-        nranks, K = plan.nranks, plan.K
         nrows = plan.K + plan.H
-        idxs, nmax = self._select_rank_pairs(plan, active_cells)
-        splits = []
-        imax, cmax = 1, 1
-        for r in range(nranks):
-            idx = idxs[r]
-            halo_pair = ((plan.ci_ext[r][idx] >= K)
-                         | (plan.cj_ext[r][idx] >= K))
-            splits.append(halo_pair)
-            imax = max(imax, int((~halo_pair).sum()))
-            cmax = max(cmax, int(halo_pair.sum()))
-        B = self._fused_buckets.fit((stream, "pairs", level), nmax)
-        Bi = self._fused_buckets.fit((stream, "int", level), imax)
-        Bc = self._fused_buckets.fit((stream, "cut", level), cmax)
-
-        ci = np.zeros((nranks, B), np.int32)
-        cj = np.zeros((nranks, B), np.int32)
-        shift = np.zeros((nranks, B, 3), self._shift.dtype)
-        pmask = np.zeros((nranks, B), np.float32)
-        int_pos = np.zeros((nranks, Bi), np.int32)
-        int_valid = np.zeros((nranks, Bi), np.float32)
-        cut_pos = np.zeros((nranks, Bc), np.int32)
-        cut_valid = np.zeros((nranks, Bc), np.float32)
-        incoming = []
-        for r in range(nranks):
-            idx, halo_pair = idxs[r], splits[r]
-            nlive = len(idx)
-            idxp = np.concatenate(
-                [idx, np.zeros(B - nlive, dtype=idx.dtype)])
-            ci[r] = plan.ci_ext[r][idxp]
-            cj[r] = plan.cj_ext[r][idxp]
-            shift[r] = self._shift[idxp]
-            pmask[r, :nlive] = 1.0
-            ipos = np.nonzero(~halo_pair)[0]
-            cpos = np.nonzero(halo_pair)[0]
-            int_pos[r, :len(ipos)] = ipos
-            int_valid[r, :len(ipos)] = 1.0
-            cut_pos[r, :len(cpos)] = cpos
-            cut_valid[r, :len(cpos)] = 1.0
-            incoming.append(incoming_table(ci[r], cj[r], nrows, nlive))
-        Bw = self._fused_buckets.fit((stream, "width", level),
-                                     max(tb.shape[1] for _, tb in incoming))
-        in_rows, in_table = stack_incoming(incoming, B, nrows, width=Bw,
-                                           every_row=True)
-
-        tables = {"ci": ci, "cj": cj, "shift": shift, "pmask": pmask,
-                  "in_rows": in_rows, "in_table": in_table,
-                  "int_pos": int_pos, "int_valid": int_valid,
-                  "cut_pos": cut_pos, "cut_valid": cut_valid,
-                  "wake": wake_stacked if wake_stacked is not None
-                  else np.zeros((nranks, nrows), np.int32)}
-        if t.mode == "ppermute":
-            Be = self._fused_buckets.fit(("edge", stream),
-                                         slots.max_edge_slots)
-            pack, unpack, valid = pack_rounds(t.rounds, slots, nranks, Be)
-            tables.update(e_pack=pack, e_unpack=unpack, e_valid=valid)
-            exch_sig = ("ppermute", Be, t._perms_sig)
-        else:
-            Bo = self._fused_buckets.fit(("ag_out", stream),
-                                         slots.max_rank_exports(nranks))
-            Bn = self._fused_buckets.fit(("ag_in", stream),
-                                         slots.max_rank_imports(nranks))
-            pack, usrc, urows, valid = pack_allgather(slots, nranks, Bo, Bn)
-            tables.update(e_pack=pack, e_usrc=usrc, e_urows=urows,
-                          e_valid=valid)
-            exch_sig = ("allgather", Bo, Bn)
+        idxs, _ = self._select_rank_pairs(plan, active_cells)
+        buckets = self._fused_buckets
+        tables, widths = self._pair_tables(
+            plan, idxs, lambda kind, n: buckets.fit((stream, kind, level), n))
+        tables["wake"] = (wake_stacked if wake_stacked is not None else
+                          np.zeros((plan.nranks, nrows), np.int32))
+        exch, exch_sig = self._exchange_tables(
+            plan, slots, lambda kind, n: buckets.fit((kind, stream), n))
+        tables.update(exch)
         self.transfers.record(
             "tables", sum(a.nbytes for a in tables.values()), boundary=False)
-        dev = self.device
-        tables = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                  for k, v in tables.items()}
-        sig = (nranks, nrows, K, B, Bi, Bc, Bw, exch_sig,
-               int(self.state.cells.mass.shape[1]))
-        return tables, sig
+        sig = (plan.nranks, nrows, plan.K) + widths + (
+            exch_sig, int(self.state.cells.mass.shape[1]))
+        return self._to_device(tables), sig
 
     def _fused_program(self, sig: Tuple, *, final: bool):
         """The fused sub-step program of this shape signature, built once
@@ -1133,7 +1175,8 @@ class DistTimeBinSimulation(TimeBinSimulation):
         key = ("fused_final" if final else "fused_force",) + sig + (t.mode,)
         return t.programs.get(key, lambda: build_fused_substep_program(
             mode=t.mode, rounds=t.rounds, nranks=sig[0], nrows=sig[1],
-            K=sig[2], cfg=self.cfg, box=self.box, final=final))
+            K=sig[2], cfg=self.cfg, box=self.box, device=self.device,
+            final=final))
 
     def _scalar(self, x) -> torch.Tensor:
         """A host float as a 0-d float32 tensor on the device, ledgered
@@ -1325,3 +1368,263 @@ class DistTimeBinSimulation(TimeBinSimulation):
                 "force_substeps": force_substeps,
                 "cycle_exported": cycle_exported,
                 "cycle_full": cycle_full}
+
+    # ---------------------------------------------- device-scheduled segments
+    def _segment_tables(self, plan: RankPlan
+                        ) -> Tuple[Dict[str, torch.Tensor],
+                                   Dict[str, torch.Tensor], Tuple]:
+        """The static tables of one device-scheduled segment, and the shape
+        signature that keys its programs.
+
+        Unlike :meth:`_fused_tables` they do not depend on activity: each
+        rank's **full touch set** (:meth:`_select_rank_pairs` with no
+        restriction, in ascending global pair order — every per-level
+        table of the host schedule is a subsequence of it, so a masked row
+        sum adds the same contributions in the same order), laid out by
+        :meth:`_pair_tables` at plain ``next_pow2`` widths, which move only
+        with the partition; the full-cut exchange tables; and the side
+        tables the programs derive the schedule with: ``own_pair`` (the
+        rank owning a pair's ``ci`` cell counts it, so the ranks' counts
+        sum to the host's), ``rowcell`` (each row's global cell, for the
+        crossing sentinel) and ``gather_idx`` (each global cell's row in
+        the ranks' flattened owned rows, for u_floor). One upload a
+        segment, ledgered as a boundary transfer: a segment has no
+        intra-segment entry.
+        """
+        nranks, K = plan.nranks, plan.K
+        nrows = plan.K + plan.H
+        idxs, _ = self._select_rank_pairs(plan, None)
+        pow2 = lambda kind, n: next_pow2(n)
+        tables, widths = self._pair_tables(plan, idxs, pow2)
+        own_pair = np.zeros_like(tables["pmask"])
+        rowcell = np.full((nranks, nrows), -1, np.int32)
+        gidx = np.zeros(self.spec.ncells, np.int64)
+        for r in range(nranks):
+            idx, own, hal = idxs[r], plan.owned[r], plan.halo[r]
+            own_pair[r, :len(idx)] = self._assignment[self._ci[idx]] == r
+            rowcell[r, :len(own)] = own
+            rowcell[r, K:K + len(hal)] = hal
+            gidx[own] = r * K + np.arange(len(own))
+        slots = plan.ship_slots(list(plan.cut)) if plan.cut else ShipSlots()
+        exch, exch_sig = self._exchange_tables(plan, slots, pow2)
+        tables.update(exch, own_pair=own_pair, rowcell=rowcell)
+        consts = {"gather_idx": gidx}
+        self.transfers.record("segment_tables", sum(
+            a.nbytes for a in list(tables.values()) + [gidx]), boundary=True)
+        sig = (nranks, nrows, K) + widths + (
+            exch_sig, int(self.state.cells.mass.shape[1]))
+        return self._to_device(tables), self._to_device(consts), sig
+
+    def _cycle_scan_program(self, sig: Tuple, nsub_static: int):
+        t = self._transport
+        key = ("cycle_scan", nsub_static, self.activity_aware) + sig \
+            + (t.mode,)
+        return t.programs.get(key, lambda: build_cycle_scan_program(
+            mode=t.mode, rounds=t.rounds, nranks=sig[0], nrows=sig[1],
+            K=sig[2], cfg=self.cfg, box=self.box, nsub_static=nsub_static,
+            bin_delta=self.bin_delta, activity_aware=self.activity_aware,
+            device=self.device))
+
+    def _plan_program(self, sig: Tuple, nsub_static: int):
+        t = self._transport
+        key = ("segment_plan", nsub_static, self.dt_max) + sig + (t.mode,)
+        return t.programs.get(key, lambda: build_plan_program(
+            mode=t.mode, rounds=t.rounds, nranks=sig[0], nrows=sig[1],
+            K=sig[2], cfg=self.cfg, box=self.box,
+            ncells_side=self.spec.ncells_side, max_depth=self.max_depth,
+            bin_delta=self.bin_delta, depth_headroom=self.depth_headroom,
+            nsub_static=nsub_static, dt_max_static=self.dt_max,
+            device=self.device))
+
+    def _place_scalars(self, ctx: Dict[str, object]
+                       ) -> Dict[str, torch.Tensor]:
+        """The host-planned first cycle's scalars as 0-d device tensors,
+        ledgered with the segment's tables."""
+        dev = self.device
+        vals = {"dt_max": torch.tensor(np.float32(ctx["dt_max_c"])),
+                "depth": torch.tensor(ctx["depth"], dtype=torch.int32),
+                "nsub": torch.tensor(ctx["nsub"], dtype=torch.int32),
+                "u_floor": torch.tensor(np.float32(ctx["u_floor"]))}
+        self.transfers.record("segment_tables", 4 * len(vals), boundary=True)
+        return {k: v.to(dev) for k, v in vals.items()}
+
+    def _segment_guard(self):
+        """The context a segment's programs run in: with ``sync_debug`` on
+        a CUDA device, any synchronising call inside raises."""
+        if not (self.sync_debug and self.device.type == "cuda"):
+            return contextlib.nullcontext()
+
+        @contextlib.contextmanager
+        def guard():
+            before = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(before)
+        return guard()
+
+    def _pull_segment(self, *groups: List[Dict[str, torch.Tensor]]
+                      ) -> List[List[Dict[str, np.ndarray]]]:
+        """The segment's one boundary pull: each group's dicts of device
+        tensors on the host, ledgered as one ``segment_stats`` transfer."""
+        pulled = [[{k: v.cpu().numpy() for k, v in d.items()} for d in g]
+                  for g in groups]
+        self.transfers.record("segment_stats", sum(
+            a.nbytes for g in pulled for d in g for a in d.values()),
+            boundary=True)
+        return pulled
+
+    def _run_segment(self) -> List[Dict]:
+        """Run one device-scheduled segment of ``segment_cycles`` cycles.
+
+        Cycle 1 is planned by the host prologue, which also sizes the
+        static ladder of the scan; each further cycle is planned on the
+        device by the plan program, its scalars passed on as device
+        tensors. Between the table upload and the one boundary pull of
+        every cycle's counters, metrics rows, scalars and flags, the host
+        reads nothing and moves no byte (the transfer ledger has no
+        intra-segment entry). If a health sentinel (NaN, Inf, a
+        non-positive density), a crossing or the capacity flag tripped,
+        the pre-segment state comes back and the segment replays on the
+        host schedule, which gives the same bits.
+        """
+        K_cycles = self.segment_cycles
+        tr = self.tracer
+        stash = self.state
+        ctx = self._cycle_prologue()
+        plan: RankPlan = ctx["plan"]
+        nsub_static = ctx["nsub"]
+        t0 = tr.now() if tr.enabled else 0.0
+        res = self._scatter_resident(plan)
+        tables, consts, sig = self._segment_tables(plan)
+        cyc_prog = self._cycle_scan_program(sig, nsub_static)
+        self.program_keys.add(("cycle_scan", ctx["depth"], sig[3]))
+        plan_prog = None
+        if K_cycles > 1:
+            plan_prog = self._plan_program(sig, nsub_static)
+            self.program_keys.add(("segment_plan", ctx["depth"], sig[3]))
+        scalars = self._place_scalars(ctx)
+        if tr.enabled:
+            tr.fence(res["pos"])
+            tr.record_all(range(plan.nranks), "segment_tables", t0,
+                          collective=1)
+        names = self._CELL_FIELDS + self._AUX_FIELDS + ("time",)
+        per_cnt, per_met, per_scal, per_flags = [], [], [scalars], []
+        with self._segment_guard():
+            for j in range(K_cycles):
+                if j > 0:
+                    with tr.span("segment_plan", cycle=j):
+                        upd, scalars, flags = plan_prog(
+                            {nm: res[nm] for nm in names}, tables, consts)
+                    res.update(upd)
+                    per_scal.append(scalars)
+                    per_flags.append(flags)
+                with tr.span("cycle_scan", cycle=j, trips=nsub_static):
+                    out_state, cnt, met = cyc_prog(
+                        {nm: res[nm] for nm in names}, tables, scalars)
+                res.update(out_state)
+                per_cnt.append(cnt)
+                per_met.append(met)
+        # ---- the one boundary pull: every cycle's counters, metrics
+        # rows, device-planned scalars and flags
+        t1 = tr.now() if tr.enabled else 0.0
+        pulled_cnt, pulled_met, pulled_scal, pulled_flags = \
+            self._pull_segment(per_cnt, per_met, per_scal, per_flags)
+        if tr.enabled:
+            tr.record_all(range(plan.nranks), "boundary_pull", t1,
+                          collective=1)
+        self.segments += 1
+
+        mci = dmetrics.COUNT_INDEX
+        sentinels = sum(int(m["counts"][:, mci[f]].sum()) for m in pulled_met
+                        for f in ("flag_nan", "flag_inf", "flag_neg_rho"))
+        crossed = sum(int(f["crossed"]) for f in pulled_flags)
+        over = sum(int(f["capacity"]) for f in pulled_flags)
+        self.segment_flags_last = {"sentinels": sentinels,
+                                   "crossed": crossed, "capacity": over}
+        if sentinels or crossed or over:
+            # discard the segment, bring back the state it started from
+            # and replay it on the host schedule: the same bits, NaNs
+            # included
+            self.segment_aborts += 1
+            self.state = stash
+            return self._replay_segment_host(K_cycles)
+
+        tg = tr.now() if tr.enabled else 0.0
+        self._gather_resident(plan, res)
+        if tr.enabled:
+            tr.record_all(range(plan.nranks), "gather", tg, collective=1)
+        depth_last = int(pulled_scal[-1]["depth"])
+        with tr.span("repartition_check"):
+            self._maybe_repartition(self.state.bins.cpu().numpy(),
+                                    self.state.cells.mask.cpu().numpy(),
+                                    depth_last)
+        if self.rebin_each_cycle:
+            with tr.span("rebin", units=ctx["nreal"]):
+                self._rebin_state()
+
+        nreal = ctx["nreal"]
+        cut_slots = plan.cut_slots
+        self.halo_log = []          # the per-sub-step log is host-side only
+        dm_on = self.device_metrics_enabled
+        stats_list: List[Dict] = []
+        for j in range(K_cycles):
+            cnt, scal = pulled_cnt[j], pulled_scal[j]
+            depth_j = int(scal["depth"])
+            nsub_j = int(scal["nsub"])
+            updates_j = int(cnt["updates"].sum())
+            exported_j = int(cnt["exported"].sum())
+            full_j = int(cnt["live_trips"][0]) * cut_slots
+            self.particle_updates += updates_j
+            self.global_equiv_updates += nsub_j * nreal
+            self.substeps += nsub_j
+            self.halo_exported_slots += exported_j
+            self.halo_full_slots += full_j
+            hist_j = (ctx["hist"] if j == 0
+                      else pulled_flags[j - 1]["hist"][:depth_j + 1])
+            stats = {
+                "t": float(cnt["t_end"][0]),
+                "dt_max": float(scal["dt_max"]),
+                "depth": depth_j,
+                "substeps": nsub_j,
+                "force_substeps": int(cnt["force_substeps"][0]) + 1,
+                "bin_hist": np.asarray(hist_j, np.int64),
+                "updates": updates_j,
+                "global_equiv_updates": nsub_j * nreal,
+                "pair_tasks": int(cnt["pair_tasks"].sum()),
+                "global_equiv_pair_tasks": nsub_j * len(self._ci),
+                "halo_exported_slots": exported_j,
+                "halo_full_slots": full_j,
+                "nranks": plan.nranks,
+                "residency": self.residency,
+                "schedule": "device",
+                "segment_cycles": K_cycles,
+            }
+            if dm_on:
+                met = pulled_met[j]
+                stats["_met"] = (met["counts"], met["values"])
+                stats["_cellw"] = dmetrics.fold_cell_rows(
+                    met["cells"], plan.owned, plan.halo, self.spec.ncells,
+                    plan.K)
+            stats_list.append(stats)
+        if not dm_on:
+            self.device_metrics_last = None
+            self.device_cell_work_last = None
+        return stats_list
+
+    def _replay_segment_host(self, K_cycles: int) -> List[Dict]:
+        """The abort path: the segment's cycles again on the host-scheduled
+        resident ladder, each cycle's metrics rows carried with its stats."""
+        out = []
+        for _ in range(K_cycles):
+            ctx = self._cycle_prologue()
+            body = self._cycle_substeps_device(ctx)
+            stats = self._cycle_epilogue(ctx, body)
+            stats.update(schedule="device", segment_cycles=K_cycles,
+                         replayed=True)
+            if self.device_metrics_enabled:
+                stats["_met"] = self.device_metrics_last
+                stats["_cellw"] = self.device_cell_work_last
+            out.append(stats)
+        return out

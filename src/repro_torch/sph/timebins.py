@@ -61,18 +61,31 @@ _BIN_THRESHOLDS = np.asarray(
     2.0 ** (np.arange(BIN_LADDER_MAX) + 1e-6), np.float32)
 # dt_max / 2**b factors, exact powers of two for every bin of the ladder
 _BIN_SCALE = np.asarray(2.0 ** -np.arange(BIN_LADDER_MAX + 1), np.float32)
+_ON_DEVICE: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+
+def device_table(name: str, device) -> torch.Tensor:
+    """The bin ladder's constant table ``name`` (``"thresholds"`` or
+    ``"scale"``) on ``device``, copied there once: a copy inside a
+    device-scheduled segment would wait for the card."""
+    key = (name, torch.device(device))
+    if key not in _ON_DEVICE:
+        src = {"thresholds": _BIN_THRESHOLDS, "scale": _BIN_SCALE}[name]
+        _ON_DEVICE[key] = torch.from_numpy(src).to(device)
+    return _ON_DEVICE[key]
 
 
 def assign_bins(dt, dt_max, max_bin):
     """Smallest b with dt_max / 2**b ≤ dt, clipped to [0, max_bin].
 
     numpy arrays (host planning, ``dt_max`` a float) or tensors (device
-    deepening, ``dt_max`` a 0-d float32 tensor); +inf entries land in
-    bin 0.
+    deepening, ``dt_max`` a 0-d float32 tensor; ``max_bin`` an int or,
+    where only the card knows it, a 0-d int32 tensor); +inf entries land
+    in bin 0.
     """
     if isinstance(dt, torch.Tensor):
         ratio = dt_max / torch.clamp_min(dt, 1e-30)
-        thr = torch.from_numpy(_BIN_THRESHOLDS).to(dt.device)
+        thr = device_table("thresholds", dt.device)
         b = (ratio[..., None] > thr).sum(-1).to(torch.int32)
         return torch.clamp_max(b, max_bin).to(torch.int32)
     ratio = dt_max / np.maximum(dt, 1e-30)
@@ -86,8 +99,7 @@ def bin_timestep(dt_max, bins: torch.Tensor) -> torch.Tensor:
     (The reference computes ``exp2(-b)``; XLA's CPU exp2 is a few ulp off
     a power of two for b ≥ 13, beyond the default ladder depth.)
     """
-    scale = torch.from_numpy(_BIN_SCALE).to(bins.device)
-    return dt_max * scale[bins.long()]
+    return dt_max * device_table("scale", bins.device)[bins.long()]
 
 
 def active_level(n: int, depth: int) -> int:
@@ -99,26 +111,55 @@ def active_level(n: int, depth: int) -> int:
     return max(depth - tz, 0)
 
 
+def trailing_zeros_table(nsub: int) -> np.ndarray:
+    """tz(n) for n = 0..nsub as an int32 table (tz(0) := 0): the level of
+    sub-step n of a depth-d cycle is max(d − tz[n], 0), as
+    :func:`active_level` computes it."""
+    return np.asarray(
+        [0] + [(n & -n).bit_length() - 1 for n in range(1, nsub + 1)],
+        np.int32)
+
+
+def clip_bins(x, depth):
+    """``clip(x, 0, depth)`` for an int or a 0-d int32 tensor ``depth``."""
+    return torch.clamp_max(torch.clamp_min(x, 0), depth)
+
+
+def dt_min_of(dt_max: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """dt_max / 2**depth for 0-d tensors, by an exact power of two (the
+    host's ``dt_max / nsub`` in float64 rounds to the same float32)."""
+    scale = device_table("scale", dt_max.device)
+    # index_select, not scale[depth]: a 0-d index is read on the host
+    return dt_max * scale.index_select(0, depth.long().reshape(1))[0]
+
+
 # ---------------------------------------------------- reproducible reductions
-def tree_sum(x: np.ndarray):
+def tree_sum(x):
     """Sum by fixed binary fold (pad to a power of two, halve repeatedly):
-    a summation order that does not depend on the library."""
-    x = np.ravel(x)
+    a summation order that does not depend on the library. numpy arrays
+    fold on the host, tensors on their device (never ``torch.sum``, whose
+    order is not pinned), to the same bits."""
+    on_device = isinstance(x, torch.Tensor)
+    x = x.reshape(-1) if on_device else np.ravel(x)
     n = x.shape[0]
     p = 1
     while p < max(n, 1):
         p *= 2
     if p != n:
-        x = np.concatenate([x, np.zeros((p - n,), x.dtype)])
+        x = (torch.cat([x, x.new_zeros((p - n,))]) if on_device else
+             np.concatenate([x, np.zeros((p - n,), x.dtype)]))
     while x.shape[0] > 1:
         h = x.shape[0] // 2
         x = x[:h] + x[h:]
     return x[0]
 
 
-def mass_weighted_mean_u(mass_masked: np.ndarray, u: np.ndarray):
-    """u_floor of :func:`particle_timesteps`: Σ m·u / Σ m via tree_sum."""
+def mass_weighted_mean_u(mass_masked, u):
+    """u_floor of :func:`particle_timesteps`: Σ m·u / Σ m via tree_sum
+    (numpy arrays or tensors)."""
     num = tree_sum(mass_masked * u)
+    if isinstance(num, torch.Tensor):
+        return num / torch.clamp_min(tree_sum(mass_masked), 1e-30)
     den = np.maximum(tree_sum(mass_masked), 1e-30)
     return num / den
 
@@ -303,9 +344,11 @@ def _substep_density_phase(state: TimeBinState, pairs: PairList, pair_mask,
 
 
 def _apply_force_kick(state: TimeBinState, active, dv, du, rho, omega,
-                      wake_floor, dt_max, depth: int, u_floor, *,
+                      wake_floor, dt_max, depth, u_floor, *,
                       cfg: SPHConfig) -> Tuple[TimeBinState, torch.Tensor]:
-    """Close/deepen/re-open the active bins given raw force-pass sums."""
+    """Close/deepen/re-open the active bins given raw force-pass sums
+    (``depth`` an int, or a 0-d int32 tensor where only the card knows
+    it)."""
     cells = state.cells
     mask = cells.mask
     mask3 = mask[..., None]
@@ -320,7 +363,7 @@ def _apply_force_kick(state: TimeBinState, active, dv, du, rho, omega,
     dt_need = particle_timesteps(cells, dudt, gamma=cfg.gamma, cfl=cfg.cfl,
                                  u_floor=u_floor)
     b_need = torch.maximum(assign_bins(dt_need, dt_max, depth),
-                           torch.clamp(wake_floor, 0, depth)[:, None])
+                           clip_bins(wake_floor, depth)[:, None])
     bins = torch.where(active > 0, torch.maximum(state.bins, b_need),
                        state.bins)
     # open the next step

@@ -21,7 +21,12 @@ launches, on the local ladder and over the ranks. At
 cycle) the run is bit for bit host residency on the card in both
 collective modes, moves no state byte to the host inside a cycle, launches
 each pair kernel once per force sub-step for all ranks, and matches the
-CPU within 1e-4 of each field's scale.
+CPU within 1e-4 of each field's scale. At ``schedule="device"`` (segments
+of K = 1 and 2 cycles, one program a cycle planned on the card) the run
+is bit for bit the host schedule on the card, reads nothing on the host
+inside a segment (the CUDA sync debug mode raises on any synchronising
+call there), launches each pair kernel ``nsub_static`` times a cycle, and
+matches the CPU within 1e-4 of each field's scale.
 
 This file imports no JAX, so it runs on the card as
 
@@ -237,6 +242,89 @@ def test_cuda_resident_matches_cpu(cuda_device):
     (sa, card), (sb, cpu) = tb_run(cuda_device, **kw), tb_run("cpu", **kw)
     for x, y in zip(sa, sb):
         assert [x[k] for k in COUNT_KEYS] == [y[k] for k in COUNT_KEYS]
+    for x, y in zip(card, cpu):
+        x, y = x.double().numpy(), y.double().numpy()
+        scale = max(float(np.abs(y).max()), 1e-30)
+        assert float(np.abs(x - y).max()) <= 1e-4 * scale
+
+
+# ------------------------------ time-bin × distributed, device schedule
+def segment_launches(sim, cycles: int, K_cycles: int):
+    """Run ``cycles`` cycles; per segment, each pair kernel's launches
+    against what the segment should launch: ``nsub_static`` (its first
+    cycle's sub-steps) a cycle for the scan's trips, dead ones too, plus a
+    replay's force sub-steps if it aborted."""
+    stats, rows = [], []
+    for c in range(cycles):
+        if c % K_cycles == 0:
+            K.reset_launches()
+        stats.append(sim.step())
+        if (c + 1) % K_cycles == 0:
+            seg = stats[c + 1 - K_cycles:c + 1]
+            want = K_cycles * seg[0]["substeps"] + sum(
+                s["force_substeps"] for s in seg if s.get("replayed"))
+            rows.append(((K.density_pair_cells.launches,
+                          K.force_pair.launches, K.density_pair.launches),
+                         (want, want, 0)))
+    return stats, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K_cycles", [1, 2])
+def test_cuda_device_schedule_bitwise_host_schedule(cuda_device, K_cycles):
+    """``schedule="device"`` on the card, each segment's programs under
+    the CUDA sync debug mode (a host read inside raises): bit for bit the
+    host schedule at the segment boundary, with equal counts; each pair
+    kernel launched ``nsub_static`` times a cycle and the block entry
+    never; no byte between host and device inside a segment."""
+    kw = dict(transport="collective", residency="device")
+    sa, a = tb_run(cuda_device, **kw)
+    sim = build_simulation(tb_spec(schedule="device",
+                                   segment_cycles=K_cycles, **kw),
+                           device=cuda_device)
+    sim.engine.sync_debug = True
+    sb, rows = segment_launches(sim, 2, K_cycles)
+    for got, want in rows:
+        assert got == want, (got, want)
+    st = sim.state
+    assert bits_equal(a, [t.cpu() for t in tuple(st.cells) + tuple(st[1:])])
+    for x, y in zip(sa, sb):
+        assert [x[k] for k in COUNT_KEYS] == [y[k] for k in COUNT_KEYS]
+        assert (x["t"], x["dt_max"]) == (y["t"], y["dt_max"])
+    eng = sim.engine
+    if K_cycles == 1:
+        assert eng.segment_aborts == 0 and eng.segments == 2
+    if not eng.segment_aborts:
+        assert eng.transfers.intra_bytes == {}
+
+
+@pytest.mark.cuda
+def test_cuda_segment_guard_traps_a_host_read(cuda_device):
+    """The sync debug guard bites: a host read inside it raises, and the
+    mode comes back after it."""
+    sim = build_simulation(tb_spec(transport="collective",
+                                   residency="device", schedule="device"),
+                           device=cuda_device)
+    eng = sim.engine
+    eng.sync_debug = True
+    before = torch.cuda.get_sync_debug_mode()
+    x = torch.ones(4, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        with eng._segment_guard():
+            x.sum().item()
+    assert torch.cuda.get_sync_debug_mode() == before
+    sim.step()
+    assert eng.segments == 1
+
+
+@pytest.mark.cuda
+def test_cuda_device_schedule_matches_cpu(cuda_device):
+    kw = dict(transport="collective", residency="device",
+              schedule="device", segment_cycles=2)
+    (sa, card), (sb, cpu) = tb_run(cuda_device, **kw), tb_run("cpu", **kw)
+    for x, y in zip(sa, sb):
+        assert [x[k] for k in COUNT_KEYS] == [y[k] for k in COUNT_KEYS]
+        assert x.get("replayed") == y.get("replayed")
     for x, y in zip(card, cpu):
         x, y = x.double().numpy(), y.double().numpy()
         scale = max(float(np.abs(y).max()), 1e-30)

@@ -675,6 +675,18 @@ def test_run_twice_bitwise():
 
 
 def test_device_schedule_still_raises_item_11b2():
-    _, spec = _specs("sedov", residency="device", schedule="device")
-    with pytest.raises(NotImplementedError, match="item 11b-2"):
-        P.build_simulation(spec, device="cpu")
+    """The device schedule (ROADMAP queue 1 item 11b-2, once a raise) on
+    the conformance Sedov at 4 ranks: one cycle bit for bit this file's
+    host-scheduled resident cycle, with equal stats (at
+    ``capacity_margin=1.0``: the trips run the full touch tables, and the
+    CPU's plain pair loops cost C²)."""
+    _, spec = _specs("sedov", residency="device", capacity_margin=1.0)
+    host = P.build_simulation(spec, device="cpu")
+    dev = P.build_simulation(spec.with_(schedule="device"), device="cpu")
+    a, b = host.step(), dev.step()
+    for k in COUNTS + ("t", "dt_max"):
+        assert a[k] == b[k], k
+    np.testing.assert_array_equal(a["bin_hist"], b["bin_hist"])
+    _bitwise(_flat(dev.state), _flat(host.state))
+    assert b["schedule"] == "device" and dev.engine.segment_aborts == 0
+    assert dev.engine.transfers.intra_bytes == {}

@@ -22,9 +22,10 @@ host residency and host schedule, over the host wire).
   contract for the time-bin family, tests/test_conformance.py:9-15): 1, 3
   and 4 ranks, the host wire and the collective wire in both modes, with
   activity-aware halos off too; run twice, bitwise.
-* The reference's ``ValueError``s, and ``NotImplementedError`` naming
-  ROADMAP queue 1 item 11b-2 for the device schedule and segments (device
-  residency: ``tests/test_torch_dist_resident.py``).
+* The reference's ``ValueError``s, word for word; the device schedule
+  and segments run, one segment bit for bit the host schedule (device
+  residency: ``tests/test_torch_dist_resident.py``; the device schedule:
+  ``tests/test_torch_dist_schedule.py``).
 """
 
 import warnings
@@ -384,8 +385,21 @@ def test_value_errors_as_reference(bad):
     dict(residency="device", transport="collective", schedule="device",
          segment_cycles=2)])
 def test_device_residency_raises_item_11b(policy):
+    """The device schedule (ROADMAP queue 1 item 11b-2, once a raise) runs:
+    one segment is bit for bit the host schedule at its boundary, with
+    equal stats (tests/test_torch_dist_schedule.py holds it further)."""
     spec = P.SimulationSpec(scenario="uniform", scenario_params={"n_side": 3},
                             integrator="timebin", backend="distributed",
                             ranks=2, **policy)
-    with pytest.raises(NotImplementedError, match="queue 1, item 11b"):
-        P.build_simulation(spec, device="cpu")
+    K = spec.segment_cycles
+    host = P.build_simulation(spec.with_(schedule="host", segment_cycles=1),
+                              device="cpu")
+    dev = P.build_simulation(spec, device="cpu")
+    for _ in range(K):
+        a, b = host.step(), dev.step()
+        assert b["schedule"] == "device" and b["segment_cycles"] == K
+        for k in COUNTS + ("t", "dt_max"):
+            assert a[k] == b[k], k
+        np.testing.assert_array_equal(a["bin_hist"], b["bin_hist"])
+    _bitwise(_flat(dev.state), _flat(host.state))
+    assert dev.engine.segments == 1 and dev.engine.segment_aborts == 0
