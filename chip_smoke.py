@@ -113,25 +113,35 @@ wrong. Phases, one line each:
     the CPU, within 1e-4 of each field's scale;
 
 and for the serving slices (``python -m repro_torch.launch.serve``),
-zamba2-1.2b (Mamba-2 + shared attention) and falcon-mamba-7b (Mamba-1):
+zamba2-1.2b (Mamba-2 + shared attention), falcon-mamba-7b (Mamba-1) and
+the dense-attention models granite-8b (GQA 4:1, hd 128), gemma-7b (hd 256,
+GeGLU, (1 + w) norms) and gemma3-27b (5:1 local:global, window 1024,
+qk-norm; depth cut, see GEMMA3_LAYERS):
 
 8. ``ssd_scan``, ``flash_attention`` and ``selective_scan`` against their
-   plain versions at the serve paths' shapes (B = 4, S = 2048), plus a
-   GQA + window case and ragged lengths (with an initial state for the
-   scans); each scan run twice, bitwise equal;
+   plain versions at the serve paths' shapes (B = 4, S = 2048: zamba2's
+   attention, granite's, gemma-7b's at hd 256 and gemma3's windowed local
+   layers), plus a GQA + window case, ragged lengths and a soft-capped
+   case at hd 256 (with an initial state for the scans); each kernel run
+   twice, bitwise equal;
 9. their times beside the bound, the plain version's time and, for
    attention, ``scaled_dot_product_attention`` on the same tensors (a
-   yardstick the port never calls); the bound of attention and of the SSD
-   scan is their work at f32 accuracy on the tensor cores (three TF32
-   products each) or their bytes, with the f32 FMA figure beside it;
+   yardstick the port never calls; K and V repeated to the query heads
+   outside the timed call, an explicit mask for a window); the bound of
+   attention and of the SSD scan is their work at f32 accuracy on the
+   tensor cores (three TF32 products each) or their bytes, with the f32
+   FMA figure beside it;
 10. the serve path of each model at full width (random weights from a
     seeded generator), 4 prompts of 2048 tokens, prefill then 31 greedy
     decode steps (each step timed, and the whole decode window), with
     every LM kernel's launch count set to 0 just before and read just
-    after the prefill and the decode loop; the full-width prefill run twice
+    after the prefill and the decode loop (a dense model launches
+    ``flash_attention`` once a layer in prefill, nothing in decode); the
+    rolling map and the peak memory; the full-width prefill run twice
     gives bitwise equal logits; each model's parameters are freed before
     the next phase;
-11. each model's reduced configuration on the card and on the CPU,
+11. each model's reduced configuration (and qwen1.5-32b's, whose full
+    size does not fit the card in f32) on the card and on the CPU,
     teacher-forced prefill and 8 decode steps plus greedy generation,
     compared.
 
@@ -214,6 +224,16 @@ FLEET_REPS = 5
 # falcon-mamba-7b (selective_scan).
 LM_ARCH = "zamba2-1.2b"
 MAMBA1_ARCH = "falcon-mamba-7b"
+# The dense-attention slice at full width: granite-8b and gemma-7b uncut;
+# gemma3-27b at every published width but 12 of its 62 layers, two whole
+# 5:1 local:global periods (10 windowed local, 2 global). All 62 take
+# ~108 GB of f32 weights, over the card's 80 GB; 12 take ~25.5 GB. Fewer
+# layers make the host's share of the wall larger than at full depth.
+DENSE_ARCHS = ("granite-8b", "gemma-7b", "gemma3-27b")
+GEMMA3_LAYERS = 12           # published: 62
+# reduced configurations only, card against CPU (phase 11): qwen1.5-32b's
+# full size is ~141 GB in f32
+DENSE_REDUCED_ONLY = ("qwen1.5-32b",)
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_SEED = 0
 # kernel against plain version: the reference's kernel tolerance
@@ -2036,6 +2056,21 @@ def lm_bound(name, ops, moved) -> dict:
             "fma_bound_ms": fma.t_bound * 1e3}
 
 
+def dense_flash_shapes():
+    """The dense models' prefill attention: (arch, (B, S, T, H, K, hd),
+    window) at B = 4, S = T = 2048; gemma3-27b's local layers (its global
+    ones are granite's shape less GQA 4:1, at 32/16 heads)."""
+    from repro_torch.configs import get_config
+    out = []
+    for arch in DENSE_ARCHS:
+        cfg = get_config(arch)
+        window = cfg.local_window if cfg.local_global else None
+        out.append((arch + ("-local" if window else ""),
+                    (LM_BATCH, LM_PROMPT, LM_PROMPT, cfg.n_heads, cfg.n_kv,
+                     cfg.head_dim), window))
+    return out
+
+
 def lm_check_kernels(dev):
     """Phase 8: each LM kernel against its plain version at the serve
     path's shapes, plus GQA + window and ragged lengths."""
@@ -2063,19 +2098,27 @@ def lm_check_kernels(dev):
         assert ok, "ssd_scan disagrees with its plain version"
         assert same, "ssd_scan differs from run to run"
         errs["ssd_scan"] = max(errs["ssd_scan"], e)
-    for B, S, T, H, K, causal, window in (
-            (fB, fS, fS, fH, fK, True, None),          # the serve path's
-            (2, 1000, 1000, fH, fH // 4, True, 256),   # GQA 4:1, window, ragged
-            (2, 333, 1000, fH, fK, True, None)):        # offset queries
-        q, k, v = qkv_inputs(B, S, T, H, K, fhd, dev, seed=S + T)
-        got = flash_attention(q, k, v, causal=causal, window=window)
-        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    cases = [((fB, fS, fS, fH, fK, fhd), None, None),     # zamba2's
+             ((2, 1000, 1000, fH, fH // 4, fhd), 256, None),  # GQA, window
+             ((2, 333, 1000, fH, fK, fhd), None, None)]   # offset queries
+    cases += [(shape, window, None)
+              for _, shape, window in dense_flash_shapes()]
+    cases.append(((2, 1000, 1000, 16, 8, 256), 300, 30.0))   # hd 256, cap
+    for (B, S, T, H, K, hd), window, cap in cases:
+        q, k, v = qkv_inputs(B, S, T, H, K, hd, dev, seed=S + T + hd)
+        got = flash_attention(q, k, v, window=window, softcap=cap)
+        same = bits_equal([got], [flash_attention(q, k, v, window=window,
+                                                  softcap=cap)])
+        want = flash_attention_ref(q, k, v, window=window, softcap=cap)
         e, ok = max_err([got], [want], LM_RTOL)
         say({"phase": "lm_parity", "kernel": "flash_attention",
-             "shape": [B, S, T, H, K, fhd], "causal": causal,
-             "window": window, "max_abs_err": e, "rtol": LM_RTOL, "ok": ok})
+             "shape": [B, S, T, H, K, hd], "causal": True,
+             "window": window, "softcap": cap, "max_abs_err": e,
+             "rtol": LM_RTOL, "ok": ok, "run_twice_bitwise_equal": same})
         assert ok, "flash_attention disagrees with its plain version"
+        assert same, "flash_attention differs from run to run"
         errs["flash_attention"] = max(errs["flash_attention"], e)
+        del q, k, v, got, want
     errs["selective_scan"] = lm_check_scan(dev)
     return errs
 
@@ -2109,11 +2152,9 @@ def lm_check_scan(dev) -> float:
 
 def lm_time_kernels(dev):
     """Phase 9: LM kernel times at the serve path's shapes, beside the
-    bound, the plain version and (attention) the library's call."""
-    import torch.nn.functional as F
+    bound, the plain version and (attention) the library's call; then
+    attention at the dense models' shapes."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_ref)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
     cfg = get_config(LM_ARCH)
     (sB, sS, sH, shp, sN), (fB, fS, fH, fK, fhd) = lm_shapes(
@@ -2128,17 +2169,8 @@ def lm_time_kernels(dev):
         library_ms=None, operations=ops, bytes=moved,
         shape=[sB, sS, sH, shp, sN])
     del args
-    q, k, v = qkv_inputs(fB, fS, fS, fH, fK, fhd, dev)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    ops, moved = flash_ops_bytes(fB, fS, fS, fH, fK, fhd, True, None)
-    rows["flash_attention"] = dict(
-        ms=cuda_time_ms(lambda: flash_attention(q, k, v), reps=20),
-        plain_ms=cuda_time_ms(lambda: flash_attention_ref(q, k, v), reps=3),
-        library_ms=cuda_time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                   is_causal=True), reps=20),
-        operations=ops, bytes=moved, shape=[fB, fS, fS, fH, fK, fhd])
-    del q, k, v, qt, kt, vt
+    rows["flash_attention"] = time_flash(dev, (fB, fS, fS, fH, fK, fhd),
+                                         None)
     from repro_torch.kernels.mamba_scan import (selective_scan,
                                                 selective_scan_ref)
     shape = scan_shape(get_config(MAMBA1_ARCH), LM_BATCH, LM_PROMPT)
@@ -2153,8 +2185,48 @@ def lm_time_kernels(dev):
         r.update(lm_bound(name, r["operations"], r["bytes"]))
         say({"phase": "lm_timing", "kernel": name, **r,
              "share_of_bound": r["bound_ms"] / r["ms"]})
+    for model, shape, window in dense_flash_shapes():
+        r = time_flash(dev, shape, window)
+        r.update(lm_bound("flash_attention", r["operations"], r["bytes"]))
+        say({"phase": "lm_timing", "kernel": "flash_attention",
+             "model": model, **r, "share_of_bound": r["bound_ms"] / r["ms"]})
     torch.cuda.empty_cache()
     return rows
+
+
+def time_flash(dev, shape, window) -> dict:
+    """``flash_attention``'s time at ``shape`` (B, S, T, H, K, hd), causal,
+    with ``window``, beside its plain version's and
+    ``scaled_dot_product_attention``'s on the same tensors (K and V
+    repeated to the query heads outside the timed call; a window as an
+    explicit boolean mask)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    B, S, T, H, K, hd = shape
+    q, k, v = qkv_inputs(B, S, T, H, K, hd, dev)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2).contiguous()
+              for t in (k, v))
+    if window is None:
+        lib = dict(is_causal=True)
+    else:
+        qpos = torch.arange(S, device=dev)[:, None] + (T - S)
+        kpos = torch.arange(T, device=dev)[None, :]
+        lib = dict(attn_mask=(kpos <= qpos) & (kpos > qpos - window))
+    ops, moved = flash_ops_bytes(B, S, T, H, K, hd, True, window)
+    row = dict(
+        ms=cuda_time_ms(lambda: flash_attention(q, k, v, window=window),
+                        reps=20),
+        plain_ms=cuda_time_ms(
+            lambda: flash_attention_ref(q, k, v, window=window), reps=3),
+        library_ms=cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib),
+            reps=20),
+        operations=ops, bytes=moved, shape=list(shape), window=window)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return row
 
 
 def lm_kernel_modules():
@@ -2169,6 +2241,9 @@ def lm_kernel_modules():
 
 def lm_expected_launches(cfg) -> dict:
     """Launches of each LM kernel in one full prefill of ``cfg``."""
+    if cfg.family == "dense":          # one flash launch per attention layer
+        return {"ssd_scan": 0, "flash_attention": cfg.n_layers,
+                "selective_scan": 0}
     if cfg.ssm == "mamba1":
         return {"ssd_scan": 0, "flash_attention": 0,
                 "selective_scan": cfg.n_layers}
@@ -2177,10 +2252,11 @@ def lm_expected_launches(cfg) -> dict:
             "selective_scan": 0}
 
 
-def lm_serve_path(dev, arch: str):
+def lm_serve_path(dev, arch: str, n_layers=None):
     """Phase 10: ``arch`` at full width through the port's serving entry
     points (``prefill``, ``greedy_decode``), as
-    ``python -m repro_torch.launch.serve`` drives them."""
+    ``python -m repro_torch.launch.serve`` drives them; ``n_layers`` cuts
+    its depth."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
@@ -2196,6 +2272,9 @@ def lm_serve_path(dev, arch: str):
         return {name: fn.launches for name, (_, fn) in kernels.items()}
 
     cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    published_layers = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gen = torch.Generator(device=dev).manual_seed(LM_SEED)
     t0 = time.perf_counter()
     params = init_params(cfg, gen)
@@ -2204,7 +2283,8 @@ def lm_serve_path(dev, arch: str):
     synchronize(dev)
     n_params = sum(t.numel() for t in leaves(params))
     say({"phase": "lm_setup", "arch": cfg.name, "params": n_params,
-         "analytic_params": cfg.n_params(),
+         "analytic_params": cfg.n_params(), "n_layers": cfg.n_layers,
+         "published_layers": published_layers,
          "seconds": time.perf_counter() - t0})
     cache_len = LM_PROMPT + LM_NEW
     with torch.inference_mode():
@@ -2213,6 +2293,7 @@ def lm_serve_path(dev, arch: str):
         first, caches, _ = prefill(params, cfg, prompts, cache_len=cache_len)
         del caches
         synchronize(dev)
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
         reset()
         t0 = time.perf_counter()
@@ -2239,8 +2320,9 @@ def lm_serve_path(dev, arch: str):
     step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     window_s = marks[-1] - marks[0]
     peak = torch.cuda.max_memory_allocated(dev)
-    say({"phase": "lm_serve", "arch": cfg.name, "batch": LM_BATCH,
-         "prompt_len": LM_PROMPT, "new_tokens": LM_NEW,
+    say({"phase": "lm_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
+         "batch": LM_BATCH, "prompt_len": LM_PROMPT, "new_tokens": LM_NEW,
+         "rolling": rolling,
          "prefill_s": t_prefill,
          "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / t_prefill,
          "decode_ms_per_step": float(np.median(step_ms)),
@@ -2369,9 +2451,13 @@ def main() -> int:
 
     errs.update(lm_check_kernels(dev))
     timing.update(lm_time_kernels(dev))
-    for arch in (LM_ARCH, MAMBA1_ARCH):
-        launches.update(lm_serve_path(dev, arch))
-    for arch in (LM_ARCH, MAMBA1_ARCH):
+    serve_paths = [(LM_ARCH, None), (MAMBA1_ARCH, None)] + [
+        (arch, GEMMA3_LAYERS if arch == "gemma3-27b" else None)
+        for arch in DENSE_ARCHS]
+    for arch, n_layers in serve_paths:
+        for name, n in lm_serve_path(dev, arch, n_layers).items():
+            launches[name] = launches.get(name, 0) + n
+    for arch in (LM_ARCH, MAMBA1_ARCH) + DENSE_ARCHS + DENSE_REDUCED_ONLY:
         lm_card_matches_cpu(dev, arch)
 
     sph = "src/repro_torch/kernels/sph_pair/csrc/sph_pair.cu"

@@ -13,7 +13,7 @@ of schema v1 and v2 render their missing columns as ``-``.
 
 The reference's other mode (no trace: the roofline table of LM training
 dry-runs compiled for a TPU mesh) waits for the LM training slice and
-raises (ROADMAP queue 1, item 13).
+raises (ROADMAP queue 1, item 13e).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import Dict, List, Optional
 
 _DRYRUN = ("repro_torch.analysis.report: the dry-run roofline table (LM "
            "training artifacts compiled for a TPU mesh) is not ported "
-           "(ROADMAP queue 1, item 13); pass a trace.json")
+           "(ROADMAP queue 1, item 13e); pass a trace.json")
 
 
 # ----------------------------------------------------- task-timeline report

@@ -12,7 +12,7 @@ TF32 on them. A card set below 700 W runs slower under load, so a share of
 the bound is stated with the card's power limit beside it.
 
 The reference's ``model_flops`` and ``remat_overhead`` count LM training
-work and wait for the LM training slice (ROADMAP queue 1, item 13).
+work and wait for the LM training slice (ROADMAP queue 1, item 13e).
 """
 
 from __future__ import annotations

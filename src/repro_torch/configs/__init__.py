@@ -5,23 +5,25 @@ of the reference's registry (``repro.configs``) raises, naming the ROADMAP
 item that ports it.
 """
 
-from . import falcon_mamba_7b, zamba2_1_2b
+from . import (falcon_mamba_7b, gemma3_27b, gemma_7b, granite_8b,
+               qwen15_32b, zamba2_1_2b)
+from .shapes import SHAPES, Shape, applicable
 
 _MODULES = {
-    "zamba2-1.2b": zamba2_1_2b,
+    "qwen1.5-32b": qwen15_32b,
+    "gemma-7b": gemma_7b,
+    "gemma3-27b": gemma3_27b,
+    "granite-8b": granite_8b,
     "falcon-mamba-7b": falcon_mamba_7b,
+    "zamba2-1.2b": zamba2_1_2b,
 }
 
 # the reference's other architectures and the ROADMAP item that ports each
 _LATER = {
-    "qwen1.5-32b": "queue 1 item 13 (rest of the LM zoo)",
-    "gemma-7b": "queue 1 item 13 (rest of the LM zoo)",
-    "gemma3-27b": "queue 1 item 13 (rest of the LM zoo)",
-    "granite-8b": "queue 1 item 13 (rest of the LM zoo)",
-    "mixtral-8x7b": "queue 1 item 13 (rest of the LM zoo, MoE)",
-    "mixtral-8x22b": "queue 1 item 13 (rest of the LM zoo, MoE)",
-    "seamless-m4t-large-v2": "queue 1 item 13 (rest of the LM zoo)",
-    "internvl2-2b": "queue 1 item 13 (rest of the LM zoo)",
+    "mixtral-8x7b": "queue 1 item 13d (MoE)",
+    "mixtral-8x22b": "queue 1 item 13d (MoE)",
+    "seamless-m4t-large-v2": "queue 1 item 13c (enc-dec)",
+    "internvl2-2b": "queue 1 item 13c (VLM)",
 }
 
 ARCH_NAMES = list(_MODULES)
@@ -38,4 +40,4 @@ def get_config(name: str, *, reduced: bool = False):
     return mod.REDUCED if (reduced or name.endswith("-reduced")) else mod.CONFIG
 
 
-__all__ = ["ARCH_NAMES", "get_config"]
+__all__ = ["ARCH_NAMES", "SHAPES", "Shape", "applicable", "get_config"]

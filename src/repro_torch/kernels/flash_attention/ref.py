@@ -2,10 +2,12 @@
 
 The same function as the reference's Pallas ``flash_attention``
 (``repro/kernels/flash_attention/kernel.py``) and its oracle
-``attention_ref``: softmax attention with causal and sliding-window masks
-and GQA head grouping (H = K·G, no copy of K or V), written as the full
-(S × T) score matrix. Query row i sits at key position i + (T − S). A row
-with no live key gives zeros. f32 math, returned in q's dtype.
+``attention_ref``: softmax attention with causal and sliding-window masks,
+an optional soft-cap (``softcap · tanh(s / softcap)`` on the scaled scores,
+before the mask, as the reference's ``_sdpa``) and GQA head grouping
+(H = K·G, no copy of K or V), written as the full (S × T) score matrix.
+Query row i sits at key position i + (T − S). A row with no live key gives
+zeros. f32 math, returned in q's dtype.
 
 This is the CPU path of
 :func:`repro_torch.kernels.flash_attention.flash_attention` and the oracle of
@@ -21,7 +23,8 @@ import torch
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None):
     """q (B, S, H, hd); k/v (B, T, K, hd) with H = K·G. → (B, S, H, hd)."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -29,6 +32,8 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     f32 = torch.float32
     qg = q.to(f32).reshape(B, S, K, G, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k.to(f32)) / math.sqrt(hd)
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
     qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
     kpos = torch.arange(T, device=q.device)[None, :]
     ok = torch.ones((S, T), dtype=torch.bool, device=q.device)

@@ -4,6 +4,9 @@ counterpart of ``python -m repro.launch.serve``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
         --reduced --batch 4 --prompt-len 32 --new-tokens 32 --device cpu
 
+``--arch`` is any of ``repro_torch.configs.ARCH_NAMES``: zamba2-1.2b,
+falcon-mamba-7b, granite-8b, gemma-7b, gemma3-27b, qwen1.5-32b.
+
 Runs in float32 on one device, as the reference does on one device
 (``repro/launch/serve.py:34-35``), with weights and prompts drawn from
 ``--seed``. The device is the card unless ``--device cpu`` is given.

@@ -1,5 +1,6 @@
 """LM models of the ported slices (zamba2-1.2b: Mamba-2 + shared attention;
-falcon-mamba-7b: Mamba-1).
+falcon-mamba-7b: Mamba-1; granite-8b, gemma-7b, gemma3-27b, qwen1.5-32b:
+dense attention).
 
 The port's counterpart of ``repro.models``; block kinds, attention branches
 and architectures of later slices raise, naming their ROADMAP item.
@@ -11,7 +12,7 @@ from .mamba import (Mamba1State, Mamba2State, make_mamba1_state,
                     make_mamba2_state, mamba1_forward, mamba1_step,
                     mamba2_forward, mamba2_step)
 from .model import (ForwardResult, forward, init_params, make_caches,
-                    plan_segments)
+                    plan_segments, rolling_map)
 
 __all__ = [
     "ModelConfig", "AttnSpec", "KVCache", "attention", "mlp", "rmsnorm",
@@ -19,5 +20,5 @@ __all__ = [
     "make_mamba2_state", "mamba1_forward", "mamba1_step", "mamba2_forward",
     "mamba2_step",
     "ForwardResult", "forward", "init_params", "make_caches",
-    "plan_segments",
+    "plan_segments", "rolling_map",
 ]

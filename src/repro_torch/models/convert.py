@@ -4,11 +4,15 @@ The reference's parameters are a pytree of arrays whose ``segments`` leaves
 carry a leading repeat dimension (from ``vmap`` init); the port keeps one
 dict per layer. ``params_from_numpy`` takes the reference's tree as numpy
 arrays (``jax.tree.map(np.asarray, params)``) and unstacks it;
-``params_to_numpy`` stacks the port's parameters back into the same tree.
+``params_to_numpy`` stacks the port's parameters back into the same tree
+(dense trees too: ``q_norm``/``k_norm``, the QKV biases, an untied
+``head``, gemma3's period and remainder segments).
 ``to_numpy`` turns any nest of lists, tuples, dicts and named tuples of
 tensors (the port's caches, say) into the same nest of numpy arrays;
-``tree_map`` and ``leaves`` walk such a nest.
-Nothing here imports JAX.
+``caches_from_numpy`` takes the reference's per-layer decode caches
+(``make_caches(..., stacked=False)`` or a decode step's, full or rolling)
+as numpy leaves into the port's; ``tree_map`` and ``leaves`` walk such a
+nest. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -17,6 +21,10 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from .layers import KVCache
+from .mamba import Mamba1State, Mamba2State
+from .model import ATTN_KINDS, plan_segments
 
 
 def _tensor(a, device):
@@ -65,6 +73,28 @@ def params_to_numpy(params: dict) -> dict:
         segs.append(pos)
     out["segments"] = segs
     return out
+
+
+def caches_from_numpy(cfg, tree: list, *, device="cpu") -> list:
+    """The reference's per-layer decode caches of ``cfg`` (numpy leaves,
+    ``caches[segment][position][repeat]``) → the port's on ``device``,
+    with each KV cache's ``pos`` an int."""
+    def kv(c):
+        return KVCache(_tensor(c[0], device), _tensor(c[1], device),
+                       int(c[2]))
+
+    def block(kind, c):
+        if kind in ATTN_KINDS:
+            return kv(c)
+        if kind == "mamba1":
+            return Mamba1State(*(_tensor(a, device) for a in c))
+        if kind == "mamba2":
+            return Mamba2State(*(_tensor(a, device) for a in c))
+        return (kv(c[0]), Mamba2State(*(_tensor(a, device) for a in c[1])))
+
+    return [[[block(kind, c) for c in tree[si][pi]]
+             for pi, kind in enumerate(pattern)]
+            for si, (pattern, _) in enumerate(plan_segments(cfg))]
 
 
 def _stack(trees):

@@ -5,14 +5,19 @@ Plain functions over parameter dicts of tensors, in the reference's layouts
 Attention has the reference's three modes:
 
 * train / prefill — full sequence through the flash attention op (the Hopper
-  kernel on the card, its plain version on the CPU); prefill also returns
-  the KV cache;
-* decode — q_len tokens against a full (non-rolling) cache, in plain
-  PyTorch (``_sdpa`` with a slot mask), as the reference computes it
-  outside any Pallas kernel.
+  kernel on the card, its plain version on the CPU), causal, with the
+  layer's sliding window and soft-cap; prefill also returns the KV cache.
+  The reference's banded branch (``_banded_sdpa``, taken when S is a
+  multiple ≥ 2 of the window) masks the same keys as the window does, so
+  it runs through the same op;
+* decode — q_len tokens against a full or a rolling (wrap-around,
+  window-sized) cache, in plain PyTorch (``_sdpa`` with a slot mask), as
+  the reference computes it outside any Pallas kernel.
 
-The banded, cross-attention, soft-capped, ``qk_norm`` and rolling-cache
-branches are not ported yet (ROADMAP queue 1 item 13) and raise.
+Variants: GQA, QKV bias, ``qk_norm`` (RMSNorm of q and k per head, eps
+1e-6, never plus-one), soft-capping, per-layer RoPE base and windows.
+Cross-attention (enc-dec) is not ported yet (ROADMAP queue 1 item 13c) and
+raises.
 """
 
 from __future__ import annotations
@@ -28,7 +33,6 @@ from ..device import resolve_device
 from ..kernels.flash_attention import flash_attention_op
 
 Params = Dict[str, Any]
-LATER = "not ported yet: ROADMAP queue 1 item 13"
 
 
 # ---------------------------------------------------------------- norms
@@ -39,6 +43,15 @@ def rmsnorm(x, w, *, eps: float = 1e-6, plus_one: bool = False):
     wf = w.to(torch.float32)
     scale = (1.0 + wf) if plus_one else wf
     return (xf * inv * scale).to(dt)
+
+
+def layernorm(x, w, b, *, eps: float = 1e-5):
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32) + b.to(torch.float32)).to(dt)
 
 
 # ----------------------------------------------------------------- rope
@@ -125,12 +138,14 @@ def init_attention(gen: torch.Generator, spec: AttnSpec, *,
         p["bk"] = torch.zeros((K * hd,), dtype=dtype, device=dev)
         p["bv"] = torch.zeros((K * hd,), dtype=dtype, device=dev)
     if spec.qk_norm:
-        raise NotImplementedError(f"qk_norm attention is {LATER}")
+        p["q_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones((hd,), dtype=dtype, device=dev)
     return p
 
 
 class KVCache(NamedTuple):
-    """Dense KV cache (non-rolling)."""
+    """Dense KV cache. A rolling cache (``rolling=True`` in decode) is
+    window-sized and its writes wrap."""
     k: torch.Tensor       # (B, S_cache, n_kv, hd)
     v: torch.Tensor       # (B, S_cache, n_kv, hd)
     pos: int              # tokens already absorbed
@@ -146,7 +161,7 @@ def make_cache(batch: int, length: int, spec: AttnSpec, *,
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
 
-def _sdpa(q, k, v, mask):
+def _sdpa(q, k, v, mask, *, softcap=None):
     """q (B,S,H,hd), k/v (B,T,K,hd) with H = K·G. mask (B?,S,T) additive."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
@@ -154,14 +169,18 @@ def _sdpa(q, k, v, mask):
     q = q.reshape(B, S, K, G, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", q, k).to(torch.float32)
     scores = scores / math.sqrt(hd)
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
     scores = scores + mask[:, None, None, :, :]
     p = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkh->bskgh", p, v)
     return out.reshape(B, S, H * hd)
 
 
-def _train_mask(q_pos, k_pos, *, causal: bool, window: Optional[int]):
-    """Additive mask (1, S, T) from query/key absolute positions."""
+def _train_mask(q_pos, k_pos, *, causal: bool, window: Optional[int],
+                valid=None):
+    """Additive mask (1, S, T) from query/key absolute positions; with
+    ``valid`` (B, T) bool, (B, S, T) with the invalid keys masked too."""
     dq = q_pos[:, None]
     dk = k_pos[None, :]
     ok = torch.ones((dq.shape[0], dk.shape[1]), dtype=torch.bool,
@@ -171,7 +190,42 @@ def _train_mask(q_pos, k_pos, *, causal: bool, window: Optional[int]):
     if window is not None:
         ok &= dk > dq - window
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
-    return torch.where(ok, zero, zero - 1e30)[None]
+    m = torch.where(ok, zero, zero - 1e30)
+    if valid is not None:
+        return m + torch.where(valid, zero, zero - 1e30)[:, None, :]
+    return m[None]
+
+
+def _decode(q, k, v, cache: KVCache, spec: AttnSpec, rolling: bool):
+    """Write q_len tokens' k/v into ``cache`` at ``cache.pos`` (in place;
+    at ``pos % T`` if ``rolling``) and attend to the slots that hold keys.
+    Returns (out (B, S, H·hd), new cache)."""
+    S = q.shape[1]
+    T = cache.k.shape[1]
+    dev = q.device
+    start = cache.pos % T if rolling else cache.pos
+    if start + S > T:
+        what = ("a rolling write may not wrap inside one step" if rolling
+                else "the KV cache is full")
+        raise ValueError(f"{what}: {T} slots, pos {cache.pos} + {S}")
+    cache.k[:, start:start + S] = k.to(cache.k.dtype)
+    cache.v[:, start:start + S] = v.to(cache.v.dtype)
+    # absolute key position held by each cache slot
+    slot = torch.arange(T, device=dev)
+    if rolling:
+        cur = cache.pos + S - 1
+        # the largest position ≡ slot (mod T) that is ≤ cur (floor division)
+        kpos = slot + torch.div(cur - slot, T, rounding_mode="floor") * T
+        kvalid = kpos >= 0
+    else:
+        kpos = slot
+        kvalid = slot < cache.pos + S
+    qpos = cache.pos + torch.arange(S, device=dev)
+    mask = _train_mask(qpos, kpos, causal=spec.causal, window=spec.window)[0]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    mask = mask + torch.where(kvalid, zero, zero - 1e30)[None, :]
+    out = _sdpa(q, cache.k, cache.v, mask[None], softcap=spec.softcap)
+    return out, KVCache(cache.k, cache.v, cache.pos + S)
 
 
 def attention(p: Params, x, spec: AttnSpec, *, cos=None, sin=None,
@@ -183,16 +237,12 @@ def attention(p: Params, x, spec: AttnSpec, *, cos=None, sin=None,
       * cache None, update False — training forward (full sequence).
       * cache None, update True  — prefill: also return the built cache.
       * cache given              — decode: write q_len tokens into the cache
-                                   at ``cache.pos`` (in place) and attend.
+                                   at ``cache.pos`` (in place; wrapping if
+                                   ``rolling``) and attend.
     """
     if cross or kv_x is not None:
-        raise NotImplementedError(f"cross-attention is {LATER}")
-    if rolling:
-        raise NotImplementedError(f"rolling KV caches are {LATER}")
-    if spec.softcap is not None:
-        raise NotImplementedError(f"soft-capped attention is {LATER}")
-    if spec.qk_norm:
-        raise NotImplementedError(f"qk_norm attention is {LATER}")
+        raise NotImplementedError("cross-attention is not ported yet: "
+                                  "ROADMAP queue 1 item 13c (enc-dec)")
     B, S, _ = x.shape
     H, K, hd = spec.n_heads, spec.n_kv, spec.head_dim
 
@@ -201,36 +251,22 @@ def attention(p: Params, x, spec: AttnSpec, *, cos=None, sin=None,
     v = x @ p["wv"]
     if spec.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = apply_rope(q.reshape(B, S, H, hd), cos, sin)
-    k = apply_rope(k.reshape(B, S, K, hd), cos, sin)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, K, hd)
     v = v.reshape(B, S, K, hd)
+    if spec.qk_norm:
+        q = rmsnorm(q, p["q_norm"])
+        k = rmsnorm(k, p["k_norm"])
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
 
     new_cache = None
     if cache is not None:
-        # decode: write k/v at cache.pos, in place, and attend to the slots
-        # written so far
-        T = cache.k.shape[1]
-        start = cache.pos
-        if start + S > T:
-            raise ValueError(f"KV cache of {T} slots is full "
-                             f"(pos {start} + {S})")
-        cache.k[:, start:start + S] = k.to(cache.k.dtype)
-        cache.v[:, start:start + S] = v.to(cache.v.dtype)
-        new_cache = KVCache(cache.k, cache.v, start + S)
-        slot = torch.arange(T, device=x.device)
-        qpos = start + torch.arange(S, device=x.device)
-        mask = _train_mask(qpos, slot, causal=spec.causal,
-                           window=spec.window)[0]
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        mask = mask + torch.where(slot < start + S, zero, zero - 1e30)[None, :]
-        out = _sdpa(q, cache.k, cache.v, mask[None])
+        out, new_cache = _decode(q, k, v, cache, spec, rolling)
     else:
-        banded = (spec.window is not None and spec.causal
-                  and S % spec.window == 0 and S // spec.window >= 2)
-        if banded:
-            raise NotImplementedError(f"banded attention is {LATER}")
         out = flash_attention_op(q, k, v, causal=spec.causal,
-                                 window=spec.window).reshape(B, S, H * hd)
+                                 window=spec.window,
+                                 softcap=spec.softcap).reshape(B, S, H * hd)
         if update_cache:
             new_cache = KVCache(k, v, S)
     return out @ p["wo"], new_cache

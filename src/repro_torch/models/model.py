@@ -6,11 +6,15 @@ dimension. PyTorch runs eagerly, so the port keeps one parameter dict per
 layer and walks the layers in a plain loop; its caches are per-layer lists,
 the reference's decode layout (``make_caches(..., stacked=False)``).
 
-Block kinds of the ported slices: ``mamba1`` (Mamba-1 mixer with B/C/dt
-RMS norms, falcon-mamba-7b), ``mamba2`` (Mamba-2/SSD mixer, zamba2's
-backbone) and ``mamba2s`` (zamba2's shared attention block, params reused
-across invocations, with a per-invocation LoRA, then Mamba-2). Every other
-kind of the reference raises, naming the ROADMAP item that ports it.
+Block kinds of the ported slices: ``attn`` (dense pre-norm attention +
+gated MLP: granite, gemma, qwen), ``local`` (sliding-window attention + MLP,
+gemma3's local layers), ``global`` (full attention + MLP with the long RoPE
+base, gemma3's global layers), ``mamba1`` (Mamba-1 mixer with B/C/dt RMS
+norms, falcon-mamba-7b), ``mamba2`` (Mamba-2/SSD mixer, zamba2's backbone)
+and ``mamba2s`` (zamba2's shared attention block, params reused across
+invocations, with a per-invocation LoRA, then Mamba-2). The reference's
+``moe`` (item 13d), ``enc`` and ``dec`` (item 13c) kinds raise, naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,13 +34,18 @@ from .mamba import (init_mamba1, init_mamba2, make_mamba1_state,
                     mamba2_forward, mamba2_step)
 
 Params = Dict[str, Any]
-PORTED_KINDS = ("mamba1", "mamba2", "mamba2s")
+PORTED_KINDS = ("attn", "local", "global", "mamba1", "mamba2", "mamba2s")
+ATTN_KINDS = ("attn", "local", "global")
+# the reference's other kinds and the ROADMAP item that ports each
+_LATER_KINDS = {"moe": "13d (MoE)", "enc": "13c (enc-dec)",
+                "dec": "13c (enc-dec)", "enc-dec / vlm": "13c (enc-dec, VLM)"}
 
 
 def _later(kind: str) -> NotImplementedError:
+    item = _LATER_KINDS.get(kind, "13")
     return NotImplementedError(
-        f"block kind {kind!r} is not ported yet: ROADMAP queue 1 item 13 "
-        f"(rest of the LM zoo)")
+        f"block kind {kind!r} is not ported yet: ROADMAP queue 1 item "
+        f"{item}")
 
 
 # ------------------------------------------------------------------ helpers
@@ -112,6 +121,12 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
         raise _later(kind)
     dt = cfg.dtype
     d = cfg.d_model
+    if kind in ATTN_KINDS:
+        norm = torch.zeros if cfg.rms_plus_one else torch.ones
+        return {"ln1": norm((d,), dtype=dt, device=gen.device),
+                "ln2": norm((d,), dtype=dt, device=gen.device),
+                "attn": init_attention(gen, attn_spec(cfg, kind), dtype=dt),
+                "ffn": init_mlp(gen, d, cfg.d_ff, dtype=dt)}
     ln1 = torch.ones((d,), dtype=dt, device=gen.device)
     if kind == "mamba1":
         return {"ln1": ln1,
@@ -169,16 +184,41 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 
 # -------------------------------------------------------------------- caches
+def rolling_map(cfg: ModelConfig, cache_len: int) -> Dict[str, bool]:
+    """Which attention kinds use wrap-around (rolling) KV caches at this
+    cache length: those with a window shorter than the cache."""
+    rolling: Dict[str, bool] = {}
+    for pattern, _ in plan_segments(cfg):
+        for kind in pattern:
+            if kind in ATTN_KINDS:
+                spec = attn_spec(cfg, kind)
+                rolling[kind] = (spec.window is not None
+                                 and cache_len > spec.window)
+    return rolling
+
+
 def make_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
                 device=None) -> Tuple[list, Dict[str, bool]]:
     """Zero caches for decode, one per layer (the reference's
     ``stacked=False`` layout), on the card unless ``device`` says otherwise.
-    Returns (caches, rolling map); no ported kind has a rolling
-    cache, so the map is empty."""
+    Returns (caches, rolling map: kind → whether its KV cache wraps); a
+    rolling cache has the window's length."""
     _check_ported(cfg)
     device = resolve_device(device)
+    rolling: Dict[str, bool] = {}
+
+    def kv_len(kind: str) -> int:
+        spec = attn_spec(cfg, kind)
+        if spec.window is not None and cache_len > spec.window:
+            rolling[kind] = True
+            return spec.window
+        rolling.setdefault(kind, False)
+        return cache_len
 
     def block_cache(kind: str):
+        if kind in ATTN_KINDS:
+            return make_cache(batch, kv_len(kind), attn_spec(cfg, kind),
+                              dtype=cfg.dtype, device=device)
         if kind == "mamba1":
             return make_mamba1_state(batch, cfg.d_model, d_state=cfg.d_state,
                                      d_conv=cfg.d_conv, expand=cfg.expand,
@@ -196,7 +236,7 @@ def make_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
     caches = [[[block_cache(kind) for _ in range(repeats)]
                for kind in pattern]
               for pattern, repeats in plan_segments(cfg)]
-    return caches, {}
+    return caches, rolling
 
 
 # --------------------------------------------------------------- block apply
@@ -205,6 +245,7 @@ class BlockIO:
     cfg: ModelConfig
     mode: str                                  # train | prefill | decode
     rope: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+    rolling: Dict[str, bool] = dataclasses.field(default_factory=dict)
     shared: Optional[Params] = None
     x0: Optional[torch.Tensor] = None          # zamba2: initial embedding
 
@@ -217,6 +258,17 @@ def apply_block(p: Params, x, kind: str, io: BlockIO, cache):
     cfg = io.cfg
     decode = io.mode == "decode"
     prefill = io.mode == "prefill"
+    if kind in ATTN_KINDS:
+        spec = attn_spec(cfg, kind)
+        cos, sin = io.rope["global" if kind == "global" else "default"]
+        h = _norm(cfg, p["ln1"], x)
+        a, new_kv = attention(p["attn"], h, spec, cos=cos, sin=sin,
+                              cache=cache if decode else None,
+                              update_cache=prefill,
+                              rolling=io.rolling.get(kind, False) and decode)
+        x = x + a
+        h = _norm(cfg, p["ln2"], x)
+        return x + mlp(p["ffn"], h, act=cfg.act), new_kv
     if kind == "mamba1":
         h = _norm(cfg, p["ln1"], x)
         if decode and x.shape[1] == 1:
@@ -266,9 +318,15 @@ def apply_block(p: Params, x, kind: str, io: BlockIO, cache):
 
 # ----------------------------------------------------------------- top level
 def _rope_for(cfg: ModelConfig, positions) -> Dict[str, tuple]:
-    """RoPE tables by name; the kinds of this slice use ``default`` only
-    (the reference's ``global`` tables serve gemma3's global layers)."""
-    return {"default": rope_tables(positions, cfg.head_dim, cfg.rope_base)}
+    """RoPE tables by name: ``default``, and ``global`` for gemma3's global
+    layers (their own base; the default tables where there is none)."""
+    out = {"default": rope_tables(positions, cfg.head_dim, cfg.rope_base)}
+    if cfg.local_global is not None:
+        out["global"] = rope_tables(positions, cfg.head_dim,
+                                    cfg.global_rope_base)
+    else:
+        out["global"] = out["default"]
+    return out
 
 
 def _embed(params: Params, cfg: ModelConfig, tokens):
@@ -300,21 +358,20 @@ def forward(params: Params, cfg: ModelConfig, tokens, *,
     train:   tokens (B, S)                          → logits (B, S, V)
     prefill: as train, also returns per-layer caches
     decode:  tokens (B, S_small) + caches + positions → logits + new caches
-             (KV caches are written in place)
+             (KV caches are written in place; ``rolling`` says which kinds'
+             caches wrap)
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "decode" and caches is None:
         raise ValueError("decode needs caches")
-    if rolling and any(rolling.values()):
-        raise NotImplementedError("rolling KV caches are not ported yet: "
-                                  "ROADMAP queue 1 item 13")
     _check_ported(cfg)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
-    io = BlockIO(cfg=cfg, mode=mode, rope=_rope_for(cfg, positions))
+    io = BlockIO(cfg=cfg, mode=mode, rope=_rope_for(cfg, positions),
+                 rolling=rolling or {})
     if cfg.shared_attn_every:
         io.shared = params["shared"]
         io.x0 = x

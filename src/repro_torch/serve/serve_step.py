@@ -2,9 +2,9 @@
 ``repro.serve.serve_step``).
 
 The caches are per-layer lists (the reference's decode layout). A decode
-step writes each KV cache in place at ``pos`` and returns the caches; the
-SSM states are replaced. Rolling (sliding-window) caches are not ported yet
-(ROADMAP queue 1 item 13).
+step writes each KV cache in place at ``pos`` (at ``pos % window`` for a
+rolling, window-sized cache) and returns the caches; the SSM states are
+replaced.
 """
 
 from __future__ import annotations
@@ -15,13 +15,24 @@ import torch
 
 from ..models.config import ModelConfig
 from ..models.layers import KVCache
-from ..models.model import forward, plan_segments
+from ..models.model import (ATTN_KINDS, attn_spec, forward, plan_segments,
+                            rolling_map)
 
 
-def _pad_kv(kv: KVCache, target_len: int) -> KVCache:
+def _pad_kv(kv: KVCache, target_len: int, rolling: bool = False) -> KVCache:
     """Grow a prefill-built KV cache to ``target_len`` slots (zeros after
-    the prompt's keys)."""
+    the prompt's keys); a rolling cache keeps the last ``target_len`` keys
+    in wrap-aligned slots."""
     B, S0, K, hd = kv.k.shape
+    if rolling:
+        W = target_len
+        # slot s ← key position p: the largest p < S0 with p ≡ s (mod W)
+        s = torch.arange(W, device=kv.k.device)
+        p = s + torch.div(S0 - 1 - s, W, rounding_mode="floor") * W
+        valid = ((p >= 0) & (p < S0))[None, :, None, None]
+        idx = p.clamp(0, S0 - 1)
+        return KVCache(torch.where(valid, kv.k[:, idx], 0.0),
+                       torch.where(valid, kv.v[:, idx], 0.0), kv.pos)
     if target_len < S0:
         raise ValueError(f"cache_len {target_len} < prompt length {S0}")
     k = kv.k.new_zeros((B, target_len, K, hd))
@@ -33,16 +44,18 @@ def _pad_kv(kv: KVCache, target_len: int) -> KVCache:
 
 def pad_caches(cfg: ModelConfig, caches: list, cache_len: int,
                rolling: Dict[str, bool]) -> list:
-    """Grow prefill caches to decode capacity, kind-aware."""
-    if any(rolling.values()):
-        raise NotImplementedError("rolling KV caches are not ported yet: "
-                                  "ROADMAP queue 1 item 13")
+    """Grow prefill caches to decode capacity, kind-aware: a rolling
+    attention cache to its window, any other KV cache to ``cache_len``."""
     out = []
     for si, (pattern, _) in enumerate(plan_segments(cfg)):
         pos_out = []
         for pi, kind in enumerate(pattern):
             layers = caches[si][pi]
-            if kind == "mamba2s":
+            if kind in ATTN_KINDS:
+                roll = rolling.get(kind, False)
+                tgt = attn_spec(cfg, kind).window if roll else cache_len
+                layers = [_pad_kv(kv, tgt, roll) for kv in layers]
+            elif kind == "mamba2s":
                 layers = [(_pad_kv(kv, cache_len), ssm) for kv, ssm in layers]
             pos_out.append(list(layers))     # mamba states pass through
         out.append(pos_out)
@@ -52,10 +65,14 @@ def pad_caches(cfg: ModelConfig, caches: list, cache_len: int,
 def prefill(params, cfg: ModelConfig, tokens, *, cache_len: int):
     """Run the prompt, return (last-token logits, decode-ready caches,
     rolling map)."""
-    rolling: Dict[str, bool] = {}     # no kind of this slice rolls
+    # the map make_caches returns, without allocating the caches
+    rolling = rolling_map(cfg, cache_len)
     res = forward(params, cfg, tokens, mode="prefill", rolling=rolling)
-    caches = pad_caches(cfg, res.caches, cache_len, rolling)
-    return res.logits[:, -1], caches, rolling
+    # a copy of the last position's logits, so the (B, S, vocab) logits
+    # are freed before the caches are padded
+    logits, caches = res.logits[:, -1].clone(), res.caches
+    del res
+    return logits, pad_caches(cfg, caches, cache_len, rolling), rolling
 
 
 def decode_step(params, cfg: ModelConfig, token, caches, pos: int, *,

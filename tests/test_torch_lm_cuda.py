@@ -11,8 +11,10 @@ The plain versions, held against the JAX reference on the CPU by
 tests/test_torch_lm_kernels.py and tests/test_torch_lm_mamba1.py, are the
 oracle: each kernel must agree with its plain version on the same inputs
 within rtol = atol = 2e-4 (the reference's kernel tolerance; the two sum in
-different orders), at the model's widths, with ragged lengths, GQA and
-windows, and give bitwise-equal results when run twice (no atomics).
+different orders), at the model's widths, with ragged lengths, GQA,
+windows and (attention) a soft-cap, and give bitwise-equal results when
+run twice (no atomics). The dense models' prefill shapes (granite-8b,
+gemma-7b at hd 256, gemma3-27b's local layers) run at full size.
 """
 
 import numpy as np
@@ -116,7 +118,7 @@ def test_cuda_flash_kernel_matches_plain(cuda_device, B, S, T, H, K, hd,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("B,S,T,H,K,causal,window", [
     (1, 77, 77, 4, 2, True, None),           # ragged, GQA 2:1
     (1, 100, 261, 6, 3, True, 50),           # T > S, window, GQA
@@ -138,6 +140,69 @@ def test_cuda_flash_kernel_every_head_width_and_mask(cuda_device, hd, B, S, T,
     if causal and S > T:                     # the first S - T rows see no key
         assert not bool(got[:, :S - T].any())
         assert bool(got[:, S - T:].abs().sum(-1).gt(0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,hd,window,softcap", [
+    (4, 2048, 32, 8, 128, None, None),       # granite-8b's prefill
+    (4, 2048, 16, 16, 256, None, None),      # gemma-7b's, hd 256
+    (4, 2048, 32, 16, 128, 1024, None),      # gemma3-27b's local layers
+    (2, 1000, 16, 8, 256, 300, 30.0),        # hd 256, ragged, window, cap
+    (2, 777, 8, 2, 128, None, 50.0),         # soft-capped, GQA 4:1
+    (1, 300, 4, 4, 64, None, 1.0),           # a cap that bends every score
+])
+def test_cuda_flash_kernel_at_the_dense_models_shapes(cuda_device, B, S, H,
+                                                      K, hd, window, softcap):
+    q, k, v = tt(qkv_inputs(B, S, S, H, K, hd, seed=hd + S), cuda_device)
+    n0 = FK.flash_attention.launches
+    got = flash_attention(q, k, v, window=window, softcap=softcap)
+    again = flash_attention(q, k, v, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert FK.flash_attention.launches == n0 + 2
+    assert torch.equal(got, again)
+    want = flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    if softcap is not None:
+        plain = flash_attention(q, k, v, window=window)
+        assert float((plain - got).abs().max()) > 1e-4     # the cap bites
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,prompt", [("gemma3-27b", 64),
+                                         ("gemma-7b", 40)])
+def test_cuda_dense_prefill_goes_through_the_kernel(cuda_device, arch,
+                                                    prompt):
+    """A reduced dense model's prefill on the card launches the flash
+    kernel once a layer (gemma3: banded local and full global layers) and
+    decode none, with logits within 1e-4 of the CPU's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import tree_map
+    from repro_torch.serve.serve_step import decode_step, prefill
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, prompt + 4)))
+    on_card = tree_map(lambda t: t.to(cuda_device), params)
+    runs = []
+    for p, toks in ((on_card, tokens.to(cuda_device)), (params, tokens)):
+        n0 = FK.flash_attention.launches
+        lg, caches, rolling = prefill(p, cfg, toks[:, :prompt],
+                                      cache_len=prompt + 4)
+        n1 = FK.flash_attention.launches
+        steps = [lg]
+        for t in range(prompt, prompt + 4):
+            lg, caches = decode_step(p, cfg, toks[:, t:t + 1], caches, t,
+                                     rolling=rolling)
+            steps.append(lg)
+        runs.append((torch.stack(steps).cpu().numpy(), n1 - n0,
+                     FK.flash_attention.launches - n1))
+    (card, pre, dec), (cpu, pre_cpu, _) = runs
+    assert (pre, dec, pre_cpu) == (cfg.n_layers, 0, 0)
+    scale = float(np.abs(cpu).max())
+    assert float(np.abs(card - cpu).max()) <= 1e-4 * scale
 
 
 @pytest.mark.cuda

@@ -167,12 +167,12 @@ __device__ __forceinline__ Share share_at(float* base) {
 
 VARIANTS = {
     "flash_attention": (FLASH, {
-        "expf": [("float x = s[n][2 * r + c] * scale2;",
-                  "float x = s[n][2 * r + c] * scale;"),
+        # (old, new, n): the pattern is in both kernels (hd <= 128, 256)
+        "expf": [("else return x * scale2;", "else return x * scale;"),
                  ("alpha = exp2f(m[r] - m_new);",
-                  "alpha = expf(m[r] - m_new);"),
+                  "alpha = expf(m[r] - m_new);", 2),
                  ("const float p = exp2f(s[n][2 * r + c] - m_new);",
-                  "const float p = expf(s[n][2 * r + c] - m_new);")],
+                  "const float p = expf(s[n][2 * r + c] - m_new);", 2)],
         "uncapped": [("__global__ void __launch_bounds__(NT, 3)\n",
                       "__global__ void __launch_bounds__(NT)\n")],
         "single_tf32": [("  mma(d, as, bb0, bb1);\n  mma(d, ab, bs0, bs1);\n",
@@ -217,10 +217,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 def build(name, src, edits):
     text = open(src).read()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise RuntimeError(f"{name}: pattern not once in the source: "
-                               f"{old!r}")
+    for old, new, *times in edits:
+        n = times[0] if times else 1
+        if text.count(old) != n:
+            raise RuntimeError(f"{name}: pattern not {n} times in the "
+                               f"source: {old!r}")
         text = text.replace(old, new)
     path = os.path.join(OUT, f"{name}.cu")
     with open(path, "w") as f:
@@ -238,7 +239,7 @@ def build(name, src, edits):
 
 
 def flash_caller(lib):
-    lib.flash_attention_f32.argtypes = [_P] * 4 + [_I] * 8 + [_P]
+    lib.flash_attention_f32.argtypes = [_P] * 4 + [_I] * 8 + [_F, _P]
     B, S, H, hd = 4, 2048, 32, 64
     q, k, v = qkv_inputs(B, S, S, H, H, hd, "cuda")
     o = torch.empty_like(q)
@@ -247,7 +248,7 @@ def flash_caller(lib):
     def run():
         rc = lib.flash_attention_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      o.data_ptr(), B, S, S, H, H, hd, 1, 0,
-                                     stream)
+                                     0.0, stream)
         assert rc == 0, rc
         return [o]
     return run
