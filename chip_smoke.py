@@ -143,11 +143,37 @@ qk-norm; depth cut, see GEMMA3_LAYERS):
 11. each model's reduced configuration (and qwen1.5-32b's, whose full
     size does not fit the card in f32) on the card and on the CPU,
     teacher-forced prefill and 8 decode steps plus greedy generation,
-    compared.
+    compared;
+
+and in bf16, the reference's default dtype (phases 8–11 stay f32):
+
+12. each kernel's bf16 entry against its plain version on the same bf16
+    inputs (``BF16_REL``, ``BF16_FLASH_RTOL``): attention at zamba2's hd
+    64, granite's hd 128 GQA, gemma-7b's hd 256 with and without a
+    soft-cap, gemma3's windowed local layers, qwen1.5-32b's 40/40 at B = 1,
+    ragged S and T ≠ S; both scans at the serve shapes and ragged with an
+    initial state; bf16 out on both sides, each run twice bitwise;
+13. their times beside the bf16 bound, the plain version's time, the f32
+    entry's on the same shapes and ``scaled_dot_product_attention`` in
+    bf16 on the same tensors;
+14. every model served in bf16 at full width (``BF16_SERVE``): zamba2
+    with and without ``ssm_bf16``, falcon-mamba-7b, granite-8b, gemma-7b,
+    gemma3-27b at all 62 layers, qwen1.5-32b at full size and batch 1;
+    gated as phase 10 on each entry's launches (the bf16 flash entry once
+    an attention layer, the bf16 SSD entry 38 only under ``ssm_bf16``,
+    falcon's scan through the f32 entry, nothing in decode), the prefill
+    twice bitwise and finite bf16 logits; beside each, phase 10's f32
+    figures of the same model;
+15. each reduced configuration in bf16 on the card and on the CPU,
+    teacher-forced over 8 prompts, against the CPU's f32 run of the same
+    parameters: at every step the card's RMS distance from the CPU's bf16
+    at most twice the CPU's bf16-vs-f32 RMS distance.
 
 All libraries are built at the start, one ``nvcc`` each, in parallel
 (each wrapper's ``library()`` from its own thread). Then the ``kernels``
-JSON line, the card line, and as the last line
+JSON line (one row per entry: ``flash_attention`` and
+``flash_attention_bf16`` and so on; ``selective_scan_bf16`` is on no
+model's path, so its launches are 0), the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Nothing is imported from JAX or from the
 reference package ``repro``.
 """
@@ -174,7 +200,7 @@ from repro_torch.device import synchronize  # noqa: E402
 # bounds: bytes over HBM3's rate against operations over the peak f32 or
 # dense TF32 rate (H100 SXM data sheet, repro_torch/analysis/roofline.py)
 from repro_torch.analysis.roofline import (  # noqa: E402
-    PEAK_TF32_FLOPS, Roofline)
+    PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, Roofline)
 # flash_attention and ssd_scan keep f32 accuracy on the tensor cores by
 # splitting each product into three TF32 products
 TF32_SPLIT = 3
@@ -244,6 +270,32 @@ LM_RTOL = 2e-4
 # card against CPU on the reduced model: the CPU tests' pin against the JAX
 # reference (tests/test_torch_lm_serve.py)
 LM_CARD_CPU_RTOL = 1e-4
+
+# The bf16 slice (phases 12–15), the reference's default dtype: every served
+# model at full width, gemma3-27b at all 62 layers (50.3 GiB of bf16
+# weights) and qwen1.5-32b at full size (65.6 GiB) at batch 1: batch 4's KV
+# cache (64 layers × 2 × 40 heads × 128 × 2 B × 2,080 slots × 4 ≈ 10.9 GB)
+# does not fit beside its weights on the card; batch 1's is ~2.7 GB.
+BF16_SERVE = (("zamba2-1.2b", LM_BATCH, False), ("zamba2-1.2b", LM_BATCH, True),
+              ("falcon-mamba-7b", LM_BATCH, False),
+              ("granite-8b", LM_BATCH, False), ("gemma-7b", LM_BATCH, False),
+              ("gemma3-27b", LM_BATCH, False), ("qwen1.5-32b", 1, False))
+# bf16 kernel against its plain version on the same bf16 inputs: the output
+# within one bf16 rounding of the plain one (2^-7 of the value) plus a share
+# of the scale: attention 2e-3 (the kernel rounds P to bf16 against its
+# tiles' running maximum, the plain version against the row's), the scans
+# LM_RTOL (f32 arithmetic from the same inputs, y rounded once)
+BF16_REL = 2.0 ** -7
+BF16_FLASH_RTOL = 2e-3
+# card against CPU in bf16 (phase 15, the reduced configs): at each step the
+# RMS of (card bf16 − CPU bf16) at most twice the RMS of (CPU bf16 − CPU
+# f32), over 8 prompts (tests/test_torch_lm_bf16.py holds the CPU's bf16 to
+# the reference the same way)
+BF16_RATIO = 2.0
+BF16_CPU_BATCH, BF16_CPU_PROMPT, BF16_CPU_STEPS = 8, 40, 8
+# f32 work per live (query, key) pair beside a bf16 flash kernel's products:
+# the scale, the max, the exponent's subtraction, exp2 and the sum
+FLASH_F32_OPS_PER_PAIR = 5
 
 
 T0 = time.perf_counter()
@@ -2239,24 +2291,51 @@ def lm_kernel_modules():
             "selective_scan": (MK, MK.selective_scan)}
 
 
+def entry(name: str, dtype) -> str:
+    """The kernels line's name of a kernel's entry: ``name`` for the f32
+    entry, ``name + "_bf16"`` for the bf16 one."""
+    return name + ("_bf16" if dtype == torch.bfloat16 else "")
+
+
+LM_ENTRIES = [entry(n, d) for n in ("ssd_scan", "flash_attention",
+                                    "selective_scan")
+              for d in (torch.float32, torch.bfloat16)]
+
+
+def lm_launches() -> dict:
+    """Each LM kernel entry's launch count (``entry`` names)."""
+    return {entry(name, d): n for name, (_, fn) in lm_kernel_modules().items()
+            for d, n in fn.launches_by_dtype.items()}
+
+
 def lm_expected_launches(cfg) -> dict:
-    """Launches of each LM kernel in one full prefill of ``cfg``."""
+    """Launches of each LM kernel entry in one full prefill of ``cfg``: a
+    bf16 model's attention through the bf16 flash entry, its SSD scan
+    through the bf16 entry only under ``ssm_bf16`` (else the model passes
+    f32, as the reference), its Mamba-1 scan through the f32 entry (the
+    reference upcasts before the scan)."""
+    want = dict.fromkeys(LM_ENTRIES, 0)
+    flash = entry("flash_attention", cfg.dtype)
     if cfg.family == "dense":          # one flash launch per attention layer
-        return {"ssd_scan": 0, "flash_attention": cfg.n_layers,
-                "selective_scan": 0}
-    if cfg.ssm == "mamba1":
-        return {"ssd_scan": 0, "flash_attention": 0,
-                "selective_scan": cfg.n_layers}
-    return {"ssd_scan": cfg.n_layers,
-            "flash_attention": cfg.n_layers // cfg.shared_attn_every,
-            "selective_scan": 0}
+        want[flash] = cfg.n_layers
+    elif cfg.ssm == "mamba1":
+        want["selective_scan"] = cfg.n_layers
+    else:
+        want[entry("ssd_scan", cfg.dtype if cfg.ssm_bf16
+                   else torch.float32)] = cfg.n_layers
+        want[flash] = cfg.n_layers // cfg.shared_attn_every
+    return want
 
 
-def lm_serve_path(dev, arch: str, n_layers=None):
-    """Phase 10: ``arch`` at full width through the port's serving entry
-    points (``prefill``, ``greedy_decode``), as
-    ``python -m repro_torch.launch.serve`` drives them; ``n_layers`` cuts
-    its depth."""
+def lm_serve_path(dev, arch: str, n_layers=None, *, dtype=torch.float32,
+                  batch: int = LM_BATCH, ssm_bf16: bool = False,
+                  f32_figures=None):
+    """Phases 10 and 14: ``arch`` at full width through the port's serving
+    entry points (``prefill``, ``greedy_decode``), as
+    ``python -m repro_torch.launch.serve`` drives them, in ``dtype`` (bf16:
+    the configuration's own) at ``batch`` prompts; ``n_layers`` cuts its
+    depth. ``f32_figures``, phase 10's line of the same model, is printed
+    beside a bf16 run's."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
@@ -2268,21 +2347,22 @@ def lm_serve_path(dev, arch: str, n_layers=None):
         for mod, _ in kernels.values():
             mod.reset_launches()
 
-    def read():
-        return {name: fn.launches for name, (_, fn) in kernels.items()}
-
-    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype,
+                              ssm_bf16=ssm_bf16)
     published_layers = cfg.n_layers
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     gen = torch.Generator(device=dev).manual_seed(LM_SEED)
     t0 = time.perf_counter()
     params = init_params(cfg, gen)
-    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+    prompts = torch.randint(0, cfg.vocab, (batch, LM_PROMPT),
                             generator=gen, device=dev)
     synchronize(dev)
     n_params = sum(t.numel() for t in leaves(params))
-    say({"phase": "lm_setup", "arch": cfg.name, "params": n_params,
+    say({"phase": "lm_setup", "arch": cfg.name, "dtype": str(dtype),
+         "ssm_bf16": ssm_bf16, "params": n_params,
+         "param_bytes": sum(t.numel() * t.element_size()
+                            for t in leaves(params)),
          "analytic_params": cfg.n_params(), "n_layers": cfg.n_layers,
          "published_layers": published_layers,
          "seconds": time.perf_counter() - t0})
@@ -2301,7 +2381,7 @@ def lm_serve_path(dev, arch: str, n_layers=None):
                                           cache_len=cache_len)
         synchronize(dev)
         t_prefill = time.perf_counter() - t0
-        prefill_launches = read()
+        prefill_launches = lm_launches()
         same = torch.equal(first, logits)
         finite = bool(torch.isfinite(logits).all())
         reset()
@@ -2315,35 +2395,44 @@ def lm_serve_path(dev, arch: str, n_layers=None):
 
         tokens = greedy_decode(params, cfg, logits, caches, LM_PROMPT,
                                LM_NEW, rolling=rolling, on_step=on_step)
-        decode_launches = read()
+        decode_launches = lm_launches()
     finite &= all(bool(f) for f in step_finite)
     step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     window_s = marks[-1] - marks[0]
     peak = torch.cuda.max_memory_allocated(dev)
-    say({"phase": "lm_serve", "arch": cfg.name, "n_layers": cfg.n_layers,
-         "batch": LM_BATCH, "prompt_len": LM_PROMPT, "new_tokens": LM_NEW,
-         "rolling": rolling,
-         "prefill_s": t_prefill,
-         "prefill_tokens_per_s": LM_BATCH * LM_PROMPT / t_prefill,
-         "decode_ms_per_step": float(np.median(step_ms)),
-         "decode_ms_per_step_all": step_ms,
-         "decode_tokens_per_s": LM_BATCH * 1e3 / float(np.median(step_ms)),
-         "decode_window_s": window_s,
-         "decode_window_tokens_per_s": LM_BATCH * len(step_ms) / window_s,
-         "peak_memory_bytes": peak, "logits_finite": finite,
-         "prefill_launches": prefill_launches,
-         "decode_launches": decode_launches,
-         "prefill_twice_bitwise_equal": same,
-         "sample_tokens": tokens[0, :16].tolist()})
+    line = {"phase": "lm_serve" if dtype == torch.float32 else
+            "lm_serve_bf16", "arch": cfg.name, "dtype": str(dtype),
+            "ssm_bf16": ssm_bf16, "n_layers": cfg.n_layers,
+            "batch": batch, "prompt_len": LM_PROMPT, "new_tokens": LM_NEW,
+            "rolling": rolling,
+            "prefill_s": t_prefill,
+            "prefill_tokens_per_s": batch * LM_PROMPT / t_prefill,
+            "decode_ms_per_step": float(np.median(step_ms)),
+            "decode_ms_per_step_all": step_ms,
+            "decode_tokens_per_s": batch * 1e3 / float(np.median(step_ms)),
+            "decode_window_s": window_s,
+            "decode_window_tokens_per_s": batch * len(step_ms) / window_s,
+            "peak_memory_bytes": peak, "logits_finite": finite,
+            "logits_dtype": str(logits.dtype),
+            "prefill_launches": prefill_launches,
+            "decode_launches": decode_launches,
+            "prefill_twice_bitwise_equal": same,
+            "sample_tokens": tokens[0, :16].tolist()}
+    if f32_figures is not None:
+        line["f32"] = {k: f32_figures[k] for k in (
+            "n_layers", "batch", "prefill_s", "prefill_tokens_per_s",
+            "decode_ms_per_step", "decode_window_s", "peak_memory_bytes")}
+    say(line)
     assert finite, "non-finite logits on the serve path"
     assert same, "two full-width prefills gave different logits"
+    assert logits.dtype == dtype, logits.dtype
     want = lm_expected_launches(cfg)
     assert prefill_launches == want, (prefill_launches, want)
     assert not any(decode_launches.values()), decode_launches
     del params, caches, logits, first
     torch.cuda.empty_cache()
-    return {k: prefill_launches[k] + decode_launches[k]
-            for k, v in want.items() if v}
+    return line, {k: prefill_launches[k] + decode_launches[k]
+                  for k, v in want.items() if v}
 
 
 def lm_run(params, cfg, tokens, prompt_len):
@@ -2395,6 +2484,284 @@ def lm_card_matches_cpu(dev, arch: str, prompt_len: int = 100,
     assert same_argmax and same_greedy, "card and CPU tokens differ"
 
 
+
+# ---------------------------------------------------------- the bf16 slice
+def bf16_err(got, want, rtol):
+    """(max |got − want|, its excess over one bf16 rounding of want as a
+    share of the scale, passes): each output within 2^-7 |want| + rtol ·
+    max |want| of the plain version's."""
+    got, want = got.float(), want.float()
+    scale = max(float(want.abs().max()), 1e-30)
+    d = (got - want).abs()
+    excess = float((d - BF16_REL * want.abs()).max()) / scale
+    return float(d.max()), excess, excess <= rtol
+
+
+def bf16_flash_cases():
+    """Phase 12's attention cases: (label, (B, S, T, H, K, hd), window,
+    soft-cap) at the serve paths' shapes (zamba2 hd 64, granite hd 128 GQA,
+    gemma-7b hd 256 with and without a cap, gemma3's local layers, qwen
+    40/40 at B = 1), then ragged S and T ≠ S."""
+    from repro_torch.configs import get_config
+    out = []
+    for arch in ("zamba2-1.2b", "granite-8b", "gemma-7b", "gemma3-27b",
+                 "qwen1.5-32b"):
+        cfg = get_config(arch)
+        window = cfg.local_window if cfg.local_global else None
+        B = 1 if arch == "qwen1.5-32b" else LM_BATCH
+        shape = (B, LM_PROMPT, LM_PROMPT, cfg.n_heads, cfg.n_kv, cfg.head_dim)
+        out.append((arch + ("-local" if window else ""), shape, window, None))
+        if arch == "gemma-7b":
+            out.append((arch + "-softcap", shape, None, 50.0))
+    out += [("ragged-gqa-window", (2, 1000, 1000, 32, 8, 128), 256, None),
+            ("offset-queries", (2, 333, 1000, 32, 32, 64), None, None)]
+    return out
+
+
+def lm_check_kernels_bf16(dev) -> dict:
+    """Phase 12: each kernel's bf16 entry against its plain version on the
+    same bf16 inputs at the serve paths' shapes, run twice bitwise; outputs
+    bf16 both sides (the scans' states f32)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.mamba_scan import (selective_scan,
+                                                selective_scan_ref)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    errs = dict.fromkeys(("flash_attention_bf16", "ssd_scan_bf16",
+                          "selective_scan_bf16"), 0.0)
+    for label, (B, S, T, H, K, hd), window, cap in bf16_flash_cases():
+        q, k, v = (t.bfloat16() for t in
+                   qkv_inputs(B, S, T, H, K, hd, dev, seed=S + T + hd))
+        got = flash_attention(q, k, v, window=window, softcap=cap)
+        same = torch.equal(got, flash_attention(q, k, v, window=window,
+                                                softcap=cap))
+        want = flash_attention_ref(q, k, v, window=window, softcap=cap)
+        e, excess, ok = bf16_err(got, want, BF16_FLASH_RTOL)
+        say({"phase": "lm_parity_bf16", "kernel": "flash_attention_bf16",
+             "case": label, "shape": [B, S, T, H, K, hd], "window": window,
+             "softcap": cap, "dtype": [str(got.dtype), str(want.dtype)],
+             "max_abs_err": e, "excess_over_one_rounding": excess,
+             "rtol": BF16_FLASH_RTOL, "ok": ok,
+             "run_twice_bitwise_equal": same})
+        assert got.dtype == want.dtype == torch.bfloat16
+        assert ok, "flash_attention_bf16 disagrees with its plain version"
+        assert same, "flash_attention_bf16 differs from run to run"
+        errs["flash_attention_bf16"] = max(errs["flash_attention_bf16"], e)
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    (sB, sS, sH, shp, sN), _ = lm_shapes(cfg, LM_BATCH, LM_PROMPT)
+    falcon = scan_shape(get_config(MAMBA1_ARCH), LM_BATCH, LM_PROMPT)
+    scans = [("ssd_scan_bf16", ssd_scan, ssd_scan_ref, S, with_h0,
+              ssd_inputs(sB, S, sH, shp, sN, dev, seed=S),
+              (sB, sH, sN, shp))
+             for S, with_h0 in ((sS, False), (sS - 77, True))]
+    B, S, dI, N = falcon
+    scans += [("selective_scan_bf16", selective_scan, selective_scan_ref,
+               S_, with_h0, scan_inputs(B, S_, dI_, N, dev, seed=S_),
+               (B, dI_, N))
+              for S_, dI_, with_h0 in ((S, dI, False),
+                                       (S - 77, dI - 40, True))]
+    for name, kern, plain, S_, with_h0, args, hshape in scans:
+        u, dt, A, Bm, Cm, D = args
+        args = [u.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16(), D]
+        h0 = (torch.randn(*hshape, device=dev,
+                          generator=torch.Generator(dev).manual_seed(1))
+              if with_h0 else None)
+        y, h = kern(*args, h0=h0)
+        y2, h2 = kern(*args, h0=h0)
+        same = torch.equal(y, y2) and torch.equal(h, h2)
+        y_p, h_p = plain(*args, h0=h0)
+        e, excess, ok = bf16_err(y, y_p, LM_RTOL)
+        eh, ok_h = max_err([h], [h_p], LM_RTOL)
+        say({"phase": "lm_parity_bf16", "kernel": name,
+             "shape": list(u.shape) + ([N] if name.startswith("selective")
+                                       else [sN]),
+             "h0": with_h0, "dtype": [str(y.dtype), str(y_p.dtype),
+                                      str(h.dtype)],
+             "max_abs_err": e, "excess_over_one_rounding": excess,
+             "state_max_abs_err": eh, "rtol": LM_RTOL, "ok": ok and ok_h,
+             "run_twice_bitwise_equal": same})
+        assert y.dtype == y_p.dtype == torch.bfloat16
+        assert h.dtype == torch.float32
+        assert ok and ok_h, f"{name} disagrees with its plain version"
+        assert same, f"{name} differs from run to run"
+        errs[name] = max(errs[name], e, eh)
+        del args, y, y2, h, h2, y_p, h_p
+        torch.cuda.empty_cache()
+    return errs
+
+
+def bf16_flash_bound(B, S, T, H, K, hd, window) -> dict:
+    """The bf16 attention's bound: its bf16 bytes (q, k, v read once, o
+    written once), its products at the dense bf16 rate, its f32 softmax
+    work (FLASH_F32_OPS_PER_PAIR a live pair) at the f32 rate."""
+    ops, moved_f32 = flash_ops_bytes(B, S, T, H, K, hd, True, window)
+    pairs = ops / (4.0 * hd)
+    roof = Roofline(moved_f32 / 2, ops, PEAK_BF16_FLOPS,
+                    f32_operations=FLASH_F32_OPS_PER_PAIR * pairs)
+    return {"operations": ops, "f32_operations": FLASH_F32_OPS_PER_PAIR
+            * pairs, "bytes": moved_f32 / 2, "bound_ms": roof.t_bound * 1e3,
+            "bound_by": roof.bottleneck}
+
+
+def bf16_selective_bound(B, S, dI, N) -> dict:
+    """The bf16 Mamba-1 scan's bound: its bytes with u, B, C and y in bf16,
+    its recurrence on the f32 pipes (``lm_bound``)."""
+    ops, moved = scan_ops_bytes(B, S, dI, N)
+    moved -= 2 * (2 * B * S * dI + 2 * B * S * N)
+    return {"operations": ops, "bytes": float(moved),
+            **lm_bound("selective_scan", ops, moved)}
+
+
+def bf16_ssd_bound(B, S, H, hp, N) -> dict:
+    """The bf16 SSD scan's bound: its bytes with u, B, C and y in bf16 (dt,
+    A, D and h in f32), its products at the dense bf16 rate, and its f32
+    work at the f32 rate: per chunk of length L the L(L+1)/2 segment-sum
+    exponentials and their products with C·Bᵀ, the dt scaling of u (L·hp)
+    and the state's decay (N·hp), at the chunk length with the fewest
+    operations."""
+    ops, moved = ssd_ops_bytes(B, S, H, hp, N)
+    moved -= 2 * (2 * B * S * H * hp + 2 * B * S * N)
+    Q = min(range(1, S + 1), key=lambda q: ssd_chunked_ops(S, N, hp, q))
+    full, last = divmod(S, Q)
+    f32 = sum(n * (L * (L + 1) + L * hp + N * hp)
+              for L, n in ((Q, full), (last, int(last > 0)))) * B * H
+    roof = Roofline(moved, ops, PEAK_BF16_FLOPS, f32_operations=f32)
+    return {"operations": ops, "f32_operations": float(f32),
+            "bytes": float(moved), "bound_ms": roof.t_bound * 1e3,
+            "bound_by": roof.bottleneck}
+
+
+def lm_time_kernels_bf16(dev) -> dict:
+    """Phase 13: each bf16 entry's time (CUDA events, median of 20) at the
+    serve paths' shapes, beside its bound, its plain version's time, the f32
+    entry's on the same shapes and, for attention,
+    ``scaled_dot_product_attention`` in bf16 on the same tensors (K and V
+    repeated outside the timed call, a boolean mask for a window)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.mamba_scan import (selective_scan,
+                                                selective_scan_ref)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    rows = {}
+    for label, (B, S, T, H, K, hd), window, cap in bf16_flash_cases():
+        if cap is not None or label in ("ragged-gqa-window",
+                                        "offset-queries"):
+            continue
+        q, k, v = (t.bfloat16() for t in qkv_inputs(B, S, T, H, K, hd, dev))
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        if window is None:
+            lib = dict(is_causal=True)
+        else:
+            qpos = torch.arange(S, device=dev)[:, None] + (T - S)
+            kpos = torch.arange(T, device=dev)[None, :]
+            lib = dict(attn_mask=(kpos <= qpos) & (kpos > qpos - window))
+        row = dict(
+            model=label, shape=[B, S, T, H, K, hd], window=window,
+            ms=cuda_time_ms(lambda: flash_attention(q, k, v, window=window),
+                            reps=20),
+            plain_ms=cuda_time_ms(lambda: flash_attention_ref(
+                q, k, v, window=window), reps=3),
+            library_ms=cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib),
+                reps=20))
+        del qt, kt, vt
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        row["f32_entry_ms"] = cuda_time_ms(
+            lambda: flash_attention(qf, kf, vf, window=window), reps=20)
+        del q, k, v, qf, kf, vf
+        row.update(bf16_flash_bound(B, S, T, H, K, hd, window))
+        say({"phase": "lm_timing_bf16", "kernel": "flash_attention_bf16",
+             **row, "share_of_bound": row["bound_ms"] / row["ms"]})
+        rows.setdefault("flash_attention_bf16", row)   # zamba2's: the line's
+        torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    (sB, sS, sH, shp, sN), _ = lm_shapes(cfg, LM_BATCH, LM_PROMPT)
+    falcon = scan_shape(get_config(MAMBA1_ARCH), LM_BATCH, LM_PROMPT)
+    for name, kern, plain, args, bound, kw in (
+            ("ssd_scan_bf16", ssd_scan, ssd_scan_ref,
+             ssd_inputs(sB, sS, sH, shp, sN, dev),
+             bf16_ssd_bound(sB, sS, sH, shp, sN),
+             dict(chunk=cfg.ssm_chunk)),
+            ("selective_scan_bf16", selective_scan, selective_scan_ref,
+             scan_inputs(*falcon, dev), bf16_selective_bound(*falcon), {})):
+        u, dt, A, Bm, Cm, D = args
+        b16 = [u.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16(), D]
+        row = dict(ms=cuda_time_ms(lambda: kern(*b16), reps=20),
+                   plain_ms=cuda_time_ms(lambda: plain(*b16, **kw), reps=3),
+                   f32_entry_ms=cuda_time_ms(lambda: kern(*args), reps=20),
+                   library_ms=None, shape=list(u.shape), **bound)
+        say({"phase": "lm_timing_bf16", "kernel": name, **row,
+             "share_of_bound": row["bound_ms"] / row["ms"]})
+        rows[name] = row
+        del args, b16
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lm_card_matches_cpu_bf16(dev, arch: str, *, prompt_len=BF16_CPU_PROMPT,
+                             ssm_bf16: bool = False):
+    """Phase 15: ``arch``'s reduced configuration in bf16 on the card and
+    on the CPU, teacher-forced over 8 prompts, against the same model in
+    f32 on the CPU from the same parameters (each bf16 value widened
+    exactly): at every step the RMS of (card − CPU bf16) at most
+    BF16_RATIO × the RMS of (CPU bf16 − CPU f32); the card's run launches
+    each LM kernel entry as one prefill of ``cfg`` should and no other."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import tree_map
+    from repro_torch.serve.serve_step import decode_step, prefill
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              ssm_bf16=ssm_bf16)
+    assert cfg.dtype == torch.bfloat16
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, ssm_bf16=False)
+    params = init_params(cfg, torch.Generator().manual_seed(LM_SEED))
+    params32 = tree_map(lambda t: t.float(), params)
+    steps = BF16_CPU_STEPS
+    tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab, (BF16_CPU_BATCH, prompt_len + steps)))
+
+    def run(p, c, toks):
+        with torch.inference_mode():
+            lg, caches, rolling = prefill(p, c, toks[:, :prompt_len],
+                                          cache_len=prompt_len + steps)
+            out = [lg.float().cpu().numpy()]
+            for t in range(prompt_len, prompt_len + steps):
+                lg, caches = decode_step(p, c, toks[:, t:t + 1], caches, t,
+                                         rolling=rolling)
+                out.append(lg.float().cpu().numpy())
+        return np.stack(out)
+
+    before = lm_launches()
+    card = run(tree_map(lambda t: t.to(dev), params), cfg, tokens.to(dev))
+    launched = {k: n - before[k] for k, n in lm_launches().items()
+                if n != before[k]}
+    cpu16 = run(params, cfg, tokens)
+    cpu32 = run(params32, cfg32, tokens)
+    rms = lambda a: np.sqrt(np.mean(np.square(a), axis=(1, 2)))
+    scale = rms(cpu32)
+    mine = rms(card - cpu16) / scale
+    own = rms(cpu16 - cpu32) / scale
+    ok = bool(np.all(mine <= BF16_RATIO * own))
+    want = {k: n for k, n in lm_expected_launches(cfg).items() if n}
+    say({"phase": "lm_card_vs_cpu_bf16", "arch": cfg.name,
+         "ssm_bf16": ssm_bf16, "batch": BF16_CPU_BATCH,
+         "prompt_len": prompt_len, "decode_steps": steps,
+         "card_vs_cpu_bf16_rms": mine.tolist(),
+         "cpu_bf16_vs_f32_rms": own.tolist(),
+         "ratio": (mine / own).tolist(), "ratio_limit": BF16_RATIO,
+         "card_launches": launched, "expected_launches": want, "ok": ok})
+    assert launched == want, f"{cfg.name}: launches {launched}, want {want}"
+    assert ok, "card and CPU bf16 logits disagree beyond the bf16 bound"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2411,9 +2778,12 @@ def main() -> int:
          "name": torch.cuda.get_device_name(0),
          "torch": torch.__version__, "cuda": torch.version.cuda,
          "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
-         "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
+         "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32,
+         "allow_bf16_reduced_precision_reduction":
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction})
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
 
     mods = [K] + [mod for mod, _ in lm_kernel_modules().values()]
     t0 = time.perf_counter()
@@ -2454,11 +2824,26 @@ def main() -> int:
     serve_paths = [(LM_ARCH, None), (MAMBA1_ARCH, None)] + [
         (arch, GEMMA3_LAYERS if arch == "gemma3-27b" else None)
         for arch in DENSE_ARCHS]
+    f32_lines = {}
     for arch, n_layers in serve_paths:
-        for name, n in lm_serve_path(dev, arch, n_layers).items():
+        f32_lines[arch], counts = lm_serve_path(dev, arch, n_layers)
+        for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     for arch in (LM_ARCH, MAMBA1_ARCH) + DENSE_ARCHS + DENSE_REDUCED_ONLY:
         lm_card_matches_cpu(dev, arch)
+
+    errs.update(lm_check_kernels_bf16(dev))
+    timing.update(lm_time_kernels_bf16(dev))
+    for arch, batch, ssm_bf16 in BF16_SERVE:
+        _, counts = lm_serve_path(dev, arch, dtype=torch.bfloat16,
+                                  batch=batch, ssm_bf16=ssm_bf16,
+                                  f32_figures=f32_lines.get(arch))
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+    for arch in DENSE_ARCHS + DENSE_REDUCED_ONLY + (LM_ARCH, MAMBA1_ARCH):
+        lm_card_matches_cpu_bf16(dev, arch)
+    lm_card_matches_cpu_bf16(dev, "gemma3-27b", prompt_len=64)   # banded
+    lm_card_matches_cpu_bf16(dev, LM_ARCH, ssm_bf16=True)
 
     sph = "src/repro_torch/kernels/sph_pair/csrc/sph_pair.cu"
     source = {"density_pair": sph, "force_pair": sph,
@@ -2473,15 +2858,18 @@ def main() -> int:
                 "flash_attention":
                     "src/repro/kernels/flash_attention/kernel.py:80",
                 "selective_scan": "src/repro/kernels/mamba_scan/kernel.py:51"}
+    names = ["density_pair", "force_pair"] + LM_ENTRIES
+    base = {name: name.replace("_bf16", "") for name in names}
     say({"kernels": [
-        {"name": name, "route": "cuda", "source": source[name],
-         "replaces": replaces[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": source[base[name]],
+         "replaces": replaces[base[name]],
+         "launches": launches.get(name, 0),
          "max_abs_err": errs[name], "ms": timing[name]["ms"],
          "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name].get("library_ms")}
-        for name in source]})
+        for name in names]})
     say({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,7 @@
 The rates are data-sheet peaks of the H100 SXM part (NVIDIA H100 80GB
 HBM3, dense, at its 700 W power limit), not measurements: HBM3 at 3.35
 TB/s, 67 TFLOP/s of float32 outside the tensor cores, 495 TFLOP/s of dense
-TF32 on them. A card set below 700 W runs slower under load, so a share of
+TF32 and 989 TFLOP/s of dense bf16 on them. A card set below 700 W runs slower under load, so a share of
 the bound is stated with the card's power limit beside it.
 
 The reference's ``model_flops`` and ``remat_overhead`` count LM training
@@ -22,6 +22,7 @@ import dataclasses
 HBM_BYTES_PER_S = 3.35e12       # HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12          # float32 FMA pipes, outside the tensor cores
 PEAK_TF32_FLOPS = 495e12        # dense TF32 on the tensor cores
+PEAK_BF16_FLOPS = 989e12        # dense bf16 on the tensor cores
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,10 +30,14 @@ class Roofline:
     """The least time one card could take for ``bytes`` moved (each input
     read once, each output written once) and ``operations`` done at
     ``peak_flops`` (:data:`PEAK_F32_FLOPS` unless the work runs on the
-    tensor cores)."""
+    tensor cores: :data:`PEAK_TF32_FLOPS`, :data:`PEAK_BF16_FLOPS`), plus
+    ``f32_operations`` that run beside them on the f32 pipes (a bf16
+    kernel's exponentials and rescales) at :data:`PEAK_F32_FLOPS`; the
+    compute term is the larger of the two rates' times."""
     bytes: float
     operations: float
     peak_flops: float = PEAK_F32_FLOPS
+    f32_operations: float = 0.0
 
     @property
     def t_memory(self) -> float:
@@ -40,7 +45,8 @@ class Roofline:
 
     @property
     def t_compute(self) -> float:
-        return self.operations / self.peak_flops
+        return max(self.operations / self.peak_flops,
+                   self.f32_operations / PEAK_F32_FLOPS)
 
     @property
     def bottleneck(self) -> str:

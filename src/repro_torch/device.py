@@ -15,7 +15,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     Raises when CUDA is asked for and no GPU is present — the port never
     carries on on the CPU unless the caller asked for it. Pins float32
     arithmetic on the card (no TF32), as the reference pins f32 matmul
-    precision.
+    precision, and bf16 matrix products to f32 accumulation throughout (no
+    reduced-precision split-K reduction in cuBLAS), as XLA accumulates a
+    bf16 dot in f32.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -26,6 +28,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "run the plain PyTorch path")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -68,6 +68,7 @@
 // and two K/V stages (32 keys each) take 210 KB of shared memory: one CTA
 // of 8 warps an SM.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -640,6 +641,313 @@ cudaError_t dispatch(const float* q, const float* k, const float* v, float* o,
   return launch<HD, false>(q, k, v, o, B, S, T, H, K, causal, window, cap, st);
 }
 
+// ------------------------------------------------------------- bf16
+// The bf16 entry (flash_attention_bf16): q, k, v and o in bf16. A bf16 x
+// bf16 product is exact in f32 and mma.sync m16n8k16 bf16 accumulates in
+// f32, which is what the TPU kernel's jnp.dot(..., preferred_element_type=
+// float32) computes: one product, no split. Each warp owns 16 query rows
+// over the full head width (the hd <= 128 layout at every width: without
+// the split the 16 x 256 accumulator, 128 registers, fits beside the rest).
+// K and V tiles (64 keys, 32 at hd 256) stream through the same
+// double-buffered cp.async ring in bf16; Q's A fragments stay in registers
+// up to hd 128 and are read from shared memory at each use at hd 256. The
+// S accumulator of two neighbouring 8-key blocks is, element for element,
+// the A fragment of P for a 16-key k-step of P V, so P is rounded to bf16
+// in registers (__floats2bfloat162_rn, the TPU kernel's p.astype(v.dtype))
+// and never leaves them; V's B fragments come from ldmatrix.x4.trans (two
+// 8-column blocks a load). The running max, the normaliser (summed from
+// the unrounded f32 P, as the TPU kernel sums it), the soft-cap and the
+// rescale stay in f32; the output is rounded to bf16 once. Row strides of
+// hd + 8 bf16 keep rows 16-byte aligned and the fragment loads and
+// ldmatrix free of bank conflicts. No atomics: run to run bitwise.
+// Bound: its products at 989 TFLOP/s (dense bf16) against its bytes in
+// bf16 and its f32 exponentials; see PERF.md and chip_smoke.py phase 13.
+namespace bf16 {
+template <int HD>
+struct Cfg {
+  static constexpr int BK = HD <= 128 ? 64 : 32;  // keys per streamed tile
+  static constexpr int RS = HD + 8;               // row stride of Q, K, V (bf16)
+  static constexpr bool QREG = HD <= 128;         // Q's fragments in registers
+  static constexpr int MINB = HD <= 64 ? 4 : (HD <= 128 ? 2 : 1);  // CTAs an SM
+  static constexpr int stage = 2 * BK * RS;       // K [BK][RS], then V [BK][RS]
+  static constexpr int q_off = 2 * stage;         // Q [BQ][RS]
+  static constexpr size_t bytes = sizeof(uint16_t) * (2 * stage + BQ * RS);
+};
+}  // namespace bf16
+
+__device__ __forceinline__ void cp_async16b(uint16_t* dst, const uint16_t* src,
+                                            bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 16 : 0;   // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two f32 rounded to bf16, lo in the low half (the lower k or column index)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices, transposed: lanes 8m .. 8m + 7 give the row
+// addresses of matrix m; each thread gets (rows 2t, 2t + 1; column g) of each
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const uint16_t* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
+}
+
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(NT, bf16::Cfg<HD>::MINB)
+flash_kernel_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                  const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
+                  int S, int T, int H, int K, int causal, int window,
+                  float scale, float cap) {
+  using CF = bf16::Cfg<HD>;
+  constexpr int BK = CF::BK, RS = CF::RS;
+  constexpr int KK = HD / 16;   // k-steps of Q K^T
+  constexpr int NK = BK / 8;    // 8-key blocks of a tile
+  constexpr int ND = HD / 8;    // 8-column blocks of the output
+  constexpr int CH = HD / 8;    // 16-byte chunks of a row
+  extern __shared__ __align__(16) uint16_t smb[];
+
+  const int iq = gridDim.y - 1 - blockIdx.y;   // the longest causal rows first
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int kh = h / (H / K);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float scale2 = scale * 1.44269504f;
+  const int q_first = iq * BQ;
+  const int q0 = q_first + (T - S);
+
+  const int nk = (T + BK - 1) / BK;
+  int hi = nk;
+  if (causal) {
+    const int last = q0 + BQ - 1;
+    hi = last < 0 ? 0 : min(nk, last / BK + 1);
+  }
+  int lo = 0;
+  if (window > 0) {
+    const int first = q0 - window + 1;
+    lo = first > 0 ? first / BK : 0;
+  }
+
+  const size_t kv_row = (size_t)K * HD;
+  const uint16_t* kb = k + (size_t)b * T * kv_row + (size_t)kh * HD;
+  const uint16_t* vb = v + (size_t)b * T * kv_row + (size_t)kh * HD;
+  auto load_tile = [&](int kt, int st) {
+    uint16_t* Ks = smb + st * CF::stage;
+    uint16_t* Vs = Ks + BK * RS;
+    for (int i = tid; i < BK * CH; i += NT) {
+      const int r = i / CH, c = (i % CH) * 8, t = kt * BK + r;
+      const bool in = t < T;
+      const size_t off = (size_t)(in ? t : 0) * kv_row + c;
+      cp_async16b(Ks + r * RS + c, kb + off, in);
+      cp_async16b(Vs + r * RS + c, vb + off, in);
+    }
+    cp_async_commit();
+  };
+  if (lo < hi) load_tile(lo, 0);
+
+  uint16_t* Qs = smb + CF::q_off;
+  for (int i = tid; i < BQ * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 8, row = q_first + r;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row < S)
+      x = *reinterpret_cast<const uint4*>(
+          q + (((size_t)b * S + row) * H + h) * HD + c);
+    *reinterpret_cast<uint4*>(Qs + r * RS + c) = x;
+  }
+  __syncthreads();
+  // A fragment of Q at k-step kk: rows (g, g + 8) x columns 16 kk + (2t,
+  // 2t + 1), then the same 8 columns on
+  const uint16_t* qrow = Qs + (warp * 16 + g) * RS + 2 * t4;
+  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
+    const uint16_t* p = qrow + kk * 16;
+    a[0] = ld32(p);
+    a[1] = ld32(p + 8 * RS);
+    a[2] = ld32(p + 8);
+    a[3] = ld32(p + 8 * RS + 8);
+  };
+  uint32_t qf[CF::QREG ? KK : 1][4];
+  if constexpr (CF::QREG) {
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) q_frag(kk, qf[kk]);
+  }
+  // this lane's row address for V's ldmatrix: key (l & 7) + 8 ((l >> 3) & 1)
+  // of a 16-key step, columns 8 (l >> 4) of a 16-column pair
+  const int v_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 8;
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+  const int qa = q0 + warp * 16 + g;
+
+  for (int kt = lo; kt < hi; ++kt) {
+    const int st = (kt - lo) & 1;
+    if (kt + 1 < hi) {
+      load_tile(kt + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint16_t* Ks = smb + st * CF::stage;
+    const uint16_t* Vs = Ks + BK * RS;
+    const int k_first = kt * BK;
+
+    // S = Q K^T: K's B fragment (k over 2t, 2t + 1 and 8 on; key g) is two
+    // 4-byte loads of key g's row
+    float s[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk) {
+      uint32_t a[4];
+      if constexpr (CF::QREG) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) a[c] = qf[kk][c];
+      } else {
+        q_frag(kk, a);
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const uint16_t* kp = Ks + (n * 8 + g) * RS + kk * 16 + 2 * t4;
+        mma_bf16(s[n], a, ld32(kp), ld32(kp + 8));
+      }
+    }
+
+    // online softmax in f32, as the f32 kernel
+    const bool unmasked = k_first + BK <= T &&
+                          (!causal || k_first + BK - 1 <= q0) &&
+                          (window <= 0 || k_first > q0 + BQ - 1 - window);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = qa + 8 * r;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x = score2<CAP>(s[n][2 * r + c], scale2, scale, cap);
+          if (!unmasked) {
+            const int kpos = k_first + n * 8 + 2 * t4 + c;
+            const bool ok = kpos < T && (!causal || kpos <= qpos) &&
+                            (window <= 0 || kpos > qpos - window);
+            x = ok ? x : -INFINITY;
+          }
+          s[n][2 * r + c] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      float alpha = 1.f, psum = 0.f;
+      if (m_new != -INFINITY) {
+        alpha = exp2f(m[r] - m_new);
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = exp2f(s[n][2 * r + c] - m_new);
+            s[n][2 * r + c] = p;
+            psum += p;
+          }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NK; ++n) s[n][2 * r] = s[n][2 * r + 1] = 0.f;
+      }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      l[r] = fmaf(l[r], alpha, psum);
+      m[r] = m_new;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * r] *= alpha;
+        acc[n][2 * r + 1] *= alpha;
+      }
+    }
+
+    // O += P V over 16-key steps: P's A fragment is key blocks 2j and
+    // 2j + 1 of s, rounded to bf16
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                              pack_bf16(s[2 * j][2], s[2 * j][3]),
+                              pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                              pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+      const uint16_t* vrow = Vs + j * 16 * RS + v_lane;
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, vrow + dp * 16);
+        mma_bf16(acc[2 * dp], pa, r[0], r[1]);
+        mma_bf16(acc[2 * dp + 1], pa, r[2], r[3]);
+      }
+    }
+    __syncthreads();   // this stage is read: the next prefetch may refill it
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q_first + warp * 16 + g + 8 * r;
+    if (row < S) {
+      const float den = fmaxf(l[r], 1e-30f);
+      uint16_t* out = o + (((size_t)b * S + row) * H + h) * HD + 2 * t4;
+#pragma unroll
+      for (int d = 0; d < ND; ++d)
+        *reinterpret_cast<uint32_t*>(out + d * 8) =
+            pack_bf16(acc[d][2 * r] / den, acc[d][2 * r + 1] / den);
+    }
+  }
+}
+
+template <int HD, bool CAP>
+cudaError_t launch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                        uint16_t* o, int B, int S, int T, int H, int K,
+                        int causal, int window, float cap, cudaStream_t stream) {
+  const size_t smem = bf16::Cfg<HD>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_kernel_bf16<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const float scale = 1.0f / sqrtf((float)HD);
+  flash_kernel_bf16<HD, CAP><<<dim3(H * B, (S + BQ - 1) / BQ), NT, smem, stream>>>(
+      q, k, v, o, S, T, H, K, causal, window, scale, cap);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t dispatch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                          uint16_t* o, int B, int S, int T, int H, int K,
+                          int causal, int window, float cap, cudaStream_t st) {
+  if (cap > 0.f)
+    return launch_bf16<HD, true>(q, k, v, o, B, S, T, H, K, causal, window, cap, st);
+  return launch_bf16<HD, false>(q, k, v, o, B, S, T, H, K, causal, window, cap, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -665,6 +973,26 @@ int flash_attention_f32(const float* q, const float* k, const float* v,
       if (softcap > 0.f)
         return (int)launch_wide<true>(q, k, v, o, B, S, T, H, K, causal, window, softcap, st);
       return (int)launch_wide<false>(q, k, v, o, B, S, T, H, K, causal, window, softcap, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 entry: q, k, v, o bf16 (2 bytes each), otherwise as
+// flash_attention_f32, at the same head widths.
+int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
+                         int B, int S, int T, int H, int K, int HD,
+                         int causal, int window, float softcap, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const uint16_t* qb = (const uint16_t*)q;
+  const uint16_t* kb = (const uint16_t*)k;
+  const uint16_t* vb = (const uint16_t*)v;
+  uint16_t* ob = (uint16_t*)o;
+  switch (HD) {
+    case 16: return (int)dispatch_bf16<16>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
+    case 32: return (int)dispatch_bf16<32>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
+    case 64: return (int)dispatch_bf16<64>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
+    case 128: return (int)dispatch_bf16<128>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
+    case 256: return (int)dispatch_bf16<256>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -11,8 +11,15 @@ current stream and raises if the kernel does not take the arguments or the
 launch fails; for tensors on the CPU it calls the plain PyTorch version
 (``ref.py``). There is no other path.
 
-``flash_attention.launches`` counts kernel launches (one per launch,
-nowhere else), so a run can show that it went through the kernel.
+On the card q, k and v are all float32 (``flash_attention_f32``) or all
+bfloat16 (``flash_attention_bf16``, the reference's default dtype: bf16
+products accumulated in f32, P rounded to bf16 before P·V, the output in
+bf16); any other dtype or a mix raises ``TypeError``. A bf16 input is never
+widened to reach the f32 kernel.
+
+``flash_attention.launches`` counts kernel launches of either entry (one
+per launch, nowhere else), so a run can show that it went through the
+kernel; ``launches_by_dtype`` splits the count by entry.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Optional
 import torch
 
 from ..build import check_launch, load_library
+from ..dtypes import ENTRY_DTYPES, check_dtypes
 from .ref import flash_attention_ref
 
 SOURCES = [Path(__file__).parent / "csrc" / "flash_attention.cu"]
@@ -41,6 +49,9 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_f32.argtypes = ([_P] * 4 + [_I] * 8
                                             + [ctypes.c_float, _P])
         lib.flash_attention_f32.restype = _I
+        lib.flash_attention_bf16.argtypes = ([_P] * 4 + [_I] * 8
+                                             + [ctypes.c_float, _P])
+        lib.flash_attention_bf16.restype = _I
         lib.flash_attention_supported.argtypes = [_I]
         lib.flash_attention_supported.restype = _I
         lib._repro_typed = True
@@ -70,12 +81,10 @@ def _check(q, k, v):
 
 def check_kernel_args(q, k, v) -> None:
     """Raise unless the CUDA kernel takes these (already shape-checked)
-    tensors: f32, contiguous, 16-byte aligned, a head width it is built
-    for (:data:`HEAD_WIDTHS`)."""
+    tensors: all float32 or all bfloat16, contiguous, 16-byte aligned, a
+    head width it is built for (:data:`HEAD_WIDTHS`)."""
+    check_dtypes("flash_attention", {"q": q, "k": k, "v": v})
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash_attention: {name} is {t.dtype}; the "
-                            f"kernel takes torch.float32 (bf16 is later work)")
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
         if t.data_ptr() % 16:
@@ -95,7 +104,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``window`` (> 0) keeps keys within ``window`` positions of the query;
     None keeps all. ``softcap`` (> 0) maps each scaled score s to
     ``softcap · tanh(s / softcap)`` before the mask; None leaves it. On the
-    card: f32, contiguous, hd ∈ {16, 32, 64, 128, 256}.
+    card: all f32 or all bf16, contiguous, hd ∈ {16, 32, 64, 128, 256}.
     """
     dev = _check(q, k, v)
     if window is not None and window <= 0:
@@ -116,20 +125,24 @@ def flash_attention(q, k, v, *, causal: bool = True,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    entry = (lib.flash_attention_bf16 if q.dtype == torch.bfloat16
+             else lib.flash_attention_f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.flash_attention_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, T, H, K, hd, int(causal), window or 0,
-            float(softcap or 0.0), stream)
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   B, S, T, H, K, hd, int(causal), window or 0,
+                   float(softcap or 0.0), stream)
     check_launch(rc, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_by_dtype[q.dtype] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
 
 
 def reset_launches() -> None:
-    """Set the wrapper's launch count to 0."""
+    """Set the wrapper's launch counts to 0."""
     flash_attention.launches = 0
+    flash_attention.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)

@@ -7,7 +7,11 @@ an optional soft-cap (``softcap · tanh(s / softcap)`` on the scaled scores,
 before the mask, as the reference's ``_sdpa``) and GQA head grouping
 (H = K·G, no copy of K or V), written as the full (S × T) score matrix.
 Query row i sits at key position i + (T − S). A row with no live key gives
-zeros. f32 math, returned in q's dtype.
+zeros. f32 math, returned in q's dtype. For a V that is not f32 (bf16),
+the unnormalised P = exp(s − max) is rounded to V's dtype before P·V and
+the normaliser is summed from the unrounded P, as the Pallas kernel does
+(``p.astype(vb.dtype)``, its ``l``); for f32 inputs the softmax is taken
+as before.
 
 This is the CPU path of
 :func:`repro_torch.kernels.flash_attention.flash_attention` and the oracle of
@@ -42,7 +46,16 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     if window is not None:
         ok &= kpos > qpos - window
     scores = scores.masked_fill(~ok, float("-inf"))
-    p = torch.softmax(scores, dim=-1)
-    p = torch.nan_to_num(p, nan=0.0)                 # rows with no live key
-    out = torch.einsum("bkgst,btkh->bskgh", p, v.to(f32))
+    if v.dtype == f32:
+        p = torch.softmax(scores, dim=-1)
+        p = torch.nan_to_num(p, nan=0.0)             # rows with no live key
+        out = torch.einsum("bkgst,btkh->bskgh", p, v.to(f32))
+    else:
+        m = scores.amax(dim=-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.exp(scores - m)                    # 0 where masked
+        l = p.sum(dim=-1).clamp_min(1e-30)           # (b, k, g, s)
+        out = torch.einsum("bkgst,btkh->bskgh", p.to(v.dtype).to(f32),
+                           v.to(f32))
+        out = out / l.permute(0, 3, 1, 2)[..., None]
     return out.reshape(B, S, H, hd).to(q.dtype)

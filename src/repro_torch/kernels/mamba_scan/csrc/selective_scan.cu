@@ -46,7 +46,15 @@
 //
 // Numerics: products as explicit fmaf (the build keeps --fmad=false for
 // the SPH kernels). No atomics: bitwise equal run to run.
+//
+// bf16 entry (selective_scan_bf16): u, B, C and y in bf16; dt, A, D, h0
+// and the final state in f32. The same template: u, B and C are read with
+// plain 2-byte loads and widened into the same f32 shared-memory tiles (dt
+// still by cp.async), y is rounded to bf16 once as it is stored (8-byte
+// stores of four channels where dI % 4 == 0). From the tiles on the
+// arithmetic is the f32 entry's, as the TPU kernel upcasts everything.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -100,16 +108,22 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-template <int N>
+// the element type of u, B, C and y: float or bf16
+using bf16_t = __nv_bfloat16;
+
+__device__ __forceinline__ float widen(bf16_t x) { return __bfloat162float(x); }
+
+template <int N, typename T>
 __global__ void __launch_bounds__(NT, kMinCtas)
-selective_scan_kernel(const float* __restrict__ u,
+selective_scan_kernel(const T* __restrict__ u,
                       const float* __restrict__ dt,
                       const float* __restrict__ A,
-                      const float* __restrict__ Bm,
-                      const float* __restrict__ Cm,
+                      const T* __restrict__ Bm,
+                      const T* __restrict__ Cm,
                       const float* __restrict__ D,
-                      const float* __restrict__ h0, float* __restrict__ y,
+                      const float* __restrict__ h0, T* __restrict__ y,
                       float* __restrict__ hout, int S, int dI) {
+  constexpr bool F32 = sizeof(T) == sizeof(float);
   constexpr int L = Tile<N>::L, SPT = Tile<N>::SPT, CH = Tile<N>::CH;
   constexpr int C4 = CH / 4;             // 16-byte chunks of a tile row
   __shared__ __align__(16) float Us[2][TT][CH];
@@ -141,38 +155,70 @@ selective_scan_kernel(const float* __restrict__ u,
   }
   if (tid < CH) Ds[tid] = d0 + tid < dI ? D[d0 + tid] : 0.f;
 
-  const float* ub = u + (size_t)b * S * dI;
+  const T* ub = u + (size_t)b * S * dI;
   const float* dtb = dt + (size_t)b * S * dI;
-  const float* bb = Bm + (size_t)b * S * N;
-  const float* cb = Cm + (size_t)b * S * N;
+  const T* bb = Bm + (size_t)b * S * N;
+  const T* cb = Cm + (size_t)b * S * N;
 
   auto load_tile = [&](int k, int buf) {
     const int t0 = k * TT;
-    if (vec) {
-      for (int e = tid; e < TT * C4; e += NT) {
-        const int r = e / C4, col = (e % C4) * 4;
-        const bool ok = t0 + r < S && d0 + col < dI;
-        const size_t off = ok ? (size_t)(t0 + r) * dI + d0 + col : 0;
-        cp_async16(&Us[buf][r][col], ub + off, ok);
-        cp_async16(&DTs[buf][r][col], dtb + off, ok);
+    if constexpr (!F32) {
+      // dt by cp.async; u, B and C widened through registers
+      if (vec) {
+        for (int e = tid; e < TT * C4; e += NT) {
+          const int r = e / C4, col = (e % C4) * 4;
+          const bool ok = t0 + r < S && d0 + col < dI;
+          cp_async16(&DTs[buf][r][col],
+                     dtb + (ok ? (size_t)(t0 + r) * dI + d0 + col : 0), ok);
+        }
+      } else {
+        for (int e = tid; e < TT * CH; e += NT) {
+          const int r = e / CH, col = e % CH;
+          const bool ok = t0 + r < S && d0 + col < dI;
+          cp_async4(&DTs[buf][r][col],
+                    dtb + (ok ? (size_t)(t0 + r) * dI + d0 + col : 0), ok);
+        }
       }
-    } else {
+      cp_async_commit();
       for (int e = tid; e < TT * CH; e += NT) {
         const int r = e / CH, col = e % CH;
         const bool ok = t0 + r < S && d0 + col < dI;
-        const size_t off = ok ? (size_t)(t0 + r) * dI + d0 + col : 0;
-        cp_async4(&Us[buf][r][col], ub + off, ok);
-        cp_async4(&DTs[buf][r][col], dtb + off, ok);
+        Us[buf][r][col] = ok ? widen(ub[(size_t)(t0 + r) * dI + d0 + col]) : 0.f;
       }
+      for (int e = tid; e < TT * N; e += NT) {
+        const int r = e / N, n = e % N;
+        const bool ok = t0 + r < S;
+        const size_t off = (size_t)(t0 + r) * N + n;
+        Bs[buf][r][n] = ok ? widen(bb[off]) : 0.f;
+        Cs[buf][r][n] = ok ? widen(cb[off]) : 0.f;
+      }
+    } else {
+      if (vec) {
+        for (int e = tid; e < TT * C4; e += NT) {
+          const int r = e / C4, col = (e % C4) * 4;
+          const bool ok = t0 + r < S && d0 + col < dI;
+          const size_t off = ok ? (size_t)(t0 + r) * dI + d0 + col : 0;
+          cp_async16(&Us[buf][r][col], ub + off, ok);
+          cp_async16(&DTs[buf][r][col], dtb + off, ok);
+        }
+      } else {
+        for (int e = tid; e < TT * CH; e += NT) {
+          const int r = e / CH, col = e % CH;
+          const bool ok = t0 + r < S && d0 + col < dI;
+          const size_t off = ok ? (size_t)(t0 + r) * dI + d0 + col : 0;
+          cp_async4(&Us[buf][r][col], ub + off, ok);
+          cp_async4(&DTs[buf][r][col], dtb + off, ok);
+        }
+      }
+      for (int e = tid; e < TT * N / 4; e += NT) {
+        const int r = e / (N / 4), n = (e % (N / 4)) * 4;
+        const bool ok = t0 + r < S;
+        const size_t off = ok ? (size_t)(t0 + r) * N + n : 0;
+        cp_async16(&Bs[buf][r][n], bb + off, ok);
+        cp_async16(&Cs[buf][r][n], cb + off, ok);
+      }
+      cp_async_commit();
     }
-    for (int e = tid; e < TT * N / 4; e += NT) {
-      const int r = e / (N / 4), n = (e % (N / 4)) * 4;
-      const bool ok = t0 + r < S;
-      const size_t off = ok ? (size_t)(t0 + r) * N + n : 0;
-      cp_async16(&Bs[buf][r][n], bb + off, ok);
-      cp_async16(&Cs[buf][r][n], cb + off, ok);
-    }
-    cp_async_commit();
   };
 
   const int ntiles = (S + TT - 1) / TT;
@@ -233,8 +279,21 @@ selective_scan_kernel(const float* __restrict__ u,
           for (int i = 0; i < L; i += 2 * o) p[i] += p[i + o];
         out[q] = p[0] + Us[buf][r][col + q] * Ds[col + q];
       }
-      float* yr = y + ((size_t)b * S + t0 + r) * dI + d0 + col;
-      if (vec) {
+      T* yr = y + ((size_t)b * S + t0 + r) * dI + d0 + col;
+      if constexpr (!F32) {
+        if (vec) {
+          const __nv_bfloat162 lo = __floats2bfloat162_rn(out[0], out[1]);
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(out[2], out[3]);
+          uint2 w;
+          w.x = *reinterpret_cast<const unsigned*>(&lo);
+          w.y = *reinterpret_cast<const unsigned*>(&hi);
+          *reinterpret_cast<uint2*>(yr) = w;
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (d0 + col + q < dI) yr[q] = __float2bfloat16_rn(out[q]);
+        }
+      } else if (vec) {
         *reinterpret_cast<float4*>(yr) =
             make_float4(out[0], out[1], out[2], out[3]);
       } else {
@@ -251,15 +310,15 @@ selective_scan_kernel(const float* __restrict__ u,
   }
 }
 
-template <int N>
-cudaError_t launch(const float* u, const float* dt, const float* A,
-                   const float* Bm, const float* Cm, const float* D,
-                   const float* h0, float* y, float* hout, int B, int S,
+template <int N, typename T>
+cudaError_t launch(const T* u, const float* dt, const float* A,
+                   const T* Bm, const T* Cm, const float* D,
+                   const float* h0, T* y, float* hout, int B, int S,
                    int dI, cudaStream_t stream) {
   constexpr int CH = Tile<N>::CH;
   const dim3 grid((dI + CH - 1) / CH, B);
-  selective_scan_kernel<N><<<grid, NT, 0, stream>>>(u, dt, A, Bm, Cm, D, h0,
-                                                     y, hout, S, dI);
+  selective_scan_kernel<N, T><<<grid, NT, 0, stream>>>(u, dt, A, Bm, Cm, D,
+                                                        h0, y, hout, S, dI);
   return cudaGetLastError();
 }
 
@@ -282,6 +341,30 @@ int selective_scan_f32(const float* u, const float* dt, const float* A,
       return (int)launch<8>(u, dt, A, Bm, Cm, D, h0, y, hout, B, S, dI, st);
     case 16:
       return (int)launch<16>(u, dt, A, Bm, Cm, D, h0, y, hout, B, S, dI, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 entry: u/y (B,S,dI) and Bm/Cm (B,S,N) bf16 (2 bytes each),
+// everything else as selective_scan_f32 (f32); u and y 8-byte aligned,
+// dt 16-byte aligned.
+int selective_scan_bf16(const void* u, const float* dt, const float* A,
+                        const void* Bm, const void* Cm, const float* D,
+                        const float* h0, void* y, float* hout, int B, int S,
+                        int dI, int N, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const bf16_t* ub = (const bf16_t*)u;
+  const bf16_t* bb = (const bf16_t*)Bm;
+  const bf16_t* cb = (const bf16_t*)Cm;
+  bf16_t* yb = (bf16_t*)y;
+  switch (N) {
+    case 4:
+      return (int)launch<4>(ub, dt, A, bb, cb, D, h0, yb, hout, B, S, dI, st);
+    case 8:
+      return (int)launch<8>(ub, dt, A, bb, cb, D, h0, yb, hout, B, S, dI, st);
+    case 16:
+      return (int)launch<16>(ub, dt, A, bb, cb, D, h0, yb, hout, B, S, dI, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -12,8 +12,15 @@ The reference's ``block_d`` (the TPU kernel's channel tile) has no
 counterpart: the CUDA kernel tiles channels by the state width itself and
 takes any d_inner.
 
-``selective_scan.launches`` counts kernel launches (one per launch, nowhere
-else), so a run can show that it went through the kernel.
+On the card u, Bm and Cm are all float32 (``selective_scan_f32``) or all
+bfloat16 (``selective_scan_bf16``: widened to f32 as they are loaded, y
+returned in bf16); dt, A, D and h0 are float32 and the final state is
+float32. Any other dtype or a mix raises ``TypeError``; a bf16 input is
+never widened to reach the f32 entry.
+
+``selective_scan.launches`` counts kernel launches of either entry (one
+per launch, nowhere else), so a run can show that it went through the
+kernel; ``launches_by_dtype`` splits the count by entry (u's dtype).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Optional
 import torch
 
 from ..build import check_launch, load_library
+from ..dtypes import ENTRY_DTYPES, check_dtypes
 from .ref import selective_scan_ref
 
 SOURCES = [Path(__file__).parent / "csrc" / "selective_scan.cu"]
@@ -40,6 +48,8 @@ def library() -> ctypes.CDLL:
     if not getattr(lib, "_repro_typed", False):
         lib.selective_scan_f32.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.selective_scan_f32.restype = _I
+        lib.selective_scan_bf16.argtypes = [_P] * 9 + [_I] * 4 + [_P]
+        lib.selective_scan_bf16.restype = _I
         lib._repro_typed = True
     return lib
 
@@ -77,20 +87,19 @@ def selective_scan(u, dt, A, Bm, Cm, D, *,
     """u/dt (B, S, dI); A (dI, N); Bm/Cm (B, S, N); D (dI,);
     h0 (B, dI, N) or None (zeros).
 
-    Returns (y (B, S, dI), h_final (B, dI, N)). On the card: f32,
-    contiguous, N one of ``KERNEL_N``; any S and dI.
+    Returns (y (B, S, dI) in u's dtype, h_final (B, dI, N) f32). On the
+    card: u, Bm, Cm all f32 or all bf16, the rest f32; contiguous; N one of
+    ``KERNEL_N``; any S and dI.
     """
     dev = _check(u, dt, A, Bm, Cm, D, h0)
     if dev.type == "cpu":
         return selective_scan_ref(u, dt, A, Bm, Cm, D, h0=h0)
-    args = {"u": u, "dt": dt, "A": A, "Bm": Bm, "Cm": Cm, "D": D}
+    stream = {"u": u, "Bm": Bm, "Cm": Cm}
+    f32 = {"dt": dt, "A": A, "D": D}
     if h0 is not None:
-        args["h0"] = h0
-    for name, t in args.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"selective_scan: {name} is {t.dtype}; the "
-                            f"kernel takes torch.float32 (bf16 is later "
-                            f"work)")
+        f32["h0"] = h0
+    check_dtypes("selective_scan", stream, f32)
+    for name, t in {**stream, **f32}.items():
         if not t.is_contiguous():
             raise ValueError(f"selective_scan: {name} is not contiguous")
     # the kernel copies u, dt, B and C in 16-byte pieces: a view that
@@ -107,21 +116,25 @@ def selective_scan(u, dt, A, Bm, Cm, D, *,
     h = torch.empty((B_, dI, N), dtype=torch.float32, device=dev)
     if B_ * dI == 0:
         return y, h
+    entry = lib.selective_scan_bf16 if u.dtype == torch.bfloat16 else \
+        lib.selective_scan_f32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.selective_scan_f32(
-            u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), D.data_ptr(),
-            None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
-            B_, S, dI, N, stream)
+        rc = entry(u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                   Cm.data_ptr(), D.data_ptr(),
+                   None if h0 is None else h0.data_ptr(), y.data_ptr(),
+                   h.data_ptr(), B_, S, dI, N, stream)
     check_launch(rc, "selective_scan")
     selective_scan.launches += 1
+    selective_scan.launches_by_dtype[u.dtype] += 1
     return y, h
 
 
 selective_scan.launches = 0
+selective_scan.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
 
 
 def reset_launches() -> None:
-    """Set the wrapper's launch count to 0."""
+    """Set the wrapper's launch counts to 0."""
     selective_scan.launches = 0
+    selective_scan.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)

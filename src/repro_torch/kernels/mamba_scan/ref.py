@@ -8,7 +8,8 @@ The same function as the reference's Pallas ``selective_scan``
     y_t = ⟨h_t, C_t⟩ + D ⊙ u_t
 
 walked sequentially over time at the (B, d_inner, d_state) level, all in
-f32. This is the CPU path of :func:`repro_torch.kernels.mamba_scan.
+f32; y is returned in u's dtype (bf16 for bf16 u, as the Pallas kernel
+returns it), the state in f32. This is the CPU path of :func:`repro_torch.kernels.mamba_scan.
 selective_scan` and the oracle of the CUDA kernel
 (``csrc/selective_scan.cu``) on the card.
 """
@@ -25,8 +26,10 @@ def selective_scan_ref(u, dt, A, Bm, Cm, D, *,
     """u/dt (B, S, dI); A (dI, N); Bm/Cm (B, S, N); D (dI,);
     h0 (B, dI, N) or None (zeros).
 
-    Returns (y (B, S, dI), h_final (B, dI, N)). All math in f32.
+    Returns (y (B, S, dI) in u's dtype, h_final (B, dI, N) f32). All math
+    in f32.
     """
+    out_dtype = u.dtype
     B_, S, dI = u.shape
     N = A.shape[1]
     f32 = torch.float32
@@ -40,4 +43,4 @@ def selective_scan_ref(u, dt, A, Bm, Cm, D, *,
         dA = torch.exp(dtt[:, :, None] * A[None])            # (B, dI, N)
         h = dA * h + (dtt * u[:, t])[:, :, None] * Bm[:, t, None, :]
         y[:, t] = (h * Cm[:, t, None, :]).sum(-1)
-    return y + u * D[None, None, :], h
+    return (y + u * D[None, None, :]).to(out_dtype), h

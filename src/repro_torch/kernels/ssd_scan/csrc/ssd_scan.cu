@@ -57,7 +57,19 @@
 // 8 warps an SM with little room between dependent instructions; not the
 // bytes, the tensor cores or the causal imbalance between warps. Two CTAs
 // an SM beat one (one wave of the 256 CTAs, not two).
+//
+// bf16 entry (ssd_scan_bf16): u, B, C and y in bf16; dt, A, D, h0 and the
+// final state in f32. The kernel is the same template: u and B are read
+// from global memory in 16-byte pieces (8 values) and widened into the
+// same f32 shared-memory tiles (plain loads, not cp.async: the widening
+// sits between), C's fragments are widened as they are loaded, and y is
+// rounded to bf16 once as it is stored. From the tiles on it computes in
+// f32 exactly as the f32 entry does (the TPU kernel upcasts everything),
+// so only the inputs' rounding and y's differ. A bf16 value is exact in
+// TF32, so the split's small part of u, B and C is zero; the products are
+// kept as they are.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -153,13 +165,44 @@ __device__ __forceinline__ void a_fragment(float x0, float x1, float x2, float x
   split(x3, fb[3], fs[3]);
 }
 
-template <int N, int HP>
+// the element type of u, B, C and y: float, or bf16 read as 16-bit words
+using bf16_t = __nv_bfloat16;
+
+// two neighbouring values of a row as f32
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16_t* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16_t* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// 8 bf16 from global memory (16 bytes; zeros if !valid) widened into 8
+// f32 in shared memory
+__device__ __forceinline__ void widen8(float* dst, const bf16_t* src, bool valid) {
+  uint4 x = make_uint4(0u, 0u, 0u, 0u);
+  if (valid) x = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
+}
+
+template <int N, int HP, typename T>
 __global__ void __launch_bounds__(NT, 2)
-ssd_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
-                const float* __restrict__ A, const float* __restrict__ Bm,
-                const float* __restrict__ Cm, const float* __restrict__ D,
-                const float* __restrict__ h0, float* __restrict__ y,
+ssd_scan_kernel(const T* __restrict__ u, const float* __restrict__ dt,
+                const float* __restrict__ A, const T* __restrict__ Bm,
+                const T* __restrict__ Cm, const float* __restrict__ D,
+                const float* __restrict__ h0, T* __restrict__ y,
                 float* __restrict__ hout, int S, int H) {
+  constexpr bool F32 = sizeof(T) == sizeof(float);
   using CF = Cfg<N, HP>;
   constexpr int US = CF::US, BS = CF::BS, PB = CF::PB, PBW = CF::PBW;
   constexpr int TPW = CF::TPW;
@@ -180,10 +223,10 @@ ssd_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
   const float a2 = A[hh] * kLog2e, dd = D[hh];
 
   const size_t row = (size_t)H * HP;   // stride of one step in u and y
-  const float* ub = u + (size_t)b * S * row + (size_t)hh * HP;
-  float* yb = y + (size_t)b * S * row + (size_t)hh * HP;
-  const float* bb = Bm + (size_t)b * S * N;
-  const float* cb = Cm + (size_t)b * S * N;
+  const T* ub = u + (size_t)b * S * row + (size_t)hh * HP;
+  T* yb = y + (size_t)b * S * row + (size_t)hh * HP;
+  const T* bb = Bm + (size_t)b * S * N;
+  const T* cb = Cm + (size_t)b * S * N;
   const float* db = dt + (size_t)b * S * H + hh;
 
   // the state: this warp's tiles, rows 16 nb + (g, g + 8), columns
@@ -221,15 +264,28 @@ ssd_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
     const int c0 = ck * QC;
     float* Us = sm + CF::u_off + buf * QC * US;
     float* Bs = sm + CF::b_off + buf * QC * BS;
-    for (int i = tid; i < QC * HP / 4; i += NT) {
-      const int t = i / (HP / 4), p = (i % (HP / 4)) * 4;
-      const bool in = c0 + t < S;
-      cp_async16(Us + t * US + p, ub + (in ? (size_t)(c0 + t) * row + p : 0), in);
-    }
-    for (int i = tid; i < QC * N / 4; i += NT) {
-      const int t = i / (N / 4), n = (i % (N / 4)) * 4;
-      const bool in = c0 + t < S;
-      cp_async16(Bs + t * BS + n, bb + (in ? (size_t)(c0 + t) * N + n : 0), in);
+    if constexpr (F32) {
+      for (int i = tid; i < QC * HP / 4; i += NT) {
+        const int t = i / (HP / 4), p = (i % (HP / 4)) * 4;
+        const bool in = c0 + t < S;
+        cp_async16(Us + t * US + p, ub + (in ? (size_t)(c0 + t) * row + p : 0), in);
+      }
+      for (int i = tid; i < QC * N / 4; i += NT) {
+        const int t = i / (N / 4), n = (i % (N / 4)) * 4;
+        const bool in = c0 + t < S;
+        cp_async16(Bs + t * BS + n, bb + (in ? (size_t)(c0 + t) * N + n : 0), in);
+      }
+    } else {
+      for (int i = tid; i < QC * HP / 8; i += NT) {
+        const int t = i / (HP / 8), p = (i % (HP / 8)) * 8;
+        const bool in = c0 + t < S;
+        widen8(Us + t * US + p, ub + (in ? (size_t)(c0 + t) * row + p : 0), in);
+      }
+      for (int i = tid; i < QC * N / 8; i += NT) {
+        const int t = i / (N / 8), n = (i % (N / 8)) * 8;
+        const bool in = c0 + t < S;
+        widen8(Bs + t * BS + n, bb + (in ? (size_t)(c0 + t) * N + n : 0), in);
+      }
     }
     for (int t = tid; t < QC; t += NT) {
       const bool in = c0 + t < S;
@@ -244,8 +300,8 @@ ssd_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
 #pragma unroll
     for (int kk = 0; kk < KN; ++kk) {
       float2 x0 = make_float2(0.f, 0.f), x1 = x0;
-      if (r0 < S) x0 = *reinterpret_cast<const float2*>(cb + (size_t)r0 * N + 8 * kk + 2 * t4);
-      if (r1 < S) x1 = *reinterpret_cast<const float2*>(cb + (size_t)r1 * N + 8 * kk + 2 * t4);
+      if (r0 < S) x0 = load2(cb + (size_t)r0 * N + 8 * kk + 2 * t4);
+      if (r1 < S) x1 = load2(cb + (size_t)r1 * N + 8 * kk + 2 * t4);
       cf[kk][0] = x0.x;
       cf[kk][1] = x1.x;
       cf[kk][2] = x0.y;
@@ -364,14 +420,13 @@ ssd_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
     for (int r = 0; r < 2; ++r) {
       const int t = tr + 8 * r;
       if (c0 + t < S) {
-        float* yrow = yb + (size_t)(c0 + t) * row + 8 * pw + 2 * t4;
+        T* yrow = yb + (size_t)(c0 + t) * row + 8 * pw + 2 * t4;
         const float* urow = Uc + t * US + 8 * pw + 2 * t4;
 #pragma unroll
         for (int d = 0; d < PBW; ++d) {
           const float2 uv = *reinterpret_cast<const float2*>(urow + 8 * d);
-          *reinterpret_cast<float2*>(yrow + 8 * d) =
-              make_float2(yacc[d][2 * r] + uv.x * dd,
-                          yacc[d][2 * r + 1] + uv.y * dd);
+          store2(yrow + 8 * d, yacc[d][2 * r] + uv.x * dd,
+                 yacc[d][2 * r + 1] + uv.y * dd);
         }
       }
     }
@@ -416,17 +471,17 @@ ssd_scan_kernel(const float* __restrict__ u, const float* __restrict__ dt,
   }
 }
 
-template <int N, int HP>
-cudaError_t launch(const float* u, const float* dt, const float* A,
-                   const float* Bm, const float* Cm, const float* D,
-                   const float* h0, float* y, float* hout, int B, int S,
+template <int N, int HP, typename T>
+cudaError_t launch(const T* u, const float* dt, const float* A,
+                   const T* Bm, const T* Cm, const float* D,
+                   const float* h0, T* y, float* hout, int B, int S,
                    int H, cudaStream_t stream) {
   const size_t smem = Cfg<N, HP>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
-      ssd_scan_kernel<N, HP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_kernel<N, HP, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  ssd_scan_kernel<N, HP><<<dim3(H, B), NT, smem, stream>>>(
+  ssd_scan_kernel<N, HP, T><<<dim3(H, B), NT, smem, stream>>>(
       u, dt, A, Bm, Cm, D, h0, y, hout, S, H);
   return cudaGetLastError();
 }
@@ -461,6 +516,26 @@ int ssd_scan_f32(const float* u, const float* dt, const float* A,
 #define SSD_RUN(n, p)                                                     \
   if (N == n && HP == p)                                                  \
     return (int)launch<n, p>(u, dt, A, Bm, Cm, D, h0, y, hout, B, S, H, st);
+  SSD_CASES(SSD_RUN)
+#undef SSD_RUN
+  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 entry: u (B,S,H,HP), Bm/Cm (B,S,N) and y (B,S,H,HP) bf16 (2
+// bytes each), everything else as ssd_scan_f32 (f32); u, Bm, Cm and y
+// 16-byte aligned.
+int ssd_scan_bf16(const void* u, const float* dt, const float* A,
+                  const void* Bm, const void* Cm, const float* D,
+                  const float* h0, void* y, float* hout, int B, int S, int H,
+                  int N, int HP, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const bf16_t* ub = (const bf16_t*)u;
+  const bf16_t* bb = (const bf16_t*)Bm;
+  const bf16_t* cb = (const bf16_t*)Cm;
+  bf16_t* yb = (bf16_t*)y;
+#define SSD_RUN(n, p)                                                     \
+  if (N == n && HP == p)                                                  \
+    return (int)launch<n, p>(ub, dt, A, bb, cb, D, h0, yb, hout, B, S, H, st);
   SSD_CASES(SSD_RUN)
 #undef SSD_RUN
   return (int)cudaErrorInvalidValue;

@@ -14,8 +14,15 @@ tensors only; by default the plain version takes the kernel's own,
 CTAs to an SM, whatever ``chunk`` is: the result is chunk-invariant up to
 rounding.
 
-``ssd_scan.launches`` counts kernel launches (one per launch, nowhere
-else), so a run can show that it went through the kernel.
+On the card u, Bm and Cm are all float32 (``ssd_scan_f32``) or all
+bfloat16 (``ssd_scan_bf16``: widened to f32 as they are loaded, y returned
+in bf16); dt, A, D and h0 are float32 and the final state is float32. Any
+other dtype or a mix raises ``TypeError``; a bf16 input is never widened
+to reach the f32 entry.
+
+``ssd_scan.launches`` counts kernel launches of either entry (one per
+launch, nowhere else), so a run can show that it went through the kernel;
+``launches_by_dtype`` splits the count by entry (u's dtype).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import Optional
 import torch
 
 from ..build import check_launch, load_library
+from ..dtypes import ENTRY_DTYPES, check_dtypes
 from .ref import ssd_scan_ref
 
 SOURCES = [Path(__file__).parent / "csrc" / "ssd_scan.cu"]
@@ -42,6 +50,8 @@ def library() -> ctypes.CDLL:
     if not getattr(lib, "_repro_typed", False):
         lib.ssd_scan_f32.argtypes = [_P] * 9 + [_I] * 5 + [_P]
         lib.ssd_scan_f32.restype = _I
+        lib.ssd_scan_bf16.argtypes = [_P] * 9 + [_I] * 5 + [_P]
+        lib.ssd_scan_bf16.restype = _I
         lib.ssd_scan_supported.argtypes = [_I, _I]
         lib.ssd_scan_supported.restype = _I
         lib.ssd_scan_chunk.argtypes = []
@@ -82,20 +92,20 @@ def ssd_scan(u, dt, A, Bm, Cm, D, *, chunk: Optional[int] = None,
     h0 (B, H, N, hp) or None (zeros); chunk: the plain version's chunk
     length (CPU only; None: ``KERNEL_CHUNK``, which the card always uses).
 
-    Returns (y (B, S, H, hp), h_final (B, H, N, hp)). On the card: f32,
-    contiguous, N and hp each 16, 32 or 64; any S.
+    Returns (y (B, S, H, hp) in u's dtype, h_final (B, H, N, hp) f32). On
+    the card: u, Bm, Cm all f32 or all bf16, the rest f32; contiguous; N
+    and hp each 16, 32 or 64; any S.
     """
     dev = _check(u, dt, A, Bm, Cm, D, h0)
     if dev.type == "cpu":
         return ssd_scan_ref(u, dt, A, Bm, Cm, D,
                             chunk=chunk or KERNEL_CHUNK, h0=h0)
-    args = {"u": u, "dt": dt, "A": A, "Bm": Bm, "Cm": Cm, "D": D}
+    stream = {"u": u, "Bm": Bm, "Cm": Cm}
+    f32 = {"dt": dt, "A": A, "D": D}
     if h0 is not None:
-        args["h0"] = h0
-    for name, t in args.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"ssd_scan: {name} is {t.dtype}; the kernel "
-                            f"takes torch.float32 (bf16 is later work)")
+        f32["h0"] = h0
+    check_dtypes("ssd_scan", stream, f32)
+    for name, t in {**stream, **f32}.items():
         if not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} is not contiguous")
     # the kernel copies u, B and C in 16-byte pieces: a view that starts
@@ -112,21 +122,25 @@ def ssd_scan(u, dt, A, Bm, Cm, D, *, chunk: Optional[int] = None,
     h = torch.empty((B_, H, N, hp), dtype=torch.float32, device=dev)
     if B_ * H == 0:
         return y, h
+    entry = lib.ssd_scan_bf16 if u.dtype == torch.bfloat16 else \
+        lib.ssd_scan_f32
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ssd_scan_f32(
-            u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-            Cm.data_ptr(), D.data_ptr(),
-            None if h0 is None else h0.data_ptr(), y.data_ptr(), h.data_ptr(),
-            B_, S, H, N, hp, stream)
+        rc = entry(u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                   Cm.data_ptr(), D.data_ptr(),
+                   None if h0 is None else h0.data_ptr(), y.data_ptr(),
+                   h.data_ptr(), B_, S, H, N, hp, stream)
     check_launch(rc, "ssd_scan")
     ssd_scan.launches += 1
+    ssd_scan.launches_by_dtype[u.dtype] += 1
     return y, h
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
 
 
 def reset_launches() -> None:
-    """Set the wrapper's launch count to 0."""
+    """Set the wrapper's launch counts to 0."""
     ssd_scan.launches = 0
+    ssd_scan.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)

@@ -11,7 +11,9 @@ computed in the chunked matmul form that the reference model's SSD core
 uses (``repro/models/mamba.py:273-336``): within a chunk of Q steps the
 (Q×Q) decay-masked products, across chunks a short recurrence of the
 (N, hp) state. S is padded with zeros up to a multiple of Q; zero Δ makes
-the padded steps inert, so the final state is unchanged. f32 math.
+the padded steps inert, so the final state is unchanged. f32 math; y is
+returned in u's dtype (bf16 for bf16 u, as the Pallas kernel returns it),
+the state in f32.
 
 This is the CPU path of :func:`repro_torch.kernels.ssd_scan.ssd_scan` and the
 oracle of the CUDA kernel (``csrc/ssd_scan.cu``) on the card.
@@ -30,8 +32,9 @@ def ssd_scan_ref(u, dt, A, Bm, Cm, D, *, chunk: int = 64,
     """u (B, S, H, hp); dt (B, S, H); A/D (H,); Bm/Cm (B, S, N);
     h0 (B, H, N, hp) or None (zeros).
 
-    Returns (y (B, S, H, hp), h_final (B, H, N, hp)), both f32.
+    Returns (y (B, S, H, hp) in u's dtype, h_final (B, H, N, hp) f32).
     """
+    out_dtype = u.dtype
     B_, S, H, hp = u.shape
     N = Bm.shape[-1]
     f32 = torch.float32
@@ -83,4 +86,4 @@ def ssd_scan_ref(u, dt, A, Bm, Cm, D, *, chunk: int = 64,
     y_inter = torch.einsum("btqn,btqh,bthnp->btqhp", cc, torch.exp(Lc), h_in)
     y = (y_intra + y_inter).reshape(B_, T * Q, H, hp)[:, :S]
     y = y + u * D[None, None, :, None]
-    return y, h
+    return y.to(out_dtype), h

@@ -7,9 +7,12 @@ counterpart of ``python -m repro.launch.serve``).
 ``--arch`` is any of ``repro_torch.configs.ARCH_NAMES``: zamba2-1.2b,
 falcon-mamba-7b, granite-8b, gemma-7b, gemma3-27b, qwen1.5-32b.
 
-Runs in float32 on one device, as the reference does on one device
-(``repro/launch/serve.py:34-35``), with weights and prompts drawn from
-``--seed``. The device is the card unless ``--device cpu`` is given.
+``--dtype float32`` (the default) runs in float32, the reference's rule
+on one device (``repro/launch/serve.py:34-35``); ``--dtype bfloat16`` keeps
+the configuration's own dtype, bf16, the one the reference serves in on
+more than one device (weights, activations and KV caches in bf16 through
+the kernels' bf16 entries). Weights and prompts are drawn from ``--seed``.
+The device is the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -30,6 +33,10 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32",
+                    help="float32 (default; the reference on one device) or "
+                         "bfloat16 (the configuration's own dtype)")
     args = ap.parse_args(argv)
 
     import torch
@@ -40,8 +47,9 @@ def main(argv=None) -> None:
     from ..serve.serve_step import greedy_decode, prefill
 
     dev = resolve_device(args.device)
-    cfg = dataclasses.replace(get_config(args.arch, reduced=args.reduced),
-                              dtype=torch.float32)
+    cfg = get_config(args.arch, reduced=args.reduced)
+    if args.dtype == "float32":
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = init_params(cfg, gen)
 
@@ -56,7 +64,7 @@ def main(argv=None) -> None:
         synchronize(dev)
         t_prefill = time.perf_counter() - t0
         print(f"prefill: {B}×{S0} tokens in {t_prefill*1e3:.0f} ms "
-              f"({B*S0/t_prefill:.0f} tok/s) on {dev}")
+              f"({B*S0/t_prefill:.0f} tok/s) on {dev}, {cfg.dtype}")
 
         t0 = time.perf_counter()
         tokens = greedy_decode(params, cfg, logits, caches, S0, N,

@@ -12,7 +12,15 @@ tensors (the port's caches, say) into the same nest of numpy arrays;
 ``caches_from_numpy`` takes the reference's per-layer decode caches
 (``make_caches(..., stacked=False)`` or a decode step's, full or rolling)
 as numpy leaves into the port's; ``tree_map`` and ``leaves`` walk such a
-nest. Nothing here imports JAX.
+nest. Nothing here imports JAX, nor ``ml_dtypes``.
+
+bf16 leaves cross bit for bit both ways. In: a numpy array whose dtype is
+named ``bfloat16`` (the reference's default dtype, an ``ml_dtypes`` type)
+is read as its uint16 bit patterns and viewed as ``torch.bfloat16``. Out:
+a ``torch.bfloat16`` tensor comes back as a **numpy uint16 array of its
+bit patterns** (numpy has no bf16 of its own): compare it exactly with
+``ref.view(np.uint16)``, or view it as ``ml_dtypes.bfloat16`` on the
+caller's side to get the reference's array back.
 """
 
 from __future__ import annotations
@@ -28,6 +36,10 @@ from .model import ATTN_KINDS, plan_segments
 
 
 def _tensor(a, device):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":        # bit patterns, no ml_dtypes
+        bits = np.array(a.view(np.uint16), copy=True)
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
@@ -117,9 +129,13 @@ def leaves(t):
 
 
 def to_numpy(t: Any):
-    """A nest of tensors (and ints) → the same nest of numpy arrays."""
+    """A nest of tensors (and ints) → the same nest of numpy arrays; a bf16
+    tensor → its uint16 bit patterns (see the module's docstring)."""
     def leaf(a):
         if isinstance(a, torch.Tensor):
-            return a.detach().cpu().numpy()
+            a = a.detach().cpu()
+            if a.dtype == torch.bfloat16:
+                return a.view(torch.int16).numpy().view(np.uint16)
+            return a.numpy()
         return np.asarray(a)
     return tree_map(leaf, t)

@@ -223,10 +223,18 @@ def mamba2_forward(p: Params, x, *, d_state: int = 64, headdim: int = 64,
                    ) -> Tuple[torch.Tensor, Optional[Mamba2State]]:
     """Full-sequence Mamba-2 with the SSD core in ``ssd_scan``.
     x (B, S, d) → (B, S, d). ``chunk`` is the SSD chunk of the plain
-    version (CPU); the card's kernel computes in its own."""
-    if bf16_einsum:
-        raise NotImplementedError("bf16 SSD operands are not ported yet: "
-                                  "ROADMAP queue 2 item 5")
+    version (CPU); the card's kernel computes in its own.
+
+    ``bf16_einsum`` (the reference's ``ssm_bf16`` path) takes the
+    reference's stream dtype ``sd = x.dtype`` for u, B and C, which reach
+    the scan in it (a bf16 model: the scan's bf16 entry, y back in bf16);
+    dt, A and D stay f32, as the reference keeps them. The scan computes in
+    f32 where the reference's einsums round their operands (decays, M, the
+    chunk states) to bf16 (``repro/models/mamba.py:294-333``), so this path
+    is held to the reference within the bf16 tolerance, not bit for bit; in
+    an f32 model it does no rounding at all, where the reference rounds
+    those operands all the same.
+    """
     B_, S, d = x.shape
     conv_dim = p["conv_w"].shape[1]
     dI = p["out_proj"].shape[0]
@@ -236,9 +244,10 @@ def mamba2_forward(p: Params, x, *, d_state: int = 64, headdim: int = 64,
     conv_state = state.conv if state is not None else None
     ubc, new_conv = _causal_conv(p, ubc, conv_state)
     f32 = torch.float32
-    u = ubc[..., :dI].to(f32).reshape(B_, S, H, headdim)
-    Bm = ubc[..., dI:dI + d_state].to(f32)                   # (B,S,N)
-    Cm = ubc[..., dI + d_state:].to(f32)
+    sd = x.dtype if bf16_einsum else f32        # the reference's stream dtype
+    u = ubc[..., :dI].to(sd).reshape(B_, S, H, headdim)
+    Bm = ubc[..., dI:dI + d_state].to(sd)                    # (B,S,N)
+    Cm = ubc[..., dI + d_state:].to(sd)
     dt = F.softplus(dt_raw.to(f32) + p["dt_bias"])           # (B,S,H)
     A = -torch.exp(p["A_log"])                               # (H,)
     h0 = state.ssm.transpose(-1, -2) if state is not None else None

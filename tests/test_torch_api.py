@@ -167,7 +167,8 @@ for m in ("repro_torch.distributed.transport", "repro_torch.sph.collectives",
     assert m in sys.modules, m
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"
-             or k == "repro" or k.startswith("repro."))
+             or k == "repro" or k.startswith("repro.")
+             or k == "ml_dtypes" or k.startswith("ml_dtypes."))
 print("BAD", bad)
 sys.exit(1 if bad else 0)
 """

@@ -15,6 +15,13 @@ different orders), at the model's widths, with ragged lengths, GQA,
 windows and (attention) a soft-cap, and give bitwise-equal results when
 run twice (no atomics). The dense models' prefill shapes (granite-8b,
 gemma-7b at hd 256, gemma3-27b's local layers) run at full size.
+
+The bf16 entries are held to their plain versions on the same bf16 inputs,
+each output within one bf16 rounding of the plain one (2^-7 of the value)
+plus a share of the scale: 2e-3 for attention (the kernel rounds P to bf16
+against the running maximum of its 64- or 32-key tiles, the plain version
+against the row's), 2e-4 for the scans (f32 arithmetic from the same bf16
+inputs, y rounded once); the scans' f32 states within 2e-4.
 """
 
 import numpy as np
@@ -32,6 +39,8 @@ from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=2e-4, atol=2e-4)
+BF16_REL = 2.0 ** -7       # one bf16 rounding step, relative to the value
+FLASH_BF16_RTOL = 2e-3     # of the scale, beyond one rounding
 
 
 def ssd_inputs(B, S, H, hp, N, seed=0):
@@ -65,6 +74,15 @@ def qkv_inputs(B, S, T, H, K, hd, seed=0):
 
 def tt(arrays, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def within_bf16_rounding(got, want, rtol):
+    """|got − want| ≤ 2^-7 |want| + rtol · max |want|, elementwise: two f32
+    values within rtol of the scale, each rounded to bf16 once."""
+    got, want = got.float().cpu(), want.float().cpu()
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float(((got - want).abs() - BF16_REL * want.abs()).max())
+    assert err <= rtol * scale, (err, scale)
 
 
 @pytest.fixture
@@ -208,8 +226,12 @@ def test_cuda_dense_prefill_goes_through_the_kernel(cuda_device, arch,
 @pytest.mark.cuda
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     q, k, v = tt(qkv_inputs(1, 64, 64, 2, 2, 64), cuda_device)
+    with pytest.raises(TypeError):           # fp16: neither entry takes it
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError):           # a mix: no conversion either way
+        flash_attention(q.bfloat16(), k, v)
     with pytest.raises(TypeError):
-        flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+        flash_attention(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     qw, kw, vw = tt(qkv_inputs(1, 64, 64, 2, 2, 48), cuda_device)
@@ -247,8 +269,20 @@ def test_cuda_scan_kernel_matches_plain(cuda_device, B, S, dI, N, with_h0):
 def test_cuda_scan_wrapper_raises_on_what_the_kernel_does_not_take(
         cuda_device):
     args = tt(scan_inputs(1, 64, 32, 16), cuda_device)
-    with pytest.raises(TypeError, match="float32"):
-        selective_scan(*(a.bfloat16() for a in args))
+    u, dt, A, Bm, Cm, D = args
+    for bad in ((u.half(), dt, A, Bm.half(), Cm.half(), D),   # fp16
+                (u.bfloat16(), dt, A, Bm, Cm, D),             # a mix
+                (u.bfloat16(), dt.bfloat16(), A, Bm.bfloat16(),
+                 Cm.bfloat16(), D)):                          # dt not f32
+        with pytest.raises(TypeError):
+            selective_scan(*bad)
+    u, dt, A, Bm, Cm, D = tt(ssd_inputs(1, 16, 2, 16, 16), cuda_device)
+    for bad in ((u.half(), dt, A, Bm.half(), Cm.half(), D),
+                (u.bfloat16(), dt, A, Bm, Cm.bfloat16(), D),
+                (u.bfloat16(), dt, A.bfloat16(), Bm.bfloat16(),
+                 Cm.bfloat16(), D)):
+        with pytest.raises(TypeError):
+            ssd_scan(*bad)
     with pytest.raises(ValueError, match="contiguous"):
         u_t = args[0].transpose(1, 2).contiguous().transpose(1, 2)
         selective_scan(u_t, *args[1:])
@@ -325,3 +359,124 @@ def test_cuda_scans_take_views_off_a_16_byte_boundary(cuda_device):
     got = ssd_scan(*[unaligned(a) if i in (0, 3, 4) else a
                      for i, a in enumerate(args)])
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# ------------------------------------------------------------------ bf16
+def bf16(ts):
+    return [t.bfloat16() for t in ts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("B,S,T,H,K,causal,window,softcap", [
+    (2, 130, 130, 4, 2, True, None, None),     # ragged, GQA 2:1
+    (1, 100, 261, 6, 3, True, 50, None),       # T > S, window, GQA
+    (2, 150, 90, 2, 2, True, None, None),      # S > T: rows with no live key
+    (1, 65, 129, 2, 1, False, None, None),     # MQA, no mask, ragged tiles
+    (1, 1, 77, 4, 4, True, None, None),        # one query row
+    (1, 200, 200, 4, 4, True, 70, 30.0),       # window and soft-cap
+])
+def test_cuda_flash_bf16_kernel_matches_plain(cuda_device, hd, B, S, T, H, K,
+                                              causal, window, softcap):
+    """The bf16 entry against the plain version on the same bf16 inputs,
+    run twice bitwise, at every head width and mask; bf16 out."""
+    q, k, v = bf16(tt(qkv_inputs(B, S, T, H, K, hd, seed=hd + S + T),
+                      cuda_device))
+    n0 = dict(FK.flash_attention.launches_by_dtype)
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          softcap=softcap)
+    again = flash_attention(q, k, v, causal=causal, window=window,
+                            softcap=softcap)
+    torch.cuda.synchronize()
+    assert FK.flash_attention.launches_by_dtype[torch.bfloat16] == \
+        n0[torch.bfloat16] + 2
+    assert FK.flash_attention.launches_by_dtype[torch.float32] == \
+        n0[torch.float32]
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+    assert want.dtype == torch.bfloat16
+    within_bf16_rounding(got, want, FLASH_BF16_RTOL)
+    if causal and S > T:                     # the first S - T rows see no key
+        assert not bool(got[:, :S - T].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,hd,window", [
+    (4, 2048, 32, 8, 128, None),             # granite-8b's prefill
+    (4, 2048, 16, 16, 256, None),            # gemma-7b's, hd 256
+    (4, 2048, 32, 16, 128, 1024),            # gemma3-27b's local layers
+    (1, 2048, 40, 40, 128, None),            # qwen1.5-32b's, B = 1
+])
+def test_cuda_flash_bf16_kernel_at_the_dense_models_shapes(cuda_device, B, S,
+                                                           H, K, hd, window):
+    q, k, v = bf16(tt(qkv_inputs(B, S, S, H, K, hd, seed=hd + S),
+                      cuda_device))
+    got = flash_attention(q, k, v, window=window)
+    assert torch.equal(got, flash_attention(q, k, v, window=window))
+    want = flash_attention_ref(q, k, v, window=window)
+    within_bf16_rounding(got, want, FLASH_BF16_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,hp", [(16, 16), (32, 64), (64, 32), (64, 64)])
+@pytest.mark.parametrize("S", [1, 130])
+def test_cuda_ssd_bf16_kernel_matches_plain(cuda_device, N, hp, S):
+    """The SSD scan's bf16 entry (u, B, C bf16; dt, A, D, h0 f32) against
+    the plain version on the same inputs, run twice bitwise: y bf16, h f32."""
+    u, dt, A, Bm, Cm, D = tt(ssd_inputs(2, S, 3, hp, N, seed=N + hp + S),
+                             cuda_device)
+    args = [u.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16(), D]
+    h0 = torch.randn(2, 3, N, hp, device=cuda_device)
+    n0 = dict(SK.ssd_scan.launches_by_dtype)
+    y, h = ssd_scan(*args, h0=h0)
+    y2, h2 = ssd_scan(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert SK.ssd_scan.launches_by_dtype[torch.bfloat16] == \
+        n0[torch.bfloat16] + 2
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    y_p, h_p = ssd_scan_ref(*args, h0=h0)
+    within_bf16_rounding(y, y_p, TOL["rtol"])
+    np.testing.assert_allclose(h.cpu().numpy(), h_p.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("B,S,dI,with_h0", [
+    (2, 1, 24, True),          # one step
+    (1, 37, 13, True),         # dI % 4 != 0: per-element stores
+    (2, 300, 128, False),      # 8-byte stores of four channels
+    (4, 64, 1000, True),
+])
+def test_cuda_scan_bf16_kernel_matches_plain(cuda_device, N, B, S, dI,
+                                             with_h0):
+    """The selective scan's bf16 entry against the plain version on the
+    same inputs, run twice bitwise: y bf16, h f32."""
+    u, dt, A, Bm, Cm, D = tt(scan_inputs(B, S, dI, N, seed=S + dI + N),
+                             cuda_device)
+    args = [u.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16(), D]
+    h0 = torch.randn(B, dI, N, device=cuda_device) if with_h0 else None
+    n0 = dict(MK.selective_scan.launches_by_dtype)
+    y, h = selective_scan(*args, h0=h0)
+    y2, h2 = selective_scan(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert MK.selective_scan.launches_by_dtype[torch.bfloat16] == \
+        n0[torch.bfloat16] + 2
+    assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    y_p, h_p = selective_scan_ref(*args, h0=h0)
+    within_bf16_rounding(y, y_p, TOL["rtol"])
+    np.testing.assert_allclose(h.cpu().numpy(), h_p.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_device_pins_f32_accumulation_of_bf16_products(cuda_device):
+    """resolve_device pins cuBLAS's bf16 products to f32 reductions (XLA's
+    bf16 dot accumulates in f32) beside TF32 off."""
+    from repro_torch.device import resolve_device
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    resolve_device("cuda")
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32

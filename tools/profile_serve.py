@@ -1,19 +1,23 @@
 """Where a serve path spends the card's time.
 
-    python3 tools/profile_serve.py [--arch zamba2-1.2b] [batch=4]
-        [prompt_len=2048] [steps=8]
+    python3 tools/profile_serve.py [--arch zamba2-1.2b] [--dtype float32]
+        [--ssm-bf16] [batch] [prompt_len=2048] [steps=8]
 
 Builds ``chip_smoke.py``'s serve configuration of ``--arch`` (zamba2-1.2b,
-falcon-mamba-7b, granite-8b, gemma-7b at full width, gemma3-27b at full
-width cut to ``chip_smoke.GEMMA3_LAYERS`` layers; f32, random weights from
-a seeded generator) on the CUDA device, warms up
+falcon-mamba-7b, granite-8b, gemma-7b, qwen1.5-32b at full width; random
+weights from a seeded generator) on the CUDA device in ``--dtype``: f32
+(gemma3-27b cut to ``chip_smoke.GEMMA3_LAYERS`` layers; qwen1.5-32b does
+not fit) or bf16, the configuration's own (gemma3-27b at all 62 layers,
+qwen1.5-32b at batch 1 unless a batch is given; ``--ssm-bf16`` sets the
+Mamba-2 ``ssm_bf16`` path). It warms up
 with one prefill, then profiles the first decode step (the first use of
 the decode shapes), one prefill and ``steps`` decode steps under
 ``torch.profiler`` (CUDA activity only), each window on its own. Prints
 one JSON line per window: its wall seconds, the device time summed over
 every device-side event (kernels, copies, fills), the device's idle share
-(1 − device time / wall), the time of each of the port's LM kernels, the
-matrix products' (every entry whose name holds ``gemm``) and their shares
+(1 − device time / wall), the time of each of the port's LM kernels (both
+entries of each), the matrix products' (every entry whose name holds
+``gemm``, ``gemv`` or ``nvjet``, cuBLAS's Hopper kernels) and their shares
 of the device time, and the ten largest device-time entries. If the profiler
 reports no device time, says so instead. Stops without a CUDA device.
 """
@@ -33,7 +37,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
-from chip_smoke import GEMMA3_LAYERS, LM_ARCH, LM_SEED  # noqa: E402
+from chip_smoke import BF16_SERVE, GEMMA3_LAYERS, LM_ARCH, LM_SEED  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.serve.serve_step import (  # noqa: E402
@@ -41,6 +45,7 @@ from repro_torch.serve.serve_step import (  # noqa: E402
 
 KERNELS = {"ssd_scan": "ssd_scan_kernel", "flash_attention": "flash_kernel",
            "selective_scan": "selective_scan_kernel"}
+GEMM_TAGS = ("gemm", "gemv", "nvjet")
 
 
 def device_us(evt) -> float:
@@ -56,7 +61,8 @@ def report(window: str, prof, wall: float, extra: dict) -> None:
     busy = sum(r[1] for r in rows) / 1e6
     kern = {name: sum(us for k, us, _ in rows if tag in k) / 1e3
             for name, tag in KERNELS.items()}
-    gemm = sum(us for k, us, _ in rows if "gemm" in k.lower()) / 1e3
+    gemm = sum(us for k, us, _ in rows
+               if any(t in k.lower() for t in GEMM_TAGS)) / 1e3
     top = sorted(rows, key=lambda r: -r[1])[:10]
     print(json.dumps({
         "window": window, **extra, "wall_s": wall,
@@ -71,23 +77,29 @@ def report(window: str, prof, wall: float, extra: dict) -> None:
                        for k, us, n in top]}), flush=True)
 
 
-def main(arch: str = LM_ARCH, batch: int = 4, prompt_len: int = 2048,
-         steps: int = 8) -> None:
+def main(arch: str = LM_ARCH, dtype: str = "float32", ssm_bf16: bool = False,
+         batch: int = None, prompt_len: int = 2048, steps: int = 8) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve: needs a CUDA device")
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    cfg = dataclasses.replace(get_config(arch), dtype=torch.float32)
-    if arch == "gemma3-27b":
-        cfg = dataclasses.replace(cfg, n_layers=GEMMA3_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), ssm_bf16=ssm_bf16)
+    if dtype == "float32":
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        if arch == "gemma3-27b":
+            cfg = dataclasses.replace(cfg, n_layers=GEMMA3_LAYERS)
+    if batch is None:
+        batch = 4 if dtype == "float32" else {a: b for a, b, _ in
+                                               BF16_SERVE}.get(arch, 4)
     gen = torch.Generator(device=dev).manual_seed(LM_SEED)
     params = init_params(cfg, gen)
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=gen,
                             device=dev)
     cache_len = prompt_len + steps + 1
-    extra = {"card": card, "arch": cfg.name, "n_layers": cfg.n_layers,
+    extra = {"card": card, "arch": cfg.name, "dtype": str(cfg.dtype),
+             "ssm_bf16": ssm_bf16, "n_layers": cfg.n_layers,
              "batch": batch, "prompt_len": prompt_len}
     with torch.inference_mode():
         logits, caches, rolling = prefill(params, cfg, prompts,
@@ -120,7 +132,10 @@ def main(arch: str = LM_ARCH, batch: int = 4, prompt_len: int = 2048,
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default=LM_ARCH)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
+    ap.add_argument("--ssm-bf16", action="store_true")
     ap.add_argument("sizes", nargs="*", type=int,
                     help="batch, prompt_len, steps")
     args = ap.parse_args()
-    main(args.arch, *args.sizes[:3])
+    main(args.arch, args.dtype, args.ssm_bf16, *args.sizes[:3])

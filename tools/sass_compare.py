@@ -1,17 +1,23 @@
-"""Compare what two versions of the flash attention source compile to.
+"""Compare what two versions of a kernel source compile to.
 
     python3 tools/sass_compare.py OLD.cu [NEW.cu]
 
 Builds both sources with the port's ``nvcc`` flags into ``build/sass/``,
 dumps each library's SASS with the toolkit's ``cuobjdump -sass`` and, for
-every ``flash_kernel`` instantiation of OLD (one per head width), compares
-its instructions with NEW's instantiation of the same head width without
-a soft-cap (``flash_kernel<HD, false>``; NEW defaults to the shipped
-``csrc/flash_attention.cu``). Addresses and encodings are dropped, the
-instruction text is compared line by line. Prints one JSON line per head
-width: the instruction counts, whether they are equal, and the first
-differing line. Exits 1 if any differs. Needs the CUDA toolkit (the
-machine with the card); the card itself is not used.
+every f32 kernel instantiation of OLD, compares its instructions with NEW's
+instantiation of the same template arguments. The kernels are the flash
+attention's (``flash_kernel<HD, CAP>``, ``flash_kernel_wide<CAP>``), the
+SSD scan's (``ssd_scan_kernel<N, HP[, T]>``) and the selective scan's
+(``selective_scan_kernel<N[, T]>``): an element type ``T = float`` in NEW
+matches OLD's instantiation without one, and an OLD flash kernel without a
+soft-cap flag matches NEW's ``CAP = false``; NEW's bf16 instantiations have
+no counterpart and are not compared. NEW defaults to the shipped source of
+the same file name under ``src/repro_torch/kernels/``. Addresses and
+encodings are dropped, the instruction text is compared line by line.
+Prints one JSON line per instantiation: the instruction counts, whether
+they are equal, and the first differing line. Exits 1 if any differs or
+OLD has none. Needs the CUDA toolkit (the machine with the card); the card
+itself is not used.
 """
 
 import json
@@ -26,13 +32,24 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 from repro_torch.kernels.build import NVCC_FLAGS, find_nvcc  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "sass")
-SHIPPED = os.path.join(ROOT, "src", "repro_torch", "kernels",
-                       "flash_attention", "csrc", "flash_attention.cu")
+KERNELS = os.path.join(ROOT, "src", "repro_torch", "kernels")
+SHIPPED = {"flash_attention.cu": "flash_attention",
+           "ssd_scan.cu": "ssd_scan", "selective_scan.cu": "mamba_scan"}
+NAME = re.compile(r"\d+(flash_kernel_wide|flash_kernel_bf16|flash_kernel|"
+                  r"ssd_scan_kernel|selective_scan_kernel)I(.*?)EE")
+
+
+def key_of(symbol: str):
+    """(kernel, template arguments) of an f32 kernel instantiation, with an
+    element type ``float`` dropped; None for a bf16 one or another symbol."""
+    m = NAME.search(symbol)
+    if not m or m.group(1) == "flash_kernel_bf16" or "bfloat16" in m.group(2):
+        return None
+    return m.group(1), re.sub(r"Ef$", "", m.group(2))
 
 
 def sass(src: str, tag: str) -> dict:
-    """{(head width, capped): [instruction, ...]} of ``src``'s
-    ``flash_kernel`` instantiations."""
+    """{key: [instruction, ...]} of ``src``'s f32 kernel instantiations."""
     os.makedirs(OUT, exist_ok=True)
     lib = os.path.join(OUT, f"lib{tag}.so")
     subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", lib, src], check=True,
@@ -44,10 +61,7 @@ def sass(src: str, tag: str) -> dict:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1)
-            hd = re.search(r"flash_kernelILi(\d+)E(Lb([01])E)?", name)
-            key = ((int(hd.group(1)), hd.group(3) == "1")
-                   if hd and "wide" not in name else None)
+            key = key_of(m.group(1))
             if key:
                 out[key] = []
             continue
@@ -57,16 +71,23 @@ def sass(src: str, tag: str) -> dict:
     return out
 
 
-def main(old: str, new: str = SHIPPED) -> int:
+def main(old: str, new: str = None) -> int:
+    base = os.path.basename(old)
+    new = new or os.path.join(KERNELS, SHIPPED[base], "csrc", base)
     a, b = sass(old, "old"), sass(new, "new")
     bad = 0
-    for (hd, capped), ins in sorted(a.items()):
-        got = b.get((hd, False), [])
+    for (kernel, args), ins in sorted(a.items()):
+        got = b.get((kernel, args))
+        if got is None and kernel == "flash_kernel":   # OLD without a cap
+            got = b.get((kernel, args + "ELb0"), [])
+        got = got or []
         diff = next((i for i, (x, y) in enumerate(zip(ins, got)) if x != y),
                     None if len(ins) == len(got) else min(len(ins), len(got)))
         same = diff is None
         bad += not same
-        print(json.dumps({"head_width": hd, "old_instructions": len(ins),
+        print(json.dumps({"source": base, "kernel": kernel,
+                          "template_args": args,
+                          "old_instructions": len(ins),
                           "new_instructions": len(got), "identical": same,
                           "first_diff": None if same else
                           [ins[diff] if diff < len(ins) else None,
