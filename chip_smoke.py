@@ -155,7 +155,8 @@ and in bf16, the reference's default dtype (phases 8–11 stay f32):
     initial state; bf16 out on both sides, each run twice bitwise;
 13. their times beside the bf16 bound, the plain version's time, the f32
     entry's on the same shapes and ``scaled_dot_product_attention`` in
-    bf16 on the same tensors;
+    bf16 on the same tensors; beside each attention row the registers,
+    spill bytes and dynamic shared memory of the kernel that ran;
 14. every model served in bf16 at full width (``BF16_SERVE``): zamba2
     with and without ``ssm_bf16``, falcon-mamba-7b, granite-8b, gemma-7b,
     gemma3-27b at all 62 layers, qwen1.5-32b at full size and batch 1;
@@ -182,6 +183,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2497,6 +2499,42 @@ def bf16_err(got, want, rtol):
     return float(d.max()), excess, excess <= rtol
 
 
+def ptxas_resources(lines) -> dict:
+    """{entry symbol: {"registers", "spill_stores", "spill_loads"}} from
+    ``ptxas -v`` lines (a build's output, or ``build.BUILD_LOG[name]
+    ["ptxas"]``)."""
+    out, cur = {}, None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur is not None:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+    return out
+
+
+def flash_bf16_resources(lines, hd: int, cap: bool = False,
+                         kernel: str = None) -> dict:
+    """The registers and spill bytes that ptxas reported for the bf16 flash
+    kernel serving head width ``hd`` (``flash_bf16_hopper`` at hd 64, 128
+    and 256, ``flash_kernel_bf16`` at 16 and 32, or ``kernel``; None where
+    ``lines`` lack it, as for a library found built)."""
+    name = kernel or ("flash_bf16_hopper" if hd >= 64 else
+                      "flash_kernel_bf16")
+    key = f"{name}ILi{hd}ELb{int(cap)}E"
+    res = next((r for sym, r in ptxas_resources(lines).items()
+                if key in sym), {})
+    return {"kernel_function": name, "registers": res.get("registers"),
+            "spill_bytes": (res["spill_stores"] + res["spill_loads"]
+                            if "spill_stores" in res else None)}
+
+
 def bf16_flash_cases():
     """Phase 12's attention cases: (label, (B, S, T, H, K, hd), window,
     soft-cap) at the serve paths' shapes (zamba2 hd 64, granite hd 128 GQA,
@@ -2639,14 +2677,22 @@ def lm_time_kernels_bf16(dev) -> dict:
     serve paths' shapes, beside its bound, its plain version's time, the f32
     entry's on the same shapes and, for attention,
     ``scaled_dot_product_attention`` in bf16 on the same tensors (K and V
-    repeated outside the timed call, a boolean mask for a window)."""
+    repeated outside the timed call, a boolean mask for a window); beside
+    each attention row the kernel's registers and spill bytes (ptxas, from
+    ``build.BUILD_LOG``) and its dynamic shared memory (the library's
+    ``flash_attention_bf16_smem_bytes``)."""
+    import ctypes
     import torch.nn.functional as F
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.mamba_scan import (selective_scan,
                                                 selective_scan_ref)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    smem_bytes = FK.library().flash_attention_bf16_smem_bytes
+    smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_int
     rows = {}
     for label, (B, S, T, H, K, hd), window, cap in bf16_flash_cases():
         if cap is not None or label in ("ragged-gqa-window",
@@ -2677,6 +2723,9 @@ def lm_time_kernels_bf16(dev) -> dict:
             lambda: flash_attention(qf, kf, vf, window=window), reps=20)
         del q, k, v, qf, kf, vf
         row.update(bf16_flash_bound(B, S, T, H, K, hd, window))
+        row.update(flash_bf16_resources(
+            build.BUILD_LOG.get("flash_attention", {}).get("ptxas", []), hd))
+        row["dynamic_smem_bytes"] = smem_bytes(hd)
         say({"phase": "lm_timing_bf16", "kernel": "flash_attention_bf16",
              **row, "share_of_bound": row["bound_ms"] / row["ms"]})
         rows.setdefault("flash_attention_bf16", row)   # zamba2's: the line's

@@ -78,9 +78,12 @@ def _build(name: str, sources: Sequence[Path]) -> Path:
     os.replace(tmp, out)
     BUILD_LOG[name] = {
         "seconds": time.perf_counter() - t0,
+        # resources of each entry, and ptxas's notes on wgmma sequences
+        # (one it had to serialize is slow)
         "ptxas": [ln.strip() for ln in proc.stdout.splitlines()
                   if "registers" in ln or "spill" in ln
-                  or "Compiling entry" in ln],
+                  or "Compiling entry" in ln or "wgmma" in ln
+                  or "warpgroup" in ln],
     }
     return out
 

@@ -68,11 +68,13 @@
 // and two K/V stages (32 keys each) take 210 KB of shared memory: one CTA
 // of 8 warps an SM.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -642,33 +644,93 @@ cudaError_t dispatch(const float* q, const float* k, const float* v, float* o,
 }
 
 // ------------------------------------------------------------- bf16
-// The bf16 entry (flash_attention_bf16): q, k, v and o in bf16. A bf16 x
-// bf16 product is exact in f32 and mma.sync m16n8k16 bf16 accumulates in
-// f32, which is what the TPU kernel's jnp.dot(..., preferred_element_type=
-// float32) computes: one product, no split. Each warp owns 16 query rows
-// over the full head width (the hd <= 128 layout at every width: without
-// the split the 16 x 256 accumulator, 128 registers, fits beside the rest).
-// K and V tiles (64 keys, 32 at hd 256) stream through the same
-// double-buffered cp.async ring in bf16; Q's A fragments stay in registers
-// up to hd 128 and are read from shared memory at each use at hd 256. The
-// S accumulator of two neighbouring 8-key blocks is, element for element,
-// the A fragment of P for a 16-key k-step of P V, so P is rounded to bf16
-// in registers (__floats2bfloat162_rn, the TPU kernel's p.astype(v.dtype))
-// and never leaves them; V's B fragments come from ldmatrix.x4.trans (two
-// 8-column blocks a load). The running max, the normaliser (summed from
-// the unrounded f32 P, as the TPU kernel sums it), the soft-cap and the
-// rescale stay in f32; the output is rounded to bf16 once. Row strides of
-// hd + 8 bf16 keep rows 16-byte aligned and the fragment loads and
-// ldmatrix free of bank conflicts. No atomics: run to run bitwise.
-// Bound: its products at 989 TFLOP/s (dense bf16) against its bytes in
-// bf16 and its f32 exponentials; see PERF.md and chip_smoke.py phase 13.
+// The bf16 entry (flash_attention_bf16): q, k, v and o in bf16. It replaces
+// the same TPU kernel (src/repro/kernels/flash_attention/kernel.py:
+// flash_attention, body _flash_kernel) at the reference's default dtype:
+// Q K^T of bf16 operands accumulated in f32 (the TPU kernel's jnp.dot(...,
+// preferred_element_type=float32); a bf16 x bf16 product is exact in f32,
+// so one product, no split), the scale, the optional soft-cap, a base-2
+// online softmax in f32, P rounded to bf16 before P V (its
+// p.astype(v.dtype)) with the normaliser summed from the unrounded P (its
+// l), the output divided by max(l, 1e-30) and rounded to bf16 once.
+//
+// Bound on the H100 SXM (700 W): at the dense models' prefill shapes (B 4,
+// S = T = 2048, causal) its products on the tensor cores, 989 TFLOP/s dense
+// bf16: 0.139 ms at granite-8b's 32/8 heads of 128 and at gemma-7b's 16 of
+// 256, against 0.05 ms for its bf16 bytes (K and V are read again by every
+// q-block, from the 50 MB L2). What holds a kernel back from that is the
+// softmax between the two products: per score a max, an fmaf, an
+// exponential (16 a clock an SM), a sum and half a bf16 pack, plus the
+// rescale of O, on one warp per SM sub-partition while the tensor cores
+// wait for P. So the design is the one that keeps the tensor cores fed
+// (FlashAttention-3's), flash_bf16_hopper below, at hd 64, 128 and 256:
+//
+// - One CTA of 384 threads per 128 query rows of one (head, batch), the
+//   Pallas kernel's block_q, in three warpgroups. Warpgroup 0 is the
+//   producer: one thread issues every load as a TMA copy
+//   (cp.async.bulk.tensor, 4-D tensor maps over q (hd, H, S, B) and k, v
+//   (hd, K, T, B), built on the host in the C entry), and the warpgroup
+//   gives its registers up (setmaxnreg.dec to 24). Warpgroups 1 and 2 are
+//   consumers of 64 query rows each and take them (setmaxnreg.inc to 240):
+//   128 x 24 + 256 x 240 registers fit the SM's 65,536.
+// - Tiles of BK keys (128 at hd 64 and 128, the Pallas kernel's block_k, so
+//   P is rounded against the reference's own running maxima wherever T is
+//   a multiple of 128; 64 at hd 256) stream through two rings of NS slots,
+//   one for K and one for V (4 at hd 64, 2 at 128 and 256), in 128-byte-
+//   swizzled boxes of 64 columns. Each slot has a full mbarrier, armed with
+//   expect_tx of the tile's bytes, and an empty one that the consumers'
+//   eight warps arrive at: K once a tile's scores are formed, V once its
+//   P V is done, so the producer refills K while P V still reads V. Q is
+//   loaded once a CTA. TMA fills keys past T and rows past S with zeros
+//   (the mask still kills those keys), so any S and T work.
+// - S = Q K^T by wgmma m64n{BK}k16 with both operands in shared memory
+//   (K-major descriptors: 8-row groups 1,024 bytes apart, a 16-column
+//   k-step 32 bytes into the swizzled row, a box BQ or BK x 128 bytes on).
+// - The softmax on the accumulator in registers: a thread holds rows g and
+//   g + 8 of its warp's 16; maxima and sums in four chains a row, then over
+//   the 4 threads of a quad; each exponent one fmaf (x * f - m * f, f the
+//   base-2 scale) and one ex2.approx.ftz (a result under 2^-126 flushes to
+//   0, far below what a bf16 P or a row's f32 sum holds). The mask is a
+//   separate loop, taken only on tiles the `unmasked` test does not clear:
+//   one loop with the test inside compiles to predicated instructions
+//   that cost their issue slots on every tile. A row whose maximum is
+//   still -inf takes m * f = 0, so its p and alpha are 0, not NaN (rows
+//   and tiles with no live key).
+// - O += P V by wgmma m64n{hd}k16 with A = P from registers: wgmma's
+//   accumulator of two neighbouring 8-key blocks is, element for element,
+//   the register A fragment of one 16-key k-step, so P is rounded to bf16
+//   in place (cvt.rn.bf16x2.f32) and never touches shared memory. V is B
+//   as it lands (hd along N: MN-major, the transpose-B form; 8-key groups
+//   1,024 bytes apart, the next 64 columns a box, BK x 128 bytes, on).
+// - Overlap: the producer keeps the next tiles in flight while the
+//   consumers compute, and within a consumer the scores of tile j + 1 are
+//   issued before P V of tile j, so the scores' maxima of j + 1 are taken
+//   while the tensor cores do P V of j (kOverlap; the order of the
+//   operations on O is unchanged, so both forms give the same bits). The
+//   two consumers interleave on their own: turns at the tensor cores on
+//   named barriers (FlashAttention-3's ping-pong), a second register
+//   buffer for P and the exponentials moved ahead of the wait for P V
+//   each measured within the run-to-run spread, and are not used.
+// - The longest causal q-blocks go first; rows past S are never written
+//   (4-byte stores under the row check; one division a row, then
+//   products). No atomics: run to run bitwise. A barrier wait that has
+//   not completed after ~10 s of clock traps, so a fault ends the launch
+//   with an error and does not hang the card.
+//
+// Head widths 16 and 32 (reduced configurations only) keep the first bf16
+// kernel, flash_kernel_bf16 (mma.sync): each warp owns 16 query rows over
+// the full head width, K and V tiles of 64 keys through a double-buffered
+// cp.async ring, P rounded in registers and V's B fragments by
+// ldmatrix.x4.trans. A 64-column box and the 128-byte swizzle do not fit
+// those widths. Times: PERF.md, chip_smoke.py phase 13 and
+// tools/kernel_variants.py.
 namespace bf16 {
-template <int HD>
+template <int HD>   // 16 or 32
 struct Cfg {
-  static constexpr int BK = HD <= 128 ? 64 : 32;  // keys per streamed tile
+  static_assert(HD <= 32, "hd 64, 128 and 256 take flash_bf16_hopper");
+  static constexpr int BK = 64;                   // keys per streamed tile
   static constexpr int RS = HD + 8;               // row stride of Q, K, V (bf16)
-  static constexpr bool QREG = HD <= 128;         // Q's fragments in registers
-  static constexpr int MINB = HD <= 64 ? 4 : (HD <= 128 ? 2 : 1);  // CTAs an SM
+  static constexpr int MINB = 4;                  // CTAs an SM
   static constexpr int stage = 2 * BK * RS;       // K [BK][RS], then V [BK][RS]
   static constexpr int q_off = 2 * stage;         // Q [BQ][RS]
   static constexpr size_t bytes = sizeof(uint16_t) * (2 * stage + BQ * RS);
@@ -786,11 +848,9 @@ flash_kernel_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k
     a[2] = ld32(p + 8);
     a[3] = ld32(p + 8 * RS + 8);
   };
-  uint32_t qf[CF::QREG ? KK : 1][4];
-  if constexpr (CF::QREG) {
+  uint32_t qf[KK][4];   // Q's A fragments stay in registers
 #pragma unroll
-    for (int kk = 0; kk < KK; ++kk) q_frag(kk, qf[kk]);
-  }
+  for (int kk = 0; kk < KK; ++kk) q_frag(kk, qf[kk]);
   // this lane's row address for V's ldmatrix: key (l & 7) + 8 ((l >> 3) & 1)
   // of a 16-key step, columns 8 (l >> 4) of a 16-column pair
   const int v_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 8;
@@ -825,17 +885,10 @@ flash_kernel_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k
       for (int c = 0; c < 4; ++c) s[n][c] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KK; ++kk) {
-      uint32_t a[4];
-      if constexpr (CF::QREG) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) a[c] = qf[kk][c];
-      } else {
-        q_frag(kk, a);
-      }
 #pragma unroll
       for (int n = 0; n < NK; ++n) {
         const uint16_t* kp = Ks + (n * 8 + g) * RS + kk * 16 + 2 * t4;
-        mma_bf16(s[n], a, ld32(kp), ld32(kp + 8));
+        mma_bf16(s[n], qf[kk], ld32(kp), ld32(kp + 8));
       }
     }
 
@@ -948,6 +1001,680 @@ cudaError_t dispatch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* 
   return launch_bf16<HD, false>(q, k, v, o, B, S, T, H, K, causal, window, cap, st);
 }
 
+
+// ------------------------------------------- bf16 at hd 64, 128, 256: Hopper
+namespace hop {
+constexpr int BQ = 128;                  // query rows a CTA
+constexpr int NT = 384;                  // producer + two consumer warpgroups
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+// issue tile j + 1's scores before tile j's P V (see the header comment)
+constexpr bool kOverlap = true;
+template <int HD>
+struct Cfg {
+  static constexpr int BK = HD <= 128 ? 128 : 64;   // keys a tile
+  static constexpr int NS = HD <= 64 ? 4 : 2;       // slots of the K and V rings
+  static constexpr int NB = HD / 64;                // 64-column boxes a row
+  static constexpr uint32_t q_bytes = BQ * HD * 2;
+  static constexpr uint32_t kv_bytes = BK * HD * 2; // K (or V) of one tile
+  static constexpr uint32_t stage_bytes = 2 * kv_bytes;
+  static constexpr uint32_t bar_off = q_bytes + NS * stage_bytes;
+  // Q full; K full, V full, K empty, V empty of each stage
+  static constexpr int nbar = 1 + 4 * NS;
+  // + 1,024: the base is rounded up to the swizzle's 1,024-byte atom
+  static constexpr size_t bytes = bar_off + 8 * nbar + 1024;
+  static_assert(bytes <= 232448, "over the 227 KB a CTA may use");
+};
+}  // namespace hop
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// arrive once and expect `bytes` of TMA traffic in this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; trap after ~10 s
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// one TMA box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map,
+                                          int c0, int c1, int c2, int c3,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for the 128-byte swizzle: start
+// address, leading and stride byte offsets, each in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of registers that an
+// asynchronous wgmma owns across its issue or its wait
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(r[i][c])::"memory");
+}
+
+// D (64 x N, f32) {=, +=} A B, A and B bf16 in shared memory, both K-major
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+// D (64 x N, f32) {=, +=} A B, A bf16 in registers, B bf16 in shared memory,
+// MN-major (the transpose-B form)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// 2^x on the SFU: ex2.approx.ftz, within 2 ulp; a result under 2^-126
+// flushes to 0, far below what a bf16 P or a row's f32 sum can hold
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(hop::NT, 1)
+flash_bf16_hopper(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  uint16_t* __restrict__ o, int S, int T, int H, int K,
+                  int causal, int window, float scale, float cap) {
+  using CF = hop::Cfg<HD>;
+  constexpr int BQ = hop::BQ, BK = CF::BK, NS = CF::NS, NB = CF::NB;
+  extern __shared__ __align__(1024) uint8_t hop_smem[];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(hop_smem) + 1023u) & ~1023u;
+  // Q: NB boxes [BQ][64]; stage s: K NB boxes [BK][64], then V the same;
+  // then the mbarriers: Q full; K full, V full, K empty, V empty of each
+  // stage (K and V are separate rings: a consumer frees K of tile j once its
+  // scores are formed, V once P V is done)
+  const uint32_t q_s = base, kv_s = base + CF::q_bytes;
+  const uint32_t q_full = base + CF::bar_off;
+  auto k_full = [&](int s) { return q_full + 8 * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8 * (1 + NS + s); };
+  auto k_empty = [&](int s) { return q_full + 8 * (1 + 2 * NS + s); };
+  auto v_empty = [&](int s) { return q_full + 8 * (1 + 3 * NS + s); };
+
+  const int iq = gridDim.y - 1 - blockIdx.y;   // the longest causal rows first
+  const int h = blockIdx.x % H, b = blockIdx.x / H;
+  const int kh = h / (H / K);
+  const int q_first = iq * BQ;
+  const int q0 = q_first + (T - S);
+
+  const int nk = (T + BK - 1) / BK;
+  int hi = nk;
+  if (causal) {
+    const int last = q0 + BQ - 1;
+    hi = last < 0 ? 0 : min(nk, last / BK + 1);
+  }
+  int lo = 0;
+  if (window > 0) {
+    const int first = q0 - window + 1;
+    lo = first > 0 ? first / BK : 0;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 8);   // the consumers' eight warps
+      mbar_init(v_empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ----------------------------------------------------------- producer
+    setmaxnreg_dec<hop::PRODUCER_REGS>();
+    if (threadIdx.x == 0 && lo < hi) {
+      mbar_expect_tx(q_full, CF::q_bytes);
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+        tma_load4(q_s + c * BQ * 128, &tq, 64 * c, h, q_first, b, q_full);
+      // K or V (`v`) of the i-th tile into its ring's slot i % NS, once the
+      // consumers have freed the slot's previous tile (round 0: at once)
+      auto load = [&](int i, bool v) {
+        const int s = i % NS;
+        mbar_wait(v ? v_empty(s) : k_empty(s), ((i / NS) & 1) ^ 1);
+        const uint32_t full = v ? v_full(s) : k_full(s);
+        const uint32_t dst = kv_s + s * CF::stage_bytes + (v ? CF::kv_bytes : 0);
+        mbar_expect_tx(full, CF::kv_bytes);
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          tma_load4(dst + c * BK * 128, v ? &tv : &tk, 64 * c, kh,
+                    (lo + i) * BK, b, full);
+      };
+      // K of tile i before V of tile i - 1: the order the consumers use them
+      load(0, false);
+      for (int i = 1; i < hi - lo; ++i) {
+        load(i, false);
+        load(i - 1, true);
+      }
+      load(hi - lo - 1, true);
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<hop::CONSUMER_REGS>();
+    const int cw = wg - 1;                    // rows 64 cw .. 64 cw + 63
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t4 = lane & 3;
+    const float scale2 = scale * 1.44269504f;
+    const int qw = q0 + 64 * cw;              // key position of row 0
+    const int qa = qw + 16 * warp + g;        // of this thread's row g
+    // this warpgroup's 64 rows of each Q box
+    const uint64_t dq = sw128_desc(q_s + cw * 64 * 128, 16, 1024);
+
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float sc[BK / 2];
+    uint32_t pa[BK / 16][4];   // P in bf16, P V's A operand
+
+    // S = Q K^T of stage s, issued and committed
+    auto issue_qk = [&](int s) {
+      const uint64_t dk = sw128_desc(kv_s + s * CF::stage_bytes, 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_ss<BK>(sc, dq + (((kk / 4) * BQ * 128 + (kk % 4) * 32) >> 4),
+                     dk + (((kk / 4) * BK * 128 + (kk % 4) * 32) >> 4),
+                     kk > 0);
+      wgmma_commit();
+    };
+    // O += P V of stage s, issued and committed
+    auto issue_pv = [&](int s) {
+      const uint64_t dv = sw128_desc(kv_s + s * CF::stage_bytes + CF::kv_bytes,
+                                     BK * 128, 1024);
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+        wgmma_rs<HD>(acc, pa[j], dv + ((j * 16 * 128) >> 4), 1);
+      wgmma_commit();
+    };
+    // the online softmax of tile kt's scores in sc: sc becomes P (f32), m
+    // and l move on, alpha is O's rescale. m is kept in the units of sc
+    // (raw scores; capped base-2 ones with a cap) and each exponent is one
+    // fmaf, x * f - m * f, f the base-2 scale (1 with a cap). Straight-line
+    // code over both rows, the maxima and sums in four chains a row: a
+    // row whose maximum is still -inf takes m * f = 0, so its p and alpha
+    // are 0, not NaN.
+    const float f = CAP ? 1.f : scale2;
+    auto softmax = [&](int kt) {
+      const int k_first = kt * BK;
+      const bool unmasked = k_first + BK <= T &&
+                            (!causal || k_first + BK - 1 <= qw) &&
+                            (window <= 0 || k_first > qw + 63 - window);
+      float mx[2][4], ps[2][4], mf[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mx[r][j] = -INFINITY, ps[r][j] = 0.f;
+      // two loops, not one with a test inside: a test inside is compiled
+      // to predicated instructions that take their issue slots on every
+      // tile, masked or not
+      if (unmasked) {
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              float x = sc[4 * n + 2 * r + c];
+              if constexpr (CAP) x = score2<CAP>(x, scale2, scale, cap);
+              sc[4 * n + 2 * r + c] = x;
+              mx[r][n & 3] = fmaxf(mx[r][n & 3], x);
+            }
+      } else {
+        // row r's live keys: kmin[r] <= kpos <= kmax[r]
+        int kmin[2], kmax[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qpos = qa + 8 * r;
+          kmax[r] = causal ? min(T - 1, qpos) : T - 1;
+          kmin[r] = window > 0 ? qpos - window + 1 : 0;
+        }
+        const int k0 = k_first + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              float x = sc[4 * n + 2 * r + c];
+              if constexpr (CAP) x = score2<CAP>(x, scale2, scale, cap);
+              const int kpos = k0 + n * 8 + c;
+              x = (kpos >= kmin[r] && kpos <= kmax[r]) ? x : -INFINITY;
+              sc[4 * n + 2 * r + c] = x;
+              mx[r][n & 3] = fmaxf(mx[r][n & 3], x);
+            }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+        const float m_new = fmaxf(m[r], v);
+        mf[r] = m_new == -INFINITY ? 0.f : m_new * f;
+        alpha[r] = fast_exp2(m[r] * f - mf[r]);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float p = fast_exp2(fmaf(sc[4 * n + 2 * r + c], f, -mf[r]));
+            sc[4 * n + 2 * r + c] = p;
+            ps[r][n & 3] += p;
+          }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float v = (ps[r][0] + ps[r][1]) + (ps[r][2] + ps[r][3]);
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        l[r] = fmaf(l[r], alpha[r], v);
+      }
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[4 * n + c] *= alpha[c >> 1];
+    };
+    // P rounded to bf16: key blocks 2j and 2j + 1 are k-step j's A fragment
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          pa[j][c] = pack_bf16(sc[8 * j + 2 * c], sc[8 * j + 2 * c + 1]);
+    };
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    if (lo < hi) {
+      mbar_wait(q_full, 0);
+      if constexpr (hop::kOverlap) {
+        int s = 0;
+        uint32_t ph = 0;
+        mbar_wait(k_full(0), 0);
+        wgmma_fence();
+        issue_qk(0);
+        wgmma_wait<0>();
+        pin(sc);
+        release(k_empty(0));
+        softmax(lo);
+        pack_p();
+        for (int kt = lo + 1; kt < hi; ++kt) {
+          const int i = kt - lo, sn = i % NS;
+          const uint32_t phn = (i / NS) & 1;
+          mbar_wait(k_full(sn), phn);
+          mbar_wait(v_full(s), ph);
+          wgmma_fence();
+          issue_qk(sn);              // tile kt's scores ...
+          issue_pv(s);               // ... then tile kt - 1's P V
+          wgmma_wait<1>();
+          pin(sc);
+          release(k_empty(sn));
+          softmax(kt);               // while P V runs
+          wgmma_wait<0>();
+          pin(acc);
+          pin(pa);
+          release(v_empty(s));
+          rescale();
+          pack_p();
+          s = sn;
+          ph = phn;
+        }
+        mbar_wait(v_full(s), ph);
+        wgmma_fence();
+        issue_pv(s);
+        wgmma_wait<0>();
+        pin(acc);
+        pin(pa);
+        release(v_empty(s));
+      } else {
+        for (int kt = lo; kt < hi; ++kt) {
+          const int i = kt - lo, s = i % NS;
+          const uint32_t ph = (i / NS) & 1;
+          mbar_wait(k_full(s), ph);
+          wgmma_fence();
+          issue_qk(s);
+          wgmma_wait<0>();
+          pin(sc);
+          release(k_empty(s));
+          softmax(kt);
+          rescale();
+          pack_p();
+          mbar_wait(v_full(s), ph);
+          wgmma_fence();
+          issue_pv(s);
+          wgmma_wait<0>();
+          pin(acc);
+          pin(pa);
+          release(v_empty(s));
+        }
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q_first + 64 * cw + 16 * warp + g + 8 * r;
+      if (row < S) {
+        // one division a row, then products (within an ulp of dividing
+        // each value, before the bf16 rounding)
+        const float inv = 1.f / fmaxf(l[r], 1e-30f);
+        uint16_t* out = o + (((size_t)b * S + row) * H + h) * HD + 2 * t4;
+#pragma unroll
+        for (int d = 0; d < HD / 8; ++d)
+          *reinterpret_cast<uint32_t*>(out + d * 8) =
+              pack_bf16(acc[4 * d + 2 * r] * inv, acc[4 * d + 2 * r + 1] * inv);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime (no link
+// against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult got;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &got);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &got);
+#endif
+    if (e == cudaSuccess && got == cudaDriverEntryPointSuccess)
+      fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// x (B, R, NH, HD) bf16, contiguous: dims (HD, NH, R, B) innermost first,
+// boxes of 64 columns x `rows` rows of one head, 128-byte swizzle; what lies
+// past R reads as zeros
+bool tensor_map(CUtensorMap* map, const void* x, int HD, int NH, int R, int B,
+                int rows) {
+  if (R == 0) {   // no key: the kernel loads nothing
+    memset(map, 0, sizeof(*map));
+    return true;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)NH,
+                              (cuuint64_t)R, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * HD, 2ull * HD * NH,
+                                 2ull * HD * NH * R};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD, bool CAP>
+cudaError_t launch_hopper(const uint16_t* q, const uint16_t* k,
+                          const uint16_t* v, uint16_t* o, int B, int S, int T,
+                          int H, int K, int causal, int window, float cap,
+                          cudaStream_t stream) {
+  using CF = hop::Cfg<HD>;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, HD, H, S, B, hop::BQ) ||
+      !tensor_map(&tk, k, HD, K, T, B, CF::BK) ||
+      !tensor_map(&tv, v, HD, K, T, B, CF::BK))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bf16_hopper<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)CF::bytes);
+  if (e != cudaSuccess) return e;
+  const float scale = 1.0f / sqrtf((float)HD);
+  flash_bf16_hopper<HD, CAP>
+      <<<dim3(H * B, (S + hop::BQ - 1) / hop::BQ), hop::NT, CF::bytes,
+         stream>>>(tq, tk, tv, o, S, T, H, K, causal, window, scale, cap);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t dispatch_hopper(const uint16_t* q, const uint16_t* k,
+                            const uint16_t* v, uint16_t* o, int B, int S,
+                            int T, int H, int K, int causal, int window,
+                            float cap, cudaStream_t st) {
+  if (cap > 0.f)
+    return launch_hopper<HD, true>(q, k, v, o, B, S, T, H, K, causal, window, cap, st);
+  return launch_hopper<HD, false>(q, k, v, o, B, S, T, H, K, causal, window, cap, st);
+}
+
 }  // namespace
 
 extern "C" {
@@ -978,7 +1705,8 @@ int flash_attention_f32(const float* q, const float* k, const float* v,
 }
 
 // The bf16 entry: q, k, v, o bf16 (2 bytes each), otherwise as
-// flash_attention_f32, at the same head widths.
+// flash_attention_f32, at the same head widths: hd 64, 128 and 256 through
+// flash_bf16_hopper, hd 16 and 32 through flash_kernel_bf16.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          int B, int S, int T, int H, int K, int HD,
                          int causal, int window, float softcap, void* stream) {
@@ -990,10 +1718,23 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
   switch (HD) {
     case 16: return (int)dispatch_bf16<16>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
     case 32: return (int)dispatch_bf16<32>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
-    case 64: return (int)dispatch_bf16<64>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
-    case 128: return (int)dispatch_bf16<128>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
-    case 256: return (int)dispatch_bf16<256>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
+    case 64: return (int)dispatch_hopper<64>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
+    case 128: return (int)dispatch_hopper<128>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
+    case 256: return (int)dispatch_hopper<256>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Dynamic shared memory (bytes) of the bf16 kernel that serves head width HD,
+// 0 for a width the library is not built for.
+int flash_attention_bf16_smem_bytes(int HD) {
+  switch (HD) {
+    case 16: return (int)bf16::Cfg<16>::bytes;
+    case 32: return (int)bf16::Cfg<32>::bytes;
+    case 64: return (int)hop::Cfg<64>::bytes;
+    case 128: return (int)hop::Cfg<128>::bytes;
+    case 256: return (int)hop::Cfg<256>::bytes;
+    default: return 0;
   }
 }
 

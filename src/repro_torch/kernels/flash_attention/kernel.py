@@ -3,9 +3,11 @@
 
 ``flash_attention`` takes the reference's arguments
 (``repro/kernels/flash_attention/kernel.py:flash_attention``) less its tile
-sizes, which the kernel fixes (64 query rows, 64 keys; 32 keys at hd 128
-and 256), and takes the soft-cap of the reference's ``_sdpa`` as
-``softcap``.
+sizes, which the kernels fix (f32: 64 query rows, 64 keys, 32 at hd 128
+and 256; bf16 at hd 64, 128 and 256, the Hopper kernel with TMA and
+``wgmma``: 128 query rows, 128 keys, 64 at hd 256; bf16 at hd 16 and 32:
+64 query rows, 64 keys), and takes the soft-cap of the reference's
+``_sdpa`` as ``softcap``.
 For tensors on a CUDA device it launches the hand-written kernel on the
 current stream and raises if the kernel does not take the arguments or the
 launch fails; for tensors on the CPU it calls the plain PyTorch version

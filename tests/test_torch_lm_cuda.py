@@ -19,9 +19,10 @@ gemma-7b at hd 256, gemma3-27b's local layers) run at full size.
 The bf16 entries are held to their plain versions on the same bf16 inputs,
 each output within one bf16 rounding of the plain one (2^-7 of the value)
 plus a share of the scale: 2e-3 for attention (the kernel rounds P to bf16
-against the running maximum of its 64- or 32-key tiles, the plain version
-against the row's), 2e-4 for the scans (f32 arithmetic from the same bf16
-inputs, y rounded once); the scans' f32 states within 2e-4.
+against the running maximum of its key tiles — 128 keys at hd 64 and 128,
+64 at hd 256 and at hd 16 and 32 —, the plain version against the row's),
+2e-4 for the scans (f32 arithmetic from the same bf16 inputs, y rounded
+once); the scans' f32 states within 2e-4.
 """
 
 import numpy as np
@@ -375,6 +376,16 @@ def bf16(ts):
     (1, 65, 129, 2, 1, False, None, None),     # MQA, no mask, ragged tiles
     (1, 1, 77, 4, 4, True, None, None),        # one query row
     (1, 200, 200, 4, 4, True, 70, 30.0),       # window and soft-cap
+    # the edges of the Hopper kernel's tiles (128 query rows; 128 keys, 64
+    # at hd 256) and of its TMA boxes
+    (1, 1000, 1000, 4, 2, True, None, None),   # S, T not multiples of a tile
+    (2, 333, 1000, 4, 4, True, None, None),    # T > S, ragged
+    (1, 300, 300, 4, 4, True, 50, None),       # a window under one tile
+    (1, 500, 500, 2, 2, True, 200, None),      # a window off the tiles
+    (1, 256, 256, 64, 8, True, None, None),    # G = 8
+    (1, 520, 520, 4, 2, True, None, 50.0),     # soft-cap, no window
+    (1, 200, 200, 2, 2, True, None, None),     # 4 CTAs, far under 132 SMs
+    (1, 300, 100, 4, 4, True, 32, None),       # no live key, window, T < S
 ])
 def test_cuda_flash_bf16_kernel_matches_plain(cuda_device, hd, B, S, T, H, K,
                                               causal, window, softcap):

@@ -32,9 +32,39 @@ order; median of ``reps`` CUDA-event timed launches per turn):
 Prints one JSON line per variant (its ms per turn, registers, its largest
 difference from the shipped kernel's output and whether it is the shipped
 output bit for bit), after the card line.
+
+The bf16 attention entry (``flash_attention_bf16``) is timed against an
+older ``flash_attention.cu`` given on the command line, e.g. the parent's
+(``git show HEAD~1:src/repro_torch/kernels/flash_attention/csrc/
+flash_attention.cu > build/parent/flash_attention.cu``):
+
+    python3 tools/kernel_variants.py 20 flash_attention_bf16 OLD.cu
+
+at the five bf16 serve shapes of ``chip_smoke.py`` phase 13 (zamba2 hd 64,
+granite-8b 32/8 hd 128, gemma-7b hd 256, gemma3-27b's local layers,
+qwen1.5-32b at B = 1), in turns with the shipped source, OLD, the shipped
+source's overlap steps undone one at a time (``no_overlap``: P V of tile j
+before the scores of tile j + 1; ``one_stage``: that and rings of one slot,
+so the next tile's K loads only once this tile's scores are formed and
+its V only once P V is done), tuning variants (``stages3``: three slots
+at hd 128; ``bk64``: tiles of 64 keys at hd 64 and 128, four slots;
+``regs232``: 40 registers for the producer, 232 for the consumers;
+``exp2f``: the accurate ``exp2f`` in place of ``ex2.approx.ftz``), a
+diagnostic that computes no exponential (``no_exp``: wrong output, what
+the exponentials cost), one without the softmax of tiles after the first
+(``no_softmax``: P is the raw scores; what the products, loads and
+barriers alone take) and bf16 ``scaled_dot_product_attention`` on the
+same tensors. One JSON line per
+shape and source: ms per turn, the share of the bound, registers, spill
+bytes and dynamic shared memory of the instantiation that ran, whether the
+output is within the bf16 tolerance of the plain version (one bf16
+rounding plus 2e-3 of the scale) and whether it is the shipped output bit
+for bit. OLD without ``flash_attention_bf16_smem_bytes`` (the source before the
+Hopper kernel) gets its shared memory from its own ``bf16::Cfg`` formula.
+
 The variants are diagnostics only; the port ships the sources as they are.
-Naming kernels (``flash_attention``, ``force_pair``, ``density_pair``)
-times only theirs. Stops without a CUDA device.
+Naming kernels (``flash_attention``, ``force_pair``, ``density_pair``,
+``flash_attention_bf16``) times only theirs. Stops without a CUDA device.
 """
 
 import ctypes
@@ -51,7 +81,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from chip_smoke import card_line, qkv_inputs, sedov_setup  # noqa: E402
+from chip_smoke import (BF16_FLASH_RTOL, bf16_err, bf16_flash_bound,  # noqa: E402
+                        bf16_flash_cases, card_line, flash_bf16_resources,
+                        qkv_inputs, sedov_setup)
 from repro_torch.kernels.build import NVCC_FLAGS, find_nvcc  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "variants")
@@ -232,10 +264,10 @@ def build(name, src, edits):
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stdout}"
                            f"{proc.stderr}")
+    lines = (proc.stdout + proc.stderr).splitlines()
     regs = [ln.split("Used ")[1].split(",")[0]
-            for ln in (proc.stdout + proc.stderr).splitlines()
-            if "Used" in ln and "registers" in ln]
-    return name, lib, regs
+            for ln in lines if "Used" in ln and "registers" in ln]
+    return name, lib, regs, lines
 
 
 def flash_caller(lib):
@@ -288,6 +320,118 @@ def density_caller(lib, cells, pairs):
     return run
 
 
+BF16_VARIANTS = {
+    "no_overlap": [("constexpr bool kOverlap = true;",
+                    "constexpr bool kOverlap = false;")],
+    "one_stage": [("constexpr bool kOverlap = true;",
+                   "constexpr bool kOverlap = false;"),
+                  ("static constexpr int NS = HD <= 64 ? 4 : 2;",
+                   "static constexpr int NS = 1;")],
+    "stages3": [("static constexpr int NS = HD <= 64 ? 4 : 2;",
+                 "static constexpr int NS = HD <= 64 ? 4 : (HD <= 128 ? 3 : 2);")],
+    "bk64": [("static constexpr int BK = HD <= 128 ? 128 : 64;",
+              "static constexpr int BK = 64;"),
+             ("static constexpr int NS = HD <= 64 ? 4 : 2;",
+              "static constexpr int NS = HD <= 128 ? 4 : 2;")],
+    "no_softmax": [("          softmax(kt);               // while P V runs\n",
+                    "")],
+    "no_exp": [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+                "y = x;")],
+    "regs232": [("PRODUCER_REGS = 24, CONSUMER_REGS = 240;",
+                 "PRODUCER_REGS = 40, CONSUMER_REGS = 232;")],
+    "exp2f": [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+               "y = exp2f(x);")],
+}
+
+
+def old_bf16_smem(hd):
+    """The pre-Hopper source's bf16::Cfg<hd>::bytes: two stages of K and V
+    and Q, rows of hd + 8 bf16, 64 query rows, 64 keys a tile (32 at hd
+    256)."""
+    bk, rs = (64 if hd <= 128 else 32), hd + 8
+    return 2 * (2 * (2 * bk * rs) + 64 * rs)
+
+
+def bf16_ab(built, reps):
+    """The shipped bf16 attention entry against OLD and the variants at the
+    five bf16 serve shapes, in turns, beside bf16 SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    libs = {}
+    for name, path, _, lines in built:
+        lib = ctypes.CDLL(path)
+        lib.flash_attention_bf16.argtypes = [_P] * 4 + [_I] * 8 + [_F, _P]
+        lib.flash_attention_bf16.restype = _I
+        libs[name] = (lib, lines)
+    shapes = [(label, shape, window)
+              for label, shape, window, cap in bf16_flash_cases()
+              if cap is None and label not in ("ragged-gqa-window",
+                                                "offset-queries")]
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, (B, S, T, H, K, hd), window in shapes:
+        q, k, v = (t.bfloat16() for t in qkv_inputs(B, S, T, H, K, hd, "cuda"))
+        want = flash_attention_ref(q, k, v, window=window)
+        runs, outs = {}, {}
+        for name, (lib, _) in libs.items():
+            o = torch.empty_like(q)
+
+            def run(lib=lib, o=o):
+                rc = lib.flash_attention_bf16(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    B, S, T, H, K, hd, 1, window or 0, 0.0, stream)
+                assert rc == 0, rc
+            runs[name], outs[name] = run, o
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        if window is None:
+            mask = dict(is_causal=True)
+        else:
+            qpos = torch.arange(S, device="cuda")[:, None] + (T - S)
+            kpos = torch.arange(T, device="cuda")[None, :]
+            mask = dict(attn_mask=(kpos <= qpos) & (kpos > qpos - window))
+        runs["sdpa"] = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                              **mask)
+        turns = {n: [] for n in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for n in order:
+                turns[n].append(time_ms(runs[n], reps))
+        bound = bf16_flash_bound(B, S, T, H, K, hd, window)
+        for name, (lib, lines) in list(libs.items()) + [("sdpa", (None, []))]:
+            row = {"shape": label, "dims": [B, S, T, H, K, hd],
+                   "window": window, "source": name, "ms": turns[name],
+                   "bound_ms": bound["bound_ms"],
+                   "share_of_bound": bound["bound_ms"] / min(turns[name])}
+            if lib is not None:
+                runs[name]()
+                torch.cuda.synchronize()
+                err, excess, ok = bf16_err(outs[name], want, BF16_FLASH_RTOL)
+                try:
+                    fn = lib.flash_attention_bf16_smem_bytes
+                    fn.argtypes, fn.restype = [_I], _I
+                    smem, smem_from = fn(hd), "library"
+                except AttributeError:
+                    smem, smem_from = old_bf16_smem(hd), "bf16::Cfg formula"
+                res = flash_bf16_resources(   # OLD: mma.sync at every width
+                    lines, hd, kernel="flash_kernel_bf16"
+                    if name == "bf16_old" else None)
+                # what ptxas said of the wgmma sequences (a serialization
+                # would show here)
+                row["ptxas_notes"] = [
+                    ln.split("info    :")[-1].strip()[:160] for ln in lines
+                    if ("wgmma" in ln or "warpgroup" in ln)
+                    and f"ILi{hd}ELb0E" in ln]
+                row.update(res, dynamic_smem_bytes=smem,
+                           smem_from=smem_from, max_abs_err=err,
+                           excess_over_one_rounding=excess,
+                           within_bf16_tolerance=ok,
+                           bitwise_shipped=torch.equal(
+                               outs[name], outs["bf16_shipped"]))
+            print(json.dumps(row), flush=True)
+        del q, k, v, qt, kt, vt, want, runs, outs
+        torch.cuda.empty_cache()
+
+
 def time_ms(fn, reps):
     fn()
     torch.cuda.synchronize()
@@ -303,23 +447,34 @@ def time_ms(fn, reps):
     return float(np.median(out))
 
 
-def main(reps: int = 10, *kernels: str) -> int:
+def main(reps: int = 10, *args: str) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: needs a CUDA device", file=sys.stderr)
         return 2
     os.makedirs(OUT, exist_ok=True)
+    old = next((os.path.abspath(a) for a in args if a.endswith(".cu")), None)
+    kernels = [a for a in args if not a.endswith(".cu")]
     chosen = {k: v for k, v in VARIANTS.items() if not kernels or k in kernels}
     jobs = [(f"{kern}_{v}", src, edits)
             for kern, (src, vs) in chosen.items()
             for v, edits in [("shipped", [])] + list(vs.items())]
+    if "flash_attention_bf16" in kernels:
+        jobs += [(f"bf16_{v}", FLASH, edits)
+                 for v, edits in [("shipped", [])] + list(BF16_VARIANTS.items())]
+        if old:
+            jobs.append(("bf16_old", old, []))
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(lambda j: build(*j), jobs))
     print(card_line(), flush=True)
+    if "flash_attention_bf16" in kernels:
+        bf16_ab([b for b in built if b[0].startswith("bf16_")], reps)
+    if not chosen:
+        return 0
     from repro_torch.kernels.sph_pair import ops
     spec, cells, pairs, thermo = sedov_setup("cuda")
     force_in = ops.force_inputs(cells, pairs, *thermo)
     for kern in chosen:
-        mine = [(n, lib, regs) for n, lib, regs in built
+        mine = [(n, lib, regs) for n, lib, regs, _ in built
                 if n.startswith(kern)]
         runs = {}
         for n, lib, _ in mine:

@@ -43,8 +43,11 @@ from repro_torch.models import init_params  # noqa: E402
 from repro_torch.serve.serve_step import (  # noqa: E402
     decode_step, greedy_decode, prefill)
 
-KERNELS = {"ssd_scan": "ssd_scan_kernel", "flash_attention": "flash_kernel",
-           "selective_scan": "selective_scan_kernel"}
+# name fragments of each LM kernel's device functions (the bf16 flash
+# entry's Hopper kernel at hd 64, 128 and 256 is flash_bf16_hopper)
+KERNELS = {"ssd_scan": ("ssd_scan_kernel",),
+           "flash_attention": ("flash_kernel", "flash_bf16_hopper"),
+           "selective_scan": ("selective_scan_kernel",)}
 GEMM_TAGS = ("gemm", "gemv", "nvjet")
 
 
@@ -59,8 +62,9 @@ def report(window: str, prof, wall: float, extra: dict) -> None:
     rows = [(e.key, device_us(e), e.count) for e in prof.key_averages()]
     rows = [r for r in rows if r[1] > 0]
     busy = sum(r[1] for r in rows) / 1e6
-    kern = {name: sum(us for k, us, _ in rows if tag in k) / 1e3
-            for name, tag in KERNELS.items()}
+    kern = {name: sum(us for k, us, _ in rows
+                      if any(tag in k for tag in tags)) / 1e3
+            for name, tags in KERNELS.items()}
     gemm = sum(us for k, us, _ in rows
                if any(t in k.lower() for t in GEMM_TAGS)) / 1e3
     top = sorted(rows, key=lambda r: -r[1])[:10]
