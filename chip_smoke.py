@@ -155,8 +155,10 @@ and in bf16, the reference's default dtype (phases 8–11 stay f32):
     initial state; bf16 out on both sides, each run twice bitwise;
 13. their times beside the bf16 bound, the plain version's time, the f32
     entry's on the same shapes and ``scaled_dot_product_attention`` in
-    bf16 on the same tensors; beside each attention row the registers,
-    spill bytes and dynamic shared memory of the kernel that ran;
+    bf16 on the same tensors; beside each attention row and the bf16 SSD
+    row the registers, spill bytes and dynamic shared memory of the kernel
+    that ran (the SSD's at zamba2's N = hp = 64: ``ssd_bf16_hopper``), and
+    beside the SSD row its time at batch 1;
 14. every model served in bf16 at full width (``BF16_SERVE``): zamba2
     with and without ``ssm_bf16``, falcon-mamba-7b, granite-8b, gemma-7b,
     gemma3-27b at all 62 layers, qwen1.5-32b at full size and batch 1;
@@ -2746,12 +2748,39 @@ def lm_time_kernels_bf16(dev) -> dict:
                    plain_ms=cuda_time_ms(lambda: plain(*b16, **kw), reps=3),
                    f32_entry_ms=cuda_time_ms(lambda: kern(*args), reps=20),
                    library_ms=None, shape=list(u.shape), **bound)
+        del args, b16
+        if name == "ssd_scan_bf16":
+            row.update(ssd_bf16_details(dev, sS, sH, shp, sN))
         say({"phase": "lm_timing_bf16", "kernel": name, **row,
              "share_of_bound": row["bound_ms"] / row["ms"]})
         rows[name] = row
-        del args, b16
         torch.cuda.empty_cache()
     return rows
+
+
+def ssd_bf16_details(dev, S, H, hp, N) -> dict:
+    """Beside phase 13's ``ssd_scan_bf16`` row: the route that (N, hp)
+    takes, the kernel's registers, spill bytes and dynamic shared memory,
+    and its time at batch 1 (H CTAs for the card's 132 SMs) beside the
+    bound there."""
+    import ctypes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd_scan import kernel as SK
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    smem = SK.library().ssd_scan_bf16_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    fn = ("ssd_bf16_hopper" if SK.hopper_route(N, hp) else
+          f"ssd_scan_kernelILi{N}ELi{hp}E13__nv_bfloat16")
+    res = next((r for sym, r in ptxas_resources(build.BUILD_LOG.get(
+        "ssd_scan", {}).get("ptxas", [])).items() if fn in sym), {})
+    u, dt, A, Bm, Cm, D = ssd_inputs(1, S, H, hp, N, dev)
+    b16 = [u.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16(), D]
+    return {"kernel_function": fn, "registers": res.get("registers"),
+            "spill_bytes": (res["spill_stores"] + res["spill_loads"]
+                            if "spill_stores" in res else None),
+            "dynamic_smem_bytes": smem(N, hp),
+            "ms_batch1": cuda_time_ms(lambda: ssd_scan(*b16), reps=20),
+            "bound_ms_batch1": bf16_ssd_bound(1, S, H, hp, N)["bound_ms"]}
 
 
 def lm_card_matches_cpu_bf16(dev, arch: str, *, prompt_len=BF16_CPU_PROMPT,

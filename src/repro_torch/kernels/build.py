@@ -25,8 +25,10 @@ from typing import Dict, Sequence
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# -I: the headers the sources share (hopper.cuh) lie beside this file
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "--fmad=false", "-shared",
-                           "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+                           "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                           f"-I{Path(__file__).resolve().parent}"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 _LOCKS: Dict[str, threading.Lock] = {}
@@ -69,7 +71,9 @@ def _build(name: str, sources: Sequence[Path]) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    # every source is hashed; the .cu files are compiled, headers included
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(s) for s in sources if s.suffix == ".cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, stdout=subprocess.PIPE,
                           stderr=subprocess.STDOUT, text=True)

@@ -36,7 +36,8 @@ from ..build import check_launch, load_library
 from ..dtypes import ENTRY_DTYPES, check_dtypes
 from .ref import flash_attention_ref
 
-SOURCES = [Path(__file__).parent / "csrc" / "flash_attention.cu"]
+SOURCES = [Path(__file__).parent / "csrc" / "flash_attention.cu",
+           Path(__file__).parent.parent / "hopper.cuh"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -1,5 +1,5 @@
-// Fused SSD (Mamba-2) scan for NVIDIA Hopper (sm_90a), float32 in and out,
-// products on the tensor cores at f32 accuracy.
+// Fused SSD (Mamba-2) scan for NVIDIA Hopper (sm_90a), products on the
+// tensor cores at f32 accuracy: an f32 entry and a bf16 entry (below).
 //
 // Replaces the TPU kernel src/repro/kernels/ssd_scan/kernel.py:ssd_scan
 // (body _ssd_kernel): the scalar-decay-per-head SSM
@@ -59,21 +59,73 @@
 // an SM beat one (one wave of the 256 CTAs, not two).
 //
 // bf16 entry (ssd_scan_bf16): u, B, C and y in bf16; dt, A, D, h0 and the
-// final state in f32. The kernel is the same template: u and B are read
-// from global memory in 16-byte pieces (8 values) and widened into the
-// same f32 shared-memory tiles (plain loads, not cp.async: the widening
-// sits between), C's fragments are widened as they are loaded, and y is
-// rounded to bf16 once as it is stored. From the tiles on it computes in
-// f32 exactly as the f32 entry does (the TPU kernel upcasts everything),
-// so only the inputs' rounding and y's differ. A bf16 value is exact in
-// TF32, so the split's small part of u, B and C is zero; the products are
-// kept as they are.
+// final state in f32; the function is the f32 entry's (the TPU kernel
+// upcasts everything): f32 arithmetic from the bf16 inputs, y rounded to
+// bf16 once. It has two routes, by (N, hp).
+//
+// (N, hp) = (64, 64), zamba2-1.2b's: ssd_bf16_hopper, designed for this
+// card. Its bound at zamba2's prefill shape is the bf16 bytes, 0.0426 ms;
+// what holds a kernel back from it is each CTA's chain of dependent chunks
+// and the instructions each chunk issues, so the design keeps the bf16
+// operands as they are and spends tensor-core passes, not instructions:
+// - One CTA of 160 threads per (head, batch): a producer warp and one
+//   consumer warpgroup. Chunks of QC = 64 steps stream through a ring of
+//   NS = 2 stages: the producer's lane 0 loads u (4-D tensor map (hp, H, S,
+//   B)), B and C ((N, 1, S, B)) of a chunk as 64 x 64 bf16 TMA boxes with
+//   the 128-byte swizzle (rows past S read as zeros), its lanes load dt
+//   (strided by H: not a TMA box) with zeros past S, so those steps are
+//   inert; a full mbarrier (two arrivals and the boxes' bytes) and an
+//   empty one (the consumers' four warps) a stage. Nothing is widened.
+// - A bf16 value times a bf16 value is exact in f32, so C B^T is one
+//   wgmma m64n64k16 pass (both K-major, from the ring). An f32 operand x is
+//   taken as NP = 2 bf16 pieces, x1 = bf16(x), x2 = bf16(x - x1) (within
+//   2^-16 of x), each product of a piece with a bf16 value exact: y and h
+//   stay within 2e-5 of their scale of a float64 oracle, one piece lands
+//   above 2e-4 (tests/test_torch_lm_kernels.py, split_bf16_ssd). TF32 would
+//   want both operands K-major; u lands MN-major.
+// - Per chunk (L = cumsum(dt A log2 e), each warp its own copy, w_s =
+//   2^(L_QC - L_s) dt_s): S = C B^T; y = C h over the state's pieces (h
+//   MN-major in shared memory, p contiguous); M[t][s] = S 2^(L_t - L_s)
+//   dt_s for s <= t (ex2.approx.ftz), else 0, rounded in place into its
+//   pieces as the register A operand (a wgmma accumulator's two 8-column
+//   blocks are one k-step's A fragment); y = 2^(L_t) y + M u (u MN-major as
+//   it lands); y + D u rounded to bf16 once and stored from registers,
+//   rows past S nowhere. The state h (N x hp, f32) lives in the warpgroup's
+//   wgmma accumulator for the whole sequence: h = 2^(L_QC) h + B^T (w u),
+//   B^T the MN-major A operand read from B's tile as it lands, w u in
+//   pieces written beside u (the same swizzled places); after the update h
+//   is written as its pieces for the next chunk's C h. 7 passes of a 64^3
+//   product a chunk; 85,536 bytes of shared memory and 168 registers a
+//   thread, two CTAs an SM.
+// - Overlap: C B^T and C h are issued before L, w u and M are formed, the
+//   state update beside M u; the other CTA on the SM fills the tensor
+//   cores while this one's chain completes (waiting on each group as soon
+//   as it is issued measured within the spread). No atomics: run to run
+//   bitwise. The producer's waits trap after ~10 s of clock: it waits for
+//   each stage to be freed and, at the end, for the last stages' loads, so
+//   a load that never lands, or a stage not freed while chunks remain to
+//   load, ends the launch with an error and does not hang the card. The
+//   consumers' waits are untimed: ptxas of CUDA 12.9 fails with a
+//   segmentation fault on this kernel when they carry the clock test.
+// Times on the H100 (PERF.md, chip_smoke.py phase 13,
+// tools/scan_variants.py ssd_scan_bf16 with its one-stage, three-piece and
+// register-cap variants).
+//
+// The other eight (N, hp) (reduced configurations only) keep the first
+// bf16 kernel, ssd_scan_kernel<N, HP, bf16_t>: u and B read in 16-byte
+// pieces and widened into the f32 kernel's shared-memory tiles (plain
+// loads, not cp.async), C's fragments widened as they are loaded, then the
+// f32 entry's arithmetic. A 64-column box and the 128-byte swizzle do not
+// fit 16 or 32 bf16 columns.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -486,11 +538,477 @@ cudaError_t launch(const T* u, const float* dt, const float* A,
   return cudaGetLastError();
 }
 
+// ------------------------------------------- bf16 at N = hp = 64: Hopper
+// ssd_bf16_hopper: the bf16 entry at (N, hp) = (64, 64), zamba2-1.2b's
+// (the header comment says how and why).
+namespace hop {
+constexpr int QC = 64;                   // steps a chunk
+constexpr int NS = 2;                    // chunk stages of the ring
+constexpr int NP = 2;                    // bf16 pieces of an f32 operand
+constexpr int NT = 160;                  // consumer warpgroup + producer warp
+constexpr uint32_t TILE = QC * 64 * 2;   // one 64 x 64 bf16 tile, 8 KB
+constexpr uint32_t STAGE = 3 * TILE;     // u, B, C of a chunk
+constexpr uint32_t h_off = NS * STAGE;            // [NP] the state's pieces
+constexpr uint32_t wu_off = h_off + NP * TILE;    // [NP] w u's pieces
+constexpr uint32_t dt_off = wu_off + NP * TILE;   // [NS][QC] f32
+constexpr uint32_t lw_off = dt_off + NS * QC * 4; // [4 warps][2][QC] L, w
+constexpr uint32_t bar_off = lw_off + 4 * 2 * QC * 4;
+constexpr int nbar = 2 * NS;                      // full, empty of each stage
+// + 1,024: the base is rounded up to the swizzle's 1,024-byte atom
+constexpr size_t bytes = bar_off + 8 * nbar + 1024;
+static_assert(2 * (bytes + 1024) <= 233472, "two CTAs an SM");
+}  // namespace hop
+
+// mbarrier arrivals, TMA loads, wgmma descriptors and groups, and the
+// tensor-map lookup are hopper.cuh's, shared with flash_attention.cu; the
+// waits and the wgmma forms (transpose flags as template arguments) are
+// this kernel's.
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try(bar, parity)) {
+  }
+}
+
+// the same, trapping after ~10 s: only the producer warp's waits are timed
+// (ptxas of CUDA 12.9 fails with a segmentation fault on this kernel when
+// the consumers' waits carry the clock test, inlined or not); what they
+// cover is in the header comment
+__device__ __forceinline__ void mbar_wait_timed(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  while (!mbar_try(bar, parity)) {
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+// shared-memory writes of this thread made visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the consumer warpgroup's 128 threads (named barrier 1)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+#define SSD_ACC32                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),      \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),             \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),         \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),         \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),         \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),         \
+      "+f"(d[31])
+#define SSD_D32                                                                \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "     \
+  "%30, %31}"
+
+// D (64 x 64, f32) {=, +=} A B, A (64 x 16) and B (16 x 64) bf16 in shared
+// memory; TA, TB: 0 K-major, 1 MN-major (the transpose forms)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SSD_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : SSD_ACC32
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// D (64 x 64, f32) += A B, A bf16 in registers (a wgmma accumulator's
+// layout, two 8-column blocks a k-step), B bf16 in shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SSD_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SSD_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+#undef SSD_ACC32
+#undef SSD_D32
+
+// two f32 rounded to bf16, lo in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ float bf16_lo(uint32_t x) {
+  return __uint_as_float(x << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t x) {
+  return __uint_as_float(x & 0xFFFF0000u);
+}
+
+// (lo, hi) as NP bf16 pairs whose sum is (lo, hi) to within 2^-8NP: piece k
+// rounds what the pieces before it leave
+__device__ __forceinline__ void pieces(float lo, float hi,
+                                       uint32_t (&p)[hop::NP]) {
+#pragma unroll
+  for (int k = 0; k < hop::NP; ++k) {
+    p[k] = pack_bf16(lo, hi);
+    lo -= bf16_lo(p[k]);
+    hi -= bf16_hi(p[k]);
+  }
+}
+
+// 2^x on the SFU: ex2.approx.ftz, within 2 ulp (exp2f's own bound); a
+// result under 2^-126 flushes to 0, far below what M's products can carry
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// byte offset of 16-byte column block `blk` of row `row` in a 64 x 64 bf16
+// tile stored with the 128-byte swizzle (a TMA box, a wgmma operand)
+__device__ __forceinline__ uint32_t sw128(int row, int blk) {
+  return row * 128 + ((blk ^ (row & 7)) << 4);
+}
+
+// two CTAs of five warps an SM: ptxas keeps 168 registers a thread (8
+// bytes spilled), not 65,536 / 320: the register file is split among the
+// SM's four sub-partitions and ten warps put three on one of them (3 x 32
+// x 168 <= 16,384). A cap of 200 in its place (tools/scan_variants.py
+// maxnreg200) was no faster in one call of three, and under it the
+// variants that took 174-196 registers ran one CTA an SM: at zamba2's
+// batch 4 they took 1.75-2.0 x their batch-1 time, the 168-register builds
+// 1.2 x.
+__global__ void __launch_bounds__(hop::NT, 2)
+ssd_bf16_hopper(const __grid_constant__ CUtensorMap tu,
+                const __grid_constant__ CUtensorMap tb,
+                const __grid_constant__ CUtensorMap tc,
+                const float* __restrict__ dt, const float* __restrict__ A,
+                const float* __restrict__ D, const float* __restrict__ h0,
+                uint16_t* __restrict__ y, float* __restrict__ hout, int S,
+                int H) {
+  constexpr int QC = hop::QC, NS = hop::NS, NP = hop::NP;
+  constexpr uint32_t TILE = hop::TILE, STAGE = hop::STAGE;
+  extern __shared__ __align__(1024) uint8_t ssd_smem[];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(ssd_smem) + 1023u) & ~1023u;
+  uint8_t* gbase =
+      ssd_smem + (base - (uint32_t)__cvta_generic_to_shared(ssd_smem));
+  // stage s: u, B, C tiles; then the state's and w u's pieces, dt, L and w,
+  // the mbarriers
+  auto u_s = [&](int s) { return base + s * STAGE; };
+  auto full = [&](int s) { return base + hop::bar_off + 8 * s; };
+  auto empty = [&](int s) { return base + hop::bar_off + 8 * (NS + s); };
+  float* dts = reinterpret_cast<float*>(gbase + hop::dt_off);
+
+  const int hh = blockIdx.x, b = blockIdx.y;
+  const int nchunks = (S + QC - 1) / QC;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 2);     // expect_tx with the tiles, then dt
+      mbar_init(empty(s), 4);    // the consumers' four warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // ------------------------------------------------------------ producer
+    // chunk i into stage i % NS once the consumers have freed it: u, B and
+    // C by TMA (rows past S read as zeros), dt by the warp's lanes (zeros
+    // past S, so those steps are inert)
+    const float* db = dt + (size_t)b * S * H + hh;
+    for (int i = 0; i < nchunks; ++i) {
+      const int s = i % NS, c0 = i * QC;
+      mbar_wait_timed(empty(s), ((i / NS) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(full(s), STAGE);
+        tma_load4(u_s(s), &tu, 0, hh, c0, b, full(s));
+        tma_load4(u_s(s) + TILE, &tb, 0, 0, c0, b, full(s));
+        tma_load4(u_s(s) + 2 * TILE, &tc, 0, 0, c0, b, full(s));
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int t = 2 * lane + k;
+        dts[s * QC + t] = c0 + t < S ? db[(size_t)(c0 + t) * H] : 0.f;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(full(s));
+    }
+    // the last stages' loads have landed (a load that never completes
+    // traps here, not in the consumers' untimed waits)
+    for (int i = max(nchunks - NS, 0); i < nchunks; ++i)
+      mbar_wait_timed(full(i % NS), (i / NS) & 1);
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  const int g = lane >> 2, t4 = lane & 3;
+  const int tr0 = 16 * warp + g;           // this thread's rows tr0, tr0 + 8
+  const float a2 = A[hh] * kLog2e, dd = D[hh];
+  float* Lw = reinterpret_cast<float*>(gbase + hop::lw_off) + warp * 2 * QC;
+  float* Ww = Lw + QC;
+  const uint32_t hp_s = base + hop::h_off, wu_s = base + hop::wu_off;
+  uint8_t* hp_g = gbase + hop::h_off;
+  uint8_t* wu_g = gbase + hop::wu_off;
+
+  // the state in the wgmma accumulator's layout: element 4n + 2r + c is
+  // row 16 warp + g + 8r, column 8n + 2 t4 + c
+  const size_t state_off = ((size_t)b * H + hh) * 64 * 64;
+  float hacc[32];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float2 v = make_float2(0.f, 0.f);
+      if (h0 != nullptr)
+        v = *reinterpret_cast<const float2*>(
+            h0 + state_off + (size_t)(tr0 + 8 * r) * 64 + 8 * n + 2 * t4);
+      hacc[4 * n + 2 * r] = v.x;
+      hacc[4 * n + 2 * r + 1] = v.y;
+    }
+  // the state's pieces, where the next chunk's C h reads them
+  auto store_pieces = [&]() {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t p[NP];
+        pieces(hacc[4 * n + 2 * r], hacc[4 * n + 2 * r + 1], p);
+        const uint32_t at = sw128(tr0 + 8 * r, n) + 4 * t4;
+#pragma unroll
+        for (int k = 0; k < NP; ++k)
+          *reinterpret_cast<uint32_t*>(hp_g + k * TILE + at) = p[k];
+      }
+    fence_async_shared();
+  };
+  store_pieces();
+
+  float sacc[32], yacc[32];
+  uint32_t pa[NP][4][4];   // M's pieces: k-step j's A fragments
+  for (int ck = 0; ck < nchunks; ++ck) {
+    const int s = ck % NS, c0 = ck * QC;
+    const uint32_t us = u_s(s), bs = us + TILE, cs = us + 2 * TILE;
+    const uint8_t* ug = gbase + s * STAGE;
+    const float* dtc = dts + s * QC;
+    mbar_wait(full(s), (ck / NS) & 1);
+    consumers_sync();    // every warp's pieces of the state are written
+
+    // S = C B^T (both K-major), then C h over the state's pieces (h
+    // MN-major: p contiguous)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 0>(sacc, sw128_desc(cs, 16, 1024) + 2 * kk,
+                     sw128_desc(bs, 16, 1024) + 2 * kk, kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int k = 0; k < NP; ++k)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<0, 1>(yacc, sw128_desc(cs, 16, 1024) + 2 * kk,
+                       sw128_desc(hp_s + k * TILE, 64 * 128, 1024) + 128 * kk,
+                       k + kk > 0);
+    wgmma_commit();
+
+    // L (log2 units) over the chunk, two steps a lane, and w; each warp its
+    // own copy
+    float dq;
+    {
+      const float2 dv = *reinterpret_cast<const float2*>(dtc + 2 * lane);
+      const float x0 = dv.x * a2, x1 = dv.y * a2;
+      float incl = x0 + x1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+      if (lane == 0) excl = 0.f;
+      const float l0 = excl + x0, l1 = l0 + x1;
+      const float lend = __shfl_sync(0xffffffffu, l1, 31);
+      *reinterpret_cast<float2*>(Lw + 2 * lane) = make_float2(l0, l1);
+      *reinterpret_cast<float2*>(Ww + 2 * lane) =
+          make_float2(exp2f(lend - l0) * dv.x, exp2f(lend - l1) * dv.y);
+      dq = exp2f(lend);
+    }
+    __syncwarp();
+
+    // w u in pieces, at the same swizzled places as u: 16 bytes of one row a
+    // thread, four times
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int q = threadIdx.x + 128 * k;
+      const float w = Ww[q >> 3];
+      const uint4 x = *reinterpret_cast<const uint4*>(ug + 16 * q);
+      const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+      uint32_t out[NP][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t p[NP];
+        pieces(bf16_lo(xs[e]) * w, bf16_hi(xs[e]) * w, p);
+#pragma unroll
+        for (int j = 0; j < NP; ++j) out[j][e] = p[j];
+      }
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        *reinterpret_cast<uint4*>(wu_g + j * TILE + 16 * q) =
+            make_uint4(out[j][0], out[j][1], out[j][2], out[j][3]);
+    }
+    fence_async_shared();
+
+    // M[t][s] = S exp2(L_t - L_s) dt_s for s <= t, else 0, in pieces; a
+    // warp's rows reach column blocks n <= 2 warp + 1 only
+    wgmma_wait<1>();
+    pin(sacc);
+    const float lt[2] = {Lw[tr0], Lw[tr0 + 8]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (n <= 2 * warp + 1) {
+        const int s0 = 8 * n + 2 * t4;
+        const float2 ls = *reinterpret_cast<const float2*>(Lw + s0);
+        const float2 ds = *reinterpret_cast<const float2*>(dtc + s0);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int t = tr0 + 8 * r;
+          float& m0 = sacc[4 * n + 2 * r];
+          float& m1 = sacc[4 * n + 2 * r + 1];
+          m0 = s0 <= t ? m0 * fast_exp2(lt[r] - ls.x) * ds.x : 0.f;
+          m1 = s0 + 1 <= t ? m1 * fast_exp2(lt[r] - ls.y) * ds.y : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sacc[4 * n + c] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        uint32_t p[NP];
+        pieces(sacc[8 * j + 2 * c], sacc[8 * j + 2 * c + 1], p);
+#pragma unroll
+        for (int k = 0; k < NP; ++k) pa[k][j][c] = p[k];
+      }
+    wgmma_wait<0>();
+    pin(yacc);
+    consumers_sync();    // w u's pieces are written; C h has read the state's
+
+    // h = exp2(L_QC) h + B^T (w u) (B^T MN-major from B's tile, w u in
+    // pieces); y = exp2(L_t) (C h) + M u (M in pieces from registers)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) hacc[i] *= dq;
+    const float e[2] = {exp2f(lt[0]), exp2f(lt[1])};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) yacc[i] *= e[(i >> 1) & 1];
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < NP; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_ss<1, 1>(hacc, sw128_desc(bs, 64 * 128, 1024) + 128 * j,
+                       sw128_desc(wu_s + k * TILE, 64 * 128, 1024) + 128 * j,
+                       1);
+    wgmma_commit();
+#pragma unroll
+    for (int k = 0; k < NP; ++k)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wgmma_rs(yacc, pa[k][j], sw128_desc(us, 64 * 128, 1024) + 128 * j,
+                 1);
+    wgmma_commit();
+
+    wgmma_wait<1>();
+    pin(hacc);
+    store_pieces();      // for the next chunk's C h
+
+    wgmma_wait<0>();
+    pin(yacc);
+#pragma unroll
+    for (int k = 0; k < NP; ++k) pin(pa[k]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = tr0 + 8 * r;
+      if (c0 + t < S) {
+        uint16_t* out = y + (((size_t)b * S + c0 + t) * H + hh) * 64 + 2 * t4;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const uint32_t uv =
+              *reinterpret_cast<const uint32_t*>(ug + sw128(t, n) + 4 * t4);
+          *reinterpret_cast<uint32_t*>(out + 8 * n) =
+              pack_bf16(yacc[4 * n + 2 * r] + bf16_lo(uv) * dd,
+                        yacc[4 * n + 2 * r + 1] + bf16_hi(uv) * dd);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(hout + state_off +
+                                 (size_t)(tr0 + 8 * r) * 64 + 8 * n + 2 * t4) =
+          make_float2(hacc[4 * n + 2 * r], hacc[4 * n + 2 * r + 1]);
+}
+
+// x (B, R, NH, 64) bf16, contiguous: dims (64, NH, R, B) innermost first,
+// boxes of 64 columns x 64 rows of one head, 128-byte swizzle; what lies
+// past R reads as zeros. B and C (B, S, N) are mapped with NH = 1.
+bool tensor_map(CUtensorMap* map, const void* x, int NH, int R, int B) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)NH, (cuuint64_t)R,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {128ull, 128ull * NH, 128ull * NH * R};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)hop::QC, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+cudaError_t launch_hopper(const void* u, const float* dt, const float* A,
+                          const void* Bm, const void* Cm, const float* D,
+                          const float* h0, void* y, float* hout, int B, int S,
+                          int H, cudaStream_t stream) {
+  CUtensorMap tu, tb, tc;
+  if (!tensor_map(&tu, u, H, S, B) || !tensor_map(&tb, Bm, 1, S, B) ||
+      !tensor_map(&tc, Cm, 1, S, B))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_bf16_hopper, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)hop::bytes);
+  if (e != cudaSuccess) return e;
+  ssd_bf16_hopper<<<dim3(H, B), hop::NT, hop::bytes, stream>>>(
+      tu, tb, tc, dt, A, D, h0, (uint16_t*)y, hout, S, H);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 #define SSD_CASES(X) \
   X(16, 16) X(16, 32) X(16, 64) X(32, 16) X(32, 32) X(32, 64) \
   X(64, 16) X(64, 32) X(64, 64)
+// the bf16 entry's pairs on the mma.sync kernel: (64, 64) is ssd_bf16_hopper's
+#define SSD_BF16_CASES(X) \
+  X(16, 16) X(16, 32) X(16, 64) X(32, 16) X(32, 32) X(32, 64) \
+  X(64, 16) X(64, 32)
 
 extern "C" {
 
@@ -533,12 +1051,28 @@ int ssd_scan_bf16(const void* u, const float* dt, const float* A,
   const bf16_t* bb = (const bf16_t*)Bm;
   const bf16_t* cb = (const bf16_t*)Cm;
   bf16_t* yb = (bf16_t*)y;
+  if (N == 64 && HP == 64)
+    return (int)launch_hopper(u, dt, A, Bm, Cm, D, h0, y, hout, B, S, H, st);
 #define SSD_RUN(n, p)                                                     \
   if (N == n && HP == p)                                                  \
     return (int)launch<n, p>(ub, dt, A, bb, cb, D, h0, yb, hout, B, S, H, st);
-  SSD_CASES(SSD_RUN)
+  SSD_BF16_CASES(SSD_RUN)
 #undef SSD_RUN
   return (int)cudaErrorInvalidValue;
+}
+
+// 1 if the bf16 entry takes (N, hp) through ssd_bf16_hopper, 0 if through
+// the mma.sync kernel (or not at all).
+int ssd_scan_bf16_hopper(int N, int HP) { return N == 64 && HP == 64; }
+
+// Dynamic shared memory (bytes) of the bf16 entry's kernel at (N, hp), 0
+// for a pair the library is not built for.
+int ssd_scan_bf16_smem_bytes(int N, int HP) {
+  if (N == 64 && HP == 64) return (int)hop::bytes;
+#define SSD_SMEM(n, p) if (N == n && HP == p) return (int)Cfg<n, p>::bytes;
+  SSD_BF16_CASES(SSD_SMEM)
+#undef SSD_SMEM
+  return 0;
 }
 
 }  // extern "C"

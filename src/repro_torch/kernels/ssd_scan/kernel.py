@@ -15,10 +15,14 @@ CTAs to an SM, whatever ``chunk`` is: the result is chunk-invariant up to
 rounding.
 
 On the card u, Bm and Cm are all float32 (``ssd_scan_f32``) or all
-bfloat16 (``ssd_scan_bf16``: widened to f32 as they are loaded, y returned
-in bf16); dt, A, D and h0 are float32 and the final state is float32. Any
-other dtype or a mix raises ``TypeError``; a bf16 input is never widened
-to reach the f32 entry.
+bfloat16 (``ssd_scan_bf16``, y returned in bf16); dt, A, D and h0 are
+float32 and the final state is float32. Any other dtype or a mix raises
+``TypeError``; a bf16 input is never widened to reach the f32 entry. The
+bf16 entry has two routes, fixed by (N, hp) (``hopper_route``): (64, 64),
+zamba2-1.2b's, runs ``ssd_bf16_hopper`` (TMA loads of the bf16 tiles,
+``wgmma`` with the bf16 operands as they are and the f32 ones in two bf16
+pieces); the other eight pairs run the ``mma.sync`` kernel that widens u, B
+and C to f32 as it loads them. Neither falls back to the other.
 
 ``ssd_scan.launches`` counts kernel launches of either entry (one per
 launch, nowhere else), so a run can show that it went through the kernel;
@@ -37,7 +41,8 @@ from ..build import check_launch, load_library
 from ..dtypes import ENTRY_DTYPES, check_dtypes
 from .ref import ssd_scan_ref
 
-SOURCES = [Path(__file__).parent / "csrc" / "ssd_scan.cu"]
+SOURCES = [Path(__file__).parent / "csrc" / "ssd_scan.cu",
+           Path(__file__).parent.parent / "hopper.cuh"]
 KERNEL_CHUNK = 64          # the kernel's chunk length, ssd_scan_chunk()
 
 _P = ctypes.c_void_p
@@ -56,8 +61,16 @@ def library() -> ctypes.CDLL:
         lib.ssd_scan_supported.restype = _I
         lib.ssd_scan_chunk.argtypes = []
         lib.ssd_scan_chunk.restype = _I
+        lib.ssd_scan_bf16_hopper.argtypes = [_I, _I]
+        lib.ssd_scan_bf16_hopper.restype = _I
         lib._repro_typed = True
     return lib
+
+
+def hopper_route(N: int, hp: int) -> bool:
+    """True if the bf16 entry takes (N, hp) through ``ssd_bf16_hopper``,
+    False if through the ``mma.sync`` kernel (asks the built library)."""
+    return bool(library().ssd_scan_bf16_hopper(N, hp))
 
 
 def _check(u, dt, A, Bm, Cm, D, h0):
@@ -108,10 +121,11 @@ def ssd_scan(u, dt, A, Bm, Cm, D, *, chunk: Optional[int] = None,
     for name, t in {**stream, **f32}.items():
         if not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} is not contiguous")
-    # the kernel copies u, B and C in 16-byte pieces: a view that starts
-    # off a 16-byte boundary is copied to a fresh allocation
-    u, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone()
-                 for t in (u, Bm, Cm))
+    # the kernels copy u, B and C in 16-byte pieces and ssd_bf16_hopper
+    # reads h0 in 8-byte ones: a view that starts off a 16-byte boundary is
+    # copied to a fresh allocation
+    u, Bm, Cm, h0 = (t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (u, Bm, Cm, h0))
     B_, S, H, hp = u.shape
     N = Bm.shape[-1]
     lib = library()

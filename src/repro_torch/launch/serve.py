@@ -1,11 +1,12 @@
 """Serving entry point: batched prefill + greedy decode loop (the port's
 counterpart of ``python -m repro.launch.serve``).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \\
         --reduced --batch 4 --prompt-len 32 --new-tokens 32 --device cpu
 
-``--arch`` is any of ``repro_torch.configs.ARCH_NAMES``: zamba2-1.2b,
-falcon-mamba-7b, granite-8b, gemma-7b, gemma3-27b, qwen1.5-32b.
+``--arch`` is any of ``repro_torch.configs.ARCH_NAMES``: granite-8b (the
+default, as in ``repro.launch.serve``), zamba2-1.2b, falcon-mamba-7b,
+gemma-7b, gemma3-27b, qwen1.5-32b.
 
 ``--dtype float32`` (the default) runs in float32, the reference's rule
 on one device (``repro/launch/serve.py:34-35``); ``--dtype bfloat16`` keeps
@@ -25,7 +26,7 @@ import time
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--arch", default="zamba2-1.2b")
+    ap.add_argument("--arch", default="granite-8b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -63,7 +64,8 @@ def main(argv=None) -> None:
                                           cache_len=S0 + N)
         synchronize(dev)
         t_prefill = time.perf_counter() - t0
-        print(f"prefill: {B}×{S0} tokens in {t_prefill*1e3:.0f} ms "
+        print(f"{cfg.name}: prefill: {B}×{S0} tokens in "
+              f"{t_prefill*1e3:.0f} ms "
               f"({B*S0/t_prefill:.0f} tok/s) on {dev}, {cfg.dtype}")
 
         t0 = time.perf_counter()

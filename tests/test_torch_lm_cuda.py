@@ -429,27 +429,72 @@ def test_cuda_flash_bf16_kernel_at_the_dense_models_shapes(cuda_device, B, S,
     within_bf16_rounding(got, want, FLASH_BF16_RTOL)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("N,hp", [(16, 16), (32, 64), (64, 32), (64, 64)])
-@pytest.mark.parametrize("S", [1, 130])
-def test_cuda_ssd_bf16_kernel_matches_plain(cuda_device, N, hp, S):
+def check_ssd_bf16(dev, B, S, H, hp, N, with_h0=True):
     """The SSD scan's bf16 entry (u, B, C bf16; dt, A, D, h0 f32) against
-    the plain version on the same inputs, run twice bitwise: y bf16, h f32."""
-    u, dt, A, Bm, Cm, D = tt(ssd_inputs(2, S, 3, hp, N, seed=N + hp + S),
-                             cuda_device)
+    the plain version on the same inputs, run twice bitwise: y bf16 within
+    one rounding plus 2e-4 of the scale, h f32 within 2e-4; two launches of
+    the bf16 entry and none of the f32 one."""
+    u, dt, A, Bm, Cm, D = tt(ssd_inputs(B, S, H, hp, N, seed=N + hp + S),
+                             dev)
     args = [u.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16(), D]
-    h0 = torch.randn(2, 3, N, hp, device=cuda_device)
+    h0 = torch.randn(B, H, N, hp, device=dev) if with_h0 else None
     n0 = dict(SK.ssd_scan.launches_by_dtype)
     y, h = ssd_scan(*args, h0=h0)
     y2, h2 = ssd_scan(*args, h0=h0)
     torch.cuda.synchronize()
     assert SK.ssd_scan.launches_by_dtype[torch.bfloat16] == \
         n0[torch.bfloat16] + 2
+    assert SK.ssd_scan.launches_by_dtype[torch.float32] == \
+        n0[torch.float32]
     assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
     assert torch.equal(y, y2) and torch.equal(h, h2)
     y_p, h_p = ssd_scan_ref(*args, h0=h0)
     within_bf16_rounding(y, y_p, TOL["rtol"])
     np.testing.assert_allclose(h.cpu().numpy(), h_p.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,hp", [(16, 16), (32, 64), (64, 32), (64, 64)])
+@pytest.mark.parametrize("S", [1, 130])
+def test_cuda_ssd_bf16_kernel_matches_plain(cuda_device, N, hp, S):
+    """The bf16 entry on both routes: (64, 64) through ssd_bf16_hopper, the
+    other pairs through the mma.sync kernel."""
+    check_ssd_bf16(cuda_device, 2, S, 3, hp, N)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H", [
+    (2, 1, 3), (2, 63, 3), (2, 65, 3), (2, 130, 3),
+    (2, 2048 - 77, 3),                      # ragged, 32 chunks
+    (4, 2048, 64),                          # zamba2-1.2b's prefill
+    (1, 2048, 64),                          # the same at batch 1
+])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_cuda_ssd_bf16_hopper_route_matches_plain(cuda_device, B, S, H,
+                                                  with_h0):
+    """ssd_bf16_hopper (N = hp = 64): ragged and single-step sequences,
+    chunk edges, zamba2's prefill shape at batch 4 and 1, with and without
+    an initial state."""
+    assert SK.hopper_route(64, 64)
+    assert not any(SK.hopper_route(N, hp) for N in (16, 32, 64)
+                   for hp in (16, 32, 64) if (N, hp) != (64, 64))
+    check_ssd_bf16(cuda_device, B, S, H, 64, 64, with_h0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,hp", [(64, 64), (32, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_ssd_takes_h0_off_a_16_byte_boundary(cuda_device, N, hp, dtype):
+    """ssd_bf16_hopper reads h0 in 8-byte pieces: an h0 view that starts 4
+    bytes past a 16-byte boundary gets an aligned copy, on every route, and
+    the result is the aligned call's bit for bit."""
+    u, dt, A, Bm, Cm, D = tt(ssd_inputs(2, 130, 3, hp, N, seed=5),
+                             cuda_device)
+    args = [u.to(dtype), dt, A, Bm.to(dtype), Cm.to(dtype), D]
+    h0 = torch.randn(2, 3, N, hp, device=cuda_device)
+    want = ssd_scan(*args, h0=h0)
+    got = ssd_scan(*args, h0=unaligned(h0))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda

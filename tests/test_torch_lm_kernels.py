@@ -206,6 +206,19 @@ def split_tf32_ssd(u, dt, a, Bm, Cm, d, split, Q=64):
     return torch.cat(ys), h
 
 
+def ssd_oracle64(u, dt, a, Bm, Cm, d):
+    """One (batch, head) strip of the SSD recurrence step by step in
+    float64: (y (S, hp), final state (N, hp))."""
+    hs = torch.zeros(Bm.shape[1], u.shape[1], dtype=torch.float64)
+    ys = []
+    for t in range(u.shape[0]):
+        hs = (torch.exp(dt[t].double() * a) * hs
+              + dt[t].double() * Bm[t].double()[:, None]
+              * u[t].double()[None, :])
+        ys.append(Cm[t].double() @ hs + d * u[t])
+    return torch.stack(ys), hs
+
+
 def test_split_tf32_ssd_keeps_f32_accuracy():
     """The SSD kernel's arithmetic at N = hp = 64 over 8 chunks of 64 (the
     state carried through seven), emulated in its TF32 operands (big cut
@@ -224,15 +237,8 @@ def test_split_tf32_ssd_keeps_f32_accuracy():
             uh, dh = u[0, :, hh], dt[0, :, hh]
             y, h = split_tf32_ssd(uh, dh, float(A[hh]), Bm[0], Cm[0],
                                   float(D[hh]), split)
-            # float64 oracle: the recurrence step by step
-            hs = torch.zeros(64, 64, dtype=torch.float64)
-            yo = []
-            for t in range(uh.shape[0]):
-                hs = (torch.exp(dh[t].double() * float(A[hh])) * hs
-                      + dh[t].double() * Bm[0, t].double()[:, None]
-                      * uh[t].double()[None, :])
-                yo.append(Cm[0, t].double() @ hs + float(D[hh]) * uh[t])
-            yo = torch.stack(yo)
+            yo, hs = ssd_oracle64(uh, dh, float(A[hh]), Bm[0], Cm[0],
+                                  float(D[hh]))
             for got, want in ((y, yo), (h, hs)):
                 worst = max(worst, float((got.double() - want).abs().max())
                             / float(want.abs().max()))
@@ -242,6 +248,83 @@ def test_split_tf32_ssd_keeps_f32_accuracy():
     assert errs[True] <= 2e-5
     assert errs[False] > 10 * errs[True]
     assert errs[False] > 2e-4
+
+
+def bf16_pieces(x, k):
+    """x (f32) as k bf16 values (held in f32) whose sum is x to within
+    2^-8k of it: each rounds (RNE, as cvt.rn.bf16x2.f32) what the ones
+    before it leave."""
+    out = []
+    for _ in range(k):
+        out.append(x.bfloat16().float())
+        x = x - out[-1]
+    return out
+
+
+def split_bf16_ssd(u, dt, a, Bm, Cm, d, k, Q=64):
+    """One (batch, head) strip of the SSD scan as ssd_bf16_hopper forms it
+    (u, Bm, Cm bf16 values in f32; dt f32; a, d scalars): chunks of Q, the
+    cumulative decay in log2 units, S = C·Bᵀ of the exact bf16 operands, M =
+    S·2^(L_t − L_s)·dt_s, y = 2^(L_t)·(C·h) + M·u + D·u and h = 2^(L_Q)·h +
+    Bᵀ·(w·u), each f32 operand (h, M, w·u) in ``k`` bf16 pieces; every
+    product of a piece with a bf16 value exact, each pass summed in f32."""
+    def product(xs, ys, acc=None):
+        """acc + Σ x @ y over the pieces xs and ys, a pass each in f32"""
+        for x in xs:
+            for y in ys:
+                t = (x.double() @ y.double()).float()
+                acc = t if acc is None else acc + t
+        return acc
+
+    h = torch.zeros(Bm.shape[1], u.shape[1])
+    ys = []
+    a2 = np.float32(a) * np.float32(1.4426950408889634)
+    for c0 in range(0, u.shape[0], Q):
+        uc, dc, bc, cc = u[c0:c0 + Q], dt[c0:c0 + Q], Bm[c0:c0 + Q], \
+            Cm[c0:c0 + Q]
+        L = torch.cumsum(dc * a2, 0)
+        causal = torch.ones(len(dc), len(dc), dtype=torch.bool).tril()
+        decay = torch.exp2(torch.where(causal, L[:, None] - L[None, :],
+                                       -float("inf")))
+        M = product([cc], [bc.T]) * decay * dc[None, :]
+        y = torch.exp2(L)[:, None] * product([cc], bf16_pieces(h, k))
+        y = product(bf16_pieces(M, k), [uc], y)
+        ys.append(y + uc * np.float32(d))
+        w = torch.exp2(L[-1] - L) * dc
+        h = product([bc.T], bf16_pieces(w[:, None] * uc, k),
+                    torch.exp2(L[-1]) * h)
+    return torch.cat(ys), h
+
+
+@pytest.mark.parametrize("pieces", [1, 2, 3])
+def test_split_bf16_ssd_keeps_f32_accuracy(pieces):
+    """ssd_bf16_hopper's arithmetic at N = hp = 64 over 8 chunks of 64 (the
+    state carried through seven), emulated in its bf16 operands: with two
+    bf16 pieces of each f32 operand (M, h, w·u; the kernel's choice) y and
+    the final state stay within 2e-5 of their scale of a float64 sequential
+    oracle on the same bf16-rounded u, B and C, as the f32 entry's
+    three-product TF32 split does; three pieces too. One piece (each f32
+    operand rounded to bf16) lands above the card check's 2e-4, so that
+    check tells one piece from two."""
+    u, dt, A, Bm, Cm, D = (torch.from_numpy(x) for x in
+                           ssd_inputs(1, 512, 2, 64, 64, seed=11))
+    u, Bm, Cm = (x.bfloat16().float() for x in (u, Bm, Cm))
+    worst = 0.0
+    for hh in range(2):
+        uh, dh = u[0, :, hh], dt[0, :, hh]
+        y, h = split_bf16_ssd(uh, dh, float(A[hh]), Bm[0], Cm[0],
+                              float(D[hh]), pieces)
+        yo, hs = ssd_oracle64(uh, dh, float(A[hh]), Bm[0], Cm[0],
+                              float(D[hh]))
+        for got, want in ((y, yo), (h, hs)):
+            worst = max(worst, float((got.double() - want).abs().max())
+                        / float(want.abs().max()))
+    print(f"SSD bf16 pieces {pieces}: error {worst:.3g} of the outputs' "
+          f"scale")
+    if pieces == 1:
+        assert worst > 2e-4
+    else:
+        assert worst <= 2e-5
 
 
 def test_flash_wrapper_rejects_bad_arguments():

@@ -345,3 +345,16 @@ def test_serve_cli_runs_on_cpu_and_defaults_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--reduced", "--prompt-len", "4"])
+
+
+def test_serve_cli_defaults_to_granite_8b():
+    """Without --arch the port's serve CLI serves granite-8b, as the
+    reference's (repro/launch/serve.py) does."""
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--reduced", "--batch", "2", "--prompt-len", "12",
+                    "--new-tokens", "4", "--device", "cpu"])
+    text = out.getvalue()
+    assert "granite-8b-reduced: prefill: 2×12 tokens" in text
+    assert "decode: 6 tokens" in text and text.count("on cpu") == 2

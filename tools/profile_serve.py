@@ -44,8 +44,9 @@ from repro_torch.serve.serve_step import (  # noqa: E402
     decode_step, greedy_decode, prefill)
 
 # name fragments of each LM kernel's device functions (the bf16 flash
-# entry's Hopper kernel at hd 64, 128 and 256 is flash_bf16_hopper)
-KERNELS = {"ssd_scan": ("ssd_scan_kernel",),
+# entry's Hopper kernel at hd 64, 128 and 256 is flash_bf16_hopper, the
+# bf16 SSD entry's at N = hp = 64 ssd_bf16_hopper)
+KERNELS = {"ssd_scan": ("ssd_scan_kernel", "ssd_bf16_hopper"),
            "flash_attention": ("flash_kernel", "flash_bf16_hopper"),
            "selective_scan": ("selective_scan_kernel",)}
 GEMM_TAGS = ("gemm", "gemv", "nvjet")

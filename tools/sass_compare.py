@@ -10,14 +10,17 @@ attention's (``flash_kernel<HD, CAP>``, ``flash_kernel_wide<CAP>``), the
 SSD scan's (``ssd_scan_kernel<N, HP[, T]>``) and the selective scan's
 (``selective_scan_kernel<N[, T]>``): an element type ``T = float`` in NEW
 matches OLD's instantiation without one, and an OLD flash kernel without a
-soft-cap flag matches NEW's ``CAP = false``; NEW's bf16 instantiations have
-no counterpart and are not compared. NEW defaults to the shipped source of
-the same file name under ``src/repro_torch/kernels/``. Addresses and
+soft-cap flag matches NEW's ``CAP = false``. Every other kernel (the bf16
+instantiations, ``flash_bf16_hopper``, ``ssd_bf16_hopper``) is compared
+with NEW's function of the same symbol, the anonymous namespace's name
+(which carries the source's path) dropped; one that only OLD or only NEW
+has is listed as such and not compared. NEW defaults to the shipped source
+of the same file name under ``src/repro_torch/kernels/``. Addresses and
 encodings are dropped, the instruction text is compared line by line.
-Prints one JSON line per instantiation: the instruction counts, whether
-they are equal, and the first differing line. Exits 1 if any differs or
-OLD has none. Needs the CUDA toolkit (the machine with the card); the card
-itself is not used.
+Prints one JSON line per function: the instruction counts, whether they
+are equal, and the first differing line. Exits 1 if any compared function
+differs or OLD has no f32 instantiation. Needs the CUDA toolkit (the
+machine with the card); the card itself is not used.
 """
 
 import json
@@ -48,8 +51,21 @@ def key_of(symbol: str):
     return m.group(1), re.sub(r"Ef$", "", m.group(2))
 
 
+def plain_symbol(symbol: str) -> str:
+    """``symbol`` without its anonymous namespace's length-prefixed name."""
+    at = symbol.find("_GLOBAL__N")
+    if at < 0:
+        return symbol
+    start = at
+    while start > 0 and symbol[start - 1].isdigit():
+        start -= 1
+    return symbol[:start] + symbol[at + int(symbol[start:at]):]
+
+
 def sass(src: str, tag: str) -> dict:
-    """{key: [instruction, ...]} of ``src``'s f32 kernel instantiations."""
+    """{key: [instruction, ...]} of ``src``'s kernels: (kernel, template
+    arguments) for an f32 instantiation, ("symbol", plain symbol) for any
+    other kernel."""
     os.makedirs(OUT, exist_ok=True)
     lib = os.path.join(OUT, f"lib{tag}.so")
     subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", lib, src], check=True,
@@ -61,9 +77,8 @@ def sass(src: str, tag: str) -> dict:
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            key = key_of(m.group(1))
-            if key:
-                out[key] = []
+            key = key_of(m.group(1)) or ("symbol", plain_symbol(m.group(1)))
+            out[key] = []
             continue
         ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
         if key and ins:
@@ -76,7 +91,14 @@ def main(old: str, new: str = None) -> int:
     new = new or os.path.join(KERNELS, SHIPPED[base], "csrc", base)
     a, b = sass(old, "old"), sass(new, "new")
     bad = 0
+    for key in sorted(set(a) ^ set(b)):
+        if key[0] == "symbol":
+            print(json.dumps({"source": base, "kernel": key[1],
+                              "only_in": "old" if key in a else "new"}),
+                  flush=True)
     for (kernel, args), ins in sorted(a.items()):
+        if kernel == "symbol" and (kernel, args) not in b:
+            continue
         got = b.get((kernel, args))
         if got is None and kernel == "flash_kernel":   # OLD without a cap
             got = b.get((kernel, args + "ELb0"), [])
@@ -93,7 +115,7 @@ def main(old: str, new: str = None) -> int:
                           [ins[diff] if diff < len(ins) else None,
                            got[diff] if diff < len(got) else None]}),
               flush=True)
-    return 1 if bad or not a else 0
+    return 1 if bad or not any(k[0] != "symbol" for k in a) else 0
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """What bounds the two scan kernels: time variants of their sources.
 
     python3 tools/scan_variants.py [reps=20] [selective_scan|ssd_scan]
+    python3 tools/scan_variants.py [reps=20] ssd_scan_bf16 [OLD.cu]
 
 Builds variants of ``src/repro_torch/kernels/mamba_scan/csrc/
 selective_scan.cu`` and ``src/repro_torch/kernels/ssd_scan/csrc/
@@ -28,6 +29,26 @@ second argument names one kernel:
   every warp at each use, in place of once a chunk for the CTA),
   ``one_cta`` (shared memory asked for so that one CTA runs an SM, not
   two).
+
+``ssd_scan_bf16`` times the bf16 entry's Hopper kernel (``ssd_bf16_hopper``,
+N = hp = 64) at the zamba2-1.2b prefill shape and at batch 1 (64 CTAs for
+132 SMs), in turns as above, beside OLD (an older ``ssd_scan.cu``, for
+example the parent commit's: ``git show HEAD~1:src/repro_torch/kernels/
+ssd_scan/csrc/ssd_scan.cu > build/parent/ssd_scan.cu``) and these variants:
+``one_stage`` (a ring of one chunk stage: the next chunk's loads wait for
+this one's release), ``three_pieces`` (each f32 operand in three bf16
+pieces, not two), ``maxnreg200`` (``__maxnreg__(200)`` in place of the
+shipped ``__launch_bounds__(NT, 2)``, under which ptxas stops at 168
+registers and spills 8 bytes), and the diagnostics ``no_exp`` (M without its decay
+exponentials: wrong results, what the exponentials cost), ``exp2f`` (those
+exponentials by ``exp2f``, as the f32 entry takes them, in place of
+``ex2.approx.ftz``), and what a chunk's steps cost, each left out (wrong
+results): ``no_wu`` (w·u's pieces not written), ``no_m`` (M not formed:
+zeros), ``no_state_pieces`` (the state's pieces not written for the next
+chunk), ``no_y_store`` (y not stored). Each line also carries the
+kernel's dynamic shared memory; a variant that does not build (ptxas of
+CUDA 12.9 crashes on some edits of that kernel) is reported as such and
+left out.
 
 Prints one JSON line per variant (its ms per turn, registers and spills,
 and its largest error against the plain version), after the card line.
@@ -82,6 +103,37 @@ SSD_CVT_SPLIT = """  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(big) : "f"(x));
   const float rest = x - __uint_as_float(big);
   asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(small) : "f"(rest));"""
 
+SSD_BF16_M = ("m0 * fast_exp2(lt[r] - ls.x) * ds.x",
+              "m1 * fast_exp2(lt[r] - ls.y) * ds.y")
+SSD_BF16_VARIANTS = {
+    "one_stage": [("constexpr int NS = 2;", "constexpr int NS = 1;")],
+    "three_pieces": [("constexpr int NP = 2;", "constexpr int NP = 3;")],
+    "no_exp": [(m, m.replace(m[m.index("fast_exp2"):m.index(" * ds")], "1.f"))
+               for m in SSD_BF16_M],
+    "exp2f": [(m, m.replace("fast_exp2(", "exp2f(")) for m in SSD_BF16_M],
+    "maxnreg200": [("__launch_bounds__(hop::NT, 2)\nssd_bf16_hopper",
+                    "__maxnreg__(200)\nssd_bf16_hopper")],
+    "no_wu": [("    for (int k = 0; k < 4; ++k) {\n      const int q = "
+               "threadIdx.x + 128 * k;",
+               "    for (int k = 0; k < 0; ++k) {\n      const int q = "
+               "threadIdx.x + 128 * k;")],
+    "no_m": [("      if (n <= 2 * warp + 1) {", "      if (false) {")],
+    "no_state_pieces": [("    store_pieces();      // for the next", "    // ")],
+    "no_y_store": [("      if (c0 + t < S) {\n        uint16_t* out",
+                    "      if (c0 + t < 0) {\n        uint16_t* out")],
+}
+SSD_BF16_BATCHES = (4, 1)
+
+
+def widening_smem_bytes(N=64, hp=64, QC=64, NW=4):
+    """Dynamic shared memory of the bf16 kernel that widens to f32 tiles
+    (ssd_scan_kernel's Cfg<N, hp>: u, B in two stages, the state's two
+    TF32 parts, dt, L and w, in f32), for an OLD source that does not
+    export ``ssd_scan_bf16_smem_bytes``."""
+    US, BS = hp + 4, N + 8
+    return 4 * (2 * QC * US + 2 * QC * BS + 2 * N * US + 2 * QC + 2 * NW * QC)
+
+
 VARIANTS = {
     "selective_scan": (MK.SOURCES[0], "ILi16E", {
         "expf": [("a[j] = A[row + j] * kLog2e;", "a[j] = A[row + j];"),
@@ -112,7 +164,7 @@ VARIANTS = {
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def build(kernel, name, src, entry, edits):
+def build(kernel, name, src, entry, edits, fn_name=None):
     text = open(src).read()
     for old, new in edits:
         if old not in text:
@@ -133,10 +185,11 @@ def build(kernel, name, src, entry, edits):
     regs = [ln.strip() for ln in lines[at + 1:at + 4]
             if "registers" in ln or "spill" in ln]
     lib = ctypes.CDLL(so)
-    fn = getattr(lib, f"{kernel}_f32")
+    fn = getattr(lib, fn_name or f"{kernel}_f32")
     fn.argtypes = [_P] * 9 + [_I] * (4 if kernel == "selective_scan"
                                      else 5) + [_P]
     fn.restype = _I
+    fn.library = lib
     return fn, regs
 
 
@@ -155,11 +208,94 @@ def timed(run, reps):
     return float(np.median(times))
 
 
-def main(reps: int = 20, only: str = "") -> None:
+def ssd_bf16(reps: int, old: str = "") -> None:
+    """The bf16 entry's Hopper kernel, its variants and OLD, in turns at
+    the zamba2-1.2b prefill shape and at batch 1."""
+    dev = torch.device("cuda")
+    src = SK.SOURCES[0]
+    # the hopper kernel's entry; OLD's bf16 instantiation at (64, 64)
+    jobs = [("shipped", src, "ssd_bf16_hopper", [])] + [
+        (name, src, "ssd_bf16_hopper", edits)
+        for name, edits in SSD_BF16_VARIANTS.items()]
+    if old:
+        jobs.append(("old", old, "ssd_scan_kernelILi64ELi64E13__nv_bfloat16",
+                     []))
+
+    def build_or_report(job):
+        # a variant that does not build is reported and left out (ptxas of
+        # CUDA 12.9 crashes on some edits of this kernel); the shipped
+        # source must build
+        try:
+            return build("ssd_scan_bf16", job[0], job[1], job[2], job[3],
+                         "ssd_scan_bf16")
+        except SystemExit as e:
+            if job[0] == "shipped":
+                raise
+            return str(e)[-300:]
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(build_or_report, jobs))
+    print(card_line(), flush=True)
+    for job, b in zip(jobs, built):
+        if isinstance(b, str):
+            print(json.dumps({"kernel": "ssd_scan_bf16", "variant": job[0],
+                              "build_failed": b}), flush=True)
+    jobs, built = zip(*[(j, b) for j, b in zip(jobs, built)
+                        if not isinstance(b, str)])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _, S, H, hp, N = SSD_SHAPE
+    cases = {}
+    for B in SSD_BF16_BATCHES:
+        u, dt, A, Bm, Cm, D = ssd_inputs(B, S, H, hp, N, dev)
+        args = [u.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16(), D]
+        cases[B] = (args, ssd_scan_ref(*args, chunk=SK.KERNEL_CHUNK),
+                    (torch.empty_like(args[0]),
+                     torch.empty((B, H, N, hp), device=dev)))
+
+    def runner(fn, B):
+        args, _, outs = cases[B]
+
+        def run():
+            rc = fn(*(a.data_ptr() for a in args), None,
+                    *(o.data_ptr() for o in outs), B, S, H, N, hp, stream)
+            if rc != 0:
+                raise SystemExit(f"scan_variants: launch failed ({rc})")
+        return run
+
+    names = [j[0] for j in jobs]
+    ms = {(name, B): [] for name in names for B in SSD_BF16_BATCHES}
+    for (name, _, _, _), (fn, _) in list(zip(jobs, built)) + list(
+            zip(jobs, built))[::-1]:
+        for B in SSD_BF16_BATCHES:
+            ms[name, B].append(timed(runner(fn, B), reps))
+    for (name, _, _, _), (fn, regs) in zip(jobs, built):
+        smem = getattr(fn.library, "ssd_scan_bf16_smem_bytes", None)
+        if smem is not None:
+            smem.argtypes, smem.restype = [_I, _I], _I
+        row = {"kernel": "ssd_scan_bf16", "variant": name,
+               "shape": [None, S, H, hp, N], "ptxas": regs,
+               "dynamic_smem_bytes": smem(N, hp) if smem else
+               widening_smem_bytes(N, hp)}
+        for B in SSD_BF16_BATCHES:
+            args, (y_p, h_p), outs = cases[B]
+            runner(fn, B)()
+            torch.cuda.synchronize()
+            row[f"ms_batch{B}"] = ms[name, B]
+            row[f"max_abs_err_y_batch{B}"] = float(
+                (outs[0].float() - y_p.float()).abs().max())
+            row[f"max_abs_err_h_batch{B}"] = float(
+                (outs[1] - h_p).abs().max())
+        print(json.dumps(row), flush=True)
+
+
+def main(reps: int = 20, only: str = "", old: str = "") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("scan_variants: needs a CUDA device")
     dev = torch.device("cuda")
     os.makedirs(OUT, exist_ok=True)
+    if only == "ssd_scan_bf16":
+        ssd_bf16(reps, old)
+        return
     kernels = [k for k in VARIANTS if not only or k == only]
     jobs = [(kernel, name, *VARIANTS[kernel][:2], edits)
             for kernel in kernels
@@ -212,4 +348,4 @@ def main(reps: int = 20, only: str = "") -> None:
 
 
 if __name__ == "__main__":
-    main(*[int(a) for a in sys.argv[1:2]], *sys.argv[2:3])
+    main(*[int(a) for a in sys.argv[1:2]], *sys.argv[2:4])
