@@ -116,14 +116,20 @@ and for the serving slices (``python -m repro_torch.launch.serve``),
 zamba2-1.2b (Mamba-2 + shared attention), falcon-mamba-7b (Mamba-1) and
 the dense-attention models granite-8b (GQA 4:1, hd 128), gemma-7b (hd 256,
 GeGLU, (1 + w) norms) and gemma3-27b (5:1 local:global, window 1024,
-qk-norm; depth cut, see GEMMA3_LAYERS):
+qk-norm; depth cut, see GEMMA3_LAYERS), the enc-dec seamless-m4t-large-v2
+(24 encoder layers, bidirectional; 24 decoder layers with cross-attention
+to the encoder's output) and the VLM internvl2-2b (256 patch embeddings
+before the prompt, GQA 2:1 at hd 128):
 
 8. ``ssd_scan``, ``flash_attention`` and ``selective_scan`` against their
    plain versions at the serve paths' shapes (B = 4, S = 2048: zamba2's
    attention, granite's, gemma-7b's at hd 256 and gemma3's windowed local
    layers), plus a GQA + window case, ragged lengths and a soft-capped
-   case at hd 256 (with an initial state for the scans); each kernel run
-   twice, bitwise equal;
+   case at hd 256 (with an initial state for the scans), and attention
+   without a mask as seamless's encoder and cross-attention take it (S = T,
+   S > T, S < T) and at internvl2's causal 2,304 rows
+   (``encdec_flash_cases``);
+   each kernel run twice, bitwise equal;
 9. their times beside the bound, the plain version's time and, for
    attention, ``scaled_dot_product_attention`` on the same tensors (a
    yardstick the port never calls; K and V repeated to the query heads
@@ -139,11 +145,13 @@ qk-norm; depth cut, see GEMMA3_LAYERS):
     ``flash_attention`` once a layer in prefill, nothing in decode); the
     rolling map and the peak memory; the full-width prefill run twice
     gives bitwise equal logits; each model's parameters are freed before
-    the next phase;
+    the next phase; seamless's encoder takes frames as long as the
+    prompt, internvl2's cache holds its patches;
 11. each model's reduced configuration (and qwen1.5-32b's, whose full
     size does not fit the card in f32) on the card and on the CPU,
     teacher-forced prefill and 8 decode steps plus greedy generation,
-    compared;
+    compared (seamless with ``ENC_CPU_LEN`` encoder frames, not the
+    prompt's length, so that cross-attention has S ≠ T);
 
 and in bf16, the reference's default dtype (phases 8–11 stay f32):
 
@@ -151,8 +159,9 @@ and in bf16, the reference's default dtype (phases 8–11 stay f32):
     inputs (``BF16_REL``, ``BF16_FLASH_RTOL``): attention at zamba2's hd
     64, granite's hd 128 GQA, gemma-7b's hd 256 with and without a
     soft-cap, gemma3's windowed local layers, qwen1.5-32b's 40/40 at B = 1,
-    ragged S and T ≠ S; both scans at the serve shapes and ragged with an
-    initial state; bf16 out on both sides, each run twice bitwise;
+    ragged S and T ≠ S, and the enc-dec and VLM cases of phase 8; both
+    scans at the serve shapes and ragged with an initial state; bf16 out
+    on both sides, each run twice bitwise;
 13. their times beside the bf16 bound, the plain version's time, the f32
     entry's on the same shapes and ``scaled_dot_product_attention`` in
     bf16 on the same tensors; beside each attention row and the bf16 SSD
@@ -161,7 +170,8 @@ and in bf16, the reference's default dtype (phases 8–11 stay f32):
     beside the SSD row its time at batch 1;
 14. every model served in bf16 at full width (``BF16_SERVE``): zamba2
     with and without ``ssm_bf16``, falcon-mamba-7b, granite-8b, gemma-7b,
-    gemma3-27b at all 62 layers, qwen1.5-32b at full size and batch 1;
+    gemma3-27b at all 62 layers, qwen1.5-32b at full size and batch 1,
+    seamless-m4t-large-v2 and internvl2-2b;
     gated as phase 10 on each entry's launches (the bf16 flash entry once
     an attention layer, the bf16 SSD entry 38 only under ``ssm_bf16``,
     falcon's scan through the f32 entry, nothing in decode), the prefill
@@ -264,6 +274,14 @@ GEMMA3_LAYERS = 12           # published: 62
 # reduced configurations only, card against CPU (phase 11): qwen1.5-32b's
 # full size is ~141 GB in f32
 DENSE_REDUCED_ONLY = ("qwen1.5-32b",)
+# The enc-dec and VLM slice, both uncut in f32 and bf16 (2.03 B and 1.89 B
+# parameters): seamless-m4t-large-v2's encoder runs over LM_PROMPT frames,
+# as the reference's launcher draws them; internvl2-2b prefills its 256
+# patches before the prompt.
+ENCDEC_ARCHS = ("seamless-m4t-large-v2", "internvl2-2b")
+# seamless's encoder frames in the card-against-CPU phases (11, 15): not the
+# prompt's length, so that cross-attention runs with S ≠ T
+ENC_CPU_LEN = 61
 LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
 LM_SEED = 0
 # kernel against plain version: the reference's kernel tolerance
@@ -283,7 +301,9 @@ LM_CARD_CPU_RTOL = 1e-4
 BF16_SERVE = (("zamba2-1.2b", LM_BATCH, False), ("zamba2-1.2b", LM_BATCH, True),
               ("falcon-mamba-7b", LM_BATCH, False),
               ("granite-8b", LM_BATCH, False), ("gemma-7b", LM_BATCH, False),
-              ("gemma3-27b", LM_BATCH, False), ("qwen1.5-32b", 1, False))
+              ("gemma3-27b", LM_BATCH, False), ("qwen1.5-32b", 1, False),
+              ("seamless-m4t-large-v2", LM_BATCH, False),
+              ("internvl2-2b", LM_BATCH, False))
 # bf16 kernel against its plain version on the same bf16 inputs: the output
 # within one bf16 rounding of the plain one (2^-7 of the value) plus a share
 # of the scale: attention 2e-3 (the kernel rounds P to bf16 against its
@@ -2127,9 +2147,32 @@ def dense_flash_shapes():
     return out
 
 
+def encdec_flash_cases():
+    """Attention as the enc-dec and VLM prefills take it: (label, (B, S, T,
+    H, K, hd), causal). seamless-m4t-large-v2's encoder (S = T = 2,048, no
+    mask) and its cross-attention with fewer (1,500) and more (2,048 over
+    700 queries) encoder frames than decoder tokens; internvl2-2b's causal
+    self-attention over its 256 patches and the prompt; a ragged GQA case
+    without a mask."""
+    from repro_torch.configs import get_config
+    sm, iv = (get_config(a) for a in ENCDEC_ARCHS)
+    heads = (sm.n_heads, sm.n_kv, sm.head_dim)
+    B, S, R = LM_BATCH, LM_PROMPT, LM_PROMPT + iv.vlm_patches
+    return [("seamless-enc", (B, S, S) + heads, False),
+            ("seamless-cross-short", (B, S, 1500) + heads, False),
+            ("seamless-cross-long", (B, 700, S) + heads, False),
+            ("internvl2", (B, R, R, iv.n_heads, iv.n_kv, iv.head_dim), True),
+            ("gqa-noncausal-ragged", (2, 1000, 1537, 16, 8, 128), False)]
+
+
+# the enc-dec and VLM cases that phases 9 and 13 time: the prefills' shapes
+ENCDEC_TIMED = ("seamless-enc", "internvl2")
+
+
 def lm_check_kernels(dev):
     """Phase 8: each LM kernel against its plain version at the serve
-    path's shapes, plus GQA + window and ragged lengths."""
+    path's shapes, plus GQA + window, ragged lengths and the enc-dec and
+    VLM prefills' attention (``encdec_flash_cases``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
@@ -2154,21 +2197,25 @@ def lm_check_kernels(dev):
         assert ok, "ssd_scan disagrees with its plain version"
         assert same, "ssd_scan differs from run to run"
         errs["ssd_scan"] = max(errs["ssd_scan"], e)
-    cases = [((fB, fS, fS, fH, fK, fhd), None, None),     # zamba2's
-             ((2, 1000, 1000, fH, fH // 4, fhd), 256, None),  # GQA, window
-             ((2, 333, 1000, fH, fK, fhd), None, None)]   # offset queries
-    cases += [(shape, window, None)
-              for _, shape, window in dense_flash_shapes()]
-    cases.append(((2, 1000, 1000, 16, 8, 256), 300, 30.0))   # hd 256, cap
-    for (B, S, T, H, K, hd), window, cap in cases:
+    cases = [("zamba2", (fB, fS, fS, fH, fK, fhd), None, None, True),
+             ("gqa-window", (2, 1000, 1000, fH, fH // 4, fhd), 256, None,
+              True),
+             ("offset-queries", (2, 333, 1000, fH, fK, fhd), None, None,
+              True)]
+    cases += [(label, shape, window, None, True)
+              for label, shape, window in dense_flash_shapes()]
+    cases.append(("hd256-cap", (2, 1000, 1000, 16, 8, 256), 300, 30.0, True))
+    cases += [(label, shape, None, None, causal)
+              for label, shape, causal in encdec_flash_cases()]
+    for label, (B, S, T, H, K, hd), window, cap, causal in cases:
         q, k, v = qkv_inputs(B, S, T, H, K, hd, dev, seed=S + T + hd)
-        got = flash_attention(q, k, v, window=window, softcap=cap)
-        same = bits_equal([got], [flash_attention(q, k, v, window=window,
-                                                  softcap=cap)])
-        want = flash_attention_ref(q, k, v, window=window, softcap=cap)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = flash_attention(q, k, v, **kw)
+        same = bits_equal([got], [flash_attention(q, k, v, **kw)])
+        want = flash_attention_ref(q, k, v, **kw)
         e, ok = max_err([got], [want], LM_RTOL)
         say({"phase": "lm_parity", "kernel": "flash_attention",
-             "shape": [B, S, T, H, K, hd], "causal": True,
+             "case": label, "shape": [B, S, T, H, K, hd], "causal": causal,
              "window": window, "softcap": cap, "max_abs_err": e,
              "rtol": LM_RTOL, "ok": ok, "run_twice_bitwise_equal": same})
         assert ok, "flash_attention disagrees with its plain version"
@@ -2241,8 +2288,13 @@ def lm_time_kernels(dev):
         r.update(lm_bound(name, r["operations"], r["bytes"]))
         say({"phase": "lm_timing", "kernel": name, **r,
              "share_of_bound": r["bound_ms"] / r["ms"]})
-    for model, shape, window in dense_flash_shapes():
-        r = time_flash(dev, shape, window)
+    timed = [(model, shape, window, True)
+             for model, shape, window in dense_flash_shapes()]
+    timed += [(label, shape, None, causal)
+              for label, shape, causal in encdec_flash_cases()
+              if label in ENCDEC_TIMED]
+    for model, shape, window, causal in timed:
+        r = time_flash(dev, shape, window, causal)
         r.update(lm_bound("flash_attention", r["operations"], r["bytes"]))
         say({"phase": "lm_timing", "kernel": "flash_attention",
              "model": model, **r, "share_of_bound": r["bound_ms"] / r["ms"]})
@@ -2250,9 +2302,9 @@ def lm_time_kernels(dev):
     return rows
 
 
-def time_flash(dev, shape, window) -> dict:
-    """``flash_attention``'s time at ``shape`` (B, S, T, H, K, hd), causal,
-    with ``window``, beside its plain version's and
+def time_flash(dev, shape, window, causal: bool = True) -> dict:
+    """``flash_attention``'s time at ``shape`` (B, S, T, H, K, hd), causal
+    or not, with ``window``, beside its plain version's and
     ``scaled_dot_product_attention``'s on the same tensors (K and V
     repeated to the query heads outside the timed call; a window as an
     explicit boolean mask)."""
@@ -2264,25 +2316,34 @@ def time_flash(dev, shape, window) -> dict:
     qt = q.transpose(1, 2).contiguous()
     kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2).contiguous()
               for t in (k, v))
-    if window is None:
-        lib = dict(is_causal=True)
-    else:
-        qpos = torch.arange(S, device=dev)[:, None] + (T - S)
-        kpos = torch.arange(T, device=dev)[None, :]
-        lib = dict(attn_mask=(kpos <= qpos) & (kpos > qpos - window))
-    ops, moved = flash_ops_bytes(B, S, T, H, K, hd, True, window)
+    lib = sdpa_mask(dev, S, T, window, causal)
+    ops, moved = flash_ops_bytes(B, S, T, H, K, hd, causal, window)
+    kw = dict(causal=causal, window=window)
     row = dict(
-        ms=cuda_time_ms(lambda: flash_attention(q, k, v, window=window),
-                        reps=20),
-        plain_ms=cuda_time_ms(
-            lambda: flash_attention_ref(q, k, v, window=window), reps=3),
+        ms=cuda_time_ms(lambda: flash_attention(q, k, v, **kw), reps=20),
+        plain_ms=cuda_time_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                              reps=3),
         library_ms=cuda_time_ms(
             lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib),
             reps=20),
-        operations=ops, bytes=moved, shape=list(shape), window=window)
+        operations=ops, bytes=moved, shape=list(shape), window=window,
+        causal=causal)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return row
+
+
+def sdpa_mask(dev, S, T, window, causal) -> dict:
+    """``scaled_dot_product_attention``'s mask arguments for the flash
+    kernel's mask (query row i at key position i + T − S): ``is_causal``
+    without a window (its causal mask is aligned to the top-left, which is
+    the same only for S = T, as at every timed shape), an explicit boolean
+    mask with one."""
+    if window is None:
+        return dict(is_causal=causal)
+    qpos = torch.arange(S, device=dev)[:, None] + (T - S)
+    kpos = torch.arange(T, device=dev)[None, :]
+    return dict(attn_mask=(kpos <= qpos) & (kpos > qpos - window))
 
 
 def lm_kernel_modules():
@@ -2313,15 +2374,19 @@ def lm_launches() -> dict:
 
 
 def lm_expected_launches(cfg) -> dict:
-    """Launches of each LM kernel entry in one full prefill of ``cfg``: a
+    """Launches of each LM kernel entry in one full prefill of ``cfg``
+    (attention: once a layer's self-attention, and once an encoder layer
+    and a cross-attention of an enc-dec model): a
     bf16 model's attention through the bf16 flash entry, its SSD scan
     through the bf16 entry only under ``ssm_bf16`` (else the model passes
     f32, as the reference), its Mamba-1 scan through the f32 entry (the
     reference upcasts before the scan)."""
     want = dict.fromkeys(LM_ENTRIES, 0)
     flash = entry("flash_attention", cfg.dtype)
-    if cfg.family == "dense":          # one flash launch per attention layer
+    if cfg.family in ("dense", "vlm"):     # one launch per attention layer
         want[flash] = cfg.n_layers
+    elif cfg.family == "encdec":   # the encoder's, decoder self and cross
+        want[flash] = cfg.n_enc_layers + 2 * cfg.n_layers
     elif cfg.ssm == "mamba1":
         want["selective_scan"] = cfg.n_layers
     else:
@@ -2344,6 +2409,7 @@ def lm_serve_path(dev, arch: str, n_layers=None, *, dtype=torch.float32,
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.models.convert import leaves
+    from repro_torch.launch.serve import frontend_inputs
     from repro_torch.serve.serve_step import greedy_decode, prefill
     kernels = lm_kernel_modules()
 
@@ -2361,6 +2427,9 @@ def lm_serve_path(dev, arch: str, n_layers=None, *, dtype=torch.float32,
     params = init_params(cfg, gen)
     prompts = torch.randint(0, cfg.vocab, (batch, LM_PROMPT),
                             generator=gen, device=dev)
+    # seamless's encoder over as many frames as the prompt, as the launcher
+    front = frontend_inputs(cfg, batch, LM_PROMPT, gen, dev)
+    P = cfg.vlm_patches                  # the patches come before the prompt
     synchronize(dev)
     n_params = sum(t.numel() for t in leaves(params))
     say({"phase": "lm_setup", "arch": cfg.name, "dtype": str(dtype),
@@ -2370,11 +2439,12 @@ def lm_serve_path(dev, arch: str, n_layers=None, *, dtype=torch.float32,
          "analytic_params": cfg.n_params(), "n_layers": cfg.n_layers,
          "published_layers": published_layers,
          "seconds": time.perf_counter() - t0})
-    cache_len = LM_PROMPT + LM_NEW
+    cache_len = LM_PROMPT + LM_NEW + P
     with torch.inference_mode():
         # a first prefill warms the libraries; its logits are the first of
         # the run-twice pair
-        first, caches, _ = prefill(params, cfg, prompts, cache_len=cache_len)
+        first, caches, _ = prefill(params, cfg, prompts, cache_len=cache_len,
+                                   **front)
         del caches
         synchronize(dev)
         torch.cuda.empty_cache()
@@ -2382,7 +2452,7 @@ def lm_serve_path(dev, arch: str, n_layers=None, *, dtype=torch.float32,
         reset()
         t0 = time.perf_counter()
         logits, caches, rolling = prefill(params, cfg, prompts,
-                                          cache_len=cache_len)
+                                          cache_len=cache_len, **front)
         synchronize(dev)
         t_prefill = time.perf_counter() - t0
         prefill_launches = lm_launches()
@@ -2397,7 +2467,7 @@ def lm_serve_path(dev, arch: str, n_layers=None, *, dtype=torch.float32,
             synchronize(dev)
             marks.append(time.perf_counter())
 
-        tokens = greedy_decode(params, cfg, logits, caches, LM_PROMPT,
+        tokens = greedy_decode(params, cfg, logits, caches, LM_PROMPT + P,
                                LM_NEW, rolling=rolling, on_step=on_step)
         decode_launches = lm_launches()
     finite &= all(bool(f) for f in step_finite)
@@ -2408,6 +2478,9 @@ def lm_serve_path(dev, arch: str, n_layers=None, *, dtype=torch.float32,
             "lm_serve_bf16", "arch": cfg.name, "dtype": str(dtype),
             "ssm_bf16": ssm_bf16, "n_layers": cfg.n_layers,
             "batch": batch, "prompt_len": LM_PROMPT, "new_tokens": LM_NEW,
+            "encoder_tokens": (batch * front["enc_inputs"].shape[1]
+                               if "enc_inputs" in front else 0),
+            "patches": batch * P, "cache_len": cache_len,
             "rolling": rolling,
             "prefill_s": t_prefill,
             "prefill_tokens_per_s": batch * LM_PROMPT / t_prefill,
@@ -2433,29 +2506,39 @@ def lm_serve_path(dev, arch: str, n_layers=None, *, dtype=torch.float32,
     want = lm_expected_launches(cfg)
     assert prefill_launches == want, (prefill_launches, want)
     assert not any(decode_launches.values()), decode_launches
-    del params, caches, logits, first
+    del params, caches, logits, first, front
     torch.cuda.empty_cache()
     return line, {k: prefill_launches[k] + decode_launches[k]
                   for k, v in want.items() if v}
 
 
-def lm_run(params, cfg, tokens, prompt_len):
-    """Teacher-forced prefill + decode over ``tokens`` and greedy
-    generation of 8 tokens from the prompt; logits and tokens on the
-    host."""
+def lm_run(params, cfg, tokens, prompt_len, front):
+    """Teacher-forced prefill + decode over ``tokens`` (after the patches,
+    with the encoder's frames, of ``front``) and greedy generation of 8
+    tokens from the prompt; logits and tokens on the host."""
     from repro_torch.serve.serve_step import (decode_step, greedy_generate,
                                               prefill)
-    S = tokens.shape[1]
+    S, P = tokens.shape[1], cfg.vlm_patches
     with torch.inference_mode():
         lg, caches, rolling = prefill(params, cfg, tokens[:, :prompt_len],
-                                      cache_len=S)
+                                      cache_len=S + P, **front)
         steps = [lg.cpu().numpy()]
         for t in range(prompt_len, S):
             lg, caches = decode_step(params, cfg, tokens[:, t:t + 1], caches,
-                                     t, rolling=rolling)
+                                     t + P, rolling=rolling)
             steps.append(lg.cpu().numpy())
-        greedy = greedy_generate(params, cfg, tokens[:, :prompt_len], 8)
+        greedy = greedy_generate(params, cfg, tokens[:, :prompt_len], 8,
+                                 **front)
     return np.stack(steps), greedy.cpu().numpy()
+
+
+def cpu_frontend(cfg, batch: int, seed: int = LM_SEED) -> dict:
+    """The stub frontends' inputs for the card-against-CPU phases, drawn on
+    the host from a seed: ``ENC_CPU_LEN`` encoder frames (not the prompt's
+    length: cross-attention with S ≠ T), or the VLM's patches."""
+    from repro_torch.launch.serve import frontend_inputs
+    return frontend_inputs(cfg, batch, ENC_CPU_LEN,
+                           torch.Generator().manual_seed(seed), "cpu")
 
 
 def lm_card_matches_cpu(dev, arch: str, prompt_len: int = 100,
@@ -2473,15 +2556,19 @@ def lm_card_matches_cpu(dev, arch: str, prompt_len: int = 100,
     params = init_params(cfg, torch.Generator().manual_seed(LM_SEED))
     tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
         0, cfg.vocab, (2, prompt_len + steps)))
+    front = cpu_frontend(cfg, 2)
     on_card = tree_map(lambda t: t.to(dev), params)
-    a, ga = lm_run(on_card, cfg, tokens.to(dev), prompt_len)
-    b, gb = lm_run(params, cfg, tokens, prompt_len)
+    a, ga = lm_run(on_card, cfg, tokens.to(dev), prompt_len,
+                   tree_map(lambda t: t.to(dev), front))
+    b, gb = lm_run(params, cfg, tokens, prompt_len, front)
     scale = float(np.abs(b).max())
     rel = float(np.abs(a - b).max()) / scale
     same_argmax = bool((a.argmax(-1) == b.argmax(-1)).all())
     same_greedy = bool((ga == gb).all())
     say({"phase": "lm_card_vs_cpu", "arch": cfg.name,
          "prompt_len": prompt_len, "decode_steps": steps,
+         "encoder_len": (ENC_CPU_LEN if cfg.is_encdec else None),
+         "patches": cfg.vlm_patches,
          "max_rel_diff": rel, "rtol": LM_CARD_CPU_RTOL,
          "argmax_equal": same_argmax, "greedy_tokens_equal": same_greedy})
     assert rel <= LM_CARD_CPU_RTOL, "card and CPU logits disagree"
@@ -2570,17 +2657,22 @@ def lm_check_kernels_bf16(dev) -> dict:
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
     errs = dict.fromkeys(("flash_attention_bf16", "ssd_scan_bf16",
                           "selective_scan_bf16"), 0.0)
-    for label, (B, S, T, H, K, hd), window, cap in bf16_flash_cases():
+    cases = [(label, shape, window, cap, True)
+             for label, shape, window, cap in bf16_flash_cases()]
+    cases += [(label, shape, None, None, causal)
+              for label, shape, causal in encdec_flash_cases()]
+    for label, (B, S, T, H, K, hd), window, cap, causal in cases:
         q, k, v = (t.bfloat16() for t in
                    qkv_inputs(B, S, T, H, K, hd, dev, seed=S + T + hd))
-        got = flash_attention(q, k, v, window=window, softcap=cap)
-        same = torch.equal(got, flash_attention(q, k, v, window=window,
-                                                softcap=cap))
-        want = flash_attention_ref(q, k, v, window=window, softcap=cap)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        got = flash_attention(q, k, v, **kw)
+        same = torch.equal(got, flash_attention(q, k, v, **kw))
+        want = flash_attention_ref(q, k, v, **kw)
         e, excess, ok = bf16_err(got, want, BF16_FLASH_RTOL)
         say({"phase": "lm_parity_bf16", "kernel": "flash_attention_bf16",
-             "case": label, "shape": [B, S, T, H, K, hd], "window": window,
-             "softcap": cap, "dtype": [str(got.dtype), str(want.dtype)],
+             "case": label, "shape": [B, S, T, H, K, hd], "causal": causal,
+             "window": window, "softcap": cap,
+             "dtype": [str(got.dtype), str(want.dtype)],
              "max_abs_err": e, "excess_over_one_rounding": excess,
              "rtol": BF16_FLASH_RTOL, "ok": ok,
              "run_twice_bitwise_equal": same})
@@ -2633,11 +2725,11 @@ def lm_check_kernels_bf16(dev) -> dict:
     return errs
 
 
-def bf16_flash_bound(B, S, T, H, K, hd, window) -> dict:
+def bf16_flash_bound(B, S, T, H, K, hd, window, causal: bool = True) -> dict:
     """The bf16 attention's bound: its bf16 bytes (q, k, v read once, o
     written once), its products at the dense bf16 rate, its f32 softmax
     work (FLASH_F32_OPS_PER_PAIR a live pair) at the f32 rate."""
-    ops, moved_f32 = flash_ops_bytes(B, S, T, H, K, hd, True, window)
+    ops, moved_f32 = flash_ops_bytes(B, S, T, H, K, hd, causal, window)
     pairs = ops / (4.0 * hd)
     roof = Roofline(moved_f32 / 2, ops, PEAK_BF16_FLOPS,
                     f32_operations=FLASH_F32_OPS_PER_PAIR * pairs)
@@ -2696,35 +2788,35 @@ def lm_time_kernels_bf16(dev) -> dict:
     smem_bytes = FK.library().flash_attention_bf16_smem_bytes
     smem_bytes.argtypes, smem_bytes.restype = [ctypes.c_int], ctypes.c_int
     rows = {}
-    for label, (B, S, T, H, K, hd), window, cap in bf16_flash_cases():
-        if cap is not None or label in ("ragged-gqa-window",
-                                        "offset-queries"):
-            continue
+    timed = [(label, shape, window, True)
+             for label, shape, window, cap in bf16_flash_cases()
+             if cap is None and label not in ("ragged-gqa-window",
+                                              "offset-queries")]
+    timed += [(label, shape, None, causal)
+              for label, shape, causal in encdec_flash_cases()
+              if label in ENCDEC_TIMED]
+    for label, (B, S, T, H, K, hd), window, causal in timed:
         q, k, v = (t.bfloat16() for t in qkv_inputs(B, S, T, H, K, hd, dev))
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2)
                   .contiguous() for t in (k, v))
-        if window is None:
-            lib = dict(is_causal=True)
-        else:
-            qpos = torch.arange(S, device=dev)[:, None] + (T - S)
-            kpos = torch.arange(T, device=dev)[None, :]
-            lib = dict(attn_mask=(kpos <= qpos) & (kpos > qpos - window))
+        lib = sdpa_mask(dev, S, T, window, causal)
+        kw = dict(causal=causal, window=window)
         row = dict(
             model=label, shape=[B, S, T, H, K, hd], window=window,
-            ms=cuda_time_ms(lambda: flash_attention(q, k, v, window=window),
-                            reps=20),
-            plain_ms=cuda_time_ms(lambda: flash_attention_ref(
-                q, k, v, window=window), reps=3),
+            causal=causal,
+            ms=cuda_time_ms(lambda: flash_attention(q, k, v, **kw), reps=20),
+            plain_ms=cuda_time_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                                  reps=3),
             library_ms=cuda_time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib),
                 reps=20))
         del qt, kt, vt
         qf, kf, vf = (t.float() for t in (q, k, v))
         row["f32_entry_ms"] = cuda_time_ms(
-            lambda: flash_attention(qf, kf, vf, window=window), reps=20)
+            lambda: flash_attention(qf, kf, vf, **kw), reps=20)
         del q, k, v, qf, kf, vf
-        row.update(bf16_flash_bound(B, S, T, H, K, hd, window))
+        row.update(bf16_flash_bound(B, S, T, H, K, hd, window, causal))
         row.update(flash_bf16_resources(
             build.BUILD_LOG.get("flash_attention", {}).get("ptxas", []), hd))
         row["dynamic_smem_bytes"] = smem_bytes(hd)
@@ -2805,24 +2897,28 @@ def lm_card_matches_cpu_bf16(dev, arch: str, *, prompt_len=BF16_CPU_PROMPT,
     steps = BF16_CPU_STEPS
     tokens = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
         0, cfg.vocab, (BF16_CPU_BATCH, prompt_len + steps)))
+    front = cpu_frontend(cfg, BF16_CPU_BATCH)     # f32, cast by the model
+    P = cfg.vlm_patches
 
-    def run(p, c, toks):
+    def run(p, c, toks, fr):
         with torch.inference_mode():
             lg, caches, rolling = prefill(p, c, toks[:, :prompt_len],
-                                          cache_len=prompt_len + steps)
+                                          cache_len=prompt_len + steps + P,
+                                          **fr)
             out = [lg.float().cpu().numpy()]
             for t in range(prompt_len, prompt_len + steps):
-                lg, caches = decode_step(p, c, toks[:, t:t + 1], caches, t,
-                                         rolling=rolling)
+                lg, caches = decode_step(p, c, toks[:, t:t + 1], caches,
+                                         t + P, rolling=rolling)
                 out.append(lg.float().cpu().numpy())
         return np.stack(out)
 
     before = lm_launches()
-    card = run(tree_map(lambda t: t.to(dev), params), cfg, tokens.to(dev))
+    card = run(tree_map(lambda t: t.to(dev), params), cfg, tokens.to(dev),
+               tree_map(lambda t: t.to(dev), front))
     launched = {k: n - before[k] for k, n in lm_launches().items()
                 if n != before[k]}
-    cpu16 = run(params, cfg, tokens)
-    cpu32 = run(params32, cfg32, tokens)
+    cpu16 = run(params, cfg, tokens, front)
+    cpu32 = run(params32, cfg32, tokens, front)
     rms = lambda a: np.sqrt(np.mean(np.square(a), axis=(1, 2)))
     scale = rms(cpu32)
     mine = rms(card - cpu16) / scale
@@ -2832,6 +2928,8 @@ def lm_card_matches_cpu_bf16(dev, arch: str, *, prompt_len=BF16_CPU_PROMPT,
     say({"phase": "lm_card_vs_cpu_bf16", "arch": cfg.name,
          "ssm_bf16": ssm_bf16, "batch": BF16_CPU_BATCH,
          "prompt_len": prompt_len, "decode_steps": steps,
+         "encoder_len": (ENC_CPU_LEN if cfg.is_encdec else None),
+         "patches": P,
          "card_vs_cpu_bf16_rms": mine.tolist(),
          "cpu_bf16_vs_f32_rms": own.tolist(),
          "ratio": (mine / own).tolist(), "ratio_limit": BF16_RATIO,
@@ -2901,13 +2999,14 @@ def main() -> int:
     timing.update(lm_time_kernels(dev))
     serve_paths = [(LM_ARCH, None), (MAMBA1_ARCH, None)] + [
         (arch, GEMMA3_LAYERS if arch == "gemma3-27b" else None)
-        for arch in DENSE_ARCHS]
+        for arch in DENSE_ARCHS] + [(arch, None) for arch in ENCDEC_ARCHS]
     f32_lines = {}
     for arch, n_layers in serve_paths:
         f32_lines[arch], counts = lm_serve_path(dev, arch, n_layers)
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
-    for arch in (LM_ARCH, MAMBA1_ARCH) + DENSE_ARCHS + DENSE_REDUCED_ONLY:
+    for arch in ((LM_ARCH, MAMBA1_ARCH) + DENSE_ARCHS + DENSE_REDUCED_ONLY
+                 + ENCDEC_ARCHS):
         lm_card_matches_cpu(dev, arch)
 
     errs.update(lm_check_kernels_bf16(dev))
@@ -2918,7 +3017,8 @@ def main() -> int:
                                   f32_figures=f32_lines.get(arch))
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
-    for arch in DENSE_ARCHS + DENSE_REDUCED_ONLY + (LM_ARCH, MAMBA1_ARCH):
+    for arch in (DENSE_ARCHS + DENSE_REDUCED_ONLY + (LM_ARCH, MAMBA1_ARCH)
+                 + ENCDEC_ARCHS):
         lm_card_matches_cpu_bf16(dev, arch)
     lm_card_matches_cpu_bf16(dev, "gemma3-27b", prompt_len=64)   # banded
     lm_card_matches_cpu_bf16(dev, LM_ARCH, ssm_bf16=True)

@@ -6,7 +6,7 @@ item that ports it.
 """
 
 from . import (falcon_mamba_7b, gemma3_27b, gemma_7b, granite_8b,
-               qwen15_32b, zamba2_1_2b)
+               internvl2_2b, qwen15_32b, seamless_m4t_large_v2, zamba2_1_2b)
 from .shapes import SHAPES, Shape, applicable
 
 _MODULES = {
@@ -15,6 +15,8 @@ _MODULES = {
     "gemma3-27b": gemma3_27b,
     "granite-8b": granite_8b,
     "falcon-mamba-7b": falcon_mamba_7b,
+    "seamless-m4t-large-v2": seamless_m4t_large_v2,
+    "internvl2-2b": internvl2_2b,
     "zamba2-1.2b": zamba2_1_2b,
 }
 
@@ -22,8 +24,6 @@ _MODULES = {
 _LATER = {
     "mixtral-8x7b": "queue 1 item 13d (MoE)",
     "mixtral-8x22b": "queue 1 item 13d (MoE)",
-    "seamless-m4t-large-v2": "queue 1 item 13c (enc-dec)",
-    "internvl2-2b": "queue 1 item 13c (VLM)",
 }
 
 ARCH_NAMES = list(_MODULES)

@@ -6,7 +6,14 @@ counterpart of ``python -m repro.launch.serve``).
 
 ``--arch`` is any of ``repro_torch.configs.ARCH_NAMES``: granite-8b (the
 default, as in ``repro.launch.serve``), zamba2-1.2b, falcon-mamba-7b,
-gemma-7b, gemma3-27b, qwen1.5-32b.
+gemma-7b, gemma3-27b, qwen1.5-32b, seamless-m4t-large-v2, internvl2-2b.
+
+As in the reference's launcher (``repro/launch/serve.py:41-60``), an
+enc-dec model (seamless-m4t-large-v2) gets encoder inputs of shape
+(batch, prompt length, d_model), and a VLM (internvl2-2b) its
+``vlm_patches`` patch embeddings (batch, P, d_model), both standard normal
+× 0.1 from the run's generator (the frontends are stubs); a VLM's cache
+holds the patches too, and its decode starts after them.
 
 ``--dtype float32`` (the default) runs in float32, the reference's rule
 on one device (``repro/launch/serve.py:34-35``); ``--dtype bfloat16`` keeps
@@ -21,6 +28,24 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+
+
+def frontend_inputs(cfg, batch: int, enc_len: int, gen, device) -> dict:
+    """The stub frontends' inputs, standard normal × 0.1 from ``gen`` as
+    the reference's launcher draws them: an enc-dec model's encoder frames
+    (batch, enc_len, d_model), a VLM's patch embeddings (batch, P,
+    d_model); none for the other models. The keyword arguments of
+    ``prefill``."""
+    import torch
+    out = {}
+    if cfg.is_encdec:
+        out["enc_inputs"] = torch.randn((batch, enc_len, cfg.d_model),
+                                        generator=gen, device=device) * 0.1
+    if cfg.vlm_patches:
+        out["patch_embeds"] = torch.randn(
+            (batch, cfg.vlm_patches, cfg.d_model), generator=gen,
+            device=device) * 0.1
+    return out
 
 
 def main(argv=None) -> None:
@@ -57,19 +82,23 @@ def main(argv=None) -> None:
     B, S0, N = args.batch, args.prompt_len, args.new_tokens
     prompts = torch.randint(0, cfg.vocab, (B, S0), generator=gen,
                             device=dev)
+    kwargs = frontend_inputs(cfg, B, S0, gen, dev)
+    extra = cfg.vlm_patches
+    also = (f" (+ encoder {B}×{S0} frames)" if cfg.is_encdec else
+            f" (+ {B}×{extra} patches)" if extra else "")
     synchronize(dev)
     with torch.inference_mode():
         t0 = time.perf_counter()
         logits, caches, rolling = prefill(params, cfg, prompts,
-                                          cache_len=S0 + N)
+                                          cache_len=S0 + N + extra, **kwargs)
         synchronize(dev)
         t_prefill = time.perf_counter() - t0
-        print(f"{cfg.name}: prefill: {B}×{S0} tokens in "
+        print(f"{cfg.name}: prefill: {B}×{S0} tokens{also} in "
               f"{t_prefill*1e3:.0f} ms "
               f"({B*S0/t_prefill:.0f} tok/s) on {dev}, {cfg.dtype}")
 
         t0 = time.perf_counter()
-        tokens = greedy_decode(params, cfg, logits, caches, S0, N,
+        tokens = greedy_decode(params, cfg, logits, caches, S0 + extra, N,
                                rolling=rolling)
         synchronize(dev)
         t_decode = time.perf_counter() - t0

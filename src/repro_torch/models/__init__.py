@@ -1,9 +1,10 @@
 """LM models of the ported slices (zamba2-1.2b: Mamba-2 + shared attention;
 falcon-mamba-7b: Mamba-1; granite-8b, gemma-7b, gemma3-27b, qwen1.5-32b:
-dense attention).
+dense attention; seamless-m4t-large-v2: encoder-decoder; internvl2-2b:
+dense attention after a patch prefix).
 
-The port's counterpart of ``repro.models``; block kinds, attention branches
-and architectures of later slices raise, naming their ROADMAP item.
+The port's counterpart of ``repro.models``; the block kind and
+architectures of later slices (MoE) raise, naming their ROADMAP item.
 """
 
 from .config import ModelConfig

@@ -1,18 +1,20 @@
 """Carry parameters and caches between the reference and the port.
 
-The reference's parameters are a pytree of arrays whose ``segments`` leaves
-carry a leading repeat dimension (from ``vmap`` init); the port keeps one
-dict per layer. ``params_from_numpy`` takes the reference's tree as numpy
-arrays (``jax.tree.map(np.asarray, params)``) and unstacks it;
+The reference's parameters are a pytree of arrays whose ``segments`` and
+``encoder`` leaves carry a leading layer dimension (from ``vmap`` init); the
+port keeps one dict per layer. ``params_from_numpy`` takes the reference's
+tree as numpy arrays (``jax.tree.map(np.asarray, params)``) and unstacks it;
 ``params_to_numpy`` stacks the port's parameters back into the same tree
 (dense trees too: ``q_norm``/``k_norm``, the QKV biases, an untied
-``head``, gemma3's period and remainder segments).
+``head``, gemma3's period and remainder segments; enc-dec trees: the
+encoder, ``enc_ln_f``, the ``dec`` blocks' ``ln_x`` and ``xattn``).
 ``to_numpy`` turns any nest of lists, tuples, dicts and named tuples of
 tensors (the port's caches, say) into the same nest of numpy arrays;
 ``caches_from_numpy`` takes the reference's per-layer decode caches
-(``make_caches(..., stacked=False)`` or a decode step's, full or rolling)
-as numpy leaves into the port's; ``tree_map`` and ``leaves`` walk such a
-nest. Nothing here imports JAX, nor ``ml_dtypes``.
+(``make_caches(..., stacked=False)`` or a decode step's, full or rolling;
+a ``dec`` layer's the pair (self, cross)) as numpy leaves into the port's;
+``tree_map`` and ``leaves`` walk such a nest. Nothing here imports JAX,
+nor ``ml_dtypes``.
 
 bf16 leaves cross bit for bit both ways. In: a numpy array whose dtype is
 named ``bfloat16`` (the reference's default dtype, an ``ml_dtypes`` type)
@@ -55,35 +57,36 @@ def tree_map(fn, t):
     return fn(t)
 
 
+_STACKED = ("segments", "encoder")
+
+
+def _unstack(stacked, device) -> list:
+    """A tree of arrays with a leading layer dimension → per-layer trees."""
+    n = len(next(iter(leaves(stacked))))
+    return [tree_map(lambda a, r=r: _tensor(a[r], device), stacked)
+            for r in range(n)]
+
+
 def params_from_numpy(tree: dict, *, device="cpu") -> dict:
-    """The reference's parameter tree (numpy leaves, stacked segments) →
-    the port's parameters on ``device`` (one dict per layer)."""
+    """The reference's parameter tree (numpy leaves, stacked segments and
+    encoder) → the port's parameters on ``device`` (one dict per layer)."""
     out = {k: tree_map(lambda a: _tensor(a, device), v)
-           for k, v in tree.items() if k != "segments"}
-    segs = []
-    for seg in tree["segments"]:
-        pos = []
-        for stacked in seg:
-            repeats = len(next(iter(leaves(stacked))))
-            pos.append([tree_map(lambda a, r=r: _tensor(a[r], device), stacked)
-                        for r in range(repeats)])
-        segs.append(pos)
-    out["segments"] = segs
+           for k, v in tree.items() if k not in _STACKED}
+    out["segments"] = [[_unstack(stacked, device) for stacked in seg]
+                       for seg in tree["segments"]]
+    if "encoder" in tree:
+        out["encoder"] = _unstack(tree["encoder"], device)
     return out
 
 
 def params_to_numpy(params: dict) -> dict:
     """The port's parameters → the reference's tree layout, numpy leaves
-    (segments stacked along a leading repeat dimension)."""
-    out = {k: to_numpy(v) for k, v in params.items() if k != "segments"}
-    segs = []
-    for seg in params["segments"]:
-        pos = []
-        for layers in seg:
-            per = [to_numpy(p) for p in layers]
-            pos.append(_stack(per))
-        segs.append(pos)
-    out["segments"] = segs
+    (segments and encoder stacked along a leading layer dimension)."""
+    out = {k: to_numpy(v) for k, v in params.items() if k not in _STACKED}
+    out["segments"] = [[_stack([to_numpy(p) for p in layers])
+                        for layers in seg] for seg in params["segments"]]
+    if "encoder" in params:
+        out["encoder"] = _stack([to_numpy(p) for p in params["encoder"]])
     return out
 
 
@@ -98,6 +101,8 @@ def caches_from_numpy(cfg, tree: list, *, device="cpu") -> list:
     def block(kind, c):
         if kind in ATTN_KINDS:
             return kv(c)
+        if kind == "dec":
+            return (kv(c[0]), kv(c[1]))
         if kind == "mamba1":
             return Mamba1State(*(_tensor(a, device) for a in c))
         if kind == "mamba2":

@@ -5,19 +5,23 @@ Plain functions over parameter dicts of tensors, in the reference's layouts
 Attention has the reference's three modes:
 
 * train / prefill — full sequence through the flash attention op (the Hopper
-  kernel on the card, its plain version on the CPU), causal, with the
-  layer's sliding window and soft-cap; prefill also returns the KV cache.
-  The reference's banded branch (``_banded_sdpa``, taken when S is a
-  multiple ≥ 2 of the window) masks the same keys as the window does, so
-  it runs through the same op;
+  kernel on the card, its plain version on the CPU), causal with the
+  layer's sliding window, or without any mask for the encoder's
+  bidirectional layers, with the layer's soft-cap; prefill also returns
+  the KV cache. The reference's banded branch (``_banded_sdpa``, taken
+  when S is a multiple ≥ 2 of the window) masks the same keys as the
+  window does, so it runs through the same op;
 * decode — q_len tokens against a full or a rolling (wrap-around,
   window-sized) cache, in plain PyTorch (``_sdpa`` with a slot mask), as
   the reference computes it outside any Pallas kernel.
 
+Cross-attention (the enc-dec decoder's): at prefill, k and v come from the
+encoder's output ``kv_x`` (S ≠ T), without RoPE, through the flash op with
+no mask, and the cache it returns holds them; at decode, the queries attend
+to that read-only cache with the plain ``_sdpa``, as the reference does.
+
 Variants: GQA, QKV bias, ``qk_norm`` (RMSNorm of q and k per head, eps
 1e-6, never plus-one), soft-capping, per-layer RoPE base and windows.
-Cross-attention (enc-dec) is not ported yet (ROADMAP queue 1 item 13c) and
-raises.
 """
 
 from __future__ import annotations
@@ -232,41 +236,57 @@ def attention(p: Params, x, spec: AttnSpec, *, cos=None, sin=None,
               cache: Optional[KVCache] = None, update_cache: bool = False,
               rolling: bool = False, kv_x=None, cross: bool = False,
               ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Self-attention in the reference's modes.
+    """Attention in the reference's modes.
 
       * cache None, update False — training forward (full sequence).
       * cache None, update True  — prefill: also return the built cache.
-      * cache given              — decode: write q_len tokens into the cache
-                                   at ``cache.pos`` (in place; wrapping if
-                                   ``rolling``) and attend.
+      * cache given, cross False — decode: write q_len tokens into the
+                                   cache at ``cache.pos`` (in place;
+                                   wrapping if ``rolling``) and attend.
+      * cache given, cross True  — decode cross-attention against the
+                                   read-only cache built at prefill.
+    ``kv_x`` — a separate KV source (cross-attention prefill).
     """
-    if cross or kv_x is not None:
-        raise NotImplementedError("cross-attention is not ported yet: "
-                                  "ROADMAP queue 1 item 13c (enc-dec)")
     B, S, _ = x.shape
     H, K, hd = spec.n_heads, spec.n_kv, spec.head_dim
 
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
     if spec.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
     q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
     if spec.qk_norm:
         q = rmsnorm(q, p["q_norm"])
+
+    if cross and cache is not None:
+        # read-only cross-attention against the encoder cache (no RoPE)
+        mask = torch.zeros((1, S, cache.k.shape[1]), dtype=torch.float32,
+                           device=x.device)
+        out = _sdpa(q, cache.k, cache.v, mask, softcap=spec.softcap)
+        return out @ p["wo"], cache
+
+    src = x if kv_x is None else kv_x
+    Skv = src.shape[1]
+    k = src @ p["wk"]
+    v = src @ p["wv"]
+    if spec.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    k = k.reshape(B, Skv, K, hd)
+    v = v.reshape(B, Skv, K, hd)
+    if spec.qk_norm:
         k = rmsnorm(k, p["k_norm"])
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if not cross:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)      # self-attention: S == Skv
 
     new_cache = None
     if cache is not None:
         out, new_cache = _decode(q, k, v, cache, spec, rolling)
     else:
-        out = flash_attention_op(q, k, v, causal=spec.causal,
-                                 window=spec.window,
+        # the reference masks nothing across (cross) or within (encoder)
+        masked = spec.causal and not cross
+        out = flash_attention_op(q, k, v, causal=masked,
+                                 window=spec.window if masked else None,
                                  softcap=spec.softcap).reshape(B, S, H * hd)
         if update_cache:
-            new_cache = KVCache(k, v, S)
+            new_cache = KVCache(k, v, Skv)
     return out @ p["wo"], new_cache

@@ -12,9 +12,16 @@ gemma3's local layers), ``global`` (full attention + MLP with the long RoPE
 base, gemma3's global layers), ``mamba1`` (Mamba-1 mixer with B/C/dt RMS
 norms, falcon-mamba-7b), ``mamba2`` (Mamba-2/SSD mixer, zamba2's backbone)
 and ``mamba2s`` (zamba2's shared attention block, params reused across
-invocations, with a per-invocation LoRA, then Mamba-2). The reference's
-``moe`` (item 13d), ``enc`` and ``dec`` (item 13c) kinds raise, naming
-their ROADMAP item.
+invocations, with a per-invocation LoRA, then Mamba-2), ``enc``
+(bidirectional attention + MLP, the encoder of seamless-m4t-large-v2) and
+``dec`` (causal self-attention, cross-attention to the encoder's output,
+then MLP). The reference's ``moe`` kind (ROADMAP queue 1 item 13d) raises,
+naming its item.
+
+The enc-dec model runs its encoder over precomputed frame embeddings
+(``enc_inputs``, a stub frontend) in every mode but decode, whose
+cross-attention reads the caches built at prefill; the VLM prepends
+precomputed patch embeddings (``patch_embeds``) to the token embeddings.
 """
 
 from __future__ import annotations
@@ -34,11 +41,14 @@ from .mamba import (init_mamba1, init_mamba2, make_mamba1_state,
                     mamba2_forward, mamba2_step)
 
 Params = Dict[str, Any]
-PORTED_KINDS = ("attn", "local", "global", "mamba1", "mamba2", "mamba2s")
+PORTED_KINDS = ("attn", "local", "global", "enc", "dec", "mamba1", "mamba2",
+                "mamba2s")
+# the kinds whose cache is one self-attention KV cache
 ATTN_KINDS = ("attn", "local", "global")
+# the kinds built of attention + MLP (``dec`` adds cross-attention)
+TRANSFORMER_KINDS = ATTN_KINDS + ("enc", "dec")
 # the reference's other kinds and the ROADMAP item that ports each
-_LATER_KINDS = {"moe": "13d (MoE)", "enc": "13c (enc-dec)",
-                "dec": "13c (enc-dec)", "enc-dec / vlm": "13c (enc-dec, VLM)"}
+_LATER_KINDS = {"moe": "13d (MoE)"}
 
 
 def _later(kind: str) -> NotImplementedError:
@@ -111,8 +121,6 @@ def _check_ported(cfg: ModelConfig) -> None:
         for kind in pattern:
             if kind not in PORTED_KINDS:
                 raise _later(kind)
-    if cfg.is_encdec or cfg.vlm_patches:
-        raise _later("enc-dec / vlm")
 
 
 # ----------------------------------------------------------- block init
@@ -121,12 +129,16 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
         raise _later(kind)
     dt = cfg.dtype
     d = cfg.d_model
-    if kind in ATTN_KINDS:
+    if kind in TRANSFORMER_KINDS:
         norm = torch.zeros if cfg.rms_plus_one else torch.ones
-        return {"ln1": norm((d,), dtype=dt, device=gen.device),
-                "ln2": norm((d,), dtype=dt, device=gen.device),
-                "attn": init_attention(gen, attn_spec(cfg, kind), dtype=dt),
-                "ffn": init_mlp(gen, d, cfg.d_ff, dtype=dt)}
+        p = {"ln1": norm((d,), dtype=dt, device=gen.device),
+             "ln2": norm((d,), dtype=dt, device=gen.device),
+             "attn": init_attention(gen, attn_spec(cfg, kind), dtype=dt),
+             "ffn": init_mlp(gen, d, cfg.d_ff, dtype=dt)}
+        if kind == "dec":
+            p["ln_x"] = torch.ones((d,), dtype=dt, device=gen.device)
+            p["xattn"] = init_attention(gen, attn_spec(cfg, kind), dtype=dt)
+        return p
     ln1 = torch.ones((d,), dtype=dt, device=gen.device)
     if kind == "mamba1":
         return {"ln1": ln1,
@@ -163,7 +175,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     (``repro/models/model.py:178``), drawn from ``gen`` on its device.
 
     Layout: ``segments[si][pi]`` is the list of the ``repeats`` per-layer
-    dicts of pattern position ``pi`` (the reference stacks them instead).
+    dicts of pattern position ``pi``, and an enc-dec model's ``encoder``
+    the list of its ``n_enc_layers`` per-layer dicts (the reference stacks
+    both instead).
     """
     _check_ported(cfg)
     dt = cfg.dtype
@@ -180,6 +194,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
                      for pattern, repeats in plan_segments(cfg)]
     if cfg.shared_attn_every:
         p["shared"] = init_shared_block(gen, cfg)
+    if cfg.is_encdec:
+        p["encoder"] = [init_block(gen, cfg, "enc")
+                        for _ in range(cfg.n_enc_layers)]
+        p["enc_ln_f"] = torch.ones((cfg.d_model,), dtype=dt,
+                                   device=gen.device)
     return p
 
 
@@ -190,7 +209,7 @@ def rolling_map(cfg: ModelConfig, cache_len: int) -> Dict[str, bool]:
     rolling: Dict[str, bool] = {}
     for pattern, _ in plan_segments(cfg):
         for kind in pattern:
-            if kind in ATTN_KINDS:
+            if kind in TRANSFORMER_KINDS:
                 spec = attn_spec(cfg, kind)
                 rolling[kind] = (spec.window is not None
                                  and cache_len > spec.window)
@@ -198,11 +217,14 @@ def rolling_map(cfg: ModelConfig, cache_len: int) -> Dict[str, bool]:
 
 
 def make_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
-                device=None) -> Tuple[list, Dict[str, bool]]:
+                enc_len: int = 0, device=None
+                ) -> Tuple[list, Dict[str, bool]]:
     """Zero caches for decode, one per layer (the reference's
     ``stacked=False`` layout), on the card unless ``device`` says otherwise.
     Returns (caches, rolling map: kind → whether its KV cache wraps); a
-    rolling cache has the window's length."""
+    rolling cache has the window's length. A ``dec`` layer's cache is the
+    pair (self, cross): the cross cache has ``enc_len`` slots, all held
+    (``pos = enc_len``)."""
     _check_ported(cfg)
     device = resolve_device(device)
     rolling: Dict[str, bool] = {}
@@ -219,6 +241,12 @@ def make_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
         if kind in ATTN_KINDS:
             return make_cache(batch, kv_len(kind), attn_spec(cfg, kind),
                               dtype=cfg.dtype, device=device)
+        if kind == "dec":
+            spec = attn_spec(cfg, kind)
+            cross = make_cache(batch, enc_len, spec, dtype=cfg.dtype,
+                               device=device)
+            return (make_cache(batch, kv_len(kind), spec, dtype=cfg.dtype,
+                               device=device), cross._replace(pos=enc_len))
         if kind == "mamba1":
             return make_mamba1_state(batch, cfg.d_model, d_state=cfg.d_state,
                                      d_conv=cfg.d_conv, expand=cfg.expand,
@@ -246,27 +274,41 @@ class BlockIO:
     mode: str                                  # train | prefill | decode
     rope: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
     rolling: Dict[str, bool] = dataclasses.field(default_factory=dict)
+    enc_out: Optional[torch.Tensor] = None     # enc-dec: encoder output
     shared: Optional[Params] = None
     x0: Optional[torch.Tensor] = None          # zamba2: initial embedding
 
 
 def apply_block(p: Params, x, kind: str, io: BlockIO, cache):
-    """One block (``repro/models/model.py:367-414`` for the ported
-    kinds). Returns (x, new_cache)."""
+    """One block (``repro/models/model.py:330-414`` for the ported
+    kinds). Returns (x, new_cache); a ``dec`` block's cache is the pair
+    (self, cross)."""
     if kind not in PORTED_KINDS:
         raise _later(kind)
     cfg = io.cfg
     decode = io.mode == "decode"
     prefill = io.mode == "prefill"
-    if kind in ATTN_KINDS:
+    if kind in TRANSFORMER_KINDS:
         spec = attn_spec(cfg, kind)
         cos, sin = io.rope["global" if kind == "global" else "default"]
+        self_cache = cache[0] if kind == "dec" and cache is not None else cache
         h = _norm(cfg, p["ln1"], x)
         a, new_kv = attention(p["attn"], h, spec, cos=cos, sin=sin,
-                              cache=cache if decode else None,
+                              cache=self_cache if decode else None,
                               update_cache=prefill,
                               rolling=io.rolling.get(kind, False) and decode)
         x = x + a
+        if kind == "dec":
+            h = _norm(cfg, p["ln_x"], x)
+            if decode:
+                xa, new_cross = attention(p["xattn"], h, spec, cross=True,
+                                          cache=cache[1])
+            else:
+                xa, new_cross = attention(p["xattn"], h, spec, cross=True,
+                                          kv_x=io.enc_out,
+                                          update_cache=prefill)
+            x = x + xa
+            new_kv = (new_kv, new_cross) if (decode or prefill) else None
         h = _norm(cfg, p["ln2"], x)
         return x + mlp(p["ffn"], h, act=cfg.act), new_kv
     if kind == "mamba1":
@@ -329,6 +371,19 @@ def _rope_for(cfg: ModelConfig, positions) -> Dict[str, tuple]:
     return out
 
 
+def _run_encoder(params: Params, cfg: ModelConfig, enc_in, io: BlockIO):
+    """The encoder stack over precomputed frame embeddings (B, S_enc, d),
+    in train mode with RoPE over ``arange(S_enc)``, then its final norm
+    (``repro/models/model.py:510-518``)."""
+    x = enc_in.to(cfg.dtype)
+    enc_io = dataclasses.replace(
+        io, mode="train", enc_out=None,
+        rope=_rope_for(cfg, torch.arange(x.shape[1], device=x.device)))
+    for p in params["encoder"]:
+        x, _ = apply_block(p, x, "enc", enc_io, None)
+    return rmsnorm(x, params["enc_ln_f"])
+
+
 def _embed(params: Params, cfg: ModelConfig, tokens):
     x = params["embed"][tokens]
     if cfg.embed_scale:
@@ -352,7 +407,8 @@ class ForwardResult(NamedTuple):
 def forward(params: Params, cfg: ModelConfig, tokens, *,
             mode: str = "train", caches: Optional[list] = None,
             rolling: Optional[Dict[str, bool]] = None,
-            positions=None) -> ForwardResult:
+            positions=None, enc_inputs=None,
+            patch_embeds=None) -> ForwardResult:
     """Unified forward.
 
     train:   tokens (B, S)                          → logits (B, S, V)
@@ -360,6 +416,10 @@ def forward(params: Params, cfg: ModelConfig, tokens, *,
     decode:  tokens (B, S_small) + caches + positions → logits + new caches
              (KV caches are written in place; ``rolling`` says which kinds'
              caches wrap)
+    enc-dec: enc_inputs (B, S_enc, d) precomputed embeddings (stub
+             frontend), run through the encoder in train and prefill
+    vlm:     patch_embeds (B, P, d) prepended to the token embeddings
+             (logits (B, P + S, V))
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -368,6 +428,9 @@ def forward(params: Params, cfg: ModelConfig, tokens, *,
     _check_ported(cfg)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(cfg.dtype), x], dim=1)
+        S = x.shape[1]
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
     io = BlockIO(cfg=cfg, mode=mode, rope=_rope_for(cfg, positions),
@@ -375,6 +438,10 @@ def forward(params: Params, cfg: ModelConfig, tokens, *,
     if cfg.shared_attn_every:
         io.shared = params["shared"]
         io.x0 = x
+    if cfg.is_encdec and mode != "decode":   # decode: cross caches built
+        if enc_inputs is None:
+            raise ValueError("an enc-dec model needs encoder inputs")
+        io.enc_out = _run_encoder(params, cfg, enc_inputs, io)
     want = mode in ("prefill", "decode")
     new_caches = [] if want else None
     for si, (pattern, repeats) in enumerate(plan_segments(cfg)):

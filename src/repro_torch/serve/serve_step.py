@@ -4,7 +4,9 @@
 The caches are per-layer lists (the reference's decode layout). A decode
 step writes each KV cache in place at ``pos`` (at ``pos % window`` for a
 rolling, window-sized cache) and returns the caches; the SSM states are
-replaced.
+replaced; an enc-dec decoder's cross caches, built at prefill from the
+encoder's output, are read only. A VLM's patch embeddings take the first
+positions: its decode starts at the prompt's length plus the patches.
 """
 
 from __future__ import annotations
@@ -45,7 +47,8 @@ def _pad_kv(kv: KVCache, target_len: int, rolling: bool = False) -> KVCache:
 def pad_caches(cfg: ModelConfig, caches: list, cache_len: int,
                rolling: Dict[str, bool]) -> list:
     """Grow prefill caches to decode capacity, kind-aware: a rolling
-    attention cache to its window, any other KV cache to ``cache_len``."""
+    attention cache to its window, any other self-attention KV cache to
+    ``cache_len``; a cross cache stays as the encoder filled it."""
     out = []
     for si, (pattern, _) in enumerate(plan_segments(cfg)):
         pos_out = []
@@ -55,6 +58,9 @@ def pad_caches(cfg: ModelConfig, caches: list, cache_len: int,
                 roll = rolling.get(kind, False)
                 tgt = attn_spec(cfg, kind).window if roll else cache_len
                 layers = [_pad_kv(kv, tgt, roll) for kv in layers]
+            elif kind == "dec":
+                layers = [(_pad_kv(kv, cache_len), cross)
+                          for kv, cross in layers]
             elif kind == "mamba2s":
                 layers = [(_pad_kv(kv, cache_len), ssm) for kv, ssm in layers]
             pos_out.append(list(layers))     # mamba states pass through
@@ -62,12 +68,16 @@ def pad_caches(cfg: ModelConfig, caches: list, cache_len: int,
     return out
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, cache_len: int):
-    """Run the prompt, return (last-token logits, decode-ready caches,
-    rolling map)."""
+def prefill(params, cfg: ModelConfig, tokens, *, cache_len: int,
+            enc_inputs=None, patch_embeds=None):
+    """Run the prompt (after the patches ``patch_embeds``, if given; with
+    the encoder over ``enc_inputs`` for an enc-dec model), return
+    (last-token logits, decode-ready caches, rolling map). ``cache_len``
+    counts the patches."""
     # the map make_caches returns, without allocating the caches
     rolling = rolling_map(cfg, cache_len)
-    res = forward(params, cfg, tokens, mode="prefill", rolling=rolling)
+    res = forward(params, cfg, tokens, mode="prefill", rolling=rolling,
+                  enc_inputs=enc_inputs, patch_embeds=patch_embeds)
     # a copy of the last position's logits, so the (B, S, vocab) logits
     # are freed before the caches are padded
     logits, caches = res.logits[:, -1].clone(), res.caches
@@ -108,12 +118,20 @@ def greedy_decode(params, cfg: ModelConfig, logits, caches, pos: int,
 
 
 def greedy_generate(params, cfg: ModelConfig, prompt, n_new: int, *,
-                    cache_len: Optional[int] = None):
-    """Greedy generation: prefill, then ``n_new - 1`` decode steps.
-    Returns the ``n_new`` tokens (B, n_new)."""
+                    cache_len: Optional[int] = None, enc_inputs=None,
+                    patch_embeds=None):
+    """Greedy generation: prefill, then ``n_new - 1`` decode steps from
+    the prompt's length plus the patches. Returns the ``n_new`` tokens
+    (B, n_new). The default ``cache_len`` holds the patches, the prompt
+    and the new tokens, as ``repro.launch.serve`` sizes it (the
+    reference's ``greedy_generate`` leaves the patches out of its
+    default)."""
     B, S0 = prompt.shape
-    cache_len = cache_len or (S0 + n_new)
+    extra = patch_embeds.shape[1] if patch_embeds is not None else 0
+    cache_len = cache_len or (S0 + extra + n_new)
     logits, caches, rolling = prefill(params, cfg, prompt,
-                                      cache_len=cache_len)
-    return greedy_decode(params, cfg, logits, caches, S0, n_new,
+                                      cache_len=cache_len,
+                                      enc_inputs=enc_inputs,
+                                      patch_embeds=patch_embeds)
+    return greedy_decode(params, cfg, logits, caches, S0 + extra, n_new,
                          rolling=rolling)

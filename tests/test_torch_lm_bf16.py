@@ -206,21 +206,40 @@ def test_plain_selective_scan_bf16_matches_reference_kernel(Bz, S, dI, N,
 
 # ----------------------------------------------------------- the models
 ARCHS = ("granite-8b", "gemma-7b", "gemma3-27b", "qwen1.5-32b",
-         "zamba2-1.2b", "falcon-mamba-7b")
+         "zamba2-1.2b", "falcon-mamba-7b", "seamless-m4t-large-v2",
+         "internvl2-2b")
+ENC_LEN = 24               # seamless's encoder frames against the 40 tokens
+
+
+def frontend_inputs(cfg) -> dict:
+    """An enc-dec model's encoder inputs (B, ENC_LEN, d), a VLM's patch
+    embeddings (B, P, d): f32, standard normal × 0.1 as the reference's
+    launcher draws them (each model casts them to its dtype)."""
+    rng = np.random.default_rng(ENC_LEN)
+    out = {}
+    if cfg.is_encdec:
+        out["enc_inputs"] = (0.1 * rng.standard_normal(
+            (B, ENC_LEN, cfg.d_model))).astype(np.float32)
+    if cfg.vlm_patches:
+        out["patch_embeds"] = (0.1 * rng.standard_normal(
+            (B, cfg.vlm_patches, cfg.d_model))).astype(np.float32)
+    return out
 CASES = [(a, False) for a in ARCHS] + [("zamba2-1.2b", True)]
 IDS = ARCHS + ("zamba2-1.2b-ssm_bf16",)
 
 
-def ref_run(rcfg, rparams, tokens):
-    """The reference's prefill of S0 tokens and NEW − 1 … teacher-forced
-    decode steps: (logits per step as f32, the caches after prefill)."""
+def ref_run(rcfg, rparams, tokens, front):
+    """The reference's prefill of S0 tokens (after the patches, with the
+    encoder's inputs, of ``front``) and NEW − 1 … teacher-forced decode
+    steps: (logits per step as f32, the caches after prefill)."""
     S = tokens.shape[1]
-    lg, caches, rolling = ref_prefill(rparams, rcfg,
-                                      jnp.asarray(tokens[:, :S0]),
-                                      cache_len=S)
+    P = rcfg.vlm_patches
+    lg, caches, rolling = ref_prefill(
+        rparams, rcfg, jnp.asarray(tokens[:, :S0]), cache_len=S + P,
+        **{k: jnp.asarray(v) for k, v in front.items()})
     after_prefill = jax.tree.map(np.asarray, caches)
     steps = [np.asarray(lg, np.float32)]
-    pos = jnp.asarray(S0, jnp.int32)
+    pos = jnp.asarray(S0 + P, jnp.int32)
     for t in range(S0, S):
         lg, caches = ref_decode(rparams, rcfg, jnp.asarray(tokens[:, t:t + 1]),
                                 caches, pos, rolling=rolling)
@@ -246,22 +265,25 @@ def bf16_served(request):
     rcfg32 = dataclasses.replace(rcfg, dtype=jnp.float32, ssm_bf16=False)
     tokens = np.random.default_rng(S0).integers(
         0, cfg.vocab, (B, S0 + NEW)).astype(np.int32)
-    ref16, ref_caches = ref_run(rcfg, rparams, tokens)
-    ref32, _ = ref_run(rcfg32, jax.tree.map(widen, rparams), tokens)
+    front = frontend_inputs(cfg)
+    ref16, ref_caches = ref_run(rcfg, rparams, tokens, front)
+    ref32, _ = ref_run(rcfg32, jax.tree.map(widen, rparams), tokens, front)
 
     tree = jax.tree.map(np.asarray, rparams)
     params = params_from_numpy(tree)
     tok = torch.from_numpy(tokens).long()
+    kw = {k: torch.from_numpy(v) for k, v in front.items()}
+    P = cfg.vlm_patches
     n0 = (FK.flash_attention.launches, SK.ssd_scan.launches)
     lg, caches, rolling = prefill(params, cfg, tok[:, :S0],
-                                  cache_len=S0 + NEW)
+                                  cache_len=S0 + NEW + P, **kw)
     port_caches = caches
     steps = [lg]
     for t in range(S0, S0 + NEW):
-        lg, caches = decode_step(params, cfg, tok[:, t:t + 1], caches, t,
+        lg, caches = decode_step(params, cfg, tok[:, t:t + 1], caches, t + P,
                                  rolling=rolling)
         steps.append(lg)
-    greedy = [greedy_generate(params, cfg, tok[:, :S0], NEW)
+    greedy = [greedy_generate(params, cfg, tok[:, :S0], NEW, **kw)
               for _ in range(2)]
     assert (FK.flash_attention.launches, SK.ssd_scan.launches) == n0
     return dict(arch=arch, cfg=cfg, tree=tree, params=params,

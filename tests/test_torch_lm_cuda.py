@@ -225,6 +225,90 @@ def test_cuda_dense_prefill_goes_through_the_kernel(cuda_device, arch,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,K,hd", [
+    (2, 700, 1500, 16, 16, 64),      # S < T over several tiles each
+    (2, 1500, 700, 16, 16, 64),      # S > T: every row sees every key
+    (2, 1000, 1537, 16, 8, 128),     # GQA 2:1, T off every tile
+    (2, 1537, 1000, 16, 8, 128),
+    (4, 2048, 2048, 16, 16, 64),     # seamless-m4t-large-v2's encoder
+])
+def test_cuda_flash_noncausal_over_many_tiles(cuda_device, dtype, B, S, T, H,
+                                              K, hd):
+    """No mask, as the encoder and cross-attention take the kernel, over
+    many query and key tiles with S < T and S > T, in each entry: run twice
+    bitwise, against the plain version on the same inputs."""
+    q, k, v = (t.to(dtype) for t in tt(qkv_inputs(B, S, T, H, K, hd,
+                                                  seed=S + T + hd),
+                                       cuda_device))
+    n0 = dict(FK.flash_attention.launches_by_dtype)
+    got = flash_attention(q, k, v, causal=False)
+    again = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert FK.flash_attention.launches_by_dtype[dtype] == n0[dtype] + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    want = flash_attention_ref(q, k, v, causal=False)
+    if dtype == torch.bfloat16:
+        within_bf16_rounding(got, want, FLASH_BF16_RTOL)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL)
+    assert bool(got.float().abs().sum(-1).gt(0).all())   # every row sees keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,enc_len", [("seamless-m4t-large-v2", 24),
+                                          ("seamless-m4t-large-v2", 56),
+                                          ("internvl2-2b", 0)])
+def test_cuda_encdec_and_vlm_prefill_go_through_the_kernel(cuda_device, arch,
+                                                           enc_len):
+    """A reduced enc-dec or VLM model's prefill on the card launches the
+    flash kernel once an attention (seamless: encoder, decoder self- and
+    cross-attention, S ≠ T) and decode none, with logits within 1e-4 of the
+    CPU's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import tree_map
+    from repro_torch.serve.serve_step import decode_step, prefill
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompt, P = 40, cfg.vlm_patches
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt + 4)))
+    front = {}
+    if cfg.is_encdec:
+        front["enc_inputs"] = 0.1 * torch.from_numpy(rng.standard_normal(
+            (2, enc_len, cfg.d_model)).astype(np.float32))
+    if P:
+        front["patch_embeds"] = 0.1 * torch.from_numpy(rng.standard_normal(
+            (2, P, cfg.d_model)).astype(np.float32))
+    on_card = tree_map(lambda t: t.to(cuda_device), params)
+    runs = []
+    for p, dev in ((on_card, cuda_device), (params, torch.device("cpu"))):
+        toks = tokens.to(dev)
+        kw = {n: t.to(dev) for n, t in front.items()}
+        n0 = FK.flash_attention.launches
+        lg, caches, rolling = prefill(p, cfg, toks[:, :prompt],
+                                      cache_len=prompt + 4 + P, **kw)
+        n1 = FK.flash_attention.launches
+        steps = [lg]
+        for t in range(prompt, prompt + 4):
+            lg, caches = decode_step(p, cfg, toks[:, t:t + 1], caches, t + P,
+                                     rolling=rolling)
+            steps.append(lg)
+        runs.append((torch.stack(steps).cpu().numpy(), n1 - n0,
+                     FK.flash_attention.launches - n1))
+    (card, pre, dec), (cpu, pre_cpu, _) = runs
+    per_prefill = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.is_encdec
+                   else cfg.n_layers)
+    assert (pre, dec, pre_cpu) == (per_prefill, 0, 0)
+    scale = float(np.abs(cpu).max())
+    assert float(np.abs(card - cpu).max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take(cuda_device):
     q, k, v = tt(qkv_inputs(1, 64, 64, 2, 2, 64), cuda_device)
     with pytest.raises(TypeError):           # fp16: neither entry takes it

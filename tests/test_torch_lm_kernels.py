@@ -120,6 +120,25 @@ def test_plain_flash_uneven_and_offset_queries(S, T, window):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("S,T", [(64, 128), (128, 64)])
+@pytest.mark.parametrize("H,K,hd", [(4, 2, 16), (4, 4, 64), (8, 2, 64)])
+def test_plain_flash_noncausal_with_other_key_lengths(S, T, H, K, hd):
+    """No mask and S ≠ T, the encoder's and cross-attention's prefill
+    (fewer and more keys than queries), with GQA: against the Pallas kernel
+    in interpret mode at block 64 and the reference's oracle."""
+    q, k, v = qkv_inputs(2, S, T, H, K, hd, seed=S + 2 * T + hd)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want_k = ref_flash(jq, jk, jv, causal=False, block_q=64, block_k=64,
+                       interpret=True)
+    want_o = attention_ref(jq, jk, jv, causal=False)
+    n0 = FK.flash_attention.launches
+    got = flash_attention(*tt((q, k, v)), causal=False).numpy()
+    assert FK.flash_attention.launches == n0
+    assert got.shape == (2, S, H, hd)
+    np.testing.assert_allclose(got, np.asarray(want_k), **TOL)
+    np.testing.assert_allclose(got, np.asarray(want_o), **TOL)
+
+
 def tf32_rna(x):
     """x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to the nearest of
     10 mantissa bits, ties away from zero (the low 13 bits cleared)."""

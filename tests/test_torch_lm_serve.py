@@ -220,15 +220,35 @@ def test_attention_prefill_and_decode_match_reference():
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(cross=True), "cross"), (dict(kv_x=torch.zeros(1, 4, 8)), "kv_x")])
+    (dict(cross=True), "cross"),
+    (dict(kv_x=torch.randn(1, 4, 8, generator=torch.Generator().manual_seed(
+        0))), "kv_x")])
 def test_attention_branches_of_later_slices_raise(kw, what):
-    """Cross-attention (enc-dec, ROADMAP queue 1 item 13c) raises, whether
-    asked for by ``cross`` or by a separate KV source ``kv_x``. (Rolling
-    caches, soft-capping and ``qk_norm`` are ported:
-    tests/test_torch_lm_dense.py.)"""
-    spec = AttnSpec(d_model=8, n_heads=2, n_kv=2, head_dim=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 13c"):
-        attention({}, torch.zeros(1, 4, 8), spec, **kw)
+    """The attention branches of ROADMAP queue 1 item 13c (enc-dec; the
+    test's name dates from before they were ported), asked for by ``cross``
+    or by a separate KV source ``kv_x``, run and match the reference's
+    ``attention`` with the same arguments (the whole enc-dec path:
+    tests/test_torch_lm_encdec.py). (Rolling caches, soft-capping and
+    ``qk_norm``: tests/test_torch_lm_dense.py.)"""
+    from repro.models.layers import AttnSpec as RefSpec
+    dims = dict(d_model=8, n_heads=2, n_kv=2, head_dim=4)
+    spec, rspec = AttnSpec(**dims), RefSpec(**dims)
+    tree = np_tree(ref_init_attention(jax.random.PRNGKey(3), rspec))
+    x = np.random.default_rng(3).standard_normal((1, 4, 8)).astype(
+        np.float32)
+    rc, rs = ref_rope(jnp.arange(4), 4, spec.rope_base)
+    c, s = rope_tables(torch.arange(4), 4, spec.rope_base)
+    rkw = {k: jnp.asarray(v.numpy()) if torch.is_tensor(v) else v
+           for k, v in kw.items()}
+    want, rkv = ref_attention({k: jnp.asarray(v) for k, v in tree.items()},
+                              jnp.asarray(x), rspec, cos=rc, sin=rs,
+                              update_cache=True, **rkw)
+    got, kv = attention({k: torch.tensor(v) for k, v in tree.items()},
+                        torch.from_numpy(x), spec, cos=c, sin=s,
+                        update_cache=True, **kw)
+    close(got.numpy(), want, 1e-5)
+    close(kv.k.numpy(), rkv.k, 1e-5)
+    assert kv.pos == int(rkv.pos) == 4
 
 
 # --------------------------------------------------- (e) the whole model
@@ -299,8 +319,17 @@ def test_config_matches_reference():
 @pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-large-v2",
                                   "mixtral-8x7b-reduced"])
 def test_other_architectures_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
+    """Mixtral (ROADMAP queue 1 item 13d) raises, naming the ROADMAP; the
+    architectures of item 13c, ported since the test was named, resolve to
+    the reference's configurations."""
+    if arch.startswith("mixtral"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
+        return
+    got, want = (dataclasses.asdict(f(arch)) for f in (get_config,
+                                                        ref_config))
+    got.pop("dtype"), want.pop("dtype")
+    assert got == want
 
 
 def test_init_params_shapes_match_reference(zamba):
