@@ -118,8 +118,10 @@ the dense-attention models granite-8b (GQA 4:1, hd 128), gemma-7b (hd 256,
 GeGLU, (1 + w) norms) and gemma3-27b (5:1 local:global, window 1024,
 qk-norm; depth cut, see GEMMA3_LAYERS), the enc-dec seamless-m4t-large-v2
 (24 encoder layers, bidirectional; 24 decoder layers with cross-attention
-to the encoder's output) and the VLM internvl2-2b (256 patch embeddings
-before the prompt, GQA 2:1 at hd 128):
+to the encoder's output), the VLM internvl2-2b (256 patch embeddings
+before the prompt, GQA 2:1 at hd 128) and the MoE models mixtral-8x7b and
+mixtral-8x22b (8 experts, top-2 routing into capacity buffers; attention
+with a window of 4,096 at GQA 32/8 and 48/8; depth cut, see MOE_LAYERS):
 
 8. ``ssd_scan``, ``flash_attention`` and ``selective_scan`` against their
    plain versions at the serve paths' shapes (B = 4, S = 2048: zamba2's
@@ -128,7 +130,9 @@ before the prompt, GQA 2:1 at hd 128):
    case at hd 256 (with an initial state for the scans), and attention
    without a mask as seamless's encoder and cross-attention take it (S = T,
    S > T, S < T) and at internvl2's causal 2,304 rows
-   (``encdec_flash_cases``);
+   (``encdec_flash_cases``), and the mixtrals' windowed GQA attention
+   with 32/8 and 48/8 heads and one 6,144-token sequence where the window
+   bites (``moe_flash_cases``);
    each kernel run twice, bitwise equal;
 9. their times beside the bound, the plain version's time and, for
    attention, ``scaled_dot_product_attention`` on the same tensors (a
@@ -146,12 +150,14 @@ before the prompt, GQA 2:1 at hd 128):
     rolling map and the peak memory; the full-width prefill run twice
     gives bitwise equal logits; each model's parameters are freed before
     the next phase; seamless's encoder takes frames as long as the
-    prompt, internvl2's cache holds its patches;
+    prompt, internvl2's cache holds its patches; a mixtral's line holds its
+    prefill's per-expert token counts and aux loss, summed over layers;
 11. each model's reduced configuration (and qwen1.5-32b's, whose full
     size does not fit the card in f32) on the card and on the CPU,
     teacher-forced prefill and 8 decode steps plus greedy generation,
     compared (seamless with ``ENC_CPU_LEN`` encoder frames, not the
-    prompt's length, so that cross-attention has S ≠ T);
+    prompt's length, so that cross-attention has S ≠ T; the mixtrals'
+    window of 64 bites in the prompt of 100 and their caches roll);
 
 and in bf16, the reference's default dtype (phases 8–11 stay f32):
 
@@ -159,7 +165,7 @@ and in bf16, the reference's default dtype (phases 8–11 stay f32):
     inputs (``BF16_REL``, ``BF16_FLASH_RTOL``): attention at zamba2's hd
     64, granite's hd 128 GQA, gemma-7b's hd 256 with and without a
     soft-cap, gemma3's windowed local layers, qwen1.5-32b's 40/40 at B = 1,
-    ragged S and T ≠ S, and the enc-dec and VLM cases of phase 8; both
+    ragged S and T ≠ S, and the enc-dec, VLM and MoE cases of phase 8; both
     scans at the serve shapes and ragged with an initial state; bf16 out
     on both sides, each run twice bitwise;
 13. their times beside the bf16 bound, the plain version's time, the f32
@@ -171,7 +177,7 @@ and in bf16, the reference's default dtype (phases 8–11 stay f32):
 14. every model served in bf16 at full width (``BF16_SERVE``): zamba2
     with and without ``ssm_bf16``, falcon-mamba-7b, granite-8b, gemma-7b,
     gemma3-27b at all 62 layers, qwen1.5-32b at full size and batch 1,
-    seamless-m4t-large-v2 and internvl2-2b;
+    seamless-m4t-large-v2, internvl2-2b and the mixtrals (``MOE_LAYERS``);
     gated as phase 10 on each entry's launches (the bf16 flash entry once
     an attention layer, the bf16 SSD entry 38 only under ``ssm_bf16``,
     falcon's scan through the f32 entry, nothing in decode), the prefill
@@ -180,7 +186,8 @@ and in bf16, the reference's default dtype (phases 8–11 stay f32):
 15. each reduced configuration in bf16 on the card and on the CPU,
     teacher-forced over 8 prompts, against the CPU's f32 run of the same
     parameters: at every step the card's RMS distance from the CPU's bf16
-    at most twice the CPU's bf16-vs-f32 RMS distance.
+    at most twice the CPU's bf16-vs-f32 RMS distance (the mixtrals: over
+    all steps at once, as tests/test_torch_lm_bf16.py holds them).
 
 All libraries are built at the start, one ``nvcc`` each, in parallel
 (each wrapper's ``library()`` from its own thread). Then the ``kernels``
@@ -274,11 +281,36 @@ GEMMA3_LAYERS = 12           # published: 62
 # reduced configurations only, card against CPU (phase 11): qwen1.5-32b's
 # full size is ~141 GB in f32
 DENSE_REDUCED_ONLY = ("qwen1.5-32b",)
+# The MoE slice: mixtral-8x7b (46.7 B parameters, 1.451 B a layer) and
+# mixtral-8x22b (140.6 B, 2.504 B a layer) at every published width, cut in
+# depth by whole layers to what fits the card's 80 GB with room for the
+# f32 draw of one expert tensor (init) and the prefill's MoE intermediates
+# ((E, G·cap, d_ff) × 3 at G·cap = 2,560): f32 12 of 32 layers (~65.8 GiB
+# of weights) and 6 of 56 (~57.5 GiB), bf16 24 of 32 (~65.3 GiB) and 12 of
+# 56 (~56.7 GiB); their serve paths peak at 71.0, 63.3, 68.4 and 59.8 GiB
+# on an H100 80GB. Their attention is GQA with a sliding window of 4,096
+# (8x22b: 48/8 heads, a group of 6).
+MOE_ARCHS = ("mixtral-8x7b", "mixtral-8x22b")
+MOE_LAYERS = {("mixtral-8x7b", torch.float32): 12,
+              ("mixtral-8x22b", torch.float32): 6,
+              ("mixtral-8x7b", torch.bfloat16): 24,
+              ("mixtral-8x22b", torch.bfloat16): 12}
 # The enc-dec and VLM slice, both uncut in f32 and bf16 (2.03 B and 1.89 B
 # parameters): seamless-m4t-large-v2's encoder runs over LM_PROMPT frames,
 # as the reference's launcher draws them; internvl2-2b prefills its 256
 # patches before the prompt.
 ENCDEC_ARCHS = ("seamless-m4t-large-v2", "internvl2-2b")
+
+
+def serve_layers(arch: str, dtype):
+    """The layer cut of ``arch``'s full-width serve path in ``dtype`` (None:
+    all its layers): gemma3-27b in f32 (``GEMMA3_LAYERS``), the mixtrals
+    (``MOE_LAYERS``)."""
+    if arch == "gemma3-27b" and dtype == torch.float32:
+        return GEMMA3_LAYERS
+    return MOE_LAYERS.get((arch, dtype))
+
+
 # seamless's encoder frames in the card-against-CPU phases (11, 15): not the
 # prompt's length, so that cross-attention runs with S ≠ T
 ENC_CPU_LEN = 61
@@ -294,16 +326,19 @@ LM_RTOL = 2e-4
 LM_CARD_CPU_RTOL = 1e-4
 
 # The bf16 slice (phases 12–15), the reference's default dtype: every served
-# model at full width, gemma3-27b at all 62 layers (50.3 GiB of bf16
-# weights) and qwen1.5-32b at full size (65.6 GiB) at batch 1: batch 4's KV
-# cache (64 layers × 2 × 40 heads × 128 × 2 B × 2,080 slots × 4 ≈ 10.9 GB)
-# does not fit beside its weights on the card; batch 1's is ~2.7 GB.
+# model at full width (the mixtrals cut in depth, MOE_LAYERS), gemma3-27b at
+# all 62 layers (50.3 GiB of bf16 weights) and qwen1.5-32b at full size
+# (65.6 GiB) at batch 1: batch 4's KV cache (64 layers × 2 × 40 heads × 128
+# × 2 B × 2,080 slots × 4 ≈ 10.9 GB) does not fit beside its weights on the
+# card; batch 1's is ~2.7 GB.
 BF16_SERVE = (("zamba2-1.2b", LM_BATCH, False), ("zamba2-1.2b", LM_BATCH, True),
               ("falcon-mamba-7b", LM_BATCH, False),
               ("granite-8b", LM_BATCH, False), ("gemma-7b", LM_BATCH, False),
               ("gemma3-27b", LM_BATCH, False), ("qwen1.5-32b", 1, False),
               ("seamless-m4t-large-v2", LM_BATCH, False),
-              ("internvl2-2b", LM_BATCH, False))
+              ("internvl2-2b", LM_BATCH, False),
+              ("mixtral-8x7b", LM_BATCH, False),
+              ("mixtral-8x22b", LM_BATCH, False))
 # bf16 kernel against its plain version on the same bf16 inputs: the output
 # within one bf16 rounding of the plain one (2^-7 of the value) plus a share
 # of the scale: attention 2e-3 (the kernel rounds P to bf16 against its
@@ -2169,6 +2204,25 @@ def encdec_flash_cases():
 ENCDEC_TIMED = ("seamless-enc", "internvl2")
 
 
+def moe_flash_cases():
+    """Attention as the mixtrals' prefills take it: (label, (B, S, T, H, K,
+    hd), window) at B = 4, S = T = 2,048 with the window of 4,096 (GQA 4:1
+    for 8x7b, a group of 6 for 8x22b's 48/8 heads), and one 6,144-token
+    sequence at 8x7b's heads where the window bites: the last queries see
+    only 4,096 keys and whole key tiles before them are skipped."""
+    from repro_torch.configs import get_config
+    out = []
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch)
+        out.append((arch, (LM_BATCH, LM_PROMPT, LM_PROMPT, cfg.n_heads,
+                           cfg.n_kv, cfg.head_dim), cfg.window))
+    cfg = get_config(MOE_ARCHS[0])
+    S = cfg.window + LM_PROMPT
+    out.append(("mixtral-window-bites", (1, S, S, cfg.n_heads, cfg.n_kv,
+                                         cfg.head_dim), cfg.window))
+    return out
+
+
 def lm_check_kernels(dev):
     """Phase 8: each LM kernel against its plain version at the serve
     path's shapes, plus GQA + window, ragged lengths and the enc-dec and
@@ -2207,6 +2261,8 @@ def lm_check_kernels(dev):
     cases.append(("hd256-cap", (2, 1000, 1000, 16, 8, 256), 300, 30.0, True))
     cases += [(label, shape, None, None, causal)
               for label, shape, causal in encdec_flash_cases()]
+    cases += [(label, shape, window, None, True)
+              for label, shape, window in moe_flash_cases()]
     for label, (B, S, T, H, K, hd), window, cap, causal in cases:
         q, k, v = qkv_inputs(B, S, T, H, K, hd, dev, seed=S + T + hd)
         kw = dict(causal=causal, window=window, softcap=cap)
@@ -2293,6 +2349,8 @@ def lm_time_kernels(dev):
     timed += [(label, shape, None, causal)
               for label, shape, causal in encdec_flash_cases()
               if label in ENCDEC_TIMED]
+    timed += [(label, shape, window, True)
+              for label, shape, window in moe_flash_cases()]
     for model, shape, window, causal in timed:
         r = time_flash(dev, shape, window, causal)
         r.update(lm_bound("flash_attention", r["operations"], r["bytes"]))
@@ -2383,7 +2441,7 @@ def lm_expected_launches(cfg) -> dict:
     reference upcasts before the scan)."""
     want = dict.fromkeys(LM_ENTRIES, 0)
     flash = entry("flash_attention", cfg.dtype)
-    if cfg.family in ("dense", "vlm"):     # one launch per attention layer
+    if cfg.family in ("dense", "vlm", "moe"):   # one per attention layer
         want[flash] = cfg.n_layers
     elif cfg.family == "encdec":   # the encoder's, decoder self and cross
         want[flash] = cfg.n_enc_layers + 2 * cfg.n_layers
@@ -2407,7 +2465,7 @@ def lm_serve_path(dev, arch: str, n_layers=None, *, dtype=torch.float32,
     beside a bf16 run's."""
     import dataclasses
     from repro_torch.configs import get_config
-    from repro_torch.models import init_params
+    from repro_torch.models import forward, init_params, rolling_map
     from repro_torch.models.convert import leaves
     from repro_torch.launch.serve import frontend_inputs
     from repro_torch.serve.serve_step import greedy_decode, prefill
@@ -2441,11 +2499,16 @@ def lm_serve_path(dev, arch: str, n_layers=None, *, dtype=torch.float32,
          "seconds": time.perf_counter() - t0})
     cache_len = LM_PROMPT + LM_NEW + P
     with torch.inference_mode():
-        # a first prefill warms the libraries; its logits are the first of
-        # the run-twice pair
-        first, caches, _ = prefill(params, cfg, prompts, cache_len=cache_len,
-                                   **front)
-        del caches
+        # a first prefill (the forward in prefill mode, as ``prefill`` runs
+        # it) warms the libraries; its last logits are the first of the
+        # run-twice pair, and it gives the MoE layers' summed stats
+        res = forward(params, cfg, prompts, mode="prefill",
+                      rolling=rolling_map(cfg, cache_len), **front)
+        first = res.logits[:, -1].clone()
+        moe_stats = ({"expert_counts": res.expert_counts.tolist(),
+                      "aux_loss": float(res.aux_loss)}
+                     if cfg.n_experts else {})
+        del res
         synchronize(dev)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2494,7 +2557,7 @@ def lm_serve_path(dev, arch: str, n_layers=None, *, dtype=torch.float32,
             "prefill_launches": prefill_launches,
             "decode_launches": decode_launches,
             "prefill_twice_bitwise_equal": same,
-            "sample_tokens": tokens[0, :16].tolist()}
+            "sample_tokens": tokens[0, :16].tolist(), **moe_stats}
     if f32_figures is not None:
         line["f32"] = {k: f32_figures[k] for k in (
             "n_layers", "batch", "prefill_s", "prefill_tokens_per_s",
@@ -2661,6 +2724,8 @@ def lm_check_kernels_bf16(dev) -> dict:
              for label, shape, window, cap in bf16_flash_cases()]
     cases += [(label, shape, None, None, causal)
               for label, shape, causal in encdec_flash_cases()]
+    cases += [(label, shape, window, None, True)
+              for label, shape, window in moe_flash_cases()]
     for label, (B, S, T, H, K, hd), window, cap, causal in cases:
         q, k, v = (t.bfloat16() for t in
                    qkv_inputs(B, S, T, H, K, hd, dev, seed=S + T + hd))
@@ -2795,6 +2860,8 @@ def lm_time_kernels_bf16(dev) -> dict:
     timed += [(label, shape, None, causal)
               for label, shape, causal in encdec_flash_cases()
               if label in ENCDEC_TIMED]
+    timed += [(label, shape, window, True)
+              for label, shape, window in moe_flash_cases()]
     for label, (B, S, T, H, K, hd), window, causal in timed:
         q, k, v = (t.bfloat16() for t in qkv_inputs(B, S, T, H, K, hd, dev))
         qt = q.transpose(1, 2).contiguous()
@@ -2881,8 +2948,11 @@ def lm_card_matches_cpu_bf16(dev, arch: str, *, prompt_len=BF16_CPU_PROMPT,
     on the CPU, teacher-forced over 8 prompts, against the same model in
     f32 on the CPU from the same parameters (each bf16 value widened
     exactly): at every step the RMS of (card − CPU bf16) at most
-    BF16_RATIO × the RMS of (CPU bf16 − CPU f32); the card's run launches
-    each LM kernel entry as one prefill of ``cfg`` should and no other."""
+    BF16_RATIO × the RMS of (CPU bf16 − CPU f32) — for an MoE model over
+    all steps at once, as tests/test_torch_lm_bf16.py holds it (a bf16
+    router tie sends a token to another expert now and then, a jump that
+    lands in one step of one prompt) —; the card's run launches each LM
+    kernel entry as one prefill of ``cfg`` should and no other."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
@@ -2919,7 +2989,8 @@ def lm_card_matches_cpu_bf16(dev, arch: str, *, prompt_len=BF16_CPU_PROMPT,
                 if n != before[k]}
     cpu16 = run(params, cfg, tokens, front)
     cpu32 = run(params32, cfg32, tokens, front)
-    rms = lambda a: np.sqrt(np.mean(np.square(a), axis=(1, 2)))
+    axes = None if cfg.family == "moe" else (1, 2)
+    rms = lambda a: np.atleast_1d(np.sqrt(np.mean(np.square(a), axis=axes)))
     scale = rms(cpu32)
     mine = rms(card - cpu16) / scale
     own = rms(cpu16 - cpu32) / scale
@@ -2997,28 +3068,30 @@ def main() -> int:
 
     errs.update(lm_check_kernels(dev))
     timing.update(lm_time_kernels(dev))
-    serve_paths = [(LM_ARCH, None), (MAMBA1_ARCH, None)] + [
-        (arch, GEMMA3_LAYERS if arch == "gemma3-27b" else None)
-        for arch in DENSE_ARCHS] + [(arch, None) for arch in ENCDEC_ARCHS]
+    serve_archs = ((LM_ARCH, MAMBA1_ARCH) + DENSE_ARCHS + ENCDEC_ARCHS
+                   + MOE_ARCHS)
     f32_lines = {}
-    for arch, n_layers in serve_paths:
-        f32_lines[arch], counts = lm_serve_path(dev, arch, n_layers)
+    for arch in serve_archs:
+        f32_lines[arch], counts = lm_serve_path(
+            dev, arch, serve_layers(arch, torch.float32))
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     for arch in ((LM_ARCH, MAMBA1_ARCH) + DENSE_ARCHS + DENSE_REDUCED_ONLY
-                 + ENCDEC_ARCHS):
+                 + ENCDEC_ARCHS + MOE_ARCHS):
         lm_card_matches_cpu(dev, arch)
 
     errs.update(lm_check_kernels_bf16(dev))
     timing.update(lm_time_kernels_bf16(dev))
     for arch, batch, ssm_bf16 in BF16_SERVE:
-        _, counts = lm_serve_path(dev, arch, dtype=torch.bfloat16,
-                                  batch=batch, ssm_bf16=ssm_bf16,
+        _, counts = lm_serve_path(dev, arch,
+                                  serve_layers(arch, torch.bfloat16),
+                                  dtype=torch.bfloat16, batch=batch,
+                                  ssm_bf16=ssm_bf16,
                                   f32_figures=f32_lines.get(arch))
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     for arch in (DENSE_ARCHS + DENSE_REDUCED_ONLY + (LM_ARCH, MAMBA1_ARCH)
-                 + ENCDEC_ARCHS):
+                 + ENCDEC_ARCHS + MOE_ARCHS):
         lm_card_matches_cpu_bf16(dev, arch)
     lm_card_matches_cpu_bf16(dev, "gemma3-27b", prompt_len=64)   # banded
     lm_card_matches_cpu_bf16(dev, LM_ARCH, ssm_bf16=True)

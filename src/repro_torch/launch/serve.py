@@ -6,7 +6,11 @@ counterpart of ``python -m repro.launch.serve``).
 
 ``--arch`` is any of ``repro_torch.configs.ARCH_NAMES``: granite-8b (the
 default, as in ``repro.launch.serve``), zamba2-1.2b, falcon-mamba-7b,
-gemma-7b, gemma3-27b, qwen1.5-32b, seamless-m4t-large-v2, internvl2-2b.
+gemma-7b, gemma3-27b, qwen1.5-32b, mixtral-8x7b, mixtral-8x22b,
+seamless-m4t-large-v2, internvl2-2b. A full-size mixtral does not fit one
+80 GB card (46.7 B and 140.6 B parameters: ~87 and ~262 GiB in bf16); on
+one card serve it ``--reduced``, or cut in depth as ``chip_smoke.py``
+does (``MOE_LAYERS``).
 
 As in the reference's launcher (``repro/launch/serve.py:41-60``), an
 enc-dec model (seamless-m4t-large-v2) gets encoder inputs of shape

@@ -7,12 +7,15 @@ tree as numpy arrays (``jax.tree.map(np.asarray, params)``) and unstacks it;
 ``params_to_numpy`` stacks the port's parameters back into the same tree
 (dense trees too: ``q_norm``/``k_norm``, the QKV biases, an untied
 ``head``, gemma3's period and remainder segments; enc-dec trees: the
-encoder, ``enc_ln_f``, the ``dec`` blocks' ``ln_x`` and ``xattn``).
+encoder, ``enc_ln_f``, the ``dec`` blocks' ``ln_x`` and ``xattn``; MoE
+trees: each ``moe`` block's ``router`` (d, E) and experts ``wi``/``wg``
+(E, d, ff), ``wo`` (E, ff, d)).
 ``to_numpy`` turns any nest of lists, tuples, dicts and named tuples of
 tensors (the port's caches, say) into the same nest of numpy arrays;
 ``caches_from_numpy`` takes the reference's per-layer decode caches
 (``make_caches(..., stacked=False)`` or a decode step's, full or rolling;
-a ``dec`` layer's the pair (self, cross)) as numpy leaves into the port's;
+a ``dec`` layer's the pair (self, cross); a ``moe`` layer's one KV cache,
+as an ``attn`` layer's) as numpy leaves into the port's;
 ``tree_map`` and ``leaves`` walk such a nest. Nothing here imports JAX,
 nor ``ml_dtypes``.
 

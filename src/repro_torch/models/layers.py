@@ -110,7 +110,7 @@ def normal(gen: torch.Generator, shape, scale: float, dtype):
     cast to ``dtype`` — the reference's ``normal(key, shape) * s``."""
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)       # in place: one f32 copy at a time
 
 
 # -------------------------------------------------------------- attention

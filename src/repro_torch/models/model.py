@@ -6,17 +6,20 @@ dimension. PyTorch runs eagerly, so the port keeps one parameter dict per
 layer and walks the layers in a plain loop; its caches are per-layer lists,
 the reference's decode layout (``make_caches(..., stacked=False)``).
 
-Block kinds of the ported slices: ``attn`` (dense pre-norm attention +
-gated MLP: granite, gemma, qwen), ``local`` (sliding-window attention + MLP,
-gemma3's local layers), ``global`` (full attention + MLP with the long RoPE
-base, gemma3's global layers), ``mamba1`` (Mamba-1 mixer with B/C/dt RMS
-norms, falcon-mamba-7b), ``mamba2`` (Mamba-2/SSD mixer, zamba2's backbone)
-and ``mamba2s`` (zamba2's shared attention block, params reused across
-invocations, with a per-invocation LoRA, then Mamba-2), ``enc``
-(bidirectional attention + MLP, the encoder of seamless-m4t-large-v2) and
-``dec`` (causal self-attention, cross-attention to the encoder's output,
-then MLP). The reference's ``moe`` kind (ROADMAP queue 1 item 13d) raises,
-naming its item.
+Block kinds, every one of the reference's: ``attn`` (dense pre-norm
+attention + gated MLP: granite, gemma, qwen), ``local`` (sliding-window
+attention + MLP, gemma3's local layers), ``global`` (full attention + MLP
+with the long RoPE base, gemma3's global layers), ``moe`` (attention with
+the model's sliding window + the top-k MoE FFN of ``moe.py``: mixtral),
+``mamba1`` (Mamba-1 mixer with B/C/dt RMS norms, falcon-mamba-7b),
+``mamba2`` (Mamba-2/SSD mixer, zamba2's backbone), ``mamba2s`` (zamba2's
+shared attention block, params reused across invocations, with a
+per-invocation LoRA, then Mamba-2), ``enc`` (bidirectional attention +
+MLP, the encoder of seamless-m4t-large-v2) and ``dec`` (causal
+self-attention, cross-attention to the encoder's output, then MLP).
+``forward`` returns the MoE layers' aux loss and per-expert token counts
+summed over the layers, as the reference's does (zeros for a model
+without experts).
 
 The enc-dec model runs its encoder over precomputed frame embeddings
 (``enc_inputs``, a stub frontend) in every mode but decode, whose
@@ -39,23 +42,16 @@ from .layers import (AttnSpec, attention, init_attention, init_mlp,
 from .mamba import (init_mamba1, init_mamba2, make_mamba1_state,
                     make_mamba2_state, mamba1_forward, mamba1_step,
                     mamba2_forward, mamba2_step)
+from .moe import init_moe, moe
 
 Params = Dict[str, Any]
-PORTED_KINDS = ("attn", "local", "global", "enc", "dec", "mamba1", "mamba2",
-                "mamba2s")
+BLOCK_KINDS = ("attn", "local", "global", "moe", "enc", "dec", "mamba1",
+               "mamba2", "mamba2s")
 # the kinds whose cache is one self-attention KV cache
-ATTN_KINDS = ("attn", "local", "global")
-# the kinds built of attention + MLP (``dec`` adds cross-attention)
+ATTN_KINDS = ("attn", "local", "global", "moe")
+# the kinds built of attention + an FFN (``dec`` adds cross-attention;
+# ``moe``'s FFN is the MoE, the others' the gated MLP)
 TRANSFORMER_KINDS = ATTN_KINDS + ("enc", "dec")
-# the reference's other kinds and the ROADMAP item that ports each
-_LATER_KINDS = {"moe": "13d (MoE)"}
-
-
-def _later(kind: str) -> NotImplementedError:
-    item = _LATER_KINDS.get(kind, "13")
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet: ROADMAP queue 1 item "
-        f"{item}")
 
 
 # ------------------------------------------------------------------ helpers
@@ -116,17 +112,10 @@ def plan_segments(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     return [(("attn",), L)]
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    for pattern, _ in plan_segments(cfg):
-        for kind in pattern:
-            if kind not in PORTED_KINDS:
-                raise _later(kind)
-
-
 # ----------------------------------------------------------- block init
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
-    if kind not in PORTED_KINDS:
-        raise _later(kind)
+    if kind not in BLOCK_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
     dt = cfg.dtype
     d = cfg.d_model
     if kind in TRANSFORMER_KINDS:
@@ -134,7 +123,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
         p = {"ln1": norm((d,), dtype=dt, device=gen.device),
              "ln2": norm((d,), dtype=dt, device=gen.device),
              "attn": init_attention(gen, attn_spec(cfg, kind), dtype=dt),
-             "ffn": init_mlp(gen, d, cfg.d_ff, dtype=dt)}
+             "ffn": (init_moe(gen, d, cfg.d_ff, cfg.n_experts, dtype=dt)
+                     if kind == "moe" else
+                     init_mlp(gen, d, cfg.d_ff, dtype=dt))}
         if kind == "dec":
             p["ln_x"] = torch.ones((d,), dtype=dt, device=gen.device)
             p["xattn"] = init_attention(gen, attn_spec(cfg, kind), dtype=dt)
@@ -179,7 +170,6 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     the list of its ``n_enc_layers`` per-layer dicts (the reference stacks
     both instead).
     """
-    _check_ported(cfg)
     dt = cfg.dtype
     p: Params = {
         "embed": normal(gen, (cfg.vocab_padded, cfg.d_model), 0.02, dt),
@@ -225,7 +215,6 @@ def make_caches(cfg: ModelConfig, batch: int, cache_len: int, *,
     rolling cache has the window's length. A ``dec`` layer's cache is the
     pair (self, cross): the cross cache has ``enc_len`` slots, all held
     (``pos = enc_len``)."""
-    _check_ported(cfg)
     device = resolve_device(device)
     rolling: Dict[str, bool] = {}
 
@@ -277,14 +266,17 @@ class BlockIO:
     enc_out: Optional[torch.Tensor] = None     # enc-dec: encoder output
     shared: Optional[Params] = None
     x0: Optional[torch.Tensor] = None          # zamba2: initial embedding
+    # each ``moe`` block's (aux loss, tokens per expert), in layer order
+    moe_stats: list = dataclasses.field(default_factory=list)
 
 
 def apply_block(p: Params, x, kind: str, io: BlockIO, cache):
-    """One block (``repro/models/model.py:330-414`` for the ported
-    kinds). Returns (x, new_cache); a ``dec`` block's cache is the pair
-    (self, cross)."""
-    if kind not in PORTED_KINDS:
-        raise _later(kind)
+    """One block (``repro/models/model.py:330-414``). Returns (x,
+    new_cache); a ``dec`` block's cache is the pair (self, cross). A ``moe``
+    block appends its (aux loss, tokens per expert) to ``io.moe_stats``
+    (the reference returns them as a third value)."""
+    if kind not in BLOCK_KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
     cfg = io.cfg
     decode = io.mode == "decode"
     prefill = io.mode == "prefill"
@@ -310,6 +302,11 @@ def apply_block(p: Params, x, kind: str, io: BlockIO, cache):
             x = x + xa
             new_kv = (new_kv, new_cross) if (decode or prefill) else None
         h = _norm(cfg, p["ln2"], x)
+        if kind == "moe":
+            m, stats = moe(p["ffn"], h, top_k=cfg.top_k,
+                           capacity_factor=cfg.capacity_factor)
+            io.moe_stats.append((stats.aux_loss, stats.tokens_per_expert))
+            return x + m, new_kv
         return x + mlp(p["ffn"], h, act=cfg.act), new_kv
     if kind == "mamba1":
         h = _norm(cfg, p["ln1"], x)
@@ -402,6 +399,8 @@ def _logits(params: Params, cfg: ModelConfig, x):
 class ForwardResult(NamedTuple):
     logits: torch.Tensor
     caches: Optional[list]
+    aux_loss: torch.Tensor         # () f32: the MoE layers' summed aux loss
+    expert_counts: torch.Tensor    # (max(E, 1),) f32: summed token counts
 
 
 def forward(params: Params, cfg: ModelConfig, tokens, *,
@@ -425,7 +424,6 @@ def forward(params: Params, cfg: ModelConfig, tokens, *,
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "decode" and caches is None:
         raise ValueError("decode needs caches")
-    _check_ported(cfg)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens)
     if patch_embeds is not None:
@@ -454,4 +452,9 @@ def forward(params: Params, cfg: ModelConfig, tokens, *,
                 seg_new[i][r] = nc
         if want:
             new_caches.append(seg_new)
-    return ForwardResult(_logits(params, cfg, x), new_caches)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    counts = torch.zeros((max(cfg.n_experts, 1),), dtype=torch.float32,
+                         device=x.device)
+    for a, c in io.moe_stats:
+        aux, counts = aux + a, counts + c
+    return ForwardResult(_logits(params, cfg, x), new_caches, aux, counts)

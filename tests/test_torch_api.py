@@ -165,7 +165,9 @@ for m in ("repro_torch.distributed.transport", "repro_torch.sph.collectives",
           "repro_torch.fleet.lanes", "repro_torch.fleet.runner",
           "repro_torch.fleet.__main__",
           "repro_torch.configs.seamless_m4t_large_v2",
-          "repro_torch.configs.internvl2_2b"):
+          "repro_torch.configs.internvl2_2b",
+          "repro_torch.models.moe", "repro_torch.configs.mixtral_8x7b",
+          "repro_torch.configs.mixtral_8x22b"):
     assert m in sys.modules, m
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"

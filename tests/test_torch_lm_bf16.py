@@ -32,9 +32,19 @@ through both packages. Tolerances, each with its reason:
   logits' RMS. Over 2 prompts, or as a maximum, the ratio of two
   independent bf16 roundings' distances fluctuates past 2 for the chaotic
   zamba2-reduced and falcon-reduced (probe: up to 2.15); over 8 prompts its
-  RMS stayed at or under 1.46 for every model and five token seeds. Greedy
-  tokens are compared within the port only, run twice: in bf16 an argmax
-  tie or flip against another library's rounding is not a fault.
+  RMS stayed at or under 1.46 for every model and five token seeds. The
+  MoE models (mixtral) are held to the same ratio over all 9 steps at once
+  (one RMS over the 8 prompts × 9 steps): their routing is a discrete
+  choice, and in bf16 the router's logits tie or nearly tie at the 2nd/3rd
+  expert for a few per cent of tokens, so any two bf16 runs (the port's and
+  the reference's, or the reference's bf16 and f32) pick another expert
+  for some token now and then, a jump about ten times the distance of the
+  continuous rounding, landing in one step of one prompt. Per step the
+  ratio then swung from 0.08 to 6.4 over 12 token seeds; over all steps it
+  stayed at or under 1.57 (median 0.68). Which expert a token takes, given
+  the same bf16 input, is held exactly in tests/test_torch_lm_moe.py.
+  Greedy tokens are compared within the port only, run twice: in bf16 an
+  argmax tie or flip against another library's rounding is not a fault.
 """
 
 import contextlib
@@ -207,7 +217,7 @@ def test_plain_selective_scan_bf16_matches_reference_kernel(Bz, S, dI, N,
 # ----------------------------------------------------------- the models
 ARCHS = ("granite-8b", "gemma-7b", "gemma3-27b", "qwen1.5-32b",
          "zamba2-1.2b", "falcon-mamba-7b", "seamless-m4t-large-v2",
-         "internvl2-2b")
+         "internvl2-2b", "mixtral-8x7b", "mixtral-8x22b")
 ENC_LEN = 24               # seamless's encoder frames against the 40 tokens
 
 
@@ -318,11 +328,13 @@ def test_bf16_serve_within_twice_the_references_own_bf16_error(bf16_served):
     """(d), (e) The port's bf16 prefill and teacher-forced decode logits
     against the reference's bf16 run, at every step within twice the
     reference's own bf16-vs-f32 distance (RMS over the 8 prompts, as a
-    share of the f32 logits' RMS); the logits are bf16."""
+    share of the f32 logits' RMS; for the MoE models over all steps at
+    once, see the module's docstring); the logits are bf16."""
     s = bf16_served
     port = np.stack([lg.float().numpy() for lg in s["steps"]])
     assert all(lg.dtype == torch.bfloat16 for lg in s["steps"])
-    rms = lambda a: np.sqrt(np.mean(np.square(a), axis=(1, 2)))
+    axes = None if s["cfg"].family == "moe" else (1, 2)
+    rms = lambda a: np.sqrt(np.mean(np.square(a), axis=axes))
     scale = rms(s["ref32"])
     mine = rms(port - s["ref16"]) / scale
     ref_own = rms(s["ref16"] - s["ref32"]) / scale

@@ -14,7 +14,10 @@ within rtol = atol = 2e-4 (the reference's kernel tolerance; the two sum in
 different orders), at the model's widths, with ragged lengths, GQA,
 windows and (attention) a soft-cap, and give bitwise-equal results when
 run twice (no atomics). The dense models' prefill shapes (granite-8b,
-gemma-7b at hd 256, gemma3-27b's local layers) run at full size.
+gemma-7b at hd 256, gemma3-27b's local layers) and the mixtrals' (GQA 32/8
+and 48/8 with a window of 4,096, and a sequence where it bites) run at full
+size; one MoE layer and the reduced mixtrals run on the card against the
+CPU.
 
 The bf16 entries are held to their plain versions on the same bf16 inputs,
 each output within one bf16 rounding of the plain one (2^-7 of the value)
@@ -620,3 +623,108 @@ def test_cuda_device_pins_f32_accumulation_of_bf16_products(cuda_device):
     assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+# ------------------------------------------------------------------- MoE
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,K,window", [
+    (4, 2048, 32, 8, 4096),          # mixtral-8x7b's prefill, GQA 4:1
+    (4, 2048, 48, 8, 4096),          # mixtral-8x22b's, a group of 6
+    (1, 6144, 32, 8, 4096),          # the window bites: tiles skipped
+    (1, 700, 48, 8, 300),            # group of 6, ragged, window off tiles
+])
+def test_cuda_flash_kernel_at_the_moe_models_shapes(cuda_device, dtype, B, S,
+                                                    H, K, window):
+    """The mixtrals' windowed GQA attention at hd 128 in each entry, run
+    twice bitwise, against the plain version on the same inputs."""
+    q, k, v = (t.to(dtype) for t in tt(qkv_inputs(B, S, S, H, K, 128,
+                                                  seed=H + S), cuda_device))
+    n0 = dict(FK.flash_attention.launches_by_dtype)
+    got = flash_attention(q, k, v, window=window)
+    again = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert FK.flash_attention.launches_by_dtype[dtype] == n0[dtype] + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    want = flash_attention_ref(q, k, v, window=window)
+    if dtype == torch.bfloat16:
+        within_bf16_rounding(got, want, FLASH_BF16_RTOL)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,E,capacity_factor", [
+    (4, 512, 8, 1.25),               # groups of 1,024 with drops
+    (4, 1, 8, 1.25),                 # decode: g 4, cap 2
+])
+def test_cuda_moe_matches_cpu(cuda_device, B, S, E, capacity_factor):
+    """One MoE layer on the card against the CPU on the same f32 inputs:
+    the same routing, counts and drops exactly, the output within 1e-5 of
+    its scale (products summed in other orders), run twice bitwise."""
+    from repro_torch.models.moe import init_moe, moe, route
+    p = init_moe(torch.Generator().manual_seed(E), 256, 512, E)
+    # an offset shared by every token tilts the router: uneven loads drop
+    x = torch.from_numpy((np.random.default_rng(S).standard_normal(
+        (B, S, 256)) + 0.5).astype(np.float32))
+    on_card = {n: t.to(cuda_device) for n, t in p.items()}
+    xc = x.to(cuda_device)
+    kw = dict(top_k=2, capacity_factor=capacity_factor)
+    y, s = moe(on_card, xc, **kw)
+    y2, s2 = moe(on_card, xc, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and all(torch.equal(a, b)
+                                      for a, b in zip(s, s2))
+    y_cpu, s_cpu = moe(p, x, **kw)
+    r, r_cpu = route(on_card, xc, **kw), route(p, x, **kw)
+    for name in ("gate_idx", "pos", "keep"):
+        assert torch.equal(getattr(r, name).cpu(), getattr(r_cpu, name))
+    assert torch.equal(s.tokens_per_expert.cpu(), s_cpu.tokens_per_expert)
+    assert float(s.dropped_fraction) == float(s_cpu.dropped_fraction)
+    if S > 1:
+        assert float(s_cpu.dropped_fraction) > 0
+    scale = float(y_cpu.abs().max())
+    assert float((y.cpu() - y_cpu).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "mixtral-8x22b"])
+def test_cuda_moe_prefill_goes_through_the_kernel(cuda_device, arch):
+    """A reduced mixtral's prefill of 80 tokens (past its window of 64) on
+    the card launches the flash kernel once a layer and its decode (4
+    steps into rolling caches) none, with logits within 1e-4 of the CPU's
+    and the same summed expert counts."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.convert import tree_map
+    from repro_torch.serve.serve_step import decode_step, prefill
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    prompt = 80
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, prompt + 4)))
+    on_card = tree_map(lambda t: t.to(cuda_device), params)
+    runs = []
+    for p, toks in ((on_card, tokens.to(cuda_device)), (params, tokens)):
+        n0 = FK.flash_attention.launches
+        lg, caches, rolling = prefill(p, cfg, toks[:, :prompt],
+                                      cache_len=prompt + 4)
+        n1 = FK.flash_attention.launches
+        assert rolling == {"moe": True}
+        steps = [lg]
+        for t in range(prompt, prompt + 4):
+            lg, caches = decode_step(p, cfg, toks[:, t:t + 1], caches, t,
+                                     rolling=rolling)
+            steps.append(lg)
+        n2 = FK.flash_attention.launches
+        counts = forward(p, cfg, toks[:, :prompt]).expert_counts
+        runs.append((torch.stack(steps).cpu().numpy(), n1 - n0, n2 - n1,
+                     counts.cpu()))
+    (card, pre, dec, counts), (cpu, pre_cpu, _, counts_cpu) = runs
+    assert (pre, dec, pre_cpu) == (cfg.n_layers, 0, 0)
+    assert torch.equal(counts, counts_cpu)
+    scale = float(np.abs(cpu).max())
+    assert float(np.abs(card - cpu).max()) <= 1e-4 * scale

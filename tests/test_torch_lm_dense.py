@@ -526,13 +526,9 @@ def test_dense_config_and_shapes_match_reference(arch):
     ("mixtral-8x7b", "13d"), ("mixtral-8x22b-reduced", "13d"),
     ("seamless-m4t-large-v2", "13c"), ("internvl2-2b", "13c")])
 def test_later_architectures_raise_naming_their_item(arch, item):
-    """Item 13d's architectures raise, naming it; item 13c's, ported since
-    the test was named, resolve to the reference's configurations."""
-    if item == "13d":
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item "
-                                                      f"{item}"):
-            get_config(arch)
-        return
+    """The architectures of items 13c and 13d, which raised naming their
+    item until each was ported, resolve to the reference's
+    configurations."""
     got, want = (dataclasses.asdict(f(arch)) for f in (get_config,
                                                         ref_config))
     got.pop("dtype"), want.pop("dtype")
@@ -542,17 +538,15 @@ def test_later_architectures_raise_naming_their_item(arch, item):
 @pytest.mark.parametrize("kind,item", [("moe", "13d"), ("dec", "13c"),
                                        ("enc", "13c")])
 def test_later_block_kinds_raise_naming_their_item(kind, item):
-    """``moe`` (item 13d) raises, naming its item; ``enc`` and ``dec``
-    (item 13c, ported since the test was named) initialise with the
-    reference's shapes (``dec``: its ``ln_x`` and ``xattn`` too)."""
+    """``moe`` (item 13d), ``enc`` and ``dec`` (item 13c), which raised
+    naming their item until each was ported, initialise with the
+    reference's shapes (``dec``: its ``ln_x`` and ``xattn`` too; ``moe``:
+    mixtral's router and stacked experts)."""
     from repro.models.model import init_block as ref_init_block
-    rcfg, cfg = configs("granite-8b")
-    if item == "13d":
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            init_block(torch.Generator(), cfg, kind)
-        return
+    rcfg, cfg = configs("mixtral-8x7b" if kind == "moe" else "granite-8b")
     got = init_block(torch.Generator().manual_seed(0), cfg, kind)
     want = ref_init_block(jax.random.PRNGKey(0), rcfg, kind)
     assert jax.tree.map(np.shape, to_numpy(got)) == \
         jax.tree.map(np.shape, np_tree(want))
+    assert ("router" in got["ffn"]) == (kind == "moe")
     assert ("xattn" in got) == (kind == "dec")

@@ -319,13 +319,9 @@ def test_config_matches_reference():
 @pytest.mark.parametrize("arch", ["internvl2-2b", "seamless-m4t-large-v2",
                                   "mixtral-8x7b-reduced"])
 def test_other_architectures_raise_naming_the_roadmap(arch):
-    """Mixtral (ROADMAP queue 1 item 13d) raises, naming the ROADMAP; the
-    architectures of item 13c, ported since the test was named, resolve to
-    the reference's configurations."""
-    if arch.startswith("mixtral"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
-        return
+    """The architectures of ROADMAP queue 1 items 13c and 13d, which raised
+    naming the ROADMAP until each was ported, resolve to the reference's
+    configurations."""
     got, want = (dataclasses.asdict(f(arch)) for f in (get_config,
                                                         ref_config))
     got.pop("dtype"), want.pop("dtype")
@@ -341,8 +337,8 @@ def test_init_params_shapes_match_reference(zamba):
     n = sum(int(np.prod(s)) for s in jax.tree.leaves(
         got, is_leaf=lambda x: isinstance(x, tuple)))
     assert n > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_block(torch.Generator(), cfg, "moe")
+    with pytest.raises(ValueError, match="unknown block kind"):
+        init_block(torch.Generator(), cfg, "nope")   # as the reference
 
 
 def test_make_caches_match_reference_layout(zamba):

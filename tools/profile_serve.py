@@ -5,15 +5,16 @@
 
 Builds ``chip_smoke.py``'s serve configuration of ``--arch`` (zamba2-1.2b,
 falcon-mamba-7b, granite-8b, gemma-7b, qwen1.5-32b, seamless-m4t-large-v2,
-internvl2-2b at full width; random weights from a seeded generator; the
-enc-dec model's encoder frames, as many as the prompt's tokens, and the
-VLM's patch embeddings drawn as ``python -m repro_torch.launch.serve``
-draws them) on the CUDA device in ``--dtype``: f32
-(gemma3-27b cut to ``chip_smoke.GEMMA3_LAYERS`` layers; qwen1.5-32b does
-not fit) or bf16, the configuration's own (gemma3-27b at all 62 layers,
-qwen1.5-32b at batch 1 unless a batch is given; ``--ssm-bf16`` sets the
-Mamba-2 ``ssm_bf16`` path). It warms up
-with one prefill, then profiles the first decode step (the first use of
+internvl2-2b, mixtral-8x7b, mixtral-8x22b at full width; random weights
+from a seeded generator; the enc-dec model's encoder frames, as many as
+the prompt's tokens, and the VLM's patch embeddings drawn as ``python -m
+repro_torch.launch.serve`` draws them) on the CUDA device in ``--dtype``:
+f32 (gemma3-27b cut to ``chip_smoke.GEMMA3_LAYERS`` layers; qwen1.5-32b
+does not fit) or bf16, the configuration's own (gemma3-27b at all 62
+layers, qwen1.5-32b at batch 1 unless a batch is given; ``--ssm-bf16``
+sets the Mamba-2 ``ssm_bf16`` path); the mixtrals, which do not fit the
+card at full size, at ``chip_smoke.MOE_LAYERS``'s layer cut of the dtype
+(f32 12 and 6 layers, bf16 24 and 12). It warms up with one prefill, then profiles the first decode step (the first use of
 the decode shapes), one prefill and ``steps`` decode steps under
 ``torch.profiler`` (CUDA activity only), each window on its own. Prints
 one JSON line per window: its wall seconds, the device time summed over
@@ -42,8 +43,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
-from chip_smoke import (BF16_SERVE, GEMMA3_LAYERS, LM_ARCH,  # noqa: E402
-                        LM_SEED, lm_kernel_modules, lm_launches)
+from chip_smoke import (BF16_SERVE, LM_ARCH, LM_SEED,  # noqa: E402
+                        lm_kernel_modules, lm_launches, serve_layers)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch.serve import frontend_inputs  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
@@ -109,8 +110,9 @@ def main(arch: str = LM_ARCH, dtype: str = "float32", ssm_bf16: bool = False,
     cfg = dataclasses.replace(get_config(arch), ssm_bf16=ssm_bf16)
     if dtype == "float32":
         cfg = dataclasses.replace(cfg, dtype=torch.float32)
-        if arch == "gemma3-27b":
-            cfg = dataclasses.replace(cfg, n_layers=GEMMA3_LAYERS)
+    n_layers = serve_layers(arch, cfg.dtype)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     if batch is None:
         batch = 4 if dtype == "float32" else {a: b for a, b, _ in
                                                BF16_SERVE}.get(arch, 4)
