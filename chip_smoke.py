@@ -187,12 +187,49 @@ and in bf16, the reference's default dtype (phases 8–11 stay f32):
     teacher-forced over 8 prompts, against the CPU's f32 run of the same
     parameters: at every step the card's RMS distance from the CPU's bf16
     at most twice the CPU's bf16-vs-f32 RMS distance (the mixtrals: over
-    all steps at once, as tests/test_torch_lm_bf16.py holds them).
+    all steps at once, as tests/test_torch_lm_bf16.py holds them);
+
+and for the training slice (``python -m repro_torch.launch.train``), f32:
+
+16. the backward of the f32 flash entry (``flash_attention_bwd``, a
+    library of its own) against the plain version's autograd on the same
+    tensors: dQ, dK, dV within ``BWD_RTOL`` of each gradient's scale, the
+    forward's LSE within it and +inf exactly on the rows with no live key,
+    each case run twice bitwise, at granite-8b's train (8 × 256) and serve
+    shapes, gemma-7b's hd 256 with and without a soft-cap, gemma3-27b's
+    local window, seamless's cross-attention without a mask (S ≠ T) and
+    ragged S below and above T (``bwd_cases``); beside each its time, its
+    bound (5 products a live pair under 3×TF32), the plain backward's and
+    f32 ``scaled_dot_product_attention``'s backward;
+17. granite-8b trained at full width, 16 of its 36 layers
+    (``TRAIN_LAYERS``), f32, batch 8 × 256, 4 steps through
+    ``init_train_state`` and ``make_train_step``, every LM kernel's launch
+    count set to 0 before the run and read around each step (44 forward
+    and 16 backward flash launches a step, no scan: ``train_expected_launches``),
+    the last step profiled: step wall, tokens/s, the share of the f32 peak
+    (the flops the step runs, each layer's forward counted as often as the
+    remat runs it, over the wall; also ``model_flops × remat_overhead``
+    over the wall, the reference's estimate), peak memory, the
+    card's idle share and the flash kernels' device ms; the first step
+    taken again from a fresh draw of the same state, bitwise; then
+    ``FaultTolerantLoop`` at the same width cut to ``LOOP_LAYERS`` (the
+    checkpoints of 16 layers, 44 GB each, do not fit a 75 GB disk twice), a crash
+    injected at step 3, restored from the step-0 checkpoint and replayed:
+    the repeated steps and the final parameters bitwise an uninterrupted
+    run's;
+18. granite-8b, gemma-7b, gemma3-27b and seamless-m4t-large-v2 reduced,
+    3 train steps on the card and on the CPU (one PyTorch thread) from the
+    same parameters and batches: each loss and gradient norm, the first
+    step's gradients (Adam's first moment) and the final parameters within
+    1e-4 of scale, the card's steps through the flash kernels as phase 17
+    counts them.
 
 All libraries are built at the start, one ``nvcc`` each, in parallel
-(each wrapper's ``library()`` from its own thread). Then the ``kernels``
+(each wrapper's ``library()`` from its own thread, and the flash
+backward's ``library_bwd()``). Then the ``kernels``
 JSON line (one row per entry: ``flash_attention`` and
-``flash_attention_bf16`` and so on; ``selective_scan_bf16`` is on no
+``flash_attention_bf16`` and so on, and ``flash_attention_bwd`` with its
+launches in phase 17; ``selective_scan_bf16`` is on no
 model's path, so its launches are 0), the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Nothing is imported from JAX or from the
 reference package ``repro``.
@@ -3009,6 +3046,484 @@ def lm_card_matches_cpu_bf16(dev, arch: str, *, prompt_len=BF16_CPU_PROMPT,
     assert ok, "card and CPU bf16 logits disagree beyond the bf16 bound"
 
 
+# -------------------------------------------------------- the training slice
+# Phase 16: the backward of the f32 flash entry (``flash_attention_bwd``)
+# against the plain version's autograd, within BWD_RTOL of each gradient's
+# scale (the forward's tolerance, relative to the scale as the CPU tests
+# hold it), and the forward's LSE, +inf exactly on the rows with no live
+# key. Its bound counts 5 products a live (query, key) pair (S = QKᵀ, dP =
+# dO Vᵀ, dV += Pᵀ dO, dK += dSᵀ Q, dQ += dS K; the forward does 2); the
+# kernel does 7 (S and dP twice: dQ in one launch, dK and dV together in
+# another), 11 at hd 256 (two CTAs split each row block's output columns,
+# each forming S and dP).
+BWD_RTOL = 2e-4
+BWD_PRODUCTS = 5
+# Phases 17–18: LM training, the reference's launcher defaults
+# (``repro/launch/train.py``: granite-8b, batch 8, sequence 256, f32 on one
+# device, AdamW 3e-4 with 10 warmup steps). granite-8b at full width (d
+# 4,096, 32/8 heads of 128, d_ff 14,336, vocab 49,152) cut to 16 of its 36
+# layers: 3.69 B parameters, 59 GB of f32 weights, gradients and two
+# moments (all 36: ~129 GB). 4 steps through init_train_state,
+# make_train_step; then FaultTolerantLoop at the same width cut to
+# LOOP_LAYERS: its checkpoints hold the weights and both moments (44 GB at
+# 16 layers), and the H100 host this was sized on has a 75 GB disk at
+# 0.83 GB/s (measured with dd), which holds no two of them; 2 layers make
+# 7.6 GB a checkpoint.
+TRAIN_ARCH = "granite-8b"
+TRAIN_LAYERS = 16            # published: 36
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 4
+LOOP_LAYERS = 2
+TRAIN_FAULT_STEP = 3
+# phase 18: reduced configurations, card against CPU, 3 steps each: every
+# loss and gradient norm, the first step's gradients (as Adam's first
+# moment) and the final parameters within 1e-4 of scale (the CPU tests' pin
+# of the port's training against the reference); the CPU side runs on one
+# PyTorch thread, so its sums take one order whatever the host's cores
+TRAIN_CPU_ARCHS = ("granite-8b", "gemma-7b", "gemma3-27b",
+                   "seamless-m4t-large-v2")
+TRAIN_CPU_STEPS = 3
+TRAIN_CPU_RTOL = 1e-4
+
+
+def bwd_cases():
+    """Phase 16's cases: (label, (B, S, T, H, K, hd), causal, window,
+    softcap): granite-8b's train and serve shapes, gemma-7b's hd 256
+    without and with a soft-cap, gemma3-27b's windowed local layers,
+    seamless's cross-attention without a mask (S ≠ T), and ragged S below
+    T (causal, the T − S offset) and above it (its first 537 rows see no
+    key)."""
+    from repro_torch.configs import get_config
+    gr, g7, g3, sm = (get_config(a) for a in (
+        "granite-8b", "gemma-7b", "gemma3-27b", "seamless-m4t-large-v2"))
+    heads = lambda c: (c.n_heads, c.n_kv, c.head_dim)   # noqa: E731
+    return [
+        ("granite-train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ) + heads(gr),
+         True, None, None),
+        ("granite-serve", (LM_BATCH, LM_PROMPT, LM_PROMPT) + heads(gr),
+         True, None, None),
+        ("gemma-7b-hd256", (LM_BATCH, 1024, 1024) + heads(g7), True, None,
+         None),
+        ("gemma-7b-hd256-cap", (LM_BATCH, 1024, 1024) + heads(g7), True,
+         None, 50.0),
+        ("gemma3-local", (LM_BATCH, LM_PROMPT, LM_PROMPT) + heads(g3), True,
+         g3.local_window, None),
+        ("seamless-cross", (LM_BATCH, 700, LM_PROMPT) + heads(sm), False,
+         None, None),
+        ("ragged-offset", (2, 1000, 1537, 16, 8, 128), True, None, None),
+        ("ragged-dead-rows", (2, 1537, 1000, 16, 8, 128), True, None, None),
+    ]
+
+
+def bwd_ops_bytes(B, S, T, H, K, hd, causal, window):
+    """The backward's operations (BWD_PRODUCTS products of 2·hd per live
+    pair) and bytes (q, k, v, o, dO and the LSE read once, dq, dk, dv
+    written once)."""
+    fwd_ops, _ = flash_ops_bytes(B, S, T, H, K, hd, causal, window)
+    ops = fwd_ops / 2 * BWD_PRODUCTS           # the forward counts 2 products
+    moved = 4.0 * (4 * B * S * H * hd + 4 * B * T * K * hd + B * H * S)
+    return ops, moved
+
+
+def sdpa_train_mask(dev, S, T, causal, window) -> dict:
+    """``scaled_dot_product_attention``'s mask for the flash mask (query
+    row i at key position i + T − S): ``is_causal`` for S = T without a
+    window, nothing without a mask, else an explicit boolean mask."""
+    if not causal and window is None:
+        return {}
+    if causal and window is None and S == T:
+        return dict(is_causal=True)
+    qpos = torch.arange(S, device=dev)[:, None] + (T - S)
+    kpos = torch.arange(T, device=dev)[None, :]
+    ok = torch.ones((S, T), dtype=torch.bool, device=dev)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return dict(attn_mask=ok)
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| over max |want|."""
+    scale = max(float(want.abs().max()), 1e-30)
+    return float((got - want).abs().max()) / scale
+
+
+def lm_check_backward(dev):
+    """Phase 16: ``flash_attention_bwd`` against the plain version's
+    autograd on the same tensors, twice bitwise, at ``bwd_cases``; its time
+    beside the bound, the plain backward's and f32
+    ``scaled_dot_product_attention``'s backward (K and V repeated to the
+    query heads outside the timed call). Returns (max |error|, the
+    granite-train case's timing row)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_lse_ref,
+        flash_attention_ref)
+    worst, row_of_path = 0.0, None
+    for label, (B, S, T, H, K, hd), causal, window, cap in bwd_cases():
+        q, k, v = qkv_inputs(B, S, T, H, K, hd, dev, seed=S + T + hd)
+        dout = torch.randn(q.shape, device=dev,
+                           generator=torch.Generator(dev).manual_seed(hd))
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        same = bits_equal(got, flash_attention_bwd(q, k, v, out, dout, lse,
+                                                   **kw))
+        qr, kr, vr = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        ref_out = flash_attention_ref(qr, kr, vr, **kw)
+        want = torch.autograd.grad(ref_out, (qr, kr, vr), dout,
+                                   retain_graph=True)
+        want_lse = flash_attention_lse_ref(q, k, **kw)
+        dead = torch.isinf(want_lse)
+        errs = {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"),
+                                                     got, want)}
+        errs["lse"] = rel_err(lse[~dead], want_lse[~dead])
+        lse_inf_ok = bool(torch.equal(torch.isinf(lse), dead)
+                          and (lse[dead] > 0).all())
+        abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        ops, moved = bwd_ops_bytes(B, S, T, H, K, hd, causal, window)
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True) for t in (k, v))
+        dt = dout.transpose(1, 2).contiguous()
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, **sdpa_train_mask(dev, S, T, causal, window))
+        row = dict(
+            ms=cuda_time_ms(lambda: flash_attention_bwd(
+                q, k, v, out, dout, lse, **kw), reps=10),
+            plain_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                ref_out, (qr, kr, vr), dout, retain_graph=True), reps=3),
+            library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dt, retain_graph=True), reps=10),
+            operations=ops, bytes=moved, shape=[B, S, T, H, K, hd],
+            causal=causal, window=window, softcap=cap)
+        row.update(lm_bound("flash_attention", ops, moved))
+        say({"phase": "lm_backward", "kernel": "flash_attention_bwd",
+             "case": label, **row, "share_of_bound": row["bound_ms"] /
+             row["ms"], "rel_err": errs, "max_abs_err": abs_err,
+             "rtol": BWD_RTOL, "dead_rows": int(dead.sum()),
+             "lse_inf_exact": lse_inf_ok, "finite": finite,
+             "run_twice_bitwise_equal": same})
+        assert max(errs.values()) <= BWD_RTOL, \
+            "flash_attention_bwd disagrees with the plain autograd"
+        assert lse_inf_ok and finite, "flash_attention: LSE or grads wrong"
+        assert same, "flash_attention_bwd differs from run to run"
+        worst = max(worst, abs_err)
+        if label == "granite-train":
+            row_of_path = row
+        del q, k, v, dout, out, lse, got, want, qr, kr, vr, ref_out
+        del qt, kt, vt, dt, lib_out
+        torch.cuda.empty_cache()
+    return worst, row_of_path
+
+
+def train_launches() -> dict:
+    """The LM kernels' launch counts (``lm_launches``) with the backward's."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    return {**lm_launches(),
+            "flash_attention_bwd": FK.flash_attention_bwd.launches}
+
+
+def reset_train_launches() -> None:
+    for mod, _ in lm_kernel_modules().values():
+        mod.reset_launches()
+
+
+def train_expected_launches(cfg) -> dict:
+    """The LM kernels' launches in one train step of a dense or enc-dec
+    ``cfg`` in f32 with both remat levels: per segment of L attention calls
+    a layer c (a ``dec`` layer's self and cross-attention: 2) in groups of
+    G = ``_group(L, scan_group)``, (3·L − L/G)·c forwards (each block's
+    once, again in its group's recompute, which stops before its last
+    block, and in its own) and L·c backwards; nothing else."""
+    from repro_torch.models.model import _group
+    segments = [(cfg.n_layers, 2 if cfg.is_encdec else 1)]
+    if cfg.is_encdec:
+        segments.append((cfg.n_enc_layers, 1))
+    want = dict.fromkeys(LM_ENTRIES, 0)
+    want["flash_attention"] = sum(
+        (3 * L - L // _group(L, cfg.scan_group)) * c for L, c in segments)
+    want["flash_attention_bwd"] = sum(L * c for L, c in segments)
+    return want
+
+
+def profiled_step(fn, dev) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (CUDA activity): its
+    wall, the device time of all its kernels and of the flash kernels
+    (forward and backward), and the idle share 1 − device time / wall."""
+    from torch.profiler import ProfilerActivity, profile
+    synchronize(dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        synchronize(dev)
+        wall = time.perf_counter() - t0
+    busy = fwd = bwd = 0.0
+    for e in prof.key_averages():
+        t = 0.0
+        for name in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, name):
+                t = float(getattr(e, name)) / 1e3        # ms
+                break
+        busy += t
+        if "flash_bwd" in e.key:
+            bwd += t
+        elif "flash_kernel" in e.key:
+            fwd += t
+    return {"wall_s": wall, "device_ms": busy or None,
+            "flash_fwd_device_ms": fwd, "flash_bwd_device_ms": bwd,
+            "idle_share": (1.0 - busy / 1e3 / wall) if busy
+            else "not measured"}
+
+
+def train_cfg(arch: str, n_layers=None, reduced: bool = False):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(arch, reduced=reduced),
+                              dtype=torch.float32)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg
+
+
+def train_tcfg():
+    """The launcher's optimiser: AdamW 3e-4, 10 warmup steps, 100 steps."""
+    from repro_torch.train import AdamConfig, TrainConfig
+    return TrainConfig(adam=AdamConfig(lr=3e-4, warmup_steps=10,
+                                       total_steps=100))
+
+
+def lm_train_path(dev):
+    """Phase 17: granite-8b trained at full width (``TRAIN_LAYERS`` of its
+    layers) in f32, ``TRAIN_STEPS`` steps of batch 8 × 256 through
+    ``init_train_state`` and ``make_train_step``, with every LM kernel's
+    launch count set to 0 just before and read after each step (the last
+    step profiled); the first step taken again from a fresh draw of the
+    same state, bitwise; then ``FaultTolerantLoop`` at the same width cut to
+    ``LOOP_LAYERS`` with checkpoints in a temporary directory, a crash
+    injected at step 3, restored and replayed bitwise to an uninterrupted
+    run's parameters. Returns (the timing line, launches of the run)."""
+    import shutil
+    import tempfile
+    from repro_torch.analysis.roofline import (PEAK_F32_FLOPS, model_flops,
+                                               remat_overhead)
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.models.convert import leaves
+    from repro_torch.train import (Checkpointer, DataConfig,
+                                   FaultTolerantLoop, LoopConfig,
+                                   TokenStream, init_train_state,
+                                   make_train_step)
+    cfg, tcfg = train_cfg(TRAIN_ARCH, TRAIN_LAYERS), train_tcfg()
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
+                                    batch=TRAIN_BATCH))
+    want = train_expected_launches(cfg)
+
+    def fresh(c):
+        t0 = time.perf_counter()
+        state = init_train_state(c, torch.Generator(dev).manual_seed(LM_SEED),
+                                 tcfg)
+        synchronize(dev)
+        return state, time.perf_counter() - t0
+
+    (params, opt), init_s = fresh(cfg)
+    n_params = sum(t.numel() for t in leaves(params))
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_train_launches()
+    steps, first, total = [], None, dict.fromkeys(want, 0)
+    for s in range(TRAIN_STEPS):
+        before = train_launches()
+        box = {}
+
+        def run():
+            box["out"] = step(params, opt, stream.batch(s))
+            box["loss"] = float(box["out"][2]["loss"])
+
+        synchronize(dev)
+        if s == TRAIN_STEPS - 1:
+            prof = profiled_step(run, dev)
+            wall = prof["wall_s"]
+        else:
+            t0 = time.perf_counter()
+            run()
+            synchronize(dev)
+            wall = time.perf_counter() - t0
+        params, opt, m = box["out"]
+        after = train_launches()
+        counts = {k: after[k] - before[k] for k in want}
+        for k in want:
+            total[k] += counts[k]
+        steps.append({"step": s, "wall_s": wall, "loss": box["loss"],
+                      "grad_norm": float(m["grad_norm"]),
+                      "lr": float(m["lr"]), "launches": counts})
+        if s == 0:
+            first = (box["loss"], float(m["grad_norm"]),
+                     [t.detach().cpu() for t in leaves(params)])
+    peak = torch.cuda.max_memory_allocated(dev)
+    del params, opt, m, box
+    torch.cuda.empty_cache()
+
+    # the first step again from a fresh draw of the same state
+    (params, opt), _ = fresh(cfg)
+    params, opt, m = step(params, opt, stream.batch(0))
+    twice = (float(m["loss"]) == first[0]
+             and float(m["grad_norm"]) == first[1]
+             and all(torch.equal(a.detach().cpu(), b)
+                     for a, b in zip(leaves(params), first[2])))
+    del params, opt, m, first
+    torch.cuda.empty_cache()
+
+    walls = [r["wall_s"] for r in steps[1:-1]]     # warm, unprofiled
+    wall = float(np.median(walls))
+    shape = Shape("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    # the work the step runs: each layer's forward as often as the code's
+    # remat runs it (want: 3·L − L/G forwards over L backwards, the group
+    # recompute stopping before its last block), 2·N·D a forward and 4·N·D
+    # a backward; remat_overhead, the reference's estimate, counts 3
+    fwd = want["flash_attention"] / want["flash_attention_bwd"]
+    executed = model_flops(cfg, shape, chips=1) * (2 * fwd + 4) / 6
+    line = {"phase": "lm_train", "arch": cfg.name, "dtype": "torch.float32",
+            "n_layers": cfg.n_layers, "published_layers": 36,
+            "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "init_s": init_s, "steps": steps, "step_wall_s": wall,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
+            "model_flops": model_flops(cfg, shape, chips=1),
+            "remat_overhead": remat_overhead(cfg, shape),
+            "forwards_per_layer": fwd, "executed_flops": executed,
+            "share_of_f32_peak": executed / wall / PEAK_F32_FLOPS,
+            "share_of_f32_peak_by_remat_overhead": model_flops(
+                cfg, shape, chips=1) * remat_overhead(cfg, shape) / wall
+            / PEAK_F32_FLOPS,
+            "peak_memory_bytes": peak, "profiled_step": prof,
+            "flash_device_ms_per_step": prof["flash_fwd_device_ms"]
+            + prof["flash_bwd_device_ms"],
+            "expected_launches_per_step": want,
+            "step_twice_bitwise_equal": twice}
+    say(line)
+    assert all(np.isfinite(r["loss"]) for r in steps), "non-finite loss"
+    for r in steps:
+        assert r["launches"] == want, (r["launches"], want)
+    assert twice, "one train step from the same state differs"
+
+    # the fault-tolerant loop, at the same width cut to LOOP_LAYERS
+    lcfg = train_cfg(TRAIN_ARCH, LOOP_LAYERS)
+    lstep = make_train_step(lcfg, tcfg)
+    seen = []
+
+    def recorded(p, o, batch):
+        p, o, m = lstep(p, o, batch)
+        seen.append((float(m["loss"]), float(m["grad_norm"])))
+        return p, o, m
+
+    crashed = []
+
+    def hook(s):
+        if s == TRAIN_FAULT_STEP and not crashed:
+            crashed.append(s)
+            raise RuntimeError("injected node failure")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        (lp, lo), _ = fresh(lcfg)
+        ck = Checkpointer(tmp, keep=1, async_save=True)
+        loop = FaultTolerantLoop(
+            train_step=recorded, params=lp, opt_state=lo, stream=stream,
+            ckpt=ck, loop_cfg=LoopConfig(total_steps=TRAIN_STEPS,
+                                         checkpoint_every=TRAIN_STEPS,
+                                         log_every=1), fault_hook=hook)
+        t0 = time.perf_counter()
+        result = loop.run()
+        loop_s = time.perf_counter() - t0
+        ckpt_bytes = sum(os.path.getsize(os.path.join(d, f))
+                         for d, _, fs in os.walk(tmp) for f in fs)
+        (dp, do), _ = fresh(lcfg)
+        for s in range(TRAIN_STEPS):
+            dp, do, _ = lstep(dp, do, stream.batch(s))
+        replay_same = all(torch.equal(a, b) for a, b in
+                          zip(leaves(loop.params), leaves(dp)))
+        # steps 0 .. FAULT-1 ran twice from the same state: before the
+        # crash and after the restore of the step-0 checkpoint
+        n = TRAIN_FAULT_STEP
+        repeat_same = seen[:n] == seen[n:2 * n]
+        finite = all(np.isfinite(x) for x, _ in seen)
+        del lp, lo, dp, do, loop
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    say({"phase": "lm_train_loop", "arch": lcfg.name,
+         "n_layers": lcfg.n_layers, "steps": TRAIN_STEPS,
+         "fault_at_step": TRAIN_FAULT_STEP, "restores": result["restores"],
+         "final_step": result["final_step"], "calls": len(seen),
+         "losses": [x for x, _ in seen], "loop_s": loop_s,
+         "checkpoint_bytes_on_disk": ckpt_bytes,
+         "steps_before_the_crash_replayed_bitwise": repeat_same,
+         "final_params_bitwise_uninterrupted": replay_same,
+         "finite": finite})
+    assert result["restores"] == 1 and result["final_step"] == TRAIN_STEPS
+    assert finite and repeat_same and replay_same, \
+        "the loop's restore and replay is not bitwise"
+    return line, total
+
+
+def lm_train_card_vs_cpu(dev, arch: str):
+    """Phase 18: ``TRAIN_CPU_STEPS`` train steps of ``arch``'s reduced
+    configuration on the card and on the CPU (one thread) from the same
+    parameters and batches (an enc-dec model's encoder frames as the
+    launcher draws them, ``FrontendStream``): each loss and gradient norm,
+    the first step's first moment (0.1 × its clipped gradients) and the
+    final parameters within ``TRAIN_CPU_RTOL`` of scale, and the card's
+    steps through the flash kernels as ``train_expected_launches`` says."""
+    from repro_torch.launch.train import FrontendStream
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import leaves, tree_map
+    from repro_torch.train import (DataConfig, TokenStream, adam_init,
+                                   make_train_step)
+    cfg, tcfg = train_cfg(arch, reduced=True), train_tcfg()
+    stream = FrontendStream(TokenStream(DataConfig(vocab=cfg.vocab, seq=40,
+                                                   batch=4)), cfg)
+    base = init_params(cfg, torch.Generator().manual_seed(LM_SEED))
+    runs = {}
+    threads = torch.get_num_threads()
+    for d in (dev, torch.device("cpu")):
+        torch.set_num_threads(1 if d.type == "cpu" else threads)
+        params = tree_map(lambda t: t.clone().to(d), base)
+        opt = adam_init(params)
+        step = make_train_step(cfg, tcfg)
+        losses, norms, counts = [], [], []
+        for s in range(TRAIN_CPU_STEPS):
+            before = train_launches()
+            params, opt, m = step(params, opt, stream.batch(s))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            after = train_launches()
+            counts.append({k: after[k] - before[k] for k in after})
+            if s == 0:
+                mu = [t.detach().cpu().clone() for t in leaves(opt.mu)]
+        runs[d.type] = (losses, norms, mu,
+                        [t.detach().cpu() for t in leaves(params)], counts)
+    torch.set_num_threads(threads)
+    (la, na, ma, pa, ca), (lb, nb, mb, pb, cb) = runs["cuda"], runs["cpu"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
+    norm_rel = max(abs(a - b) / abs(b) for a, b in zip(na, nb))
+    mu_rel = max(rel_err(a, b) for a, b in zip(ma, mb))
+    param_rel = max(rel_err(a, b) for a, b in zip(pa, pb))
+    want = train_expected_launches(cfg)
+    say({"phase": "lm_train_card_vs_cpu", "arch": cfg.name,
+         "steps": TRAIN_CPU_STEPS, "losses_card": la, "losses_cpu": lb,
+         "max_loss_rel_diff": loss_rel, "max_grad_norm_rel_diff": norm_rel,
+         "max_step1_moment_rel_diff": mu_rel,
+         "max_param_rel_diff": param_rel, "rtol": TRAIN_CPU_RTOL,
+         "cpu_threads": 1, "launches_per_step": ca[0]})
+    assert max(loss_rel, norm_rel, mu_rel, param_rel) <= TRAIN_CPU_RTOL, \
+        "card and CPU training disagree"
+    for c in ca:
+        assert {k: c[k] for k in want} == want, (c, want)
+    assert not any(v for c in cb for v in c.values()), "the CPU launched"
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -3032,12 +3547,15 @@ def main() -> int:
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
 
-    mods = [K] + [mod for mod, _ in lm_kernel_modules().values()]
+    from repro_torch.kernels.flash_attention import kernel as FK
+    builds = [mod.library for mod in
+              [K] + [mod for mod, _ in lm_kernel_modules().values()]]
+    builds.append(FK.library_bwd)
     t0 = time.perf_counter()
     # each library() builds at first use; from one thread each, one nvcc
     # process each runs at once
-    with ThreadPoolExecutor(len(mods)) as pool:
-        list(pool.map(lambda mod: mod.library(), mods))
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda build_one: build_one(), builds))
     say({"phase": "build", "seconds": time.perf_counter() - t0,
          "log": build.BUILD_LOG})
 
@@ -3096,11 +3614,22 @@ def main() -> int:
     lm_card_matches_cpu_bf16(dev, "gemma3-27b", prompt_len=64)   # banded
     lm_card_matches_cpu_bf16(dev, LM_ARCH, ssm_bf16=True)
 
+    errs["flash_attention_bwd"], timing["flash_attention_bwd"] = \
+        lm_check_backward(dev)
+    _, counts = lm_train_path(dev)
+    for name, n in counts.items():
+        launches[name] = launches.get(name, 0) + n
+    for arch in TRAIN_CPU_ARCHS:
+        lm_train_card_vs_cpu(dev, arch)
+
     sph = "src/repro_torch/kernels/sph_pair/csrc/sph_pair.cu"
     source = {"density_pair": sph, "force_pair": sph,
               "ssd_scan": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
               "flash_attention": "src/repro_torch/kernels/flash_attention/"
                                  "csrc/flash_attention.cu",
+              "flash_attention_bwd": "src/repro_torch/kernels/"
+                                     "flash_attention/csrc/"
+                                     "flash_attention_bwd.cu",
               "selective_scan": "src/repro_torch/kernels/mamba_scan/csrc/"
                                 "selective_scan.cu"}
     replaces = {"density_pair": "src/repro/kernels/sph_pair/kernel.py:132",
@@ -3108,8 +3637,14 @@ def main() -> int:
                 "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:82",
                 "flash_attention":
                     "src/repro/kernels/flash_attention/kernel.py:80",
+                # no TPU kernel: the reference differentiates plain jnp
+                # attention (layers.py:_sdpa); the kernel it is the
+                # backward of
+                "flash_attention_bwd":
+                    "src/repro/kernels/flash_attention/kernel.py:80",
                 "selective_scan": "src/repro/kernels/mamba_scan/kernel.py:51"}
-    names = ["density_pair", "force_pair"] + LM_ENTRIES
+    names = ["density_pair", "force_pair"] + LM_ENTRIES + [
+        "flash_attention_bwd"]
     base = {name: name.replace("_bf16", "") for name in names}
     say({"kernels": [
         {"name": name, "route": "cuda", "source": source[base[name]],

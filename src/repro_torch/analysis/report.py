@@ -12,8 +12,9 @@ attribution and the repartition advisor's trend from the metrics log. Logs
 of schema v1 and v2 render their missing columns as ``-``.
 
 The reference's other mode (no trace: the roofline table of LM training
-dry-runs compiled for a TPU mesh) waits for the LM training slice and
-raises (ROADMAP queue 1, item 13e).
+dry-runs compiled for a TPU mesh) reads the artifacts of
+``repro.launch.dryrun``, which the port does not have (out of scope with
+the mesh and sharding modules, README), and raises.
 """
 
 from __future__ import annotations
@@ -21,9 +22,10 @@ from __future__ import annotations
 import json
 from typing import Dict, List, Optional
 
-_DRYRUN = ("repro_torch.analysis.report: the dry-run roofline table (LM "
-           "training artifacts compiled for a TPU mesh) is not ported "
-           "(ROADMAP queue 1, item 13e); pass a trace.json")
+_DRYRUN = ("repro_torch.analysis.report: the dry-run roofline table reads "
+           "the artifacts of repro.launch.dryrun (LM training compiled for "
+           "a TPU mesh), which is out of scope for the port (README); pass "
+           "a trace.json")
 
 
 # ----------------------------------------------------- task-timeline report

@@ -11,8 +11,12 @@ TB/s, 67 TFLOP/s of float32 outside the tensor cores, 495 TFLOP/s of dense
 TF32 and 989 TFLOP/s of dense bf16 on them. A card set below 700 W runs slower under load, so a share of
 the bound is stated with the card's power limit beside it.
 
-The reference's ``model_flops`` and ``remat_overhead`` count LM training
-work and wait for the LM training slice (ROADMAP queue 1, item 13e).
+``model_flops`` and ``remat_overhead`` are the reference's
+(``repro/analysis/roofline.py:91``, ``:105``): the useful LM work of a
+train, prefill or decode shape (6·N·D, 2·N_active·D) and the executed
+over useful ratio of its remat levels. The training path reports its
+step's share of :data:`PEAK_F32_FLOPS` as ``model_flops ×
+remat_overhead`` over the step's wall.
 """
 
 from __future__ import annotations
@@ -57,3 +61,31 @@ class Roofline:
     def t_bound(self) -> float:
         """Seconds: the larger term."""
         return max(self.t_memory, self.t_compute)
+
+
+def model_flops(cfg, shape, *, chips: int) -> float:
+    """MODEL_FLOPS per chip: 6·N·D train, 2·N_active·D inference (``shape``
+    has ``kind``, ``batch`` and ``seq``, as ``configs.shapes.Shape``)."""
+    n_act = cfg.n_active_params()
+    if shape.kind == "train":
+        tokens = shape.batch * shape.seq
+        total = 6.0 * n_act * tokens
+    elif shape.kind == "prefill":
+        tokens = shape.batch * shape.seq
+        total = 2.0 * n_act * tokens
+    else:                                    # decode: one token per sequence
+        total = 2.0 * n_act * shape.batch
+    return total / chips
+
+
+def remat_overhead(cfg, shape) -> float:
+    """Executed/useful flops ratio from the remat policy.
+
+    Train = fwd(2ND) + bwd(4ND) + one extra fwd per remat level: the
+    group-level sqrt remat always recomputes once, ``block_remat`` adds a
+    second recompute ⇒ (6 + 2·levels)/6.
+    """
+    if shape.kind != "train":
+        return 1.0
+    levels = 1 + (1 if getattr(cfg, "block_remat", False) else 0)
+    return (6.0 + 2.0 * levels) / 6.0

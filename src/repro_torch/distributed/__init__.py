@@ -1,7 +1,11 @@
 """Distribution layer of the port: the halo transport of the distributed
-time-bin engine (``transport.py``). The reference's sharding rules,
-overlapped collectives and pipeline placement serve the LM zoo (ROADMAP
-queue 1 item 13) and are not here."""
+time-bin engine (``transport.py``) and the gradient compression with error
+feedback (``compression.py``, single-device). The reference's sharding
+rules, overlapped collectives and pipeline placement serve a multi-device
+mesh and are out of scope (README)."""
+
+from .compression import (CompressState, compress_grads, compressed_bytes,
+                          decompress_grads, init_compress_state)
 
 from .transport import (DYNAMIC_STATE_FIELDS, RESIDENCIES, TRANSPORTS,
                         BucketPolicy, CompileProbe, HostTransport,
@@ -11,6 +15,8 @@ from .transport import (DYNAMIC_STATE_FIELDS, RESIDENCIES, TRANSPORTS,
                         pack_rounds)
 
 __all__ = [
+    "CompressState", "compress_grads", "compressed_bytes",
+    "decompress_grads", "init_compress_state",
     "DYNAMIC_STATE_FIELDS", "RESIDENCIES", "TRANSPORTS", "BucketPolicy",
     "CompileProbe", "HostTransport", "ProgramCache", "ResidentBuffers",
     "ShipSlots",

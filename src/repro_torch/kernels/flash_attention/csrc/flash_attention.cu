@@ -102,77 +102,14 @@ struct Cfg {
   static_assert(!QREG || BQ * KS <= stage, "Q must fit in one stage");
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? 16 : 0;   // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small (+ what lies below small's 11 bits)
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b at f32 accuracy: the two cross terms, then big * big
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
-                                     const uint32_t (&as)[4], uint32_t bb0,
-                                     uint32_t bb1, uint32_t bs0, uint32_t bs1) {
-  mma(d, as, bb0, bb1);
-  mma(d, ab, bs0, bs1);
-  mma(d, ab, bb0, bb1);
-}
-
-// A fragment of Q's 16 x 8 block at k-step kk for rows (g, g + 8) of `qrow`
-// (row g's first float): the k index runs over (2t, 2t + 1)
-__device__ __forceinline__ void q_fragment(const float* qrow, int ld, uint32_t (&fb)[4],
-                                           uint32_t (&fs)[4]) {
-  const float2 r0 = *reinterpret_cast<const float2*>(qrow);
-  const float2 r8 = *reinterpret_cast<const float2*>(qrow + 8 * ld);
-  split(r0.x, fb[0], fs[0]);
-  split(r8.x, fb[1], fs[1]);
-  split(r0.y, fb[2], fs[2]);
-  split(r8.y, fb[3], fs[3]);
-}
-
-// a scaled score in base 2: x * scale * log2(e), soft-capped first if CAP
-template <bool CAP>
-__device__ __forceinline__ float score2(float x, float scale2, float scale,
-                                        float cap) {
-  if constexpr (CAP) return cap * tanhf(x * scale / cap) * 1.44269504f;
-  else return x * scale2;
-}
+#include "split_tf32.cuh"
 
 template <int HD, bool CAP>
 __global__ void __launch_bounds__(NT, 3)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ o, int S,
-             int T, int H, int K, int causal, int window, float scale,
-             float cap) {
+             const float* __restrict__ v, float* __restrict__ o,
+             float* __restrict__ lse, int S, int T, int H, int K, int causal,
+             int window, float scale, float cap) {
   using CF = Cfg<HD>;
   constexpr int BK = CF::BK, KS = CF::KS, VS = CF::VS;
   constexpr int KK = HD / 8;   // k-steps of Q K^T
@@ -370,14 +307,16 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int d = 0; d < ND; ++d)
         *reinterpret_cast<float2*>(out + d * 8) =
             make_float2(acc[d][2 * r] / den, acc[d][2 * r + 1] / den);
+      if (lse != nullptr && t4 == 0)
+        lse[((size_t)b * H + h) * S + row] = row_lse(m[r], l[r]);
     }
   }
 }
 
 template <int HD, bool CAP>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   int B, int S, int T, int H, int K, int causal, int window,
-                   float cap, cudaStream_t stream) {
+                   float* lse, int B, int S, int T, int H, int K, int causal,
+                   int window, float cap, cudaStream_t stream) {
   const size_t smem = Cfg<HD>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_kernel<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -385,7 +324,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
   if (e != cudaSuccess) return e;
   const float scale = 1.0f / sqrtf((float)HD);
   flash_kernel<HD, CAP><<<dim3(H * B, (S + BQ - 1) / BQ), NT, smem, stream>>>(
-      q, k, v, o, S, T, H, K, causal, window, scale, cap);
+      q, k, v, o, lse, S, T, H, K, causal, window, scale, cap);
   return cudaGetLastError();
 }
 
@@ -413,9 +352,9 @@ __device__ __forceinline__ void pair_sync(int id) {
 template <bool CAP>
 __global__ void __launch_bounds__(wide::NT, 1)
 flash_kernel_wide(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int S,
-                  int T, int H, int K, int causal, int window, float scale,
-                  float cap) {
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int S, int T, int H, int K,
+                  int causal, int window, float scale, float cap) {
   constexpr int HD = wide::HD, BK = wide::BK, KS = wide::KS, VS = wide::VS;
   constexpr int NT = wide::NT;
   constexpr int KK = HD / 8;        // k-steps of Q K^T
@@ -612,20 +551,24 @@ flash_kernel_wide(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < 2; ++r) {
     const int row = q_first + pair * 16 + g + 8 * r;
     if (row < S) {
-      const float den = fmaxf(l[r] + xs[mate * 16 + g + 8 * r], 1e-30f);
+      const float lsum = l[r] + xs[mate * 16 + g + 8 * r];
+      const float den = fmaxf(lsum, 1e-30f);
       float* out = o + (((size_t)b * S + row) * H + h) * HD + 128 * half + 2 * t4;
 #pragma unroll
       for (int d = 0; d < NDH; ++d)
         *reinterpret_cast<float2*>(out + d * 8) =
             make_float2(acc[d][2 * r] / den, acc[d][2 * r + 1] / den);
+      if (lse != nullptr && half == 0 && t4 == 0)
+        lse[((size_t)b * H + h) * S + row] = row_lse(m[r], lsum);
     }
   }
 }
 
 template <bool CAP>
 cudaError_t launch_wide(const float* q, const float* k, const float* v, float* o,
-                        int B, int S, int T, int H, int K, int causal,
-                        int window, float cap, cudaStream_t stream) {
+                        float* lse, int B, int S, int T, int H, int K,
+                        int causal, int window, float cap,
+                        cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       flash_kernel_wide<CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)wide::bytes);
@@ -633,16 +576,16 @@ cudaError_t launch_wide(const float* q, const float* k, const float* v, float* o
   const float scale = 1.0f / sqrtf((float)wide::HD);
   flash_kernel_wide<CAP><<<dim3(H * B, (S + BQ - 1) / BQ), wide::NT,
                            wide::bytes, stream>>>(
-      q, k, v, o, S, T, H, K, causal, window, scale, cap);
+      q, k, v, o, lse, S, T, H, K, causal, window, scale, cap);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t dispatch(const float* q, const float* k, const float* v, float* o,
-                     int B, int S, int T, int H, int K, int causal, int window,
-                     float cap, cudaStream_t st) {
-  if (cap > 0.f) return launch<HD, true>(q, k, v, o, B, S, T, H, K, causal, window, cap, st);
-  return launch<HD, false>(q, k, v, o, B, S, T, H, K, causal, window, cap, st);
+                     float* lse, int B, int S, int T, int H, int K, int causal,
+                     int window, float cap, cudaStream_t st) {
+  if (cap > 0.f) return launch<HD, true>(q, k, v, o, lse, B, S, T, H, K, causal, window, cap, st);
+  return launch<HD, false>(q, k, v, o, lse, B, S, T, H, K, causal, window, cap, st);
 }
 
 // ------------------------------------------------------------- bf16
@@ -1596,20 +1539,26 @@ int flash_attention_supported(int HD) {
 
 // q (B,S,H,HD), k/v (B,T,K,HD), o (B,S,H,HD); float32, contiguous, 16-byte
 // aligned, on the device; H a multiple of K; window <= 0 means no window;
-// softcap <= 0 means no soft-cap. Returns a cudaError_t (0 on success).
+// softcap <= 0 means no soft-cap. lse, if not null, (B,H,S) float32: each
+// row's natural log-sum-exp of its scaled (soft-capped) live scores, what
+// the backward (flash_attention_bwd.cu) recomputes P from; +inf for a row
+// with no live key, so that its P is 0 there. Null (the serving call)
+// leaves the output bit for bit as without it. Returns a cudaError_t (0 on
+// success).
 int flash_attention_f32(const float* q, const float* k, const float* v,
                         float* o, int B, int S, int T, int H, int K, int HD,
-                        int causal, int window, float softcap, void* stream) {
+                        int causal, int window, float softcap, float* lse,
+                        void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   switch (HD) {
-    case 16: return (int)dispatch<16>(q, k, v, o, B, S, T, H, K, causal, window, softcap, st);
-    case 32: return (int)dispatch<32>(q, k, v, o, B, S, T, H, K, causal, window, softcap, st);
-    case 64: return (int)dispatch<64>(q, k, v, o, B, S, T, H, K, causal, window, softcap, st);
-    case 128: return (int)dispatch<128>(q, k, v, o, B, S, T, H, K, causal, window, softcap, st);
+    case 16: return (int)dispatch<16>(q, k, v, o, lse, B, S, T, H, K, causal, window, softcap, st);
+    case 32: return (int)dispatch<32>(q, k, v, o, lse, B, S, T, H, K, causal, window, softcap, st);
+    case 64: return (int)dispatch<64>(q, k, v, o, lse, B, S, T, H, K, causal, window, softcap, st);
+    case 128: return (int)dispatch<128>(q, k, v, o, lse, B, S, T, H, K, causal, window, softcap, st);
     case 256:
       if (softcap > 0.f)
-        return (int)launch_wide<true>(q, k, v, o, B, S, T, H, K, causal, window, softcap, st);
-      return (int)launch_wide<false>(q, k, v, o, B, S, T, H, K, causal, window, softcap, st);
+        return (int)launch_wide<true>(q, k, v, o, lse, B, S, T, H, K, causal, window, softcap, st);
+      return (int)launch_wide<false>(q, k, v, o, lse, B, S, T, H, K, causal, window, softcap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

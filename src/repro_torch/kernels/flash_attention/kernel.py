@@ -11,7 +11,16 @@ and 256; bf16 at hd 64, 128 and 256, the Hopper kernel with TMA and
 For tensors on a CUDA device it launches the hand-written kernel on the
 current stream and raises if the kernel does not take the arguments or the
 launch fails; for tensors on the CPU it calls the plain PyTorch version
-(``ref.py``). There is no other path.
+(``ref.py``). There is no other path. With ``return_lse`` the f32 entry
+also returns each row's log-sum-exp (B, H, S), which the backward
+recomputes P from.
+
+``flash_attention_bwd`` is the backward of the f32 entry
+(``csrc/flash_attention_bwd.cu``, a library of its own, built beside this
+one): dQ, dK and dV from q, k, v, the forward's output and LSE and the
+output's gradient; on the CPU it differentiates the plain version
+(``flash_attention_bwd_ref``). The autograd function that joins the two
+is ``ops.flash_attention_op``.
 
 On the card q, k and v are all float32 (``flash_attention_f32``) or all
 bfloat16 (``flash_attention_bf16``, the reference's default dtype: bf16
@@ -22,6 +31,9 @@ widened to reach the f32 kernel.
 ``flash_attention.launches`` counts kernel launches of either entry (one
 per launch, nowhere else), so a run can show that it went through the
 kernel; ``launches_by_dtype`` splits the count by entry.
+``flash_attention_bwd.launches`` counts calls of the backward entry that
+launched its kernels (one per call: its three launches, D, dQ, then dK and
+dV together).
 """
 
 from __future__ import annotations
@@ -34,10 +46,13 @@ import torch
 
 from ..build import check_launch, load_library
 from ..dtypes import ENTRY_DTYPES, check_dtypes
-from .ref import flash_attention_ref
+from .ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
+                  flash_attention_ref)
 
-SOURCES = [Path(__file__).parent / "csrc" / "flash_attention.cu",
+_CSRC = Path(__file__).parent / "csrc"
+SOURCES = [_CSRC / "flash_attention.cu", _CSRC / "split_tf32.cuh",
            Path(__file__).parent.parent / "hopper.cuh"]
+BWD_SOURCES = [_CSRC / "flash_attention_bwd.cu", _CSRC / "split_tf32.cuh"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,13 +65,24 @@ def library() -> ctypes.CDLL:
     lib = load_library("flash_attention", SOURCES)
     if not getattr(lib, "_repro_typed", False):
         lib.flash_attention_f32.argtypes = ([_P] * 4 + [_I] * 8
-                                            + [ctypes.c_float, _P])
+                                            + [ctypes.c_float, _P, _P])
         lib.flash_attention_f32.restype = _I
         lib.flash_attention_bf16.argtypes = ([_P] * 4 + [_I] * 8
                                              + [ctypes.c_float, _P])
         lib.flash_attention_bf16.restype = _I
         lib.flash_attention_supported.argtypes = [_I]
         lib.flash_attention_supported.restype = _I
+        lib._repro_typed = True
+    return lib
+
+
+def library_bwd() -> ctypes.CDLL:
+    """The built backward library (built at first use)."""
+    lib = load_library("flash_attention_bwd", BWD_SOURCES)
+    if not getattr(lib, "_repro_typed", False):
+        lib.flash_attention_bwd_f32.argtypes = ([_P] * 10 + [_I] * 8
+                                                + [ctypes.c_float, _P])
+        lib.flash_attention_bwd_f32.restype = _I
         lib._repro_typed = True
     return lib
 
@@ -99,10 +125,21 @@ def check_kernel_args(q, k, v) -> None:
                          f"({', '.join(map(str, HEAD_WIDTHS))})")
 
 
+def _check_mask(window, softcap) -> None:
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_attention: window must be > 0, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention: softcap must be > 0, got "
+                         f"{softcap}")
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
-                    softcap: Optional[float] = None):
-    """q (B, S, H, hd); k/v (B, T, K, hd), H = K·G. → (B, S, H, hd).
+                    softcap: Optional[float] = None,
+                    return_lse: bool = False):
+    """q (B, S, H, hd); k/v (B, T, K, hd), H = K·G. → (B, S, H, hd), and
+    with ``return_lse`` also each row's log-sum-exp (B, H, S) f32 (+inf for
+    a row with no live key; the f32 entry only).
 
     ``window`` (> 0) keeps keys within ``window`` positions of the query;
     None keeps all. ``softcap`` (> 0) maps each scaled score s to
@@ -110,15 +147,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
     card: all f32 or all bf16, contiguous, hd ∈ {16, 32, 64, 128, 256}.
     """
     dev = _check(q, k, v)
-    if window is not None and window <= 0:
-        raise ValueError(f"flash_attention: window must be > 0, got {window}")
-    if softcap is not None and not softcap > 0:
-        raise ValueError(f"flash_attention: softcap must be > 0, got "
-                         f"{softcap}")
+    _check_mask(window, softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap)
     if dev.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   softcap=softcap)
+        out = flash_attention_ref(q, k, v, **kw)
+        return (out, flash_attention_lse_ref(q, k, **kw)) if return_lse \
+            else out
     check_kernel_args(q, k, v)
+    if return_lse and q.dtype != torch.float32:
+        raise TypeError("flash_attention: only the f32 entry returns the "
+                        "log-sum-exp")
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     lib = library()
@@ -126,26 +164,85 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise RuntimeError(f"flash_attention: the built library does not "
                            f"take head width {hd}")
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
-    entry = (lib.flash_attention_bf16 if q.dtype == torch.bfloat16
-             else lib.flash_attention_f32)
+        return (out, lse) if return_lse else out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   B, S, T, H, K, hd, int(causal), window or 0,
-                   float(softcap or 0.0), stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                B, S, T, H, K, hd, int(causal), window or 0,
+                float(softcap or 0.0))
+        if q.dtype == torch.bfloat16:
+            rc = lib.flash_attention_bf16(*args, stream)
+        else:
+            rc = lib.flash_attention_f32(
+                *args, lse.data_ptr() if return_lse else None, stream)
     check_launch(rc, "flash_attention")
     flash_attention.launches += 1
     flash_attention.launches_by_dtype[q.dtype] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
 
 
+def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, ...)``'s
+    output, given its gradient ``dout`` (B, S, H, hd), the output ``out``
+    and ``lse`` (B, H, S) of the same forward call (``return_lse=True``).
+    On the card all f32 and contiguous; on the CPU the plain version's
+    autograd (``out`` and ``lse`` unused)."""
+    dev = _check(q, k, v)
+    _check_mask(window, softcap)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.device != dev:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} on {t.device} does not fit "
+                             f"q {tuple(q.shape)} on {dev}")
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    if lse.shape != (B, H, S) or lse.device != dev:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} is "
+                         f"not (B, H, S) = {(B, H, S)} on {dev}")
+    if dev.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, dout, causal=causal,
+                                       window=window, softcap=softcap)
+    check_kernel_args(q, k, v)
+    for name, t in (("out", out), ("dout", dout), ("lse", lse)):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} must be float32, "
+                             f"contiguous and 16-byte aligned")
+    if q.dtype != torch.float32:
+        raise TypeError("flash_attention_bwd: the backward kernel takes "
+                        "float32 (the bf16 entry has none: ROADMAP queue 1, "
+                        "item 13f)")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
+    lib = library_bwd()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.flash_attention_bwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dsum.data_ptr(), B, S, T, H, K, hd, int(causal),
+            window or 0, float(softcap or 0.0), stream)
+    check_launch(rc, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
 def reset_launches() -> None:
-    """Set the wrapper's launch counts to 0."""
+    """Set the wrappers' launch counts to 0."""
     flash_attention.launches = 0
     flash_attention.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
+    flash_attention_bwd.launches = 0

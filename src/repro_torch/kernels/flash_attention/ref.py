@@ -16,6 +16,10 @@ as before.
 This is the CPU path of
 :func:`repro_torch.kernels.flash_attention.flash_attention` and the oracle of
 the CUDA kernel (``csrc/flash_attention.cu``) on the card.
+``flash_attention_lse_ref`` is the row log-sum-exp the f32 kernel saves for
+its backward, and ``flash_attention_bwd_ref`` the gradients that autograd
+takes of ``flash_attention_ref``: the CPU path and the oracle of the
+backward kernel (``csrc/flash_attention_bwd.cu``).
 """
 
 from __future__ import annotations
@@ -26,16 +30,14 @@ from typing import Optional
 import torch
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        window: Optional[int] = None,
-                        softcap: Optional[float] = None):
-    """q (B, S, H, hd); k/v (B, T, K, hd) with H = K·G. → (B, S, H, hd)."""
+def _masked_scores(q, k, causal, window, softcap):
+    """The scaled, soft-capped scores (b, k, g, s, t), f32, -inf where the
+    mask kills them."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
-    G = H // K
-    f32 = torch.float32
-    qg = q.to(f32).reshape(B, S, K, G, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.to(f32)) / math.sqrt(hd)
+    qg = q.to(torch.float32).reshape(B, S, K, H // K, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg,
+                          k.to(torch.float32)) / math.sqrt(hd)
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
     qpos = torch.arange(S, device=q.device)[:, None] + (T - S)
@@ -45,7 +47,16 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
         ok &= kpos <= qpos
     if window is not None:
         ok &= kpos > qpos - window
-    scores = scores.masked_fill(~ok, float("-inf"))
+    return scores.masked_fill(~ok, float("-inf"))
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """q (B, S, H, hd); k/v (B, T, K, hd) with H = K·G. → (B, S, H, hd)."""
+    B, S, H, hd = q.shape
+    f32 = torch.float32
+    scores = _masked_scores(q, k, causal, window, softcap)
     if v.dtype == f32:
         p = torch.softmax(scores, dim=-1)
         p = torch.nan_to_num(p, nan=0.0)             # rows with no live key
@@ -59,3 +70,28 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
                            v.to(f32))
         out = out / l.permute(0, 3, 1, 2)[..., None]
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def flash_attention_lse_ref(q, k, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None):
+    """Each query row's natural log-sum-exp of its scaled (soft-capped) live
+    scores, (B, H, S) f32; +inf for a row with no live key (its P = 0)."""
+    B, S, H, _ = q.shape
+    lse = torch.logsumexp(_masked_scores(q, k, causal, window, softcap),
+                          dim=-1)                       # (b, k, g, s)
+    lse = torch.where(torch.isfinite(lse), lse,
+                      torch.full_like(lse, float("inf")))
+    return lse.reshape(B, H, S)
+
+
+def flash_attention_bwd_ref(q, k, v, dout, *, causal: bool = True,
+                            window: Optional[int] = None,
+                            softcap: Optional[float] = None):
+    """(dq, dk, dv): autograd's gradients of ``flash_attention_ref`` at
+    (q, k, v) for the output gradient ``dout``."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                  softcap=softcap)
+        return torch.autograd.grad(out, (q, k, v), dout)

@@ -13,8 +13,8 @@ from .layers import AttnSpec, KVCache, attention, mlp, rmsnorm, rope_tables
 from .mamba import (Mamba1State, Mamba2State, make_mamba1_state,
                     make_mamba2_state, mamba1_forward, mamba1_step,
                     mamba2_forward, mamba2_step)
-from .model import (ForwardResult, forward, init_params, make_caches,
-                    plan_segments, rolling_map)
+from .model import (ForwardResult, forward, init_params, lm_loss,
+                    make_caches, plan_segments, rolling_map)
 from .moe import MoEStats, moe
 
 __all__ = [
@@ -22,6 +22,6 @@ __all__ = [
     "rope_tables", "Mamba1State", "Mamba2State", "make_mamba1_state",
     "make_mamba2_state", "mamba1_forward", "mamba1_step", "mamba2_forward",
     "mamba2_step",
-    "ForwardResult", "forward", "init_params", "make_caches",
+    "ForwardResult", "forward", "init_params", "lm_loss", "make_caches",
     "plan_segments", "rolling_map", "MoEStats", "moe",
 ]

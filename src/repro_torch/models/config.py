@@ -118,3 +118,13 @@ class ModelConfig:
                 + 3 * d2 * ff + d2 * d
         total += V * d * (1 if self.tie_embeddings else 2)
         return float(total)
+
+    def n_active_params(self) -> float:
+        """Per-token active params (MoE: top_k of n_experts)."""
+        if not self.n_experts:
+            return self.n_params()
+        d, ff = self.d_model, self.d_ff
+        mlp_p = 3 * d * ff
+        total = self.n_params()
+        total -= self.n_layers * (self.n_experts - self.top_k) * mlp_p
+        return float(total)

@@ -21,6 +21,18 @@ self-attention, cross-attention to the encoder's output, then MLP).
 summed over the layers, as the reference's does (zeros for a model
 without experts).
 
+In train mode with grad on, each segment runs under the reference's two
+remat levels (``run_segment``, ``repro/models/model.py:420-497``) as
+``torch.utils.checkpoint`` regions: groups of ``_group(repeats,
+cfg.scan_group)`` layers (the reference's outer ``jax.checkpoint``), and
+inside them each block on its own when ``cfg.block_remat`` is set. A
+backward then runs each block's forward three times with both levels on
+(once, then the group's recompute, then the block's), but a group's last
+block twice: the group's recompute stops once it holds every tensor the
+group saved (PyTorch's non-reentrant checkpoint), and it saved only that
+block's input. With the group level alone, twice. ``lm_loss`` is the
+reference's causal-LM cross-entropy.
+
 The enc-dec model runs its encoder over precomputed frame embeddings
 (``enc_inputs``, a stub frontend) in every mode but decode, whose
 cross-attention reads the caches built at prefill; the VLM prepends
@@ -34,6 +46,7 @@ import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from .config import ModelConfig
@@ -57,6 +70,15 @@ TRANSFORMER_KINDS = ATTN_KINDS + ("enc", "dec")
 # ------------------------------------------------------------------ helpers
 def _norm(cfg: ModelConfig, w, x):
     return rmsnorm(x, w, plus_one=cfg.rms_plus_one)
+
+
+def _group(repeats: int, target: int) -> int:
+    """Largest divisor of ``repeats`` that is ≤ target (≥1)."""
+    g = 1
+    for d in range(1, min(repeats, target) + 1):
+        if repeats % d == 0:
+            g = d
+    return g
 
 
 def attn_spec(cfg: ModelConfig, kind: str) -> AttnSpec:
@@ -355,6 +377,48 @@ def apply_block(p: Params, x, kind: str, io: BlockIO, cache):
     return x, new_state
 
 
+# ------------------------------------------------------------ train remat
+def _block_with_stats(p, kind: str, x, io: BlockIO):
+    """One block in train mode; returns x and its (aux loss, expert
+    counts) as outputs (zeros but for a ``moe`` block), so that a
+    recomputed region does not append to ``io``."""
+    local = dataclasses.replace(io, moe_stats=[])
+    x, _ = apply_block(p, x, kind, local, None)
+    if local.moe_stats:
+        return (x,) + tuple(local.moe_stats[0])
+    return (x, torch.zeros((), dtype=torch.float32, device=x.device),
+            torch.zeros((max(io.cfg.n_experts, 1),), dtype=torch.float32,
+                        device=x.device))
+
+
+def _train_segment(seg_p, x, pattern, repeats: int, io: BlockIO):
+    """One segment in train mode under the reference's remat levels: each
+    group of ``_group(repeats, scan_group)`` layers is a checkpoint region,
+    and with ``block_remat`` each block inside it is one too. The MoE
+    blocks' (aux, counts) go to ``io.moe_stats`` once a group."""
+    G = _group(repeats, io.cfg.scan_group)
+
+    def block(p, kind, x):
+        if io.cfg.block_remat:
+            return checkpoint(_block_with_stats, p, kind, x, io,
+                              use_reentrant=False)
+        return _block_with_stats(p, kind, x, io)
+
+    def group(r0, x):
+        aux = counts = None
+        for r in range(r0, r0 + G):
+            for i, kind in enumerate(pattern):
+                x, a, c = block(seg_p[i][r], kind, x)
+                aux, counts = ((a, c) if aux is None
+                               else (aux + a, counts + c))
+        return x, aux, counts
+
+    for r0 in range(0, repeats, G):
+        x, aux, counts = checkpoint(group, r0, x, use_reentrant=False)
+        io.moe_stats.append((aux, counts))
+    return x
+
+
 # ----------------------------------------------------------------- top level
 def _rope_for(cfg: ModelConfig, positions) -> Dict[str, tuple]:
     """RoPE tables by name: ``default``, and ``global`` for gemma3's global
@@ -376,8 +440,12 @@ def _run_encoder(params: Params, cfg: ModelConfig, enc_in, io: BlockIO):
     enc_io = dataclasses.replace(
         io, mode="train", enc_out=None,
         rope=_rope_for(cfg, torch.arange(x.shape[1], device=x.device)))
-    for p in params["encoder"]:
-        x, _ = apply_block(p, x, "enc", enc_io, None)
+    if torch.is_grad_enabled():      # the reference's remat levels
+        x = _train_segment([params["encoder"]], x, ("enc",),
+                           len(params["encoder"]), enc_io)
+    else:
+        for p in params["encoder"]:
+            x, _ = apply_block(p, x, "enc", enc_io, None)
     return rmsnorm(x, params["enc_ln_f"])
 
 
@@ -444,6 +512,9 @@ def forward(params: Params, cfg: ModelConfig, tokens, *,
     new_caches = [] if want else None
     for si, (pattern, repeats) in enumerate(plan_segments(cfg)):
         seg_p = params["segments"][si]
+        if mode == "train" and torch.is_grad_enabled():
+            x = _train_segment(seg_p, x, pattern, repeats, io)
+            continue
         seg_new = [[None] * repeats for _ in pattern]
         for r in range(repeats):
             for i, kind in enumerate(pattern):
@@ -458,3 +529,33 @@ def forward(params: Params, cfg: ModelConfig, tokens, *,
     for a, c in io.moe_stats:
         aux, counts = aux + a, counts + c
     return ForwardResult(_logits(params, cfg, x), new_caches, aux, counts)
+
+
+def lm_loss(params: Params, cfg: ModelConfig, tokens, targets, *,
+            aux_weight: float = 0.01, enc_inputs=None, patch_embeds=None):
+    """Causal LM cross-entropy (+ the MoE aux loss), the reference's
+    ``lm_loss`` (``repro/models/model.py:588``): the train forward's
+    logits in f32, logsumexp minus the target's logit, the mean over
+    tokens (the VLM's patch positions sliced off first), plus
+    ``aux_weight · aux_loss`` for a model with experts. Returns (loss,
+    summed expert counts).
+
+    A MoE model does not train on the card yet (ROADMAP queue 1, item 13f):
+    asked for a gradient there, this raises."""
+    if (cfg.n_experts and torch.is_grad_enabled()
+            and params["embed"].device.type == "cuda"):
+        raise NotImplementedError(
+            "lm_loss: MoE training on the card is not ported yet (ROADMAP "
+            "queue 1, item 13f); it trains on the CPU")
+    res = forward(params, cfg, tokens, mode="train", enc_inputs=enc_inputs,
+                  patch_embeds=patch_embeds)
+    logits = res.logits
+    if patch_embeds is not None:
+        logits = logits[:, patch_embeds.shape[1]:]
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    loss = (lse - ll).mean()
+    if cfg.n_experts:
+        loss = loss + aux_weight * res.aux_loss
+    return loss, res.expert_counts

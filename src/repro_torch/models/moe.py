@@ -22,8 +22,11 @@ On the card every index operation is deterministic: gathers
 (each dropped pick writes a dump row of its own, sliced off), never
 ``index_add_``, which sums with atomics. The experts' products are
 ``torch.bmm`` over (E, G·cap, d), as the reference leaves its einsums to
-XLA outside any Pallas kernel. There is no autograd here: serving needs
-none.
+XLA outside any Pallas kernel. Training differentiates this layer with
+PyTorch's autograd through the same operations (the combine weights and the
+router's softmax carry the gradient, the aux loss joins ``lm_loss``); it
+runs on the CPU, and on the card ``lm_loss`` raises for a MoE model until
+its training there is ported (ROADMAP queue 1, item 13f).
 """
 
 from __future__ import annotations

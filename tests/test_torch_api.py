@@ -6,7 +6,7 @@
   without one; all four quadrants build; ``observe`` coerces as the
   reference's does.
 * ``repro_torch`` and ``chip_smoke.py`` import neither JAX nor anything of
-  the reference package ``repro``.
+  the reference package ``repro`` (the training modules included).
 """
 
 import dataclasses
@@ -167,7 +167,12 @@ for m in ("repro_torch.distributed.transport", "repro_torch.sph.collectives",
           "repro_torch.configs.seamless_m4t_large_v2",
           "repro_torch.configs.internvl2_2b",
           "repro_torch.models.moe", "repro_torch.configs.mixtral_8x7b",
-          "repro_torch.configs.mixtral_8x22b"):
+          "repro_torch.configs.mixtral_8x22b",
+          "repro_torch.train", "repro_torch.train.optimizer",
+          "repro_torch.train.data", "repro_torch.train.checkpoint",
+          "repro_torch.train.train_step", "repro_torch.train.loop",
+          "repro_torch.launch.train", "repro_torch.distributed.compression",
+          "repro_torch.kernels.flash_attention.ops"):
     assert m in sys.modules, m
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"

@@ -19,6 +19,16 @@ and 48/8 with a window of 4,096, and a sequence where it bites) run at full
 size; one MoE layer and the reduced mixtrals run on the card against the
 CPU.
 
+The backward of the f32 flash entry (``flash_attention_bwd``) is held to
+the plain version's autograd: dQ, dK and dV within 2e-4 of each gradient's
+scale (``BWD_RTOL``, the forward's tolerance; the kernel sums in other
+orders), the forward's row log-sum-exp within 2e-4 of its scale and +inf
+exactly where a row has no live key, each run twice bitwise. Training on
+the card (``flash_attention_op`` under autograd, a reduced model's train
+steps against the CPU's within 1e-4 of scale) and the entries that have no
+backward kernel yet (the scans, the bf16 flash entry) raising under grad
+are tested at the end of the file.
+
 The bf16 entries are held to their plain versions on the same bf16 inputs,
 each output within one bf16 rounding of the plain one (2^-7 of the value)
 plus a share of the scale: 2e-3 for attention (the kernel rounds P to bf16
@@ -34,6 +44,10 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as FK
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_ref,
+                                                 flash_attention_lse_ref,
+                                                 flash_attention_op,
                                                  flash_attention_ref)
 from repro_torch.kernels.mamba_scan import kernel as MK
 from repro_torch.kernels.mamba_scan import (selective_scan,
@@ -728,3 +742,193 @@ def test_cuda_moe_prefill_goes_through_the_kernel(cuda_device, arch):
     assert torch.equal(counts, counts_cpu)
     scale = float(np.abs(cpu).max())
     assert float(np.abs(card - cpu).max()) <= 1e-4 * scale
+
+
+# ------------------------------------------------- the f32 backward kernel
+BWD_RTOL = 2e-4      # of each gradient's scale: the forward's tolerance
+
+# (B, S, T, H, K, hd, causal, window, softcap)
+BWD_CASES = [
+    (8, 256, 256, 32, 8, 128, True, None, None),   # granite-8b's train shape
+    (1, 200, 200, 8, 2, 32, True, None, None),     # ragged, GQA
+    (2, 130, 300, 4, 1, 16, True, 64, None),       # T − S offset, window, MQA
+    (2, 96, 96, 4, 4, 64, False, 32, None),        # a window without causal
+    (1, 333, 200, 4, 2, 64, True, None, None),     # S > T: 133 dead rows
+    (2, 300, 300, 16, 16, 256, True, None, None),  # gemma-7b's hd 256
+    (2, 300, 300, 16, 16, 256, True, None, 30.0),  # ... soft-capped
+    (1, 200, 200, 4, 2, 128, True, None, 20.0),    # a soft-cap at hd 128
+    (2, 700, 700, 8, 4, 128, True, 256, None),     # a local window
+    (2, 200, 517, 16, 16, 64, False, None, None),  # no mask, S < T
+    (2, 517, 200, 16, 16, 64, False, None, None),  # no mask, S > T
+]
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| over max |want|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                  1e-30)
+
+
+def check_backward(dev, B, S, T, H, K, hd, causal, window, softcap):
+    """The backward kernel against the plain autograd on the same inputs,
+    run twice bitwise; the forward's LSE against the plain version's."""
+    q, k, v = tt(qkv_inputs(B, S, T, H, K, hd, seed=S + T + hd), dev)
+    dout = torch.from_numpy(np.random.default_rng(hd).standard_normal(
+        (B, S, H, hd)).astype(np.float32)).to(dev)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, flash_attention(q, k, v, **kw))   # lse: no change
+    n0 = FK.flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    again = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_bwd.launches == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = flash_attention_bwd_ref(q, k, v, dout, **kw)
+    errs = {name: rel_err(a, b) for name, a, b in zip(("dq", "dk", "dv"),
+                                                       got, want)}
+    want_lse = flash_attention_lse_ref(q, k, **kw)
+    dead = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), dead)
+    assert bool((lse[dead] > 0).all())
+    errs["lse"] = rel_err(lse[~dead], want_lse[~dead])
+    assert max(errs.values()) <= BWD_RTOL, errs
+    for g in got:
+        assert bool(torch.isfinite(g).all())
+    return errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,window,softcap", BWD_CASES)
+def test_cuda_flash_backward_matches_plain_autograd(cuda_device, B, S, T, H,
+                                                    K, hd, causal, window,
+                                                    softcap):
+    check_backward(cuda_device, B, S, T, H, K, hd, causal, window, softcap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_cuda_flash_backward_every_head_width(cuda_device, hd):
+    check_backward(cuda_device, 1, 150, 190, 4, 2, hd, True, 100, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,hd,window", [
+    (4, 2048, 32, 8, 128, None),       # granite-8b's serve shape
+    (4, 2048, 32, 16, 128, 1024),      # gemma3-27b's local layers
+])
+def test_cuda_flash_backward_at_serve_shapes(cuda_device, B, S, H, K, hd,
+                                             window):
+    check_backward(cuda_device, B, S, S, H, K, hd, True, window, None)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_op_carries_gradients(cuda_device):
+    """``flash_attention_op`` under autograd on the card: one forward and
+    one backward launch, gradients within ``BWD_RTOL`` of the CPU's plain
+    autograd through the same op."""
+    arrays = qkv_inputs(2, 100, 100, 4, 2, 64, seed=3)
+    dout = np.random.default_rng(4).standard_normal(
+        (2, 100, 4, 64)).astype(np.float32)
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        q, k, v = (t.requires_grad_(True) for t in tt(arrays, dev))
+        n0, n1 = FK.flash_attention.launches, FK.flash_attention_bwd.launches
+        out = flash_attention_op(q, k, v, window=40)
+        out.backward(torch.from_numpy(dout).to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (FK.flash_attention.launches - n0,
+                    FK.flash_attention_bwd.launches - n1) == (1, 1)
+        grads.append([q.grad, k.grad, v.grad])
+    for a, b in zip(*grads):
+        assert rel_err(a, b) <= BWD_RTOL
+
+
+@pytest.mark.cuda
+def test_cuda_entries_without_a_backward_raise_under_grad(cuda_device):
+    """The scans and the bf16 flash entry have no backward kernel yet: on
+    the card they raise when an input requires grad (no silent detach);
+    without grad they run; under ``no_grad`` they run."""
+    from repro_torch.kernels.mamba_scan import selective_scan_op
+    from repro_torch.kernels.ssd_scan import ssd_scan_op
+    q, k, v = tt(qkv_inputs(1, 64, 64, 2, 2, 64), cuda_device)
+    qb = q.bfloat16().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="13f"):
+        flash_attention_op(qb, k.bfloat16(), v.bfloat16())
+    with torch.no_grad():
+        flash_attention_op(qb, k.bfloat16(), v.bfloat16())
+    for op, args in ((ssd_scan_op, ssd_inputs(1, 64, 2, 16, 16)),
+                     (selective_scan_op, scan_inputs(1, 64, 32, 16))):
+        ts = tt(args, cuda_device)
+        op(*ts)
+        ts[0].requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="13f"):
+            op(*ts)
+        with torch.no_grad():
+            op(*ts)
+
+
+def train_card_and_cpu(arch, dev, steps=3):
+    """``steps`` train steps of ``arch``'s reduced configuration (f32, the
+    launcher's AdamW settings) on the card and on the CPU from the same
+    parameters and batches: (losses, final parameters) of each, and the
+    flash launches of each card step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import FrontendStream
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import leaves, tree_map
+    from repro_torch.train import (AdamConfig, DataConfig, TokenStream,
+                                   TrainConfig, adam_init, make_train_step)
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype=torch.float32)
+    tcfg = TrainConfig(adam=AdamConfig(lr=3e-4, warmup_steps=10,
+                                       total_steps=100))
+    stream = FrontendStream(TokenStream(DataConfig(
+        vocab=cfg.vocab, seq=40, batch=4)), cfg)
+    base = init_params(cfg, torch.Generator().manual_seed(0))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        params = tree_map(lambda t: t.clone().to(d), base)
+        opt = adam_init(params)
+        step = make_train_step(cfg, tcfg)
+        losses, counts = [], []
+        for s in range(steps):
+            n0 = (FK.flash_attention.launches_by_dtype[torch.float32],
+                  FK.flash_attention_bwd.launches)
+            params, opt, m = step(params, opt, stream.batch(s))
+            losses.append(float(m["loss"]))
+            counts.append((FK.flash_attention.launches_by_dtype[
+                torch.float32] - n0[0], FK.flash_attention_bwd.launches
+                - n0[1]))
+        out[d.type] = (losses, [t.detach().cpu() for t in leaves(params)],
+                       counts)
+    return cfg, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-8b", "gemma3-27b",
+                                  "seamless-m4t-large-v2"])
+def test_cuda_reduced_training_matches_cpu(cuda_device, arch):
+    """Three train steps of a reduced model (``make_train_step``) on the
+    card and on the CPU from the same parameters and batches: each loss and
+    the final parameters within 1e-4 of scale; each card step goes through
+    the flash kernels (with both remat levels, 3·L − L/G forwards and L
+    backwards over L attention calls of a segment, G = its group) and the
+    CPU's through none."""
+    from repro_torch.models.model import _group
+    cfg, out = train_card_and_cpu(arch, cuda_device)
+    (l_card, p_card, c_card), (l_cpu, p_cpu, c_cpu) = out["cuda"], out["cpu"]
+    for a, b in zip(l_card, l_cpu):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    for a, b in zip(p_card, p_cpu):
+        assert rel_err(a, b) <= 1e-4
+    segments = [(cfg.n_layers, 2 if cfg.is_encdec else 1)]
+    if cfg.is_encdec:
+        segments.append((cfg.n_enc_layers, 1))
+    fwd = sum((3 * L - L // _group(L, cfg.scan_group)) * c
+              for L, c in segments)
+    bwd = sum(L * c for L, c in segments)
+    assert c_card == [(fwd, bwd)] * 3 and c_cpu == [(0, 0)] * 3
