@@ -198,9 +198,11 @@ and for the training slice (``python -m repro_torch.launch.train``), f32:
     each case run twice bitwise, at granite-8b's train (8 × 256) and serve
     shapes, gemma-7b's hd 256 with and without a soft-cap, gemma3-27b's
     local window, seamless's cross-attention without a mask (S ≠ T) and
-    ragged S below and above T (``bwd_cases``); beside each its time, its
-    bound (5 products a live pair under 3×TF32), the plain backward's and
-    f32 ``scaled_dot_product_attention``'s backward;
+    ragged S below and above T (``bwd_cases``); beside each its route,
+    its time, its bound (5 products a live pair under 3×TF32) and its
+    route's (the same products in the serving kernel's arithmetic: 3×bf16
+    for ``flash_bwd_hopper``), the plain backward's and f32
+    ``scaled_dot_product_attention``'s backward;
 17. granite-8b trained at full width, 16 of its 36 layers
     (``TRAIN_LAYERS``), f32, batch 8 × 256, 4 steps through
     ``init_train_state`` and ``make_train_step``, every LM kernel's launch
@@ -210,19 +212,22 @@ and for the training slice (``python -m repro_torch.launch.train``), f32:
     (the flops the step runs, each layer's forward counted as often as the
     remat runs it, over the wall; also ``model_flops × remat_overhead``
     over the wall, the reference's estimate), peak memory, the
-    card's idle share and the flash kernels' device ms; the first step
+    card's idle share and the flash kernels' device ms, every backward
+    launch of the trace ``flash_bwd_hopper``; the first step
     taken again from a fresh draw of the same state, bitwise; then
     ``FaultTolerantLoop`` at the same width cut to ``LOOP_LAYERS`` (the
     checkpoints of 16 layers, 44 GB each, do not fit a 75 GB disk twice), a crash
     injected at step 3, restored from the step-0 checkpoint and replayed:
     the repeated steps and the final parameters bitwise an uninterrupted
     run's;
-18. granite-8b, gemma-7b, gemma3-27b and seamless-m4t-large-v2 reduced,
-    3 train steps on the card and on the CPU (one PyTorch thread) from the
-    same parameters and batches: each loss and gradient norm, the first
-    step's gradients (Adam's first moment) and the final parameters within
-    1e-4 of scale, the card's steps through the flash kernels as phase 17
-    counts them.
+18. granite-8b, gemma-7b, gemma3-27b and seamless-m4t-large-v2 reduced
+    (hd 16 and 32: the mma.sync backward), and granite-8b reduced at hd 128
+    (``flash_bwd_hopper``), 3 train steps on the card and on the CPU (one
+    PyTorch thread) from the same parameters and batches: each loss and
+    gradient norm, the first step's gradients (Adam's first moment) and the
+    final parameters within 1e-4 of scale, the card's steps through the
+    flash kernels as phase 17 counts them and the backward's through the
+    route of its head width.
 
 All libraries are built at the start, one ``nvcc`` each, in parallel
 (each wrapper's ``library()`` from its own thread, and the flash
@@ -3052,12 +3057,29 @@ def lm_card_matches_cpu_bf16(dev, arch: str, *, prompt_len=BF16_CPU_PROMPT,
 # scale (the forward's tolerance, relative to the scale as the CPU tests
 # hold it), and the forward's LSE, +inf exactly on the rows with no live
 # key. Its bound counts 5 products a live (query, key) pair (S = QKᵀ, dP =
-# dO Vᵀ, dV += Pᵀ dO, dK += dSᵀ Q, dQ += dS K; the forward does 2); the
-# kernel does 7 (S and dP twice: dQ in one launch, dK and dV together in
-# another), 11 at hd 256 (two CTAs split each row block's output columns,
-# each forming S and dP).
+# dO Vᵀ, dV += Pᵀ dO, dK += dSᵀ Q, dQ += dS K; the forward does 2) in
+# 3×TF32, whatever the kernel does: the yardstick PR 29's shares were read
+# against. Beside it stands the route's own bound, the same 5 products in
+# the arithmetic of the kernel that serves the width (``bwd_bounds``). The
+# kernel does 7 at every width (``BWD_KERNEL_PRODUCTS``: S and dP once in
+# each of its two launches, dQ in one, dK and dV together in the other);
+# at hd 64, 128 and 256 as ``flash_bwd_hopper`` (TMA-fed f32 tiles split
+# once a tile into two bf16 pieces, three bf16 ``wgmma`` passes a product:
+# 3×bf16 at the bf16 peak, half the 3×TF32 time; S and dP each formed by
+# one of two warpgroups that share them), at hd 16 and 32 as the mma.sync
+# kernel (3×TF32). Each case prints the route that served it, the
+# products a live pair, the kernels' shared memory and their ptxas
+# registers and spill bytes.
 BWD_RTOL = 2e-4
 BWD_PRODUCTS = 5
+BWD_KERNEL_PRODUCTS = 7
+# each route's passes a product, their peak rate and its name
+BWD_ROUTE_ARITHMETIC = {"hopper": (3, PEAK_BF16_FLOPS, "3×bf16"),
+                        "mma_sync": (TF32_SPLIT, PEAK_TF32_FLOPS, "3×TF32")}
+# a granite-8b train step's backward device ms before the Hopper kernel
+# (PERF.md row 3c: phase 17 on an H100 80GB HBM3 at 700 W, the mma.sync
+# kernel of the parent commit), printed beside this run's
+BWD_DEVICE_MS_BEFORE = 10.75
 # Phases 17–18: LM training, the reference's launcher defaults
 # (``repro/launch/train.py``: granite-8b, batch 8, sequence 256, f32 on one
 # device, AdamW 3e-4 with 10 warmup steps). granite-8b at full width (d
@@ -3078,9 +3100,13 @@ TRAIN_FAULT_STEP = 3
 # loss and gradient norm, the first step's gradients (as Adam's first
 # moment) and the final parameters within 1e-4 of scale (the CPU tests' pin
 # of the port's training against the reference); the CPU side runs on one
-# PyTorch thread, so its sums take one order whatever the host's cores
-TRAIN_CPU_ARCHS = ("granite-8b", "gemma-7b", "gemma3-27b",
-                   "seamless-m4t-large-v2")
+# PyTorch thread, so its sums take one order whatever the host's cores.
+# (arch, head width): the reduced widths (16, 32) take the mma.sync
+# backward; granite-8b reduced at its published hd 128 takes
+# flash_bwd_hopper, so a train step through it is held against the CPU
+TRAIN_CPU_CASES = (("granite-8b", None), ("gemma-7b", None),
+                   ("gemma3-27b", None), ("seamless-m4t-large-v2", None),
+                   ("granite-8b", 128))
 TRAIN_CPU_STEPS = 3
 TRAIN_CPU_RTOL = 1e-4
 
@@ -3124,6 +3150,20 @@ def bwd_ops_bytes(B, S, T, H, K, hd, causal, window):
     return ops, moved
 
 
+def bwd_bounds(ops, moved, route) -> dict:
+    """The backward's bounds over the same bytes: ``bound_ms`` prices its
+    operations in 3×TF32 at the TF32 peak (``lm_bound``, the yardstick
+    PR 29's shares were read against), ``route_bound_ms`` in the arithmetic
+    of ``route`` (``BWD_ROUTE_ARITHMETIC``: flash_bwd_hopper's three bf16
+    passes at the bf16 peak, the mma.sync kernel's 3×TF32)."""
+    passes, peak, kind = BWD_ROUTE_ARITHMETIC[route]
+    roof = Roofline(moved, passes * ops, peak)
+    return {**lm_bound("flash_attention", ops, moved),
+            "route_bound_ms": roof.t_bound * 1e3,
+            "route_bound_by": "bytes" if roof.bottleneck == "bytes"
+            else f"operations ({kind})"}
+
+
 def sdpa_train_mask(dev, S, T, causal, window) -> dict:
     """``scaled_dot_product_attention``'s mask for the flash mask (query
     row i at key position i + T − S): ``is_causal`` for S = T without a
@@ -3159,8 +3199,21 @@ def lm_check_backward(dev):
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_lse_ref,
         flash_attention_ref)
+    from repro_torch.kernels.flash_attention import kernel as FK
+    lib, resources = FK.library_bwd(), FK.bwd_resources()
     worst, row_of_path = 0.0, None
     for label, (B, S, T, H, K, hd), causal, window, cap in bwd_cases():
+        route = FK.bwd_route(hd)
+        kern = "flash_bwd_hopper" if route == "hopper" else "flash_bwd_kernel"
+        kernel_info = {
+            "route": route,
+            "products_per_live_pair": BWD_KERNEL_PRODUCTS,
+            "smem_bytes": lib.flash_attention_bwd_smem_bytes(hd),
+            "registers_spill_bytes": {
+                m: resources.get(f"{kern}<{hd},{m},{'cap' if cap else 'nocap'}>",
+                                 "not reported: the library was found built")
+                for m in ("DQ", "DKV")}}
+        n_route = FK.flash_attention_bwd.launches_by_route[route]
         q, k, v = qkv_inputs(B, S, T, H, K, hd, dev, seed=S + T + hd)
         dout = torch.randn(q.shape, device=dev,
                            generator=torch.Generator(dev).manual_seed(hd))
@@ -3169,6 +3222,8 @@ def lm_check_backward(dev):
         got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
         same = bits_equal(got, flash_attention_bwd(q, k, v, out, dout, lse,
                                                    **kw))
+        kernel_info["route_launches"] = \
+            FK.flash_attention_bwd.launches_by_route[route] - n_route
         qr, kr, vr = (t.detach().clone().requires_grad_(True)
                       for t in (q, k, v))
         ref_out = flash_attention_ref(qr, kr, vr, **kw)
@@ -3199,10 +3254,12 @@ def lm_check_backward(dev):
                 lib_out, (qt, kt, vt), dt, retain_graph=True), reps=10),
             operations=ops, bytes=moved, shape=[B, S, T, H, K, hd],
             causal=causal, window=window, softcap=cap)
-        row.update(lm_bound("flash_attention", ops, moved))
+        row.update(bwd_bounds(ops, moved, route))
         say({"phase": "lm_backward", "kernel": "flash_attention_bwd",
-             "case": label, **row, "share_of_bound": row["bound_ms"] /
-             row["ms"], "rel_err": errs, "max_abs_err": abs_err,
+             "case": label, **kernel_info, **row,
+             "share_of_bound": row["bound_ms"] / row["ms"],
+             "share_of_route_bound": row["route_bound_ms"] / row["ms"],
+             "rel_err": errs, "max_abs_err": abs_err,
              "rtol": BWD_RTOL, "dead_rows": int(dead.sum()),
              "lse_inf_exact": lse_inf_ok, "finite": finite,
              "run_twice_bitwise_equal": same})
@@ -3210,6 +3267,7 @@ def lm_check_backward(dev):
             "flash_attention_bwd disagrees with the plain autograd"
         assert lse_inf_ok and finite, "flash_attention: LSE or grads wrong"
         assert same, "flash_attention_bwd differs from run to run"
+        assert kernel_info["route_launches"] == 2, kernel_info
         worst = max(worst, abs_err)
         if label == "granite-train":
             row_of_path = row
@@ -3252,7 +3310,10 @@ def train_expected_launches(cfg) -> dict:
 def profiled_step(fn, dev) -> dict:
     """One call of ``fn`` under ``torch.profiler`` (CUDA activity): its
     wall, the device time of all its kernels and of the flash kernels
-    (forward and backward), and the idle share 1 − device time / wall."""
+    (forward and backward), the backward's dQ and dK/dV launches by the
+    kernel that ran (``flash_bwd_hopper`` or the mma.sync
+    ``flash_bwd_kernel``, from the trace's kernel names), and the idle
+    share 1 − device time / wall."""
     from torch.profiler import ProfilerActivity, profile
     synchronize(dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3261,7 +3322,11 @@ def profiled_step(fn, dev) -> dict:
         synchronize(dev)
         wall = time.perf_counter() - t0
     busy = fwd = bwd = 0.0
+    bwd_kernels = dict.fromkeys(("flash_bwd_hopper", "flash_bwd_kernel"), 0)
     for e in prof.key_averages():
+        for name in bwd_kernels:
+            if name in e.key:
+                bwd_kernels[name] += int(e.count)
         t = 0.0
         for name in ("self_device_time_total", "self_cuda_time_total"):
             if hasattr(e, name):
@@ -3274,6 +3339,7 @@ def profiled_step(fn, dev) -> dict:
             fwd += t
     return {"wall_s": wall, "device_ms": busy or None,
             "flash_fwd_device_ms": fwd, "flash_bwd_device_ms": bwd,
+            "flash_bwd_launches_by_kernel": bwd_kernels,
             "idle_share": (1.0 - busy / 1e3 / wall) if busy
             else "not measured"}
 
@@ -3310,6 +3376,7 @@ def lm_train_path(dev):
     from repro_torch.analysis.roofline import (PEAK_F32_FLOPS, model_flops,
                                                remat_overhead)
     from repro_torch.configs.shapes import Shape
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.models.convert import leaves
     from repro_torch.train import (Checkpointer, DataConfig,
                                    FaultTolerantLoop, LoopConfig,
@@ -3361,6 +3428,7 @@ def lm_train_path(dev):
         if s == 0:
             first = (box["loss"], float(m["grad_norm"]),
                      [t.detach().cpu() for t in leaves(params)])
+    routes = dict(FK.flash_attention_bwd.launches_by_route)
     peak = torch.cuda.max_memory_allocated(dev)
     del params, opt, m, box
     torch.cuda.empty_cache()
@@ -3399,12 +3467,22 @@ def lm_train_path(dev):
             "peak_memory_bytes": peak, "profiled_step": prof,
             "flash_device_ms_per_step": prof["flash_fwd_device_ms"]
             + prof["flash_bwd_device_ms"],
+            "flash_bwd_device_ms_per_step": prof["flash_bwd_device_ms"],
+            "flash_bwd_device_ms_per_step_before": BWD_DEVICE_MS_BEFORE,
+            "bwd_launches_by_route": routes,
             "expected_launches_per_step": want,
             "step_twice_bitwise_equal": twice}
     say(line)
     assert all(np.isfinite(r["loss"]) for r in steps), "non-finite loss"
     for r in steps:
         assert r["launches"] == want, (r["launches"], want)
+    assert routes == {"hopper": TRAIN_STEPS * want["flash_attention_bwd"],
+                      "mma_sync": 0}, routes
+    # the trace's own kernels: every dQ and dK/dV launch of the profiled
+    # step was flash_bwd_hopper
+    assert prof["flash_bwd_launches_by_kernel"] == {
+        "flash_bwd_hopper": 2 * want["flash_attention_bwd"],
+        "flash_bwd_kernel": 0}, prof["flash_bwd_launches_by_kernel"]
     assert twice, "one train step from the same state differs"
 
     # the fault-tolerant loop, at the same width cut to LOOP_LAYERS
@@ -3467,25 +3545,32 @@ def lm_train_path(dev):
     return line, total
 
 
-def lm_train_card_vs_cpu(dev, arch: str):
+def lm_train_card_vs_cpu(dev, arch: str, head_dim=None):
     """Phase 18: ``TRAIN_CPU_STEPS`` train steps of ``arch``'s reduced
-    configuration on the card and on the CPU (one thread) from the same
+    configuration (at ``head_dim`` where one is given) on the card and on
+    the CPU (one thread) from the same
     parameters and batches (an enc-dec model's encoder frames as the
     launcher draws them, ``FrontendStream``): each loss and gradient norm,
     the first step's first moment (0.1 × its clipped gradients) and the
     final parameters within ``TRAIN_CPU_RTOL`` of scale, and the card's
-    steps through the flash kernels as ``train_expected_launches`` says."""
+    steps through the flash kernels as ``train_expected_launches`` says,
+    the backward's through the route that serves the head width."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.train import FrontendStream
     from repro_torch.models import init_params
     from repro_torch.models.convert import leaves, tree_map
     from repro_torch.train import (DataConfig, TokenStream, adam_init,
                                    make_train_step)
     cfg, tcfg = train_cfg(arch, reduced=True), train_tcfg()
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
     stream = FrontendStream(TokenStream(DataConfig(vocab=cfg.vocab, seq=40,
                                                    batch=4)), cfg)
     base = init_params(cfg, torch.Generator().manual_seed(LM_SEED))
     runs = {}
     threads = torch.get_num_threads()
+    routes = dict(FK.flash_attention_bwd.launches_by_route)
     for d in (dev, torch.device("cpu")):
         torch.set_num_threads(1 if d.type == "cpu" else threads)
         params = tree_map(lambda t: t.clone().to(d), base)
@@ -3504,6 +3589,8 @@ def lm_train_card_vs_cpu(dev, arch: str):
         runs[d.type] = (losses, norms, mu,
                         [t.detach().cpu() for t in leaves(params)], counts)
     torch.set_num_threads(threads)
+    routes = {r: n - routes[r]
+              for r, n in FK.flash_attention_bwd.launches_by_route.items()}
     (la, na, ma, pa, ca), (lb, nb, mb, pb, cb) = runs["cuda"], runs["cpu"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
     norm_rel = max(abs(a - b) / abs(b) for a, b in zip(na, nb))
@@ -3515,11 +3602,15 @@ def lm_train_card_vs_cpu(dev, arch: str):
          "max_loss_rel_diff": loss_rel, "max_grad_norm_rel_diff": norm_rel,
          "max_step1_moment_rel_diff": mu_rel,
          "max_param_rel_diff": param_rel, "rtol": TRAIN_CPU_RTOL,
-         "cpu_threads": 1, "launches_per_step": ca[0]})
+         "cpu_threads": 1, "launches_per_step": ca[0],
+         "bwd_launches_by_route": routes, "head_dim": cfg.head_dim})
     assert max(loss_rel, norm_rel, mu_rel, param_rel) <= TRAIN_CPU_RTOL, \
         "card and CPU training disagree"
     for c in ca:
         assert {k: c[k] for k in want} == want, (c, want)
+    route = FK.bwd_route(cfg.head_dim)
+    assert routes == {r: TRAIN_CPU_STEPS * want["flash_attention_bwd"]
+                      if r == route else 0 for r in routes}, routes
     assert not any(v for c in cb for v in c.values()), "the CPU launched"
 
 
@@ -3619,8 +3710,8 @@ def main() -> int:
     _, counts = lm_train_path(dev)
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
-    for arch in TRAIN_CPU_ARCHS:
-        lm_train_card_vs_cpu(dev, arch)
+    for arch, head_dim in TRAIN_CPU_CASES:
+        lm_train_card_vs_cpu(dev, arch, head_dim)
 
     sph = "src/repro_torch/kernels/sph_pair/csrc/sph_pair.cu"
     source = {"density_pair": sph, "force_pair": sph,
@@ -3652,9 +3743,13 @@ def main() -> int:
          "launches": launches.get(name, 0),
          "max_abs_err": errs[name], "ms": timing[name]["ms"],
          "plain_ms": timing[name]["plain_ms"],
-         "bound_ms": timing[name]["bound_ms"],
-         "bound_by": timing[name]["bound_by"],
-         "library_ms": timing[name].get("library_ms")}
+         "bound_ms": timing[name].get("route_bound_ms",
+                                      timing[name]["bound_ms"]),
+         "bound_by": timing[name].get("route_bound_by",
+                                      timing[name]["bound_by"]),
+         "library_ms": timing[name].get("library_ms"),
+         **({"bound_3xtf32_ms": timing[name]["bound_ms"]}
+            if "route_bound_ms" in timing[name] else {})}
         for name in names]})
     say({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(card, flush=True)

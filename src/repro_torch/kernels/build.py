@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -89,6 +90,26 @@ def _build(name: str, sources: Sequence[Path]) -> Path:
                   or "Compiling entry" in ln or "wgmma" in ln
                   or "warpgroup" in ln],
     }
+    return out
+
+
+def ptxas_resources(name: str) -> Dict[str, list]:
+    """{mangled entry: [registers, spill bytes (stores + loads)]} from the
+    ptxas lines of library ``name``'s build in this process (empty if it
+    was found built)."""
+    out, cur = {}, None
+    for ln in BUILD_LOG.get(name, {}).get("ptxas", []):
+        m = re.search(r"Compiling entry function '([^']*)'", ln)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            out.setdefault(cur, [0, 0])[0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur:
+            out.setdefault(cur, [0, 0])[1] = int(m.group(1)) + int(m.group(2))
     return out
 
 

@@ -33,18 +33,23 @@ per launch, nowhere else), so a run can show that it went through the
 kernel; ``launches_by_dtype`` splits the count by entry.
 ``flash_attention_bwd.launches`` counts calls of the backward entry that
 launched its kernels (one per call: its three launches, D, dQ, then dK and
-dV together).
+dV together); ``launches_by_route`` splits the count by the kernel that
+served the call, as the library's ``flash_attention_bwd_route`` gives it
+for the head width (the function the C entry dispatches on): ``"hopper"``
+(``flash_bwd_hopper``, TMA and ``wgmma``, hd 64, 128 and 256) or
+``"mma_sync"`` (``flash_bwd_kernel``, hd 16 and 32).
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-from ..build import check_launch, load_library
+from ..build import check_launch, load_library, ptxas_resources
 from ..dtypes import ENTRY_DTYPES, check_dtypes
 from .ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
                   flash_attention_ref)
@@ -52,7 +57,8 @@ from .ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
 _CSRC = Path(__file__).parent / "csrc"
 SOURCES = [_CSRC / "flash_attention.cu", _CSRC / "split_tf32.cuh",
            Path(__file__).parent.parent / "hopper.cuh"]
-BWD_SOURCES = [_CSRC / "flash_attention_bwd.cu", _CSRC / "split_tf32.cuh"]
+BWD_SOURCES = [_CSRC / "flash_attention_bwd.cu", _CSRC / "split_tf32.cuh",
+               Path(__file__).parent.parent / "hopper.cuh"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -83,6 +89,10 @@ def library_bwd() -> ctypes.CDLL:
         lib.flash_attention_bwd_f32.argtypes = ([_P] * 10 + [_I] * 8
                                                 + [ctypes.c_float, _P])
         lib.flash_attention_bwd_f32.restype = _I
+        for fn in ("flash_attention_bwd_route",
+                   "flash_attention_bwd_smem_bytes"):
+            getattr(lib, fn).argtypes = [_I]
+            getattr(lib, fn).restype = _I
         lib._repro_typed = True
     return lib
 
@@ -235,10 +245,36 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
             window or 0, float(softcap or 0.0), stream)
     check_launch(rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route[bwd_route(hd)] += 1
     return dq, dk, dv
 
 
+BWD_ROUTES = ("hopper", "mma_sync")
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
+
+
+def bwd_route(hd: int) -> str:
+    """The backward kernel that serves head width ``hd`` on the card, as the
+    built library reports it: ``"hopper"`` or ``"mma_sync"``."""
+    route = library_bwd().flash_attention_bwd_route(hd)
+    if route < 0:
+        raise ValueError(f"flash_attention_bwd: head width {hd} not built")
+    return BWD_ROUTES[1 - route]
+
+
+def bwd_resources(library: str = "flash_attention_bwd") -> dict:
+    """{"flash_bwd_hopper<hd,DQ|DKV,cap|nocap>" (or ``flash_bwd_kernel``):
+    [registers, spill bytes]} of a backward library built in this process
+    (empty if it was found built)."""
+    out = {}
+    for sym, res in ptxas_resources(library).items():
+        m = re.search(r"(flash_bwd_(?:kernel|hopper))ILi(\d+)ELi(\d)ELb(\d)",
+                      sym)
+        if m:
+            out[f"{m[1]}<{m[2]},{('DQ', 'DKV')[int(m[3])]},"
+                f"{('nocap', 'cap')[int(m[4])]}>"] = res
+    return out
 
 
 def reset_launches() -> None:
@@ -246,3 +282,4 @@ def reset_launches() -> None:
     flash_attention.launches = 0
     flash_attention.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
     flash_attention_bwd.launches = 0
+    flash_attention_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)

@@ -23,7 +23,9 @@ The backward of the f32 flash entry (``flash_attention_bwd``) is held to
 the plain version's autograd: dQ, dK and dV within 2e-4 of each gradient's
 scale (``BWD_RTOL``, the forward's tolerance; the kernel sums in other
 orders), the forward's row log-sum-exp within 2e-4 of its scale and +inf
-exactly where a row has no live key, each run twice bitwise. Training on
+exactly where a row has no live key, each run twice bitwise; hd 64, 128
+and 256 through the Hopper kernel (``flash_bwd_hopper``) and hd 16 and 32
+through the mma.sync one, as the wrapper's per-route count shows. Training on
 the card (``flash_attention_op`` under autograd, a reduced model's train
 steps against the CPU's within 1e-4 of scale) and the entries that have no
 backward kernel yet (the scans, the bf16 flash entry) raising under grad
@@ -810,7 +812,17 @@ def test_cuda_flash_backward_matches_plain_autograd(cuda_device, B, S, T, H,
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_cuda_flash_backward_every_head_width(cuda_device, hd):
+    """Every built width; hd 64, 128 and 256 through flash_bwd_hopper, hd 16
+    and 32 through the mma.sync kernel: the wrapper counts each call under
+    the route the C entry dispatches on, and only that route's count
+    moves."""
+    want = "hopper" if hd >= 64 else "mma_sync"
+    assert FK.bwd_route(hd) == want
+    before = dict(FK.flash_attention_bwd.launches_by_route)
     check_backward(cuda_device, 1, 150, 190, 4, 2, hd, True, 100, None)
+    moved = {r: n - before[r]
+             for r, n in FK.flash_attention_bwd.launches_by_route.items()}
+    assert moved == {r: 2 if r == want else 0 for r in FK.BWD_ROUTES}
 
 
 @pytest.mark.cuda
@@ -821,6 +833,34 @@ def test_cuda_flash_backward_every_head_width(cuda_device, hd):
 def test_cuda_flash_backward_at_serve_shapes(cuda_device, B, S, H, K, hd,
                                              window):
     check_backward(cuda_device, B, S, S, H, K, hd, True, window, None)
+
+
+# flash_bwd_hopper's own edges (hd 64, 128, 256): GQA groups of 1, 4 and
+# 6, S and T off the 64-row blocks and the column tiles (64 at hd 64 and
+# 128, 16 at hd 256), windows with T − S ≠ 0, the soft-cap at hd 256, and
+# query rows with no live key
+HOPPER_BWD_CASES = [
+    (1, 130, 130, 16, 16, 128, True, None, None),   # G 1
+    (1, 130, 130, 32, 8, 128, True, None, None),    # G 4 (granite-8b's)
+    (1, 130, 130, 48, 8, 128, True, None, None),    # G 6 (mixtral-8x22b's)
+    (2, 77, 93, 4, 2, 64, True, None, None),        # S, T off every tile
+    (1, 171, 250, 4, 2, 256, True, None, None),     # ... at hd 256
+    (1, 150, 300, 8, 4, 128, True, 70, None),       # window, T − S = 150
+    (1, 300, 150, 8, 4, 64, True, 40, None),        # window, T − S = −150
+    (1, 200, 200, 4, 4, 256, True, 64, 30.0),       # soft-cap at hd 256
+    (1, 100, 60, 4, 2, 256, True, None, None),      # 40 rows with no key
+    (2, 90, 200, 4, 4, 256, False, None, 50.0),     # no mask, capped
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,window,softcap",
+                         HOPPER_BWD_CASES)
+def test_cuda_flash_backward_hopper_edges(cuda_device, B, S, T, H, K, hd,
+                                          causal, window, softcap):
+    n0 = FK.flash_attention_bwd.launches_by_route["hopper"]
+    check_backward(cuda_device, B, S, T, H, K, hd, causal, window, softcap)
+    assert FK.flash_attention_bwd.launches_by_route["hopper"] == n0 + 2
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
-"""Time variants of the flash backward kernel's tile sizes, and an older
-source of the kernel against the shipped one.
+"""Time variants of the flash backward kernel, and an older source of the
+kernel against the shipped one.
 
     python3 tools/flash_bwd_variants.py [reps=10] [OLD.cu]
 
@@ -8,28 +8,30 @@ flash_attention_bwd.cu`` into ``build/variants/`` (one library each, built
 in parallel with the port's flags), and ``OLD.cu`` as it is when one is
 given (an earlier ``flash_attention_bwd.cu`` with the same C entry, such
 as the parent commit's, unpacked by ``git archive``), and times each,
-beside the shipped source, at the training and serving shapes of
-``chip_smoke.py`` phase 16 (granite-8b's train and serve shapes, gemma-7b's
-hd 256, seamless's cross-attention, gemma3-27b's local layers), in turns
-(shipped and the others, then the same in reverse; median of ``reps``
-CUDA-event timed calls of the entry, all its launches). The variants:
+beside the shipped source, at the eight cases of ``chip_smoke.py`` phase 16
+(granite-8b's train and serve shapes, gemma-7b's hd 256 with and without a
+soft-cap, gemma3-27b's local layers, seamless's cross-attention, ragged S
+below and above T), in turns (shipped and the others, then the same in
+reverse; median of ``reps`` CUDA-event timed calls of the entry, all its
+launches). The variants, all of ``flash_bwd_hopper`` (hd 64, 128, 256):
 
-* ``bc32_hd128``: 32-column tiles at hd 128 (one CTA an SM: 140 KB of
-  shared memory), not 16 (two);
-* ``dc64_hd128``: at hd 128 each CTA accumulates 64 of the output columns
-  (two CTAs a row block, each recomputing s and dP), not all 128;
-* ``ring2_bc16_hd256``: at hd 256 a two-stage ring of 16-column tiles, not
-  one stage of 32;
-* ``kk_unroll2``, ``kk_unroll1``: the score products' k-step loop unrolled
-  2 or 1 times, not 4 (fewer live fragments: the dK/dV kernel spills at
-  hd 32, 64 and 256).
+* ``no_overlap``: the next tile is split after this tile's accumulating
+  products have finished, not while they run (the call moved below the
+  stage's release);
+* ``bc64_minb1_hd64``: at hd 64 one CTA an SM with 64-row streamed tiles,
+  not two with 32-row tiles.
 
-Prints first the registers and spill bytes that ptxas reported for each
-library's ``flash_bwd_kernel`` instantiations, then one line per shape:
-each source's ms per turn and whether its gradients are the shipped
-kernel's bit for bit (the columns are summed in one order whatever the
-tile, so the variants should be). Needs the card; the variants are
-diagnostics only.
+Prints first the shared memory and route of the shipped kernels by head
+width and the registers and spill bytes that ptxas reported for each
+library's ``flash_bwd_hopper`` and ``flash_bwd_kernel`` instantiations,
+then one line per case: its two bounds (``chip_smoke.bwd_bounds``: 5
+products a live pair in 3×TF32, and in the arithmetic of the route that
+serves the width), each source's ms per turn, its shares of both bounds and
+whether its gradients are the shipped kernel's bit for bit, and the shipped
+source's device ms by launch (D, dQ, dK/dV) from one profiled call. Every sum runs
+in 16-deep k-steps in one order whatever the tile, so the variants give
+the shipped bits; an older kernel does not. Needs the card; the variants
+are diagnostics only.
 """
 
 from __future__ import annotations
@@ -53,28 +55,22 @@ import torch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as FK  # noqa: E402
 
+sys.path.insert(0, str(ROOT))
+from chip_smoke import bwd_bounds, bwd_cases, bwd_ops_bytes  # noqa: E402
+
 CSRC = ROOT / "src/repro_torch/kernels/flash_attention/csrc"
 OUT = ROOT / "build" / "variants"
-BC = "  static constexpr int BC = HD <= 64 ? 64 : (HD == 128 ? 16 : 32);"
-NST = "  static constexpr int NST = HD <= 128 ? 2 : 1;     // stages of the ring"
-KK = "#pragma unroll 4\n    for (int kk = 0; kk < KK; ++kk) {"
-DC = "  static constexpr int DC = HD <= 128 ? HD : 128;   // output columns per CTA"
+BC = "  static constexpr int BC = HD == 64 ? 32 : (HD == 128 ? 64 : 16);"
+MINB = "  static constexpr int MINB = HD == 64 ? 2 : 1;"
+SPLIT = "      if (it + 1 < n_it) split_tile(it + 1);\n"
+WAIT = "      wgmma_wait<0>();\n      pin(acc);\n"
+READ = "      if (lane == 0) mbar_arrive(empty(s));   // this stage is read\n"
 VARIANTS = {
-    "bc32_hd128": [(BC, "  static constexpr int BC = HD <= 64 ? 64 : 32;")],
-    "dc64_hd128": [(DC, "  static constexpr int DC = HD <= 64 ? HD : "
-                        "(HD == 128 ? 64 : 128);")],
-    "kk_unroll2": [(KK, "#pragma unroll 2\n    for (int kk = 0; kk < KK; ++kk) {")],
-    "kk_unroll1": [(KK, "#pragma unroll 1\n    for (int kk = 0; kk < KK; ++kk) {")],
-    "ring2_bc16_hd256": [
-        (BC, "  static constexpr int BC = HD <= 64 ? 64 : 16;"),
-        (NST, "  static constexpr int NST = 2;")],
+    "no_overlap": [(SPLIT + WAIT, WAIT), (READ, READ + SPLIT)],
+    "bc64_minb1_hd64": [
+        (BC, "  static constexpr int BC = HD <= 128 ? 64 : 16;"),
+        (MINB, "  static constexpr int MINB = 1;")],
 }
-# (label, (B, S, T, H, K, hd), causal, window)
-CASES = [("granite-train", (8, 256, 256, 32, 8, 128), True, None),
-         ("granite-serve", (4, 2048, 2048, 32, 8, 128), True, None),
-         ("gemma-7b-hd256", (4, 1024, 1024, 16, 16, 256), True, None),
-         ("seamless-cross", (4, 700, 2048, 16, 16, 64), False, None),
-         ("gemma3-local", (4, 2048, 2048, 32, 16, 128), True, 1024)]
 
 
 def variant(name, edits, src=None):
@@ -87,34 +83,36 @@ def variant(name, edits, src=None):
     OUT.mkdir(parents=True, exist_ok=True)
     path = OUT / f"flash_attention_bwd_{name}.cu"
     path.write_text(src)
-    shutil.copy(CSRC / "split_tf32.cuh", OUT / "split_tf32.cuh")
+    heads = [CSRC / "split_tf32.cuh", CSRC.parents[1] / "hopper.cuh"]
+    for h in heads:
+        shutil.copy(h, OUT / h.name)
     lib = build.load_library(f"flash_bwd_{name}",
-                             [path, OUT / "split_tf32.cuh"])
+                             [path, *(OUT / h.name for h in heads)])
     lib.flash_attention_bwd_f32.argtypes = \
         FK.library_bwd().flash_attention_bwd_f32.argtypes
     lib.flash_attention_bwd_f32.restype = ctypes.c_int
     return name, lib
 
 
-def resources(name: str) -> dict:
-    """{flash_bwd_kernel symbol: [registers, spill bytes]} from the build's
-    ptxas lines (empty for a library found built)."""
-    out, cur = {}, None
-    for ln in build.BUILD_LOG.get(name, {}).get("ptxas", []):
-        m = re.search(r"Compiling entry function '([^']*)'", ln)
-        if m:
-            cur = m.group(1) if "flash_bwd_kernel" in m.group(1) else None
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"Used (\d+) registers", ln)
-        if m:
-            out.setdefault(cur, [0, 0])[0] = int(m.group(1))
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      ln)
-        if m:
-            out.setdefault(cur, [0, 0])[1] = int(m.group(1)) + int(m.group(2))
-    return out
+def device_ms_by_kernel(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: device ms of D's
+    kernel and of the dQ and dK/dV launches ("not measured" if the
+    profiler saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"flash_bwd_\w+<\s*\d+,\s*(\d)", e.key)
+        name = "dsum" if "flash_bwd_dsum" in e.key else (
+            ("DQ", "DKV")[int(m[1])] if m else None)
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if name and t:
+            out[name] = out.get(name, 0.0) + float(t) / 1e3
+    return out or {"device_ms": "not measured"}
 
 
 def timed(fn, reps: int) -> float:
@@ -140,29 +138,35 @@ def main(reps: int = 10, old: str = None) -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    shipped = FK.library_bwd()
+    print(json.dumps({"shipped_smem_bytes": {
+        hd: shipped.flash_attention_bwd_smem_bytes(hd)
+        for hd in FK.HEAD_WIDTHS}, "route": {
+        hd: FK.bwd_route(hd) for hd in FK.HEAD_WIDTHS}}), flush=True)
     jobs = dict(VARIANTS)
     if old:
         jobs["old"] = []
-    libs = {"shipped": FK.library_bwd()}
+    jobs["shipped"] = []           # built afresh: its ptxas lines
+    libs = {}
     with ThreadPoolExecutor(len(jobs)) as pool:
         libs.update(pool.map(
             lambda kv: variant(*kv, src=Path(old).read_text()
                                if kv[0] == "old" else None), jobs.items()))
-    print(json.dumps({"ptxas_registers/spill_bytes": {
-        name: resources("flash_attention_bwd" if name == "shipped"
-                        else f"flash_bwd_{name}") for name in libs}}),
-          flush=True)
+    libs = {"shipped": libs.pop("shipped"), **libs}
+    for name in libs:
+        print(json.dumps({"ptxas_registers/spill_bytes": name,
+                          **FK.bwd_resources(f"flash_bwd_{name}")}),
+              flush=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for label, (B, S, T, H, K, hd), causal, window in CASES:
+    for label, (B, S, T, H, K, hd), causal, window, cap in bwd_cases():
         gen = torch.Generator(dev).manual_seed(0)
         q, do = (torch.randn(B, S, H, hd, device=dev, generator=gen)
                  for _ in range(2))
         k, v = (torch.randn(B, T, K, hd, device=dev, generator=gen)
                 for _ in range(2))
-        out, lse = FK.flash_attention(q, k, v, causal=causal, window=window,
-                                      return_lse=True)
-        want = FK.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
-                                      window=window)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out, lse = FK.flash_attention(q, k, v, return_lse=True, **kw)
+        want = FK.flash_attention_bwd(q, k, v, out, do, lse, **kw)
         row = {}
         for order in (list(libs), list(libs)[::-1]):
             for name in order:
@@ -174,7 +178,8 @@ def main(reps: int = 10, old: str = None) -> None:
                         q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         out.data_ptr(), do.data_ptr(), lse.data_ptr(),
                         *(t.data_ptr() for t in g), d.data_ptr(), B, S, T,
-                        H, K, hd, int(causal), window or 0, 0.0, stream)
+                        H, K, hd, int(causal), window or 0,
+                        float(cap or 0.0), stream)
                     if rc:
                         raise SystemExit(f"launch failed ({rc})")
 
@@ -182,8 +187,17 @@ def main(reps: int = 10, old: str = None) -> None:
                 same = all(torch.equal(a, b) for a, b in zip(grads, want))
                 row.setdefault(name, {"ms": [], "bitwise": same})["ms"].append(
                     ms)
+                if name == "shipped" and "by_kernel_ms" not in row[name]:
+                    row[name]["by_kernel_ms"] = device_ms_by_kernel(run)
+        bounds = bwd_bounds(*bwd_ops_bytes(B, S, T, H, K, hd, causal, window),
+                            FK.bwd_route(hd))
+        for r in row.values():
+            r["share_of_bound"] = [bounds["bound_ms"] / t for t in r["ms"]]
+            r["share_of_route_bound"] = [bounds["route_bound_ms"] / t
+                                         for t in r["ms"]]
         print(json.dumps({"case": label, "shape": [B, S, T, H, K, hd],
-                          "causal": causal, "window": window, **row}),
+                          "causal": causal, "window": window,
+                          "softcap": cap, **bounds, **row}),
               flush=True)
 
 
