@@ -1,7 +1,10 @@
-"""Selective scan (Mamba-1): Hopper CUDA kernel and plain PyTorch version."""
+"""Selective scan (Mamba-1): Hopper CUDA kernels (forward, backward) and
+plain PyTorch versions."""
 
-from .kernel import selective_scan
-from .ops import selective_scan_op
-from .ref import selective_scan_ref
+from .kernel import selective_scan, selective_scan_bwd
+from .ops import SelectiveScanF32, selective_scan_op
+from .ref import selective_scan_bwd_ref, selective_scan_ref
 
-__all__ = ["selective_scan", "selective_scan_op", "selective_scan_ref"]
+__all__ = ["SelectiveScanF32", "selective_scan", "selective_scan_bwd",
+           "selective_scan_bwd_ref", "selective_scan_op",
+           "selective_scan_ref"]

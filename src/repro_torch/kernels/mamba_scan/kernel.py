@@ -21,6 +21,16 @@ never widened to reach the f32 entry.
 ``selective_scan.launches`` counts kernel launches of either entry (one
 per launch, nowhere else), so a run can show that it went through the
 kernel; ``launches_by_dtype`` splits the count by entry (u's dtype).
+
+``selective_scan_bwd`` is the backward of the f32 entry
+(``csrc/selective_scan_bwd.cu``, a library of its own, built beside this
+one): the gradients of u, dt, A, B, C, D and h0 from the same inputs, the
+gradient of y and that of the final state; on the CPU the plain version
+(``selective_scan_bwd_ref``). ``selective_scan_bwd.launches`` counts its
+launches. The kernel writes dA and dD as one partial a batch row and dB
+and dC as one a CTA of channels; the wrapper sums them with ``torch.sum``
+over that axis (no float atomics: bitwise run to run). The autograd
+function that joins the two is ``ops.SelectiveScanF32``.
 """
 
 from __future__ import annotations
@@ -33,9 +43,10 @@ import torch
 
 from ..build import check_launch, load_library
 from ..dtypes import ENTRY_DTYPES, check_dtypes
-from .ref import selective_scan_ref
+from .ref import selective_scan_bwd_ref, selective_scan_ref
 
 SOURCES = [Path(__file__).parent / "csrc" / "selective_scan.cu"]
+BWD_SOURCES = [Path(__file__).parent / "csrc" / "selective_scan_bwd.cu"]
 KERNEL_N = (4, 8, 16)      # state widths the kernel is built for (its switch)
 
 _P = ctypes.c_void_p
@@ -50,6 +61,22 @@ def library() -> ctypes.CDLL:
         lib.selective_scan_f32.restype = _I
         lib.selective_scan_bf16.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.selective_scan_bf16.restype = _I
+        lib._repro_typed = True
+    return lib
+
+
+def library_bwd() -> ctypes.CDLL:
+    """The built backward library (built at first use)."""
+    lib = load_library("selective_scan_bwd", BWD_SOURCES)
+    if not getattr(lib, "_repro_typed", False):
+        lib.selective_scan_bwd_f32.argtypes = [_P] * 17 + [_I] * 4 + [_P]
+        lib.selective_scan_bwd_f32.restype = _I
+        lib.selective_scan_bwd_groups.argtypes = [_I, _I]
+        lib.selective_scan_bwd_groups.restype = _I
+        lib.selective_scan_bwd_smem_bytes.argtypes = [_I]
+        lib.selective_scan_bwd_smem_bytes.restype = _I
+        lib.selective_scan_bwd_chunk.argtypes = []
+        lib.selective_scan_bwd_chunk.restype = _I
         lib._repro_typed = True
     return lib
 
@@ -134,7 +161,72 @@ selective_scan.launches = 0
 selective_scan.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
 
 
+def selective_scan_bwd(u, dt, A, Bm, Cm, D, dy, *,
+                       h0: Optional[torch.Tensor] = None,
+                       dh: Optional[torch.Tensor] = None):
+    """The gradients of ``selective_scan(u, dt, A, Bm, Cm, D, h0=h0)``'s
+    outputs, given ``dy`` (B, S, dI), the gradient of y, and ``dh``
+    (B, dI, N) or None, the gradient of the final state.
+
+    Returns (du, ddt, dA, dB, dC, dD, dh0): dh0 is None unless h0 is
+    given. On the card all float32 and contiguous (the bf16 entry has no
+    backward), N one of ``KERNEL_N``, any S and dI; on the CPU the plain
+    version."""
+    dev = _check(u, dt, A, Bm, Cm, D, h0)
+    B_, S, dI = u.shape
+    N = A.shape[1]
+    for name, t, shape in (("dy", dy, (B_, S, dI)), ("dh", dh, (B_, dI, N))):
+        if t is not None and (tuple(t.shape) != shape or t.device != dev):
+            raise ValueError(f"selective_scan_bwd: {name} {tuple(t.shape)} "
+                             f"on {t.device}, expected {shape} on {dev}")
+    if dev.type == "cpu":
+        return selective_scan_bwd_ref(u, dt, A, Bm, Cm, D, dy, h0=h0, dh=dh)
+    named = {"u": u, "dt": dt, "A": A, "Bm": Bm, "Cm": Cm, "D": D, "dy": dy,
+             "h0": h0, "dh": dh}
+    for name, t in named.items():
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"selective_scan_bwd: {name} is {t.dtype}; the "
+                            f"backward kernel takes float32 (the bf16 entry "
+                            f"has none: ROADMAP queue 1, item 13f)")
+        if not t.is_contiguous():
+            raise ValueError(f"selective_scan_bwd: {name} is not contiguous")
+    if N not in KERNEL_N:
+        raise ValueError(f"selective_scan_bwd: N = {N} not built (one of "
+                         f"{KERNEL_N})")
+    lib = library_bwd()
+    G = lib.selective_scan_bwd_groups(dI, N)
+    chunks = -(-S // lib.selective_scan_bwd_chunk())
+    f32 = dict(dtype=torch.float32, device=dev)
+    du, ddt = torch.empty_like(u), torch.empty_like(dt)
+    dA_p = torch.empty((B_, dI, N), **f32)
+    dB_p = torch.empty((B_, G, S, N), **f32)
+    dC_p = torch.empty((B_, G, S, N), **f32)
+    dD_p = torch.empty((B_, dI), **f32)
+    dh0 = None if h0 is None else torch.empty((B_, dI, N), **f32)
+    if B_ * dI == 0:
+        return (du, ddt, torch.zeros_like(A), torch.zeros_like(Bm),
+                torch.zeros_like(Cm), torch.zeros_like(D), dh0)
+    scratch = torch.empty((B_, chunks, dI, N), **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.selective_scan_bwd_f32(
+            *(ptr(t) for t in (u, dt, A, Bm, Cm, D, h0, dy, dh, du, ddt,
+                               dA_p, dB_p, dC_p, dD_p, dh0, scratch)),
+            B_, S, dI, N, stream)
+    check_launch(rc, "selective_scan_bwd")
+    selective_scan_bwd.launches += 1
+    return (du, ddt, dA_p.sum(0), dB_p.sum(1), dC_p.sum(1), dD_p.sum(0),
+            dh0)
+
+
+selective_scan_bwd.launches = 0
+
+
 def reset_launches() -> None:
-    """Set the wrapper's launch counts to 0."""
+    """Set the wrappers' launch counts to 0."""
     selective_scan.launches = 0
     selective_scan.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
+    selective_scan_bwd.launches = 0

@@ -1,7 +1,9 @@
-"""Fused SSD (Mamba-2) scan: Hopper CUDA kernel and plain PyTorch version."""
+"""Fused SSD (Mamba-2) scan: Hopper CUDA kernels (forward, backward) and
+plain PyTorch versions."""
 
-from .kernel import ssd_scan
-from .ops import ssd_scan_op
-from .ref import ssd_scan_ref
+from .kernel import ssd_scan, ssd_scan_bwd
+from .ops import SsdScanF32, ssd_scan_op
+from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
-__all__ = ["ssd_scan", "ssd_scan_op", "ssd_scan_ref"]
+__all__ = ["SsdScanF32", "ssd_scan", "ssd_scan_bwd", "ssd_scan_bwd_ref",
+           "ssd_scan_op", "ssd_scan_ref"]

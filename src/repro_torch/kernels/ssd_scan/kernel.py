@@ -27,6 +27,16 @@ and C to f32 as it loads them. Neither falls back to the other.
 ``ssd_scan.launches`` counts kernel launches of either entry (one per
 launch, nowhere else), so a run can show that it went through the kernel;
 ``launches_by_dtype`` splits the count by entry (u's dtype).
+
+``ssd_scan_bwd`` is the backward of the f32 entry (``csrc/ssd_scan_bwd.cu``,
+a library of its own, built beside this one): the gradients of u, dt, A, B,
+C, D and h0 from the same inputs, the gradient of y and that of the final
+state, in the kernel's chunks of ``KERNEL_CHUNK``; on the CPU the plain
+version (``ssd_scan_bwd_ref``). ``ssd_scan_bwd.launches`` counts its
+launches. The kernel writes dB and dC as one partial a head and dA and dD
+as one a (batch, head); the wrapper sums them with ``torch.sum`` over that
+axis (no float atomics: bitwise run to run). The autograd function that
+joins the two is ``ops.SsdScanF32``.
 """
 
 from __future__ import annotations
@@ -39,10 +49,11 @@ import torch
 
 from ..build import check_launch, load_library
 from ..dtypes import ENTRY_DTYPES, check_dtypes
-from .ref import ssd_scan_ref
+from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
 SOURCES = [Path(__file__).parent / "csrc" / "ssd_scan.cu",
            Path(__file__).parent.parent / "hopper.cuh"]
+BWD_SOURCES = [Path(__file__).parent / "csrc" / "ssd_scan_bwd.cu"]
 KERNEL_CHUNK = 64          # the kernel's chunk length, ssd_scan_chunk()
 
 _P = ctypes.c_void_p
@@ -63,6 +74,20 @@ def library() -> ctypes.CDLL:
         lib.ssd_scan_chunk.restype = _I
         lib.ssd_scan_bf16_hopper.argtypes = [_I, _I]
         lib.ssd_scan_bf16_hopper.restype = _I
+        lib._repro_typed = True
+    return lib
+
+
+def library_bwd() -> ctypes.CDLL:
+    """The built backward library (built at first use)."""
+    lib = load_library("ssd_scan_bwd", BWD_SOURCES)
+    if not getattr(lib, "_repro_typed", False):
+        lib.ssd_scan_bwd_f32.argtypes = [_P] * 17 + [_I] * 5 + [_P]
+        lib.ssd_scan_bwd_f32.restype = _I
+        lib.ssd_scan_bwd_smem_bytes.argtypes = [_I, _I]
+        lib.ssd_scan_bwd_smem_bytes.restype = _I
+        lib.ssd_scan_bwd_chunk.argtypes = []
+        lib.ssd_scan_bwd_chunk.restype = _I
         lib._repro_typed = True
     return lib
 
@@ -154,7 +179,72 @@ ssd_scan.launches = 0
 ssd_scan.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
 
 
+def ssd_scan_bwd(u, dt, A, Bm, Cm, D, dy, *, chunk: Optional[int] = None,
+                 h0: Optional[torch.Tensor] = None,
+                 dh: Optional[torch.Tensor] = None):
+    """The gradients of ``ssd_scan(u, dt, A, Bm, Cm, D, h0=h0)``'s outputs,
+    given ``dy`` (B, S, H, hp), the gradient of y, and ``dh`` (B, H, N, hp)
+    or None, the gradient of the final state; ``chunk`` as ``ssd_scan``'s
+    (CPU only).
+
+    Returns (du, ddt, dA, dB, dC, dD, dh0): dh0 is None unless h0 is
+    given. On the card all float32 and contiguous (the bf16 entry has no
+    backward), N and hp each 16, 32 or 64, any S; on the CPU the plain
+    version."""
+    dev = _check(u, dt, A, Bm, Cm, D, h0)
+    B_, S, H, hp = u.shape
+    N = Bm.shape[-1]
+    for name, t, shape in (("dy", dy, (B_, S, H, hp)),
+                           ("dh", dh, (B_, H, N, hp))):
+        if t is not None and (tuple(t.shape) != shape or t.device != dev):
+            raise ValueError(f"ssd_scan_bwd: {name} {tuple(t.shape)} on "
+                             f"{t.device}, expected {shape} on {dev}")
+    if dev.type == "cpu":
+        return ssd_scan_bwd_ref(u, dt, A, Bm, Cm, D, dy,
+                                chunk=chunk or KERNEL_CHUNK, h0=h0, dh=dh)
+    named = {"u": u, "dt": dt, "A": A, "Bm": Bm, "Cm": Cm, "D": D, "dy": dy,
+             "h0": h0, "dh": dh}
+    for name, t in named.items():
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_scan_bwd: {name} is {t.dtype}; the backward "
+                            f"kernel takes float32 (the bf16 entry has none: "
+                            f"ROADMAP queue 1, item 13f)")
+        if not t.is_contiguous():
+            raise ValueError(f"ssd_scan_bwd: {name} is not contiguous")
+    lib = library_bwd()
+    if not lib.ssd_scan_bwd_smem_bytes(N, hp):
+        raise ValueError(f"ssd_scan_bwd: (N, hp) = ({N}, {hp}) not built "
+                         f"(each of 16, 32, 64)")
+    f32 = dict(dtype=torch.float32, device=dev)
+    du, ddt = torch.empty_like(u), torch.empty_like(dt)
+    dA_p, dD_p = (torch.empty((B_, H), **f32) for _ in range(2))
+    dB_p, dC_p = (torch.empty((B_, H, S, N), **f32) for _ in range(2))
+    dh0 = None if h0 is None else torch.empty((B_, H, N, hp), **f32)
+    if B_ * H == 0:
+        return (du, ddt, torch.zeros_like(A), torch.zeros_like(Bm),
+                torch.zeros_like(Cm), torch.zeros_like(D), dh0)
+    chunks = -(-S // lib.ssd_scan_bwd_chunk())
+    scratch = torch.empty((B_, H, chunks, N, hp), **f32)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ssd_scan_bwd_f32(
+            *(ptr(t) for t in (u, dt, A, Bm, Cm, D, h0, dy, dh, du, ddt,
+                               dA_p, dB_p, dC_p, dD_p, dh0, scratch)),
+            B_, S, H, N, hp, stream)
+    check_launch(rc, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    return (du, ddt, dA_p.sum(0), dB_p.sum(1), dC_p.sum(1), dD_p.sum(0),
+            dh0)
+
+
+ssd_scan_bwd.launches = 0
+
+
 def reset_launches() -> None:
-    """Set the wrapper's launch counts to 0."""
+    """Set the wrappers' launch counts to 0."""
     ssd_scan.launches = 0
     ssd_scan.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
+    ssd_scan_bwd.launches = 0

@@ -1,9 +1,14 @@
 """The model-facing SSD scan op: makes its inputs contiguous (the model's
-u, B and C are views of one projection) and calls the wrapper.
+u, B and C are views of one projection) and calls the wrapper, through an
+autograd function where a gradient is wanted.
 
-The kernel has no backward yet: on the card a call whose inputs require a
-gradient (with grad mode on) raises, rather than return outputs cut off from
-their inputs' gradients. On the CPU the plain version runs under autograd.
+On the CPU the plain version runs under PyTorch's autograd as it is. On the
+card a call whose inputs require a gradient (with grad mode on) goes
+through ``SsdScanF32``: its forward launches the f32 kernel and keeps only
+the inputs (so a remat region keeps its memory), its backward launches the
+backward kernel (``ssd_scan_bwd``). The bf16 entry has no backward kernel
+yet, so a bf16 call that wants a gradient raises rather than return outputs
+cut off from their inputs' gradients.
 """
 
 from __future__ import annotations
@@ -13,7 +18,28 @@ from typing import Optional
 import torch
 
 from ..flash_attention.ops import wants_grad
-from .kernel import ssd_scan
+from .kernel import ssd_scan, ssd_scan_bwd
+
+
+class SsdScanF32(torch.autograd.Function):
+    """The f32 kernel forward and its backward kernel, for CUDA tensors
+    (on CPU tensors the wrappers' plain versions, in chunks of
+    ``chunk``)."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, Bm, Cm, D, h0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(u, dt, A, Bm, Cm, D, h0)
+        ctx.chunk = chunk
+        return ssd_scan(u, dt, A, Bm, Cm, D, chunk=chunk, h0=h0)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        u, dt, A, Bm, Cm, D, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(u) if dy is None else dy.contiguous()
+        grads = ssd_scan_bwd(u, dt, A, Bm, Cm, D, dy, chunk=ctx.chunk, h0=h0,
+                             dh=None if dh is None else dh.contiguous())
+        return grads + (None,)
 
 
 def ssd_scan_op(u, dt, A, Bm, Cm, D, *, chunk: Optional[int] = None,
@@ -21,12 +47,13 @@ def ssd_scan_op(u, dt, A, Bm, Cm, D, *, chunk: Optional[int] = None,
     """u (B, S, H, hp); dt (B, S, H); A/D (H,); Bm/Cm (B, S, N);
     h0 (B, H, N, hp) or None; chunk: the plain version's chunk length (CPU
     only, see ``ssd_scan``). → (y (B, S, H, hp), h (B, H, N, hp))."""
-    if u.device.type == "cuda" and wants_grad(u, dt, A, Bm, Cm, D, *(
+    args = [t.contiguous() for t in (u, dt, A, Bm, Cm, D)]
+    h0 = None if h0 is None else h0.contiguous()
+    if u.device.type == "cuda" and wants_grad(*args, *(
             () if h0 is None else (h0,))):
-        raise NotImplementedError(
-            "ssd_scan: the kernel has no backward yet (ROADMAP queue 1, item "
-            "13f: training of the Mamba kinds); call it under torch.no_grad()")
-    return ssd_scan(u.contiguous(), dt.contiguous(), A.contiguous(),
-                    Bm.contiguous(), Cm.contiguous(), D.contiguous(),
-                    chunk=chunk,
-                    h0=None if h0 is None else h0.contiguous())
+        if u.dtype != torch.float32:
+            raise NotImplementedError(
+                "ssd_scan: the bf16 entry has no backward kernel yet (ROADMAP "
+                "queue 1, item 13f); train in float32")
+        return SsdScanF32.apply(*args, h0, chunk)
+    return ssd_scan(*args, chunk=chunk, h0=h0)

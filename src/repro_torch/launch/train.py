@@ -22,9 +22,13 @@ at a disk with room for two of them. An enc-dec model (seamless-m4t-large-v2)
 gets encoder frames as long as the sequence and a VLM (internvl2-2b) its
 patch embeddings, both standard normal × 0.1 drawn from the step, so the
 stream stays replayable. Weights and data are drawn from seed 0, as the
-reference's launcher draws them. The Mamba kinds and the MoE models do not
-train on the card yet (ROADMAP queue 1, item 13f): they raise there and
-train on the CPU.
+reference's launcher draws them. The Mamba kinds train on the card
+through the scans' f32 kernels and their backward kernels:
+``--arch zamba2-1.2b`` uncut (~20 GB of f32 train state), ``--arch
+falcon-mamba-7b --n-layers 32`` (every published width; all 64 layers,
+~116 GB, do not fit one 80 GB card). Only the MoE models do not train on
+the card yet (ROADMAP queue 1, item 13f): they raise there and train on the
+CPU.
 """
 
 from __future__ import annotations

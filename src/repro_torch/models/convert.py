@@ -124,6 +124,18 @@ def _stack(trees):
     return np.stack(trees)
 
 
+def zero_leaves(t) -> list:
+    """For each leaf of ``t`` (``leaves`` order), whether it is all zero.
+    Of freshly initialised parameters, these are the leaves the model
+    starts at zero (norm weights with a +1 offset, conv and dt biases, LoRA
+    up-projections). Adam's first steps move such an element by ±lr by the
+    sign of its gradient, so where a gradient is near zero the element's
+    last digits follow the order of the gradient's sums: two correct
+    trainings hold these leaves to each other through their Adam moments,
+    not their values (``tools/adam_order_noise.py``)."""
+    return [bool((x == 0).all()) for x in leaves(t)]
+
+
 def leaves(t):
     """The leaves of a nest of dicts, lists and tuples, in order."""
     if isinstance(t, dict):

@@ -134,6 +134,47 @@ def plan_segments(cfg: ModelConfig) -> List[Tuple[Tuple[str, ...], int]]:
     return [(("attn",), L)]
 
 
+# the kernel calls of one block of each kind in a forward (``dec``: self-
+# and cross-attention; ``mamba2s``: zamba2's shared attention block and its
+# Mamba-2 mixer), and the backward kernel of each
+BLOCK_KERNEL_CALLS = {
+    "attn": {"flash_attention": 1}, "local": {"flash_attention": 1},
+    "global": {"flash_attention": 1}, "moe": {"flash_attention": 1},
+    "enc": {"flash_attention": 1}, "dec": {"flash_attention": 2},
+    "mamba1": {"selective_scan": 1}, "mamba2": {"ssd_scan": 1},
+    "mamba2s": {"ssd_scan": 1, "flash_attention": 1}}
+KERNEL_BACKWARD = {"flash_attention": "flash_attention_bwd",
+                   "selective_scan": "selective_scan_bwd",
+                   "ssd_scan": "ssd_scan_bwd"}
+
+
+def train_step_launches(cfg: ModelConfig) -> Dict[str, int]:
+    """The kernel launches of one train step of ``cfg`` on the card, by
+    entry (the forwards' f32 entries and ``KERNEL_BACKWARD``): per segment
+    (``plan_segments``, and an enc-dec model's encoder) of R repeats of a
+    pattern, in groups of ``_group(R, scan_group)`` repeats, each block's
+    calls (``BLOCK_KERNEL_CALLS``) run backward once and forward: with both
+    remat levels 3 times (its own, again in its block's recompute and in
+    its group's) but for the pattern's last block, whose group recompute
+    stops before it (2 in each group); with the group level alone
+    (``block_remat`` off) twice."""
+    segments = list(plan_segments(cfg))
+    if cfg.is_encdec:
+        segments.append((("enc",), cfg.n_enc_layers))
+    out = dict.fromkeys(list(KERNEL_BACKWARD) + list(
+        KERNEL_BACKWARD.values()), 0)
+    for pattern, R in segments:
+        groups = R // _group(R, cfg.scan_group)
+        for i, kind in enumerate(pattern):
+            last = i == len(pattern) - 1
+            for name, n in BLOCK_KERNEL_CALLS[kind].items():
+                fwd = (3 * R - (groups if last else 0) if cfg.block_remat
+                       else 2 * R)
+                out[name] += fwd * n
+                out[KERNEL_BACKWARD[name]] += R * n
+    return out
+
+
 # ----------------------------------------------------------- block init
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
     if kind not in BLOCK_KINDS:

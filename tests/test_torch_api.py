@@ -172,7 +172,11 @@ for m in ("repro_torch.distributed.transport", "repro_torch.sph.collectives",
           "repro_torch.train.data", "repro_torch.train.checkpoint",
           "repro_torch.train.train_step", "repro_torch.train.loop",
           "repro_torch.launch.train", "repro_torch.distributed.compression",
-          "repro_torch.kernels.flash_attention.ops"):
+          "repro_torch.kernels.flash_attention.ops",
+          "repro_torch.kernels.mamba_scan.kernel",
+          "repro_torch.kernels.mamba_scan.ops",
+          "repro_torch.kernels.ssd_scan.kernel",
+          "repro_torch.kernels.ssd_scan.ops"):
     assert m in sys.modules, m
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "jaxlib"

@@ -25,11 +25,15 @@ scale (``BWD_RTOL``, the forward's tolerance; the kernel sums in other
 orders), the forward's row log-sum-exp within 2e-4 of its scale and +inf
 exactly where a row has no live key, each run twice bitwise; hd 64, 128
 and 256 through the Hopper kernel (``flash_bwd_hopper``) and hd 16 and 32
-through the mma.sync one, as the wrapper's per-route count shows. Training on
-the card (``flash_attention_op`` under autograd, a reduced model's train
-steps against the CPU's within 1e-4 of scale) and the entries that have no
-backward kernel yet (the scans, the bf16 flash entry) raising under grad
-are tested at the end of the file.
+through the mma.sync one, as the wrapper's per-route count shows. The
+backwards of the scans' f32 entries (``selective_scan_bwd``,
+``ssd_scan_bwd``) are held to the plain forwards' autograd the same way
+(every gradient within ``BWD_RTOL`` of its scale, h0 and the final state's
+gradient given or not, ragged S, every built width, twice bitwise).
+Training on the card (the ops under autograd, a reduced model's train
+steps against the CPU's within 1e-4 of scale, the Mamba kinds' too) and
+the entries that have no backward kernel yet (the bf16 entries of the
+three kernels) raising under grad are tested at the end of the file.
 
 The bf16 entries are held to their plain versions on the same bf16 inputs,
 each output within one bf16 rounding of the plain one (2^-7 of the value)
@@ -888,9 +892,10 @@ def test_cuda_flash_op_carries_gradients(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_entries_without_a_backward_raise_under_grad(cuda_device):
-    """The scans and the bf16 flash entry have no backward kernel yet: on
+    """The bf16 entries of the three kernels have no backward kernel yet: on
     the card they raise when an input requires grad (no silent detach);
-    without grad they run; under ``no_grad`` they run."""
+    without grad they run; under ``no_grad`` they run. The f32 entries of
+    all three carry gradients (the tests above and below)."""
     from repro_torch.kernels.mamba_scan import selective_scan_op
     from repro_torch.kernels.ssd_scan import ssd_scan_op
     q, k, v = tt(qkv_inputs(1, 64, 64, 2, 2, 64), cuda_device)
@@ -902,6 +907,7 @@ def test_cuda_entries_without_a_backward_raise_under_grad(cuda_device):
     for op, args in ((ssd_scan_op, ssd_inputs(1, 64, 2, 16, 16)),
                      (selective_scan_op, scan_inputs(1, 64, 32, 16))):
         ts = tt(args, cuda_device)
+        ts[0], ts[3], ts[4] = (t.bfloat16() for t in (ts[0], ts[3], ts[4]))
         op(*ts)
         ts[0].requires_grad_(True)
         with pytest.raises(NotImplementedError, match="13f"):
@@ -910,11 +916,137 @@ def test_cuda_entries_without_a_backward_raise_under_grad(cuda_device):
             op(*ts)
 
 
+def check_scan_backward(kernel_bwd, plain_fwd, dev, args, h0, dh, **kw):
+    """A scan's backward kernel against the plain forward's autograd on the
+    same inputs, each gradient within ``BWD_RTOL`` of its scale, run twice
+    bitwise, one launch a call."""
+    dy = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        tuple(args[0].shape)).astype(np.float32)).to(dev)
+    n0 = kernel_bwd.launches
+    got = kernel_bwd(*args, dy, h0=h0, dh=dh, **kw)
+    again = kernel_bwd(*args, dy, h0=h0, dh=dh, **kw)
+    torch.cuda.synchronize()
+    assert kernel_bwd.launches == n0 + 2
+    assert all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got, again))
+    ins = [t.detach().clone().requires_grad_(True)
+           for t in (*args, *(() if h0 is None else (h0,)))]
+    y, h = plain_fwd(*ins[:6], h0=ins[6] if h0 is not None else None, **kw)
+    outs, cots = [y], [dy]
+    if dh is not None:
+        outs.append(h)
+        cots.append(dh)
+    want = torch.autograd.grad(outs, ins, cots)
+    assert (got[6] is None) == (h0 is None)
+    for name, g, w in zip(("du", "ddt", "dA", "dB", "dC", "dD", "dh0"),
+                          got, want):
+        assert g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert rel_err(g, w) <= BWD_RTOL, (name, rel_err(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("B,S,dI,with_h0,with_dh", [
+    (2, 300, 256, False, False),     # falcon-mamba-7b's reduced dI is 128
+    (1, 1, 70, True, True),          # S = 1, dI off the CTA's channels
+    (2, 77, 130, True, False),       # ragged S and dI
+    (1, 8, 64, False, True),         # S one chunk of the backward
+])
+def test_cuda_scan_backward_matches_plain_autograd(cuda_device, N, B, S, dI,
+                                                   with_h0, with_dh):
+    args = tt(scan_inputs(B, S, dI, N, seed=S + dI), cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(N)
+    h0 = (torch.randn(B, dI, N, device=cuda_device, generator=g)
+          if with_h0 else None)
+    dh = (torch.randn(B, dI, N, device=cuda_device, generator=g)
+          if with_dh else None)
+    check_scan_backward(MK.selective_scan_bwd, selective_scan_ref,
+                        cuda_device, args, h0, dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("hp", [16, 32, 64])
+@pytest.mark.parametrize("B,S,H,with_h0,with_dh", [
+    (1, 1, 2, True, True),           # S = 1
+    (2, 150, 3, False, True),        # ragged over three chunks
+])
+def test_cuda_ssd_backward_every_width(cuda_device, N, hp, B, S, H, with_h0,
+                                       with_dh):
+    args = tt(ssd_inputs(B, S, H, hp, N, seed=S + hp), cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(N + hp)
+    h0 = (torch.randn(B, H, N, hp, device=cuda_device, generator=g)
+          if with_h0 else None)
+    dh = (torch.randn(B, H, N, hp, device=cuda_device, generator=g)
+          if with_dh else None)
+    check_scan_backward(SK.ssd_scan_bwd, ssd_scan_ref, cuda_device, args, h0,
+                        dh, chunk=SK.KERNEL_CHUNK)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hp,N,with_h0,with_dh", [
+    (8, 256, 64, 64, 64, False, False),   # zamba2-1.2b's train shape
+    (2, 64, 4, 64, 64, True, True),       # one chunk
+    (1, 40, 4, 16, 16, True, False),      # under a chunk, reduced widths
+])
+def test_cuda_ssd_backward_matches_plain_autograd(cuda_device, B, S, H, hp,
+                                                  N, with_h0, with_dh):
+    args = tt(ssd_inputs(B, S, H, hp, N, seed=S), cuda_device)
+    g = torch.Generator(cuda_device).manual_seed(S)
+    h0 = (torch.randn(B, H, N, hp, device=cuda_device, generator=g)
+          if with_h0 else None)
+    dh = (torch.randn(B, H, N, hp, device=cuda_device, generator=g)
+          if with_dh else None)
+    check_scan_backward(SK.ssd_scan_bwd, ssd_scan_ref, cuda_device, args, h0,
+                        dh, chunk=SK.KERNEL_CHUNK)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["selective_scan", "ssd_scan"])
+def test_cuda_scan_ops_carry_gradients(cuda_device, which):
+    """The scan ops under autograd on the card: one forward and one
+    backward launch, the gradients of every input and of h0 within
+    ``BWD_RTOL`` of the CPU's plain autograd through the same op; the bf16
+    entries untouched."""
+    from repro_torch.kernels.mamba_scan import selective_scan_op
+    from repro_torch.kernels.ssd_scan import ssd_scan_op
+    if which == "selective_scan":
+        op, fwd, bwd = selective_scan_op, MK.selective_scan, \
+            MK.selective_scan_bwd
+        arrays = scan_inputs(2, 90, 48, 8, seed=3)
+        h_shape = (2, 48, 8)
+    else:
+        op, fwd, bwd = ssd_scan_op, SK.ssd_scan, SK.ssd_scan_bwd
+        arrays = ssd_inputs(2, 90, 3, 16, 16, seed=3)
+        h_shape = (2, 3, 16, 16)
+    rng = np.random.default_rng(4)
+    h0 = rng.standard_normal(h_shape).astype(np.float32)
+    grads = []
+    for dev in (cuda_device, torch.device("cpu")):
+        ts = [t.requires_grad_(True) for t in tt([*arrays, h0], dev)]
+        n0 = (fwd.launches_by_dtype[torch.float32], bwd.launches)
+        y, h = op(*ts[:6], h0=ts[6])
+        ((y ** 2).sum() + (h * h.detach()).sum()).backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert (fwd.launches_by_dtype[torch.float32] - n0[0],
+                    bwd.launches - n0[1]) == (1, 1)
+        grads.append([t.grad for t in ts])
+    for a, b in zip(*grads):
+        assert rel_err(a, b) <= BWD_RTOL
+
+
 def train_card_and_cpu(arch, dev, steps=3):
     """``steps`` train steps of ``arch``'s reduced configuration (f32, the
     launcher's AdamW settings) on the card and on the CPU from the same
-    parameters and batches: (losses, final parameters) of each, and the
-    flash launches of each card step."""
+    parameters and batches: for each, (losses, final parameters, the flash
+    launches of each step (forward f32 entry, backward), the scans'
+    (selective_scan forward f32 entry, backward, ssd_scan's the same),
+    Adam's first moments after each step). The card's first moments are
+    those of each step taken again on the card from the CPU's state before
+    it, so they differ from the CPU's by 0.1 × that step's clipped
+    gradients alone."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.train import FrontendStream
@@ -929,23 +1061,45 @@ def train_card_and_cpu(arch, dev, steps=3):
     stream = FrontendStream(TokenStream(DataConfig(
         vocab=cfg.vocab, seq=40, batch=4)), cfg)
     base = init_params(cfg, torch.Generator().manual_seed(0))
-    out = {}
+    step = make_train_step(cfg, tcfg)
+
+    def moments(opt):
+        return [t.detach().cpu().clone() for t in leaves(opt.mu)]
+
+    out, states = {}, []
     for d in (dev, torch.device("cpu")):
         params = tree_map(lambda t: t.clone().to(d), base)
         opt = adam_init(params)
-        step = make_train_step(cfg, tcfg)
-        losses, counts = [], []
+        losses, counts, scans, moms = [], [], [], []
         for s in range(steps):
+            if d.type == "cpu":
+                states.append(tree_map(lambda t: t.detach().clone(),
+                                       (params, opt)))
             n0 = (FK.flash_attention.launches_by_dtype[torch.float32],
                   FK.flash_attention_bwd.launches)
+            s0 = scan_launches()
             params, opt, m = step(params, opt, stream.batch(s))
             losses.append(float(m["loss"]))
             counts.append((FK.flash_attention.launches_by_dtype[
                 torch.float32] - n0[0], FK.flash_attention_bwd.launches
                 - n0[1]))
-        out[d.type] = (losses, [t.detach().cpu() for t in leaves(params)],
-                       counts)
+            scans.append(tuple(b - a for a, b in zip(s0, scan_launches())))
+            moms.append(moments(opt))
+        out[d.type] = [losses, [t.detach().cpu() for t in leaves(params)],
+                       counts, scans, moms]
+    out["cuda"][4] = [moments(step(*tree_map(lambda t: t.to(dev), state),
+                                   stream.batch(s))[1])
+                      for s, state in enumerate(states)]
     return cfg, out
+
+
+def scan_launches():
+    """(selective_scan f32 forwards, backwards, ssd_scan f32 forwards,
+    backwards) launched so far."""
+    f32 = torch.float32
+    return (MK.selective_scan.launches_by_dtype[f32],
+            MK.selective_scan_bwd.launches,
+            SK.ssd_scan.launches_by_dtype[f32], SK.ssd_scan_bwd.launches)
 
 
 @pytest.mark.cuda
@@ -956,19 +1110,62 @@ def test_cuda_reduced_training_matches_cpu(cuda_device, arch):
     card and on the CPU from the same parameters and batches: each loss and
     the final parameters within 1e-4 of scale; each card step goes through
     the flash kernels (with both remat levels, 3·L − L/G forwards and L
-    backwards over L attention calls of a segment, G = its group) and the
-    CPU's through none."""
-    from repro_torch.models.model import _group
+    backwards over L attention calls of a segment, G = its group:
+    ``train_step_launches``) and the CPU's through none."""
+    from repro_torch.models.model import train_step_launches
     cfg, out = train_card_and_cpu(arch, cuda_device)
-    (l_card, p_card, c_card), (l_cpu, p_cpu, c_cpu) = out["cuda"], out["cpu"]
+    (l_card, p_card, c_card, *_), (l_cpu, p_cpu, c_cpu, *_) = \
+        out["cuda"], out["cpu"]
     for a, b in zip(l_card, l_cpu):
         assert abs(a - b) <= 1e-4 * abs(b)
     for a, b in zip(p_card, p_cpu):
         assert rel_err(a, b) <= 1e-4
-    segments = [(cfg.n_layers, 2 if cfg.is_encdec else 1)]
-    if cfg.is_encdec:
-        segments.append((cfg.n_enc_layers, 1))
-    fwd = sum((3 * L - L // _group(L, cfg.scan_group)) * c
-              for L, c in segments)
-    bwd = sum(L * c for L, c in segments)
-    assert c_card == [(fwd, bwd)] * 3 and c_cpu == [(0, 0)] * 3
+    want = train_step_launches(cfg)
+    assert c_card == [(want["flash_attention"],
+                       want["flash_attention_bwd"])] * 3
+    assert c_cpu == [(0, 0)] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "falcon-mamba-7b"])
+def test_cuda_reduced_mamba_training_matches_cpu(cuda_device, arch):
+    """Three train steps of a reduced Mamba-kind model on the card and on
+    the CPU from the same parameters and batches: each loss and the final
+    parameters within 1e-4 of scale; the leaves the model initialises at
+    zero (``zero_leaves``: zamba2's conv and dt biases and LoRA
+    up-projections, falcon's conv biases) are held by each step's
+    gradients instead, through Adam's first moments after each step taken
+    on the card from the CPU's state before it, within 1e-4 of scale:
+    Adam's first steps put such an element at ±lr by the sign of a
+    gradient that may be near zero, so its value's last digits follow the
+    order of the sums (two correct CPU runs differing only in it: up to
+    1.2e-3 of such a leaf's scale after 3 steps, its moments from the same
+    state within 1.4e-5; ``tools/adam_order_noise.py``). The second
+    moments, squares of the gradients, double their relative error and
+    are not held (on the card with the plain scans: 9.6e-5 of scale,
+    ``tools/card_moment_noise.py``). Each card step goes through the
+    scans' f32 kernels and their backward kernels (and zamba2's shared
+    attention through the flash kernels) as ``train_step_launches`` says;
+    the CPU's steps launch nothing."""
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import zero_leaves
+    from repro_torch.models.model import train_step_launches
+    cfg, out = train_card_and_cpu(arch, cuda_device)
+    (l_card, p_card, c_card, s_card, m_card), \
+        (l_cpu, p_cpu, c_cpu, s_cpu, m_cpu) = out["cuda"], out["cpu"]
+    for a, b in zip(l_card, l_cpu):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    zero = zero_leaves(init_params(cfg, torch.Generator().manual_seed(0)))
+    assert any(zero)
+    for a, b, z in zip(p_card, p_cpu, zero):
+        assert z or rel_err(a, b) <= 1e-4
+    for got, want in zip(m_card, m_cpu):
+        for a, b, z in zip(got, want, zero):
+            assert not z or rel_err(a, b) <= 1e-4
+    want = train_step_launches(cfg)
+    assert s_card == [(want["selective_scan"], want["selective_scan_bwd"],
+                       want["ssd_scan"], want["ssd_scan_bwd"])] * 3
+    assert s_cpu == [(0, 0, 0, 0)] * 3
+    assert c_card == [(want["flash_attention"],
+                       want["flash_attention_bwd"])] * 3
+    assert c_cpu == [(0, 0)] * 3

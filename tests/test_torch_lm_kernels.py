@@ -406,3 +406,33 @@ def test_chip_smoke_bounds_count_the_live_work():
     ops, moved = C.scan_ops_bytes(4, 2048, 8192, 16)
     b = C.lm_bound("selective_scan", ops, moved)
     assert b == {"bound_ms": moved / 3.35e12 * 1e3, "bound_by": "bytes"}
+
+
+def test_chip_smoke_ssd_backward_bound_as_the_forward():
+    """chip_smoke.py's bound of the SSD scan's gradients, counted as the
+    forward's is: the least operation count of the chunked form over chunk
+    lengths (triangular products on s ≤ t only, five L·N·hp products and
+    the two decays a chunk, no padded steps); bytes of u, dy and du (not
+    y), dt and ddt, B, C, dB, dC, A, D, dA, dD (and h0, dh, dh0) once;
+    three TF32 products each on the tensor cores, as the forward."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke as C
+
+    def chunk(L, N=64, hp=64):
+        # C·Bᵀ, dy·uᵀ, Mᵀ·dy, G·B, Gᵀ·C and 6 on each pair s ≤ t
+        return (L * (L + 1) / 2 * (6 * N + 4 * hp + 6) + 10 * L * N * hp
+                + 2 * N * hp)
+    ops, moved, _ = C.ssd_bwd_ops_bytes(1, 12, 1, 64, 64, False)
+    assert ops == 2 * chunk(6) < 3 * chunk(4)       # least at Q = 6
+    ops, _, _ = C.ssd_bwd_ops_bytes(1, 13, 1, 64, 64, False)
+    assert ops == 2 * chunk(5) + chunk(3) < chunk(7) + chunk(6)
+    assert moved == 4 * (3 * 12 * 64 + 2 * 12 + 4 * 12 * 64 + 4)
+    _, with_state, _ = C.ssd_bwd_ops_bytes(1, 12, 1, 64, 64, True)
+    assert with_state == moved + 4 * 3 * 64 * 64
+    ops, moved, _ = C.ssd_bwd_ops_bytes(8, 256, 64, 64, 64, False)
+    b = C.lm_bound("ssd_scan_bwd", ops, moved)
+    assert b["bound_by"] == "operations (3×TF32)"
+    assert b["bound_ms"] == 3 * ops / 495e12 * 1e3
+    assert b["fma_bound_ms"] == ops / 67e12 * 1e3
+    assert abs(b["bound_ms"] - 0.0354) < 0.0001

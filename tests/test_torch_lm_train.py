@@ -64,7 +64,7 @@ from repro_torch.train import (AdamConfig, DataConfig, TokenStream,
 from torch_threads import one_torch_thread  # noqa: F401
 
 TRAIN_ARCHS = ["granite-8b", "gemma-7b", "gemma3-27b",
-               "seamless-m4t-large-v2"]
+               "seamless-m4t-large-v2", "zamba2-1.2b", "falcon-mamba-7b"]
 B, S, ENC = 2, 24, 13
 
 
