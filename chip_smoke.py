@@ -211,8 +211,11 @@ and for the training slice (``python -m repro_torch.launch.train``), f32:
     8,192 with N 16; zamba2-1.2b's 8 × 256 with 64 heads of hp = N = 64), a
     ragged S with h0 and the final state's gradient given, and the reduced
     widths; beside each its time, its bound (bytes against operations at
-    the f32 peak, and the exponentials), the plain backward's time, its
-    registers, spills and shared memory;
+    the f32 peak, or 3×TF32 for ``ssd_scan_bwd``, the route's arithmetic:
+    split-TF32 ``mma.sync``; and the exponentials), what bounds the design
+    (its exponentials at the MUFU rate, its bytes with the scratch it
+    writes and reads back), the plain backward's time, each kernel's
+    registers, spills, shared memory and CTAs an SM;
 17. granite-8b trained at full width, 16 of its 36 layers
     (``TRAIN_LAYERS``), f32, batch 8 × 256, 4 steps through
     ``init_train_state`` and ``make_train_step`` (``train_steps``), every LM
@@ -236,7 +239,7 @@ and for the training slice (``python -m repro_torch.launch.train``), f32:
     ``flash_bwd_hopper`` at hd 64) and falcon-mamba-7b at every published
     width cut to 32 of 64 layers (88 ``selective_scan``, 32
     ``selective_scan_bwd``), each scan's forward and backward device ms a
-    step;
+    step (``ssd_scan_bwd``'s by both of its kernels' names);
 18. granite-8b, gemma-7b, gemma3-27b, seamless-m4t-large-v2, zamba2-1.2b
     and falcon-mamba-7b reduced (hd 16 and 32: the mma.sync backward), and
     granite-8b reduced at hd 128 (``flash_bwd_hopper``), 3 train steps on
@@ -283,7 +286,7 @@ from repro_torch.device import synchronize  # noqa: E402
 # bounds: bytes over HBM3's rate against operations over the peak f32 or
 # dense TF32 rate (H100 SXM data sheet, repro_torch/analysis/roofline.py)
 from repro_torch.analysis.roofline import (  # noqa: E402
-    PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, Roofline)
+    HBM_BYTES_PER_S, PEAK_BF16_FLOPS, PEAK_TF32_FLOPS, Roofline)
 # flash_attention and the SSD scan's chunked products (forward and
 # backward) keep f32 accuracy on the tensor cores by splitting each product
 # into three TF32 products
@@ -3358,12 +3361,30 @@ def selective_bwd_ops_bytes(B, S, dI, N, with_h0):
     dt·u·B and the decay FMA: 5) and the adjoint (g = gc + C·dy, the carry
     a·g, g·B, g·(A·a·h + u·B), g·dt·a·h, g·dt·u, dy·h: 19), an FMA counted
     as 2; exponentials one an element; bytes: u, dt, dy, B, C, A, D (h0 and
-    dh) read once, du, ddt, dA, dB, dC, dD (dh0) written once."""
+    dh) read once, du, ddt, dA, dB, dC, dD (dh0) written once. The
+    kernel's design (``selective_bwd_design``) adds to these."""
     el = float(B * S * dI * N)
     state = B * dI * N * (3 if with_h0 else 0)          # h0, dh, dh0
     moved = 4.0 * (5 * B * S * dI + 4 * B * S * N + 2 * (dI * N + dI)
                    + state)
     return 24.0 * el, moved, el
+
+
+def selective_bwd_design(B, S, dI, N, chunk):
+    """What the selective backward kernel's design itself needs beyond
+    the function: two exponentials an element (the sweep that keeps each
+    chunk's entering state, and the recompute, whose factors the adjoint
+    reuses) and its scratch, the state every ``chunk`` steps written once
+    and read back once."""
+    scratch = 4.0 * B * -(-S // chunk) * dI * N
+    return {"exponentials": 2.0 * B * S * dI * N, "scratch_bytes": 2 * scratch}
+
+
+def ssd_bwd_design(B, S, H, hp, N, Q=64):
+    """What the SSD backward kernels' design itself moves beyond the
+    function: the scratch of the states entering and the adjoints leaving
+    each chunk, written by the first kernel and read by the second."""
+    return {"scratch_bytes": 2 * 2 * 4.0 * B * H * -(-S // Q) * N * hp}
 
 
 def ssd_bwd_chunked_ops(S, N, hp, Q):
@@ -3410,12 +3431,15 @@ def lm_check_scan_backward(dev):
     """Phase 16b: each scan's backward kernel against its plain version at
     ``scan_bwd_cases``, twice bitwise; its time (``cuda_time_ms``) beside
     its bound (``lm_bound``: bytes at 3.35 TB/s against operations at the
-    f32 peak, or for ``ssd_scan_bwd``, whose chunked products the tensor
-    cores can take as the forward's do, at 3×TF32; the larger; beside it
-    the exponentials at 16 a clock an SM at the card's
-    highest SM clock), the plain backward's time, its shared memory and its
-    ptxas registers and spills. Returns ({kernel: max |error|}, {kernel:
-    the train-shape case's timing row})."""
+    f32 peak, the larger; for ``ssd_scan_bwd``, whose chunked products its
+    route takes on the tensor cores as split-TF32 ``mma.sync``,
+    ``bwd_bounds`` of that route, at 3×TF32; beside it the
+    exponentials at 16 a clock an SM at the card's highest SM clock), what
+    bounds the design (``selective_bwd_design``, ``ssd_bwd_design``: its
+    exponentials at that rate, its bytes with its scratch), the plain
+    backward's time, each kernel's shared memory, CTAs an SM and ptxas
+    registers and spills. Returns ({kernel: max |error|}, {kernel: the
+    train-shape case's timing row})."""
     from repro_torch.kernels import build
     from repro_torch.kernels.mamba_scan import kernel as MK
     from repro_torch.kernels.mamba_scan import selective_scan_bwd_ref
@@ -3435,7 +3459,13 @@ def lm_check_scan_backward(dev):
                 h_shape = (B, dI, N)
                 kern, plain = MK.selective_scan_bwd, selective_scan_bwd_ref
                 ops, moved, exps = selective_bwd_ops_bytes(*shape, extra)
-                smem = MK.library_bwd().selective_scan_bwd_smem_bytes(N)
+                lib = MK.library_bwd()
+                design = selective_bwd_design(
+                    B, S, dI, N, lib.selective_scan_bwd_chunk())
+                kernels = {"selective_scan_bwd_kernel": {
+                    "smem_bytes": lib.selective_scan_bwd_smem_bytes(N),
+                    "ctas_per_sm": lib.selective_scan_bwd_ctas_per_sm(N)}}
+                bounds = lm_bound(name, ops, moved)
                 kw = {}
             else:
                 B, S, H, hp, N = shape
@@ -3443,7 +3473,16 @@ def lm_check_scan_backward(dev):
                 h_shape = (B, H, N, hp)
                 kern, plain = SK.ssd_scan_bwd, ssd_scan_bwd_ref
                 ops, moved, exps = ssd_bwd_ops_bytes(*shape, extra)
-                smem = SK.library_bwd().ssd_scan_bwd_smem_bytes(N, hp)
+                lib = SK.library_bwd()
+                design = ssd_bwd_design(B, S, H, hp, N)
+                kernels = {k: {
+                    "smem_bytes": lib.ssd_scan_bwd_kernel_smem_bytes(N, hp, i),
+                    "ctas_per_sm": lib.ssd_scan_bwd_ctas_per_sm(N, hp, i)}
+                    for i, k in enumerate(("ssd_bwd_states",
+                                           "ssd_bwd_chunks"))}
+                # the route: split-TF32 mma.sync, three TF32 products each
+                bounds = {"route": "mma_sync split-TF32",
+                          **bwd_bounds(ops, moved, "mma_sync")}
                 kw = {"chunk": SK.KERNEL_CHUNK}
             dy = torch.randn(args[0].shape, device=dev, generator=g)
             h0 = torch.randn(h_shape, device=dev, generator=g) if extra \
@@ -3471,11 +3510,19 @@ def lm_check_scan_backward(dev):
                                                     **kw), reps=1),
                 library_ms=None, operations=ops, bytes=moved,
                 exponentials=exps, shape=list(shape))
-            row.update(lm_bound(name, ops, moved))
+            row.update(bounds)
             row["exp_bound_ms"] = exps / exp_rate * 1e3
+            # the design's own floor: its exponentials, its bytes with the
+            # scratch (bytes over the memory rate)
+            row["design"] = {
+                **design,
+                "exp_bound_ms": design.get("exponentials", exps) / exp_rate
+                * 1e3,
+                "bytes_bound_ms": (moved + design["scratch_bytes"])
+                / HBM_BYTES_PER_S * 1e3}
             say({"phase": "lm_backward_scans", "kernel": name, "case": label,
                  **row, "share_of_bound": row["bound_ms"] / row["ms"],
-                 "h0_and_dh": extra, "smem_bytes": smem,
+                 "h0_and_dh": extra, "kernels": kernels,
                  "registers_spill_bytes": resources[name] or
                  "not reported: the library was found built",
                  "rel_err": errs, "max_abs_err": abs_err,
@@ -3518,14 +3565,17 @@ def train_expected_launches(cfg) -> dict:
 
 
 # the trace's kernel names of each f32 LM kernel entry (a substring of the
-# demangled name; the flash backward's D kernel, flash_bwd_dsum, is its own)
+# demangled name; the flash backward's D kernel, flash_bwd_dsum, is its own;
+# a call of ssd_scan_bwd runs its two kernels, the states, then the chunks)
 TRACE_KERNELS = {"flash_attention": ("flash_kernel",),
                  "flash_attention_bwd": ("flash_bwd_hopper", "flash_bwd_kernel",
                                          "flash_bwd_dsum"),
                  "selective_scan": ("selective_scan_kernel",),
                  "selective_scan_bwd": ("selective_scan_bwd_kernel",),
                  "ssd_scan": ("ssd_scan_kernel",),
-                 "ssd_scan_bwd": ("ssd_scan_bwd_kernel",)}
+                 "ssd_scan_bwd": ("ssd_bwd_states", "ssd_bwd_chunks")}
+# kernels the trace shows a call of each entry (1 where not named)
+TRACE_KERNELS_PER_CALL = {"ssd_scan_bwd": 2}
 
 
 def profiled_step(fn, dev) -> dict:
@@ -3723,7 +3773,8 @@ def train_steps(dev, cfg, tcfg, published_layers: int):
     traced = prof["trace_launches_by_entry"]
     for k in ("flash_attention", "selective_scan", "selective_scan_bwd",
               "ssd_scan", "ssd_scan_bwd"):
-        assert traced[k] == want[k], (k, traced[k], want[k])
+        assert traced[k] == TRACE_KERNELS_PER_CALL.get(k, 1) * want[k], \
+            (k, traced[k], want[k])
     assert twice, "one train step from the same state differs"
     return line, total
 

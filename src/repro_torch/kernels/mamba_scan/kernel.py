@@ -77,6 +77,8 @@ def library_bwd() -> ctypes.CDLL:
         lib.selective_scan_bwd_smem_bytes.restype = _I
         lib.selective_scan_bwd_chunk.argtypes = []
         lib.selective_scan_bwd_chunk.restype = _I
+        lib.selective_scan_bwd_ctas_per_sm.argtypes = [_I]
+        lib.selective_scan_bwd_ctas_per_sm.restype = _I
         lib._repro_typed = True
     return lib
 
@@ -195,14 +197,18 @@ def selective_scan_bwd(u, dt, A, Bm, Cm, D, dy, *,
     if N not in KERNEL_N:
         raise ValueError(f"selective_scan_bwd: N = {N} not built (one of "
                          f"{KERNEL_N})")
+    # the kernel copies u, dt, dy, B and C in 16-byte pieces: a view that
+    # starts off a 16-byte boundary is copied to a fresh allocation
+    u, dt, dy, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone()
+                         for t in (u, dt, dy, Bm, Cm))
     lib = library_bwd()
     G = lib.selective_scan_bwd_groups(dI, N)
     chunks = -(-S // lib.selective_scan_bwd_chunk())
     f32 = dict(dtype=torch.float32, device=dev)
     du, ddt = torch.empty_like(u), torch.empty_like(dt)
     dA_p = torch.empty((B_, dI, N), **f32)
-    dB_p = torch.empty((B_, G, S, N), **f32)
-    dC_p = torch.empty((B_, G, S, N), **f32)
+    bc_p = torch.empty((2, B_, G, S, N), **f32)   # dB's beside dC's
+    dB_p, dC_p = bc_p
     dD_p = torch.empty((B_, dI), **f32)
     dh0 = None if h0 is None else torch.empty((B_, dI, N), **f32)
     if B_ * dI == 0:
@@ -218,8 +224,8 @@ def selective_scan_bwd(u, dt, A, Bm, Cm, D, dy, *,
             B_, S, dI, N, stream)
     check_launch(rc, "selective_scan_bwd")
     selective_scan_bwd.launches += 1
-    return (du, ddt, dA_p.sum(0), dB_p.sum(1), dC_p.sum(1), dD_p.sum(0),
-            dh0)
+    dB, dC = bc_p.sum(2)
+    return du, ddt, dA_p.sum(0), dB, dC, dD_p.sum(0), dh0
 
 
 selective_scan_bwd.launches = 0

@@ -33,10 +33,12 @@ a library of its own, built beside this one): the gradients of u, dt, A, B,
 C, D and h0 from the same inputs, the gradient of y and that of the final
 state, in the kernel's chunks of ``KERNEL_CHUNK``; on the CPU the plain
 version (``ssd_scan_bwd_ref``). ``ssd_scan_bwd.launches`` counts its
-launches. The kernel writes dB and dC as one partial a head and dA and dD
-as one a (batch, head); the wrapper sums them with ``torch.sum`` over that
-axis (no float atomics: bitwise run to run). The autograd function that
-joins the two is ``ops.SsdScanF32``.
+launches: one a call, which runs two kernels (the chunks' entering states
+and leaving adjoints into a scratch tensor, then every chunk at once). They
+write dB and dC as one partial a head and dA and dD as one a (batch, head,
+chunk); the wrapper sums them with ``torch.sum`` over those axes (no float
+atomics: bitwise run to run). The autograd function that joins the two is
+``ops.SsdScanF32``.
 """
 
 from __future__ import annotations
@@ -84,8 +86,10 @@ def library_bwd() -> ctypes.CDLL:
     if not getattr(lib, "_repro_typed", False):
         lib.ssd_scan_bwd_f32.argtypes = [_P] * 17 + [_I] * 5 + [_P]
         lib.ssd_scan_bwd_f32.restype = _I
-        lib.ssd_scan_bwd_smem_bytes.argtypes = [_I, _I]
-        lib.ssd_scan_bwd_smem_bytes.restype = _I
+        lib.ssd_scan_bwd_kernel_smem_bytes.argtypes = [_I, _I, _I]
+        lib.ssd_scan_bwd_kernel_smem_bytes.restype = _I
+        lib.ssd_scan_bwd_ctas_per_sm.argtypes = [_I, _I, _I]
+        lib.ssd_scan_bwd_ctas_per_sm.restype = _I
         lib.ssd_scan_bwd_chunk.argtypes = []
         lib.ssd_scan_bwd_chunk.restype = _I
         lib._repro_typed = True
@@ -214,19 +218,28 @@ def ssd_scan_bwd(u, dt, A, Bm, Cm, D, dy, *, chunk: Optional[int] = None,
         if not t.is_contiguous():
             raise ValueError(f"ssd_scan_bwd: {name} is not contiguous")
     lib = library_bwd()
-    if not lib.ssd_scan_bwd_smem_bytes(N, hp):
+    if not lib.ssd_scan_bwd_kernel_smem_bytes(N, hp, 1):
         raise ValueError(f"ssd_scan_bwd: (N, hp) = ({N}, {hp}) not built "
                          f"(each of 16, 32, 64)")
+    # the kernels copy u, dy, B and C in 16-byte pieces: a view that starts
+    # off a 16-byte boundary is copied to a fresh allocation
+    u, dy, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone()
+                     for t in (u, dy, Bm, Cm))
     f32 = dict(dtype=torch.float32, device=dev)
+    chunks = -(-S // lib.ssd_scan_bwd_chunk())
     du, ddt = torch.empty_like(u), torch.empty_like(dt)
-    dA_p, dD_p = (torch.empty((B_, H), **f32) for _ in range(2))
-    dB_p, dC_p = (torch.empty((B_, H, S, N), **f32) for _ in range(2))
+    # the partials, dA's beside dD's and dB's beside dC's: one torch.sum
+    # each pair
+    ad_p = torch.empty((2, B_, H, chunks), **f32)
+    bc_p = torch.empty((2, B_, H, S, N), **f32)
+    dA_p, dD_p = ad_p
+    dB_p, dC_p = bc_p
     dh0 = None if h0 is None else torch.empty((B_, H, N, hp), **f32)
     if B_ * H == 0:
         return (du, ddt, torch.zeros_like(A), torch.zeros_like(Bm),
                 torch.zeros_like(Cm), torch.zeros_like(D), dh0)
-    chunks = -(-S // lib.ssd_scan_bwd_chunk())
-    scratch = torch.empty((B_, H, chunks, N, hp), **f32)
+    # the states entering and the adjoints leaving each chunk
+    scratch = torch.empty((2, B_, H, chunks, N, hp), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -236,8 +249,9 @@ def ssd_scan_bwd(u, dt, A, Bm, Cm, D, dy, *, chunk: Optional[int] = None,
             B_, S, H, N, hp, stream)
     check_launch(rc, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
-    return (du, ddt, dA_p.sum(0), dB_p.sum(1), dC_p.sum(1), dD_p.sum(0),
-            dh0)
+    dA, dD = ad_p.sum((1, 3))
+    dB, dC = bc_p.sum(2)
+    return du, ddt, dA, dB, dC, dD, dh0
 
 
 ssd_scan_bwd.launches = 0

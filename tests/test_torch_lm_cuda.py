@@ -951,7 +951,7 @@ def check_scan_backward(kernel_bwd, plain_fwd, dev, args, h0, dh, **kw):
     (2, 300, 256, False, False),     # falcon-mamba-7b's reduced dI is 128
     (1, 1, 70, True, True),          # S = 1, dI off the CTA's channels
     (2, 77, 130, True, False),       # ragged S and dI
-    (1, 8, 64, False, True),         # S one chunk of the backward
+    (1, 4, 64, False, True),         # S one chunk of the backward
 ])
 def test_cuda_scan_backward_matches_plain_autograd(cuda_device, N, B, S, dI,
                                                    with_h0, with_dh):
@@ -989,6 +989,8 @@ def test_cuda_ssd_backward_every_width(cuda_device, N, hp, B, S, H, with_h0,
     (8, 256, 64, 64, 64, False, False),   # zamba2-1.2b's train shape
     (2, 64, 4, 64, 64, True, True),       # one chunk
     (1, 40, 4, 16, 16, True, False),      # under a chunk, reduced widths
+    (2, 300, 4, 64, 64, True, True),      # five chunks: the states' scratch
+    (1, 333, 3, 32, 16, True, True),      # six chunks, ragged, other widths
 ])
 def test_cuda_ssd_backward_matches_plain_autograd(cuda_device, B, S, H, hp,
                                                   N, with_h0, with_dh):

@@ -2,6 +2,8 @@
 
     python3 tools/scan_variants.py [reps=20] [selective_scan|ssd_scan]
     python3 tools/scan_variants.py [reps=20] ssd_scan_bf16 [OLD.cu]
+    python3 tools/scan_variants.py [reps=20] selective_scan_bwd [OLD.cu]
+    python3 tools/scan_variants.py [reps=20] ssd_scan_bwd [OLD.cu]
 
 Builds variants of ``src/repro_torch/kernels/mamba_scan/csrc/
 selective_scan.cu`` and ``src/repro_torch/kernels/ssd_scan/csrc/
@@ -50,6 +52,29 @@ kernel's dynamic shared memory; a variant that does not build (ptxas of
 CUDA 12.9 crashes on some edits of that kernel) is reported as such and
 left out.
 
+``selective_scan_bwd`` and ``ssd_scan_bwd`` time the scans' backward
+kernels (``csrc/selective_scan_bwd.cu``, ``csrc/ssd_scan_bwd.cu``) at
+chip_smoke.py phase 16b's three cases each (``scan_bwd_cases``: the train
+shape, a ragged S with h0 and dh, the reduced widths), in turns as above,
+beside OLD (an older source with the same C entry, for example the parent
+commit's: ``git show HEAD~1:src/repro_torch/kernels/mamba_scan/csrc/
+selective_scan_bwd.cu > build/parent/selective_scan_bwd.cu``) and variants
+that isolate the design's choices. Selective: ``tb8`` (chunks of 8 steps
+in place of 4: half the scratch, twice the factors held in registers),
+``states_in_registers`` (the states entering a chunk's steps in registers
+in place of shared memory), ``ctas2``, ``ctas3`` (registers held to
+255 or 168 in place of 128: two or three CTAs an SM by the cap),
+``stages2``, ``stages6`` (a ring of 2 or 6 chunk stages in place of 4:
+loads 1 or 5 chunks ahead in place of 3). SSD: ``single_tf32`` (one TF32 product
+in place of three: what the split costs; not accurate enough to ship),
+``one_cta`` (shared memory asked for so that one CTA of the chunk kernel
+runs an SM, not two), and the diagnostic ``states_only`` (the first
+kernel alone, the chunks' states and adjoints: wrong results, what it
+costs). Each line carries every kernel's registers and
+spills, its shared memory and CTAs an SM (the occupancy calculator's where
+the source exports it, else, for OLD, from registers and shared memory), and the
+largest error of du and ddt against the plain version.
+
 Prints one JSON line per variant (its ms per turn, registers and spills,
 and its largest error against the plain version), after the card line.
 The variants are diagnostics only; the port ships the sources as they are.
@@ -59,6 +84,7 @@ Stops without a CUDA device.
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -288,6 +314,228 @@ def ssd_bf16(reps: int, old: str = "") -> None:
         print(json.dumps(row), flush=True)
 
 
+BWD_VARIANTS = {
+    "selective_scan_bwd": (MK.BWD_SOURCES[0], {
+        "tb8": [("constexpr int TB = 4;", "constexpr int TB = 8;")],
+        # the shipped shared-memory buffer of a chunk's states replaced by
+        # an array in registers (a text edit: the source keeps one way)
+        "states_in_registers": [
+            ("static constexpr int HS = (TB - 1) * SPT * NT;",
+             "static constexpr int HS = 0;"),
+            ("    float e[TB][SPT];\n",
+             "    float e[TB][SPT];\n    float hreg[TB][SPT];\n"),
+            ("      if (r > 0) store_state<SPT>(HSm + (r - 1) * SPT * NT, h);\n",
+             "#pragma unroll\n"
+             "      for (int j = 0; j < SPT; ++j) hreg[r][j] = h[j];\n"),
+            ("      load_state<SPT>(r == 0 ? hk : HSm + (r - 1) * SPT * NT, "
+             "hp);\n",
+             "#pragma unroll\n"
+             "      for (int j = 0; j < SPT; ++j) hp[j] = hreg[r][j];\n")],
+        "ctas2": [("constexpr int kMinCtas = 4;",
+                   "constexpr int kMinCtas = 2;")],
+        "ctas3": [("constexpr int kMinCtas = 4;",
+                   "constexpr int kMinCtas = 3;")],
+        "stages2": [("constexpr int NS = 4;", "constexpr int NS = 2;")],
+        "stages6": [("constexpr int NS = 4;", "constexpr int NS = 6;")],
+    }),
+    "ssd_scan_bwd": (SK.BWD_SOURCES[0], {
+        "single_tf32": [("      mma(acc[i], a.small, bb0, bb1);\n"
+                         "      mma(acc[i], a.big, bs0, bs1);\n", "")],
+        "one_cta": [("const size_t smem2 = sizeof(float) * "
+                     "ChunkCfg<N, HP>::kFloats;",
+                     "const size_t smem2 = 120 * 1024;   // one CTA an SM")],
+        "states_only": [("  ssd_bwd_chunks<N, HP><<<dim3(T, H, B), NT, smem2, "
+                         "stream>>>(\n      u, dt, A, Bm, Cm, D, dy, scratch, "
+                         "du, ddt, dAp, dBp, dCp, dDp, S, H);\n", "")],
+    }),
+}
+
+
+def ptxas_entries(stdout: str) -> dict:
+    """{demangled-ish entry: [registers, spill bytes]} from nvcc -Xptxas -v
+    output."""
+    out, cur = {}, None
+    for ln in stdout.splitlines():
+        m = re.search(r"Compiling entry function '([^']*)'", ln)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            out.setdefault(cur, [0, 0])[0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and cur:
+            out.setdefault(cur, [0, 0])[1] = int(m.group(1)) + int(m.group(2))
+    return out
+
+
+def build_bwd(kernel, name, src, edits):
+    """A variant of a backward source built into a library of its own:
+    (ctypes library, {entry: [registers, spills]})."""
+    text = open(src).read()
+    for old, new in edits:
+        if old not in text:
+            raise SystemExit(f"scan_variants: {kernel} no longer has {old!r}")
+        text = text.replace(old, new)
+    cu = os.path.join(OUT, f"{kernel}_{name}.cu")
+    so = os.path.join(OUT, f"{kernel}_{name}.so")
+    with open(cu, "w") as f:
+        f.write(text)
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", so, cu],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed on {kernel} {name}:\n{proc.stdout}")
+    lib = ctypes.CDLL(so)
+    lib.entry = getattr(lib, f"{kernel}_f32")
+    lib.entry.argtypes = [_P] * 17 + [_I] * (4 if kernel ==
+                                             "selective_scan_bwd" else 5) + [_P]
+    lib.entry.restype = _I
+    # the sizes and resources each source exports (an older one not all)
+    for fn, nargs in (("selective_scan_bwd_groups", 2),
+                      ("selective_scan_bwd_chunk", 0),
+                      ("selective_scan_bwd_smem_bytes", 1),
+                      ("selective_scan_bwd_ctas_per_sm", 1),
+                      ("ssd_scan_bwd_chunk", 0),
+                      ("ssd_scan_bwd_smem_bytes", 2),
+                      ("ssd_scan_bwd_kernel_smem_bytes", 3),
+                      ("ssd_scan_bwd_ctas_per_sm", 3)):
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = [_I] * nargs
+            getattr(lib, fn).restype = _I
+    return lib, ptxas_entries(proc.stdout)
+
+
+def ctas_from_resources(regs: int, smem: int, threads: int = 128) -> int:
+    """CTAs an SM on an H100 from a kernel's registers a thread and dynamic
+    shared memory, for a source that does not export its occupancy (65,536 registers in 256-register units a warp, 228 KB
+    of shared memory with 1 KB reserved a CTA, 2,048 threads, 32 CTAs)."""
+    warps = threads // 32
+    per_warp = -(-max(regs, 1) * 32 // 256) * 256
+    by_regs = 65536 // (per_warp * warps)
+    by_smem = (228 * 1024) // (smem + 1024)
+    return min(by_regs, by_smem, 2048 // threads, 32)
+
+
+def bwd(kernel: str, reps: int, old: str = "") -> None:
+    """A scan's backward kernel, its variants and OLD, in turns at phase
+    16b's cases."""
+    from chip_smoke import scan_bwd_cases
+    from repro_torch.kernels.mamba_scan import selective_scan_bwd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_ref
+    dev = torch.device("cuda")
+    src, variants = BWD_VARIANTS[kernel]
+    jobs = [("shipped", src, [])] + [(n, src, e) for n, e in variants.items()]
+    if old:
+        jobs.append(("old", old, []))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda j: build_bwd(kernel, *j), jobs))
+    print(card_line(), flush=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    selective = kernel == "selective_scan_bwd"
+    cases = []
+    for label, shape, extra in scan_bwd_cases()[kernel]:
+        g = torch.Generator(dev).manual_seed(len(label))
+        if selective:
+            B, S, dI, N = shape
+            args = scan_inputs(B, S, dI, N, dev, seed=S)
+            h_shape = (B, dI, N)
+            want = None
+        else:
+            B, S, H, hp, N = shape
+            args = ssd_inputs(B, S, H, hp, N, dev, seed=S)
+            h_shape = (B, H, N, hp)
+        dy = torch.randn(args[0].shape, device=dev, generator=g)
+        h0 = torch.randn(h_shape, device=dev, generator=g) if extra else None
+        dh = torch.randn(h_shape, device=dev, generator=g) if extra else None
+        if selective:
+            want = selective_scan_bwd_ref(*args, dy, h0=h0, dh=dh)
+        else:
+            want = ssd_scan_bwd_ref(*args, dy, chunk=SK.KERNEL_CHUNK, h0=h0,
+                                    dh=dh)
+        cases.append((label, shape, args, dy, h0, dh, want))
+
+    def runner(lib, case):
+        """The raw C entry on the case, outputs allocated for the library
+        (its chunk; the larger of the old and new partial layouts)."""
+        _, shape, args, dy, h0, dh, _ = case
+        f32 = dict(dtype=torch.float32, device=dev)
+        if selective:
+            B, S, dI, N = shape
+            G = lib.selective_scan_bwd_groups(dI, N)
+            chunks = -(-S // lib.selective_scan_bwd_chunk())
+            outs = [torch.empty_like(args[0]), torch.empty_like(args[0]),
+                    torch.empty((B, dI, N), **f32),
+                    torch.empty((B, G, S, N), **f32),
+                    torch.empty((B, G, S, N), **f32),
+                    torch.empty((B, dI), **f32),
+                    None if h0 is None else torch.empty((B, dI, N), **f32),
+                    torch.empty((B, chunks, dI, N), **f32)]
+            dims = (B, S, dI, N)
+        else:
+            B, S, H, hp, N = shape
+            T = -(-S // lib.ssd_scan_bwd_chunk())
+            outs = [torch.empty_like(args[0]), torch.empty_like(args[1]),
+                    torch.empty((B, H, T), **f32),
+                    torch.empty((B, H, S, N), **f32),
+                    torch.empty((B, H, S, N), **f32),
+                    torch.empty((B, H, T), **f32),
+                    None if h0 is None else torch.empty((B, H, N, hp), **f32),
+                    torch.empty((2, B, H, T, N, hp), **f32)]
+            dims = (B, S, H, N, hp)
+        ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+
+        def run():
+            rc = lib.entry(*(ptr(t) for t in (*args, h0, dy, dh, *outs)),
+                           *dims, stream)
+            if rc != 0:
+                raise SystemExit(f"scan_variants: launch failed ({rc})")
+        return run, outs
+
+    names = [j[0] for j in jobs]
+    ms = {(n, c[0]): [] for n in names for c in cases}
+    order = list(zip(names, built))
+    for name, (lib, _) in order + order[::-1]:
+        for case in cases:
+            run, _ = runner(lib, case)
+            ms[name, case[0]].append(timed(run, reps))
+    for name, (lib, regs) in order:
+        row = {"kernel": kernel, "variant": name, "ptxas": regs}
+        occ = getattr(lib, "selective_scan_bwd_ctas_per_sm" if selective
+                      else "ssd_scan_bwd_ctas_per_sm", None)
+        for case in cases:
+            label, shape = case[0], case[1]
+            N = shape[3] if selective else shape[4]
+            hp = None if selective else shape[3]
+            run, outs = runner(lib, case)
+            run()
+            torch.cuda.synchronize()
+            want = case[6]
+            if selective:
+                sm_bytes = lib.selective_scan_bwd_smem_bytes(N)
+            elif hasattr(lib, "ssd_scan_bwd_kernel_smem_bytes"):
+                sm_bytes = lib.ssd_scan_bwd_kernel_smem_bytes(N, hp, 1)
+            else:                        # a one-kernel source (OLD)
+                sm_bytes = lib.ssd_scan_bwd_smem_bytes(N, hp)
+            entry = {"ms": ms[name, label], "shape": list(shape),
+                     "smem_bytes": sm_bytes,
+                     "max_abs_err_du": float((outs[0] - want[0]).abs().max()),
+                     "max_abs_err_ddt": float((outs[1] - want[1]).abs().max())}
+            if occ is not None:
+                entry["ctas_per_sm"] = occ(N) if selective else {
+                    "states": occ(N, hp, 0), "chunks": occ(N, hp, 1)}
+            else:
+                # a source without the export (OLD): from the registers and
+                # shared memory of its kernel at this (N, hp)
+                tag = f"ILi{N}E" if selective else f"ILi{N}ELi{hp}E"
+                entry["ctas_per_sm_from_resources"] = {
+                    k: ctas_from_resources(r[0], sm_bytes)
+                    for k, r in regs.items() if tag in k}
+            row[label] = entry
+        print(json.dumps(row), flush=True)
+
+
 def main(reps: int = 20, only: str = "", old: str = "") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("scan_variants: needs a CUDA device")
@@ -295,6 +543,9 @@ def main(reps: int = 20, only: str = "", old: str = "") -> None:
     os.makedirs(OUT, exist_ok=True)
     if only == "ssd_scan_bf16":
         ssd_bf16(reps, old)
+        return
+    if only in BWD_VARIANTS:
+        bwd(only, reps, old)
         return
     kernels = [k for k in VARIANTS if not only or k == only]
     jobs = [(kernel, name, *VARIANTS[kernel][:2], edits)
