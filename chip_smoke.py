@@ -203,7 +203,12 @@ and for the training slice (``python -m repro_torch.launch.train``), f32:
     its time, its bound (5 products a live pair under 3×TF32) and its
     route's (the same products in the serving kernel's arithmetic: 3×bf16
     for ``flash_bwd_hopper``), the plain backward's and f32
-    ``scaled_dot_product_attention``'s backward;
+    ``scaled_dot_product_attention``'s backward; then the same cases in
+    bf16 (``flash_attention_bwd_bf16`` after ``flash_attention_bf16`` with
+    its LSE): each gradient within 2 × the plain bf16 backward's own RMS
+    distance from the plain f32 backward, the output with the LSE bit for
+    bit the one without it, its bound in one bf16 pass a product, bf16
+    SDPA's backward beside;
 16b. the scans' backward kernels (``selective_scan_bwd``,
     ``ssd_scan_bwd``, each a library of its own) against their plain
     versions on the same tensors, every gradient within 2e-4 of its scale,
@@ -239,15 +244,27 @@ and for the training slice (``python -m repro_torch.launch.train``), f32:
     ``flash_bwd_hopper`` at hd 64) and falcon-mamba-7b at every published
     width cut to 32 of 64 layers (88 ``selective_scan``, 32
     ``selective_scan_bwd``), each scan's forward and backward device ms a
-    step (``ssd_scan_bwd``'s by both of its kernels' names);
-18. granite-8b, gemma-7b, gemma3-27b, seamless-m4t-large-v2, zamba2-1.2b
-    and falcon-mamba-7b reduced (hd 16 and 32: the mma.sync backward), and
-    granite-8b reduced at hd 128 (``flash_bwd_hopper``), 3 train steps on
-    the card and on the CPU (one PyTorch thread) from the same parameters
-    and batches: each loss and gradient norm, the first step's gradients
-    (Adam's first moment) and the final parameters within 1e-4 of scale,
-    the card's steps through the kernels as phase 17 counts them and the
-    flash backward's through the route of its head width.
+    step (``ssd_scan_bwd``'s by both of its kernels' names); then the
+    mixtrals in f32 at every published width cut in depth (``MOE_TRAIN``:
+    8x7b 2 of 32 layers, 8x22b 1 of 56), each step's summed expert counts
+    and, after the steps, each layer's dropped share and the aux loss, the
+    share of the peak with the experts' E·G·cap rows; and granite-8b in
+    bf16 at 24 of 36 layers (``GRANITE_BF16_LAYERS``: bf16 weights and
+    gradients, f32 moments; the bf16 flash entry and its backward), its
+    share of the bf16 peak; each profiled step's top kernels by device
+    time;
+18. granite-8b, gemma-7b, gemma3-27b, seamless-m4t-large-v2, zamba2-1.2b,
+    falcon-mamba-7b and both mixtrals reduced (hd 16 and 32: the mma.sync
+    backward), and granite-8b reduced at hd 128 (``flash_bwd_hopper``), 3
+    train steps on the card and on the CPU (one PyTorch thread) from the
+    same parameters and batches: each loss and gradient norm, the first
+    step's gradients (Adam's first moment) and the final parameters within
+    1e-4 of scale, the card's steps through the kernels as phase 17 counts
+    them and the flash backward's through the route of its head width;
+    then every one of them in bf16, card against CPU, and in f32 on the
+    CPU from the same weights widened: the card's losses, gradient norms
+    and first moments within 2 × the CPU's own bf16-vs-f32 distance (the
+    mixtrals' losses alone).
 
 All libraries are built at the start, one ``nvcc`` each, in parallel
 (each wrapper's ``library()`` from its own thread, and the three
@@ -256,7 +273,8 @@ calls back to back between two CUDA events, the card given a head start
 (a sleep kernel) so that a wrapper's host work does not count. Then the
 ``kernels`` JSON line (one row per entry: ``flash_attention`` and
 ``flash_attention_bf16`` and so on, and the backwards
-``flash_attention_bwd``, ``selective_scan_bwd`` and ``ssd_scan_bwd`` with
+``flash_attention_bwd``, ``flash_attention_bwd_bf16``,
+``selective_scan_bwd`` and ``ssd_scan_bwd`` with
 their launches in phase 17; ``selective_scan_bf16`` is on no
 model's path, so its launches are 0), the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Nothing is imported from JAX or from the
@@ -3110,7 +3128,16 @@ BWD_PRODUCTS = 5
 BWD_KERNEL_PRODUCTS = 7
 # each route's passes a product, their peak rate and its name
 BWD_ROUTE_ARITHMETIC = {"hopper": (3, PEAK_BF16_FLOPS, "3×bf16"),
-                        "mma_sync": (TF32_SPLIT, PEAK_TF32_FLOPS, "3×TF32")}
+                        "mma_sync": (TF32_SPLIT, PEAK_TF32_FLOPS, "3×TF32"),
+                        "bf16": (1, PEAK_BF16_FLOPS, "bf16")}
+# Phase 16's bf16 half: the bf16 entry's backward (``flash_attention_bwd``
+# on bf16 tensors: ``flash_attention_bwd_bf16``, one bf16 pass a product
+# on either route) at the same cases, each of dq, dk and dv within
+# BWD_BF16_RATIO × the plain bf16 backward's own RMS distance from the
+# plain f32 backward on the same (widened) values (tests/
+# test_torch_train_bf16.py's rule), its bound the same 5 products in one
+# bf16 pass (``BWD_ROUTE_ARITHMETIC["bf16"]``) over its bf16 bytes
+BWD_BF16_RATIO = 2.0
 # a granite-8b train step's backward device ms before the Hopper kernel
 # (PERF.md row 3c: phase 17 on an H100 80GB HBM3 at 700 W, the mma.sync
 # kernel of the parent commit), printed beside this run's
@@ -3143,7 +3170,8 @@ TRAIN_FAULT_STEP = 3
 TRAIN_CPU_CASES = (("granite-8b", None), ("gemma-7b", None),
                    ("gemma3-27b", None), ("seamless-m4t-large-v2", None),
                    ("granite-8b", 128), ("zamba2-1.2b", None),
-                   ("falcon-mamba-7b", None))
+                   ("falcon-mamba-7b", None), ("mixtral-8x7b", None),
+                   ("mixtral-8x22b", None))
 # Phase 17's Mamba kinds, through the scans' f32 kernels and their backward
 # kernels, at the launcher's batch 8 × 256: zamba2-1.2b uncut (38 layers,
 # 1.25 B parameters: ~20 GB of f32 weights, gradients and two moments; its
@@ -3155,6 +3183,23 @@ TRAIN_CPU_CASES = (("granite-8b", None), ("gemma-7b", None),
 # 7.26 B parameters, ~116 GB). (arch, layers or None: uncut)
 FALCON_TRAIN_LAYERS = 32     # published: 64
 MAMBA_TRAIN = (("zamba2-1.2b", None), ("falcon-mamba-7b", FALCON_TRAIN_LAYERS))
+# Phase 17's mixtrals in f32, at every published width cut in depth: 16
+# bytes a parameter. mixtral-8x7b (d 4,096, 8 experts of d_ff 14,336, GQA
+# 32/8 at hd 128, vocab 32,000): a layer is 1.45 B parameters (23.2 GB of
+# train state), the embedding and head 0.26 B (4.2 GB): 2 of its 32 layers
+# make 3.16 B, 50.6 GB; 3 make 73.9 GB, and AdamW's f32 temporaries of the
+# 1.9 GB expert leaves (a few a leaf at once) leave no room on the 80 GB
+# card. mixtral-8x22b (d 6,144, d_ff 16,384, GQA 48/8, vocab 32,768): a
+# layer is 2.50 B (40.1 GB), the embedding and head 0.40 B (6.4 GB): 1 of
+# its 56 layers makes 2.91 B, 46.5 GB (2: 86.6 GB). (arch, layers,
+# published layers)
+MOE_TRAIN = (("mixtral-8x7b", 2, 32), ("mixtral-8x22b", 1, 56))
+# Phase 17's bf16 step: granite-8b at full width in the reference's default
+# dtype, 12 bytes a parameter (the bf16 weight and gradient, two f32
+# moments): 24 of its 36 layers make 5.44 B parameters, 65.2 GB (26: 70.5
+# GB, which with the step's activations and AdamW's f32 temporaries of the
+# 0.8 GB a leaf embedding and head comes too near the card's 80 GB)
+GRANITE_BF16_LAYERS = 24     # published: 36
 TRAIN_CPU_STEPS = 3
 TRAIN_CPU_RTOL = 1e-4
 
@@ -3188,13 +3233,14 @@ def bwd_cases():
     ]
 
 
-def bwd_ops_bytes(B, S, T, H, K, hd, causal, window):
+def bwd_ops_bytes(B, S, T, H, K, hd, causal, window, elem: int = 4):
     """The backward's operations (BWD_PRODUCTS products of 2·hd per live
-    pair) and bytes (q, k, v, o, dO and the LSE read once, dq, dk, dv
-    written once)."""
+    pair) and bytes (q, k, v, o, dO read once and dq, dk, dv written once,
+    ``elem`` bytes each: 4 f32, 2 bf16; the f32 LSE read once)."""
     fwd_ops, _ = flash_ops_bytes(B, S, T, H, K, hd, causal, window)
     ops = fwd_ops / 2 * BWD_PRODUCTS           # the forward counts 2 products
-    moved = 4.0 * (4 * B * S * H * hd + 4 * B * T * K * hd + B * H * S)
+    moved = (elem * (4 * B * S * H * hd + 4 * B * T * K * hd)
+             + 4.0 * B * H * S)
     return ops, moved
 
 
@@ -3320,6 +3366,129 @@ def lm_check_backward(dev):
         if label == "granite-train":
             row_of_path = row
         del q, k, v, dout, out, lse, got, want, qr, kr, vr, ref_out
+        del qt, kt, vt, dt, lib_out
+        torch.cuda.empty_cache()
+    return worst, row_of_path
+
+
+def rms_share(got, want, scale) -> float:
+    """RMS of ``got − want`` over the RMS of ``scale`` (in f64)."""
+    got, want, scale = (t.double() for t in (got, want, scale))
+    return float((got - want).pow(2).mean().sqrt()
+                 / scale.pow(2).mean().sqrt().clamp_min(1e-30))
+
+
+def lm_check_backward_bf16(dev):
+    """Phase 16, bf16: ``flash_attention_bwd`` on bf16 tensors (the
+    ``flash_attention_bwd_bf16`` entry, after ``flash_attention_bf16``
+    with its LSE) at ``bwd_cases``, twice bitwise, against the plain
+    version's autograd in bf16 on the same tensors: each gradient within
+    ``BWD_BF16_RATIO`` × the plain bf16 backward's own RMS distance from
+    the plain f32 backward on the same values widened (both printed); the
+    LSE against ``flash_attention_lse_ref``, +inf exactly on the rows with
+    no live key, and the output with the LSE bit for bit the output
+    without it. Its time beside its bf16 bound (one pass a product), the
+    plain bf16 backward's and bf16 ``scaled_dot_product_attention``'s
+    backward. Returns (max |kernel − plain bf16|, the granite-train
+    case's timing row)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_lse_ref,
+        flash_attention_ref)
+    from repro_torch.kernels.flash_attention import kernel as FK
+    lib, resources = FK.library_bwd(), FK.bwd_resources()
+    bf16 = torch.bfloat16
+    worst, row_of_path = 0.0, None
+    for label, (B, S, T, H, K, hd), causal, window, cap in bwd_cases():
+        route = FK.bwd_route(hd)
+        kern = ("flash_bwd_hopper" if route == "hopper"
+                else "flash_bwd_kernel_bf16")
+        tag = f"{'cap' if cap else 'nocap'}" + (",bf16" if route == "hopper"
+                                                 else "")
+        kernel_info = {
+            "route": route, "products_per_live_pair": BWD_KERNEL_PRODUCTS,
+            "passes_per_product": 1,
+            "smem_bytes": lib.flash_attention_bwd_bf16_smem_bytes(hd),
+            "registers_spill_bytes": {
+                m: resources.get(f"{kern}<{hd},{m},{tag}>",
+                                 "not reported: the library was found built")
+                for m in ("DQ", "DKV")}}
+        n_entry = FK.flash_attention_bwd.launches_by_dtype[bf16]
+        q, k, v = (t.to(bf16) for t in qkv_inputs(B, S, T, H, K, hd, dev,
+                                                    seed=S + T + hd))
+        dout = torch.randn(q.shape, device=dev, generator=torch.Generator(
+            dev).manual_seed(hd)).to(bf16)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        out_same = bits_equal(out, flash_attention(q, k, v, **kw))
+        got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+        same = bits_equal(got, flash_attention_bwd(q, k, v, out, dout, lse,
+                                                   **kw))
+        kernel_info["entry_launches"] = \
+            FK.flash_attention_bwd.launches_by_dtype[bf16] - n_entry
+        qr, kr, vr = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        ref_out = flash_attention_ref(qr, kr, vr, **kw)
+        want = torch.autograd.grad(ref_out, (qr, kr, vr), dout,
+                                   retain_graph=True)
+        wide = [t.float().requires_grad_(True) for t in (q, k, v)]
+        want32 = torch.autograd.grad(flash_attention_ref(*wide, **kw), wide,
+                                     dout.float())
+        del wide
+        ratios, own = {}, {}
+        for n, a, b, c in zip(("dq", "dk", "dv"), got, want, want32):
+            own[n] = rms_share(b, c, c)
+            ratios[n] = rms_share(a, b, c) / max(own[n], 1e-30)
+        want_lse = flash_attention_lse_ref(q, k, **kw)
+        dead = torch.isinf(want_lse)
+        lse_err = rel_err(lse[~dead], want_lse[~dead])
+        lse_inf_ok = bool(torch.equal(torch.isinf(lse), dead)
+                          and (lse[dead] > 0).all())
+        abs_err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        ops, moved = bwd_ops_bytes(B, S, T, H, K, hd, causal, window, elem=2)
+        qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+        kt, vt = (t.repeat_interleave(H // K, dim=2).transpose(1, 2)
+                  .contiguous().requires_grad_(True) for t in (k, v))
+        dt = dout.transpose(1, 2).contiguous()
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, **sdpa_train_mask(dev, S, T, causal, window))
+        passes, peak, kind = BWD_ROUTE_ARITHMETIC["bf16"]
+        roof = Roofline(moved, passes * ops, peak)
+        row = dict(
+            ms=cuda_time_ms(lambda: flash_attention_bwd(
+                q, k, v, out, dout, lse, **kw), reps=10),
+            plain_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                ref_out, (qr, kr, vr), dout, retain_graph=True), reps=3),
+            library_ms=cuda_time_ms(lambda: torch.autograd.grad(
+                lib_out, (qt, kt, vt), dt, retain_graph=True), reps=10),
+            operations=ops, bytes=moved, shape=[B, S, T, H, K, hd],
+            causal=causal, window=window, softcap=cap,
+            bound_ms=roof.t_bound * 1e3,
+            bound_by="bytes" if roof.bottleneck == "bytes"
+            else f"operations ({kind})")
+        say({"phase": "lm_backward_bf16", "kernel": "flash_attention_bwd_bf16",
+             "case": label, **kernel_info, **row,
+             "share_of_bound": row["bound_ms"] / row["ms"],
+             "ratio_to_plain_bf16_own_distance": ratios,
+             "plain_bf16_vs_f32_rms_share": own,
+             "ratio_limit": BWD_BF16_RATIO, "max_abs_err": abs_err,
+             "lse_rel_err": lse_err, "dead_rows": int(dead.sum()),
+             "lse_inf_exact": lse_inf_ok, "finite": finite,
+             "output_with_lse_bitwise_without": out_same,
+             "run_twice_bitwise_equal": same})
+        assert max(ratios.values()) <= BWD_BF16_RATIO, \
+            "flash_attention_bwd_bf16 disagrees with the plain autograd"
+        assert lse_err <= BWD_RTOL and lse_inf_ok and finite, \
+            "flash_attention_bf16's LSE or the bf16 gradients wrong"
+        assert out_same, "asking for the LSE changed the bf16 output"
+        assert same, "flash_attention_bwd_bf16 differs from run to run"
+        assert kernel_info["entry_launches"] == 2, kernel_info
+        worst = max(worst, abs_err)
+        if label == "granite-train":
+            row_of_path = row
+        del q, k, v, dout, out, lse, got, want, want32, qr, kr, vr, ref_out
         del qt, kt, vt, dt, lib_out
         torch.cuda.empty_cache()
     return worst, row_of_path
@@ -3547,7 +3716,8 @@ def train_launches() -> dict:
     from repro_torch.kernels.mamba_scan import kernel as MK
     from repro_torch.kernels.ssd_scan import kernel as SK
     return {**lm_launches(),
-            "flash_attention_bwd": FK.flash_attention_bwd.launches,
+            **{entry("flash_attention_bwd", d): n for d, n in
+               FK.flash_attention_bwd.launches_by_dtype.items()},
             "selective_scan_bwd": MK.selective_scan_bwd.launches,
             "ssd_scan_bwd": SK.ssd_scan_bwd.launches}
 
@@ -3558,16 +3728,18 @@ def reset_train_launches() -> None:
 
 
 def train_expected_launches(cfg) -> dict:
-    """The LM kernels' launches in one train step of ``cfg`` in f32 with
-    both remat levels (``train_step_launches``), every other entry 0."""
+    """The LM kernels' launches in one train step of ``cfg`` (its dtype)
+    with both remat levels (``train_step_launches``), every other entry
+    0."""
     from repro_torch.models.model import train_step_launches
     return {**dict.fromkeys(LM_ENTRIES, 0), **train_step_launches(cfg)}
 
 
-# the trace's kernel names of each f32 LM kernel entry (a substring of the
-# demangled name; the flash backward's D kernel, flash_bwd_dsum, is its own;
-# a call of ssd_scan_bwd runs its two kernels, the states, then the chunks)
-TRACE_KERNELS = {"flash_attention": ("flash_kernel",),
+# the trace's kernel names of each LM kernel (a substring of the demangled
+# name; the flash backward's D kernel, flash_bwd_dsum, is its own; a call of
+# ssd_scan_bwd runs its two kernels, the states, then the chunks), the
+# entry by ``trace_entry``
+TRACE_KERNELS = {"flash_attention": ("flash_kernel", "flash_bf16_hopper"),
                  "flash_attention_bwd": ("flash_bwd_hopper", "flash_bwd_kernel",
                                          "flash_bwd_dsum"),
                  "selective_scan": ("selective_scan_kernel",),
@@ -3576,6 +3748,22 @@ TRACE_KERNELS = {"flash_attention": ("flash_kernel",),
                  "ssd_scan_bwd": ("ssd_bwd_states", "ssd_bwd_chunks")}
 # kernels the trace shows a call of each entry (1 where not named)
 TRACE_KERNELS_PER_CALL = {"ssd_scan_bwd": 2}
+# a profiled step's kernels listed by device time (where the rest of the
+# step's device time goes: GEMMs, the optimizer's elementwise passes)
+TOP_KERNELS = 12
+
+
+def trace_entry(name: str):
+    """The LM kernel entry (``entry`` names) a trace's kernel name belongs
+    to, or None: the bf16 entry where the name carries ``bf16`` or a bf16
+    type among its template arguments (``__nv_bfloat16``, or ``unsigned
+    short``: bf16's bits)."""
+    for base, keys in TRACE_KERNELS.items():
+        if any(k in name for k in keys):
+            bf16 = any(t in name for t in ("bf16", "bfloat16",
+                                           "unsigned short"))
+            return entry(base, torch.bfloat16 if bf16 else torch.float32)
+    return None
 
 
 def profiled_step(fn, dev) -> dict:
@@ -3583,8 +3771,10 @@ def profiled_step(fn, dev) -> dict:
     wall, the device time of all its kernels, each LM kernel entry's
     device ms and launches by the trace's kernel names (``TRACE_KERNELS``;
     the flash backward's dQ and dK/dV launches also by the kernel that ran:
-    ``flash_bwd_hopper`` or the mma.sync ``flash_bwd_kernel``), and the
-    idle share 1 − device time / wall."""
+    ``flash_bwd_hopper`` or the mma.sync ``flash_bwd_kernel``), the
+    ``TOP_KERNELS`` kernels of the most device time (name cut to 100
+    characters, ms, launches), and the idle share 1 − device time /
+    wall."""
     from torch.profiler import ProfilerActivity, profile
     synchronize(dev)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3594,8 +3784,10 @@ def profiled_step(fn, dev) -> dict:
         wall = time.perf_counter() - t0
     busy = 0.0
     bwd_kernels = dict.fromkeys(("flash_bwd_hopper", "flash_bwd_kernel"), 0)
-    ms = dict.fromkeys(TRACE_KERNELS, 0.0)
-    count = dict.fromkeys(TRACE_KERNELS, 0)
+    names = [entry(n, d) for n in TRACE_KERNELS
+             for d in (torch.float32, torch.bfloat16)]
+    ms, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+    by_kernel = []
     for e in prof.key_averages():
         for name in bwd_kernels:
             if name in e.key:
@@ -3606,24 +3798,49 @@ def profiled_step(fn, dev) -> dict:
                 t = float(getattr(e, attr)) / 1e3        # ms
                 break
         busy += t
-        for entry_name, keys in TRACE_KERNELS.items():
-            if any(k in e.key for k in keys):
-                ms[entry_name] += t
-                count[entry_name] += int(e.count)
+        by_kernel.append((e.key[:100], t, int(e.count)))
+        entry_name = trace_entry(e.key)
+        if entry_name is not None:
+            ms[entry_name] += t
+            count[entry_name] += int(e.count)
     return {"wall_s": wall, "device_ms": busy or None,
-            "flash_fwd_device_ms": ms["flash_attention"],
-            "flash_bwd_device_ms": ms["flash_attention_bwd"],
+            "flash_fwd_device_ms": ms["flash_attention"]
+            + ms["flash_attention_bf16"],
+            "flash_bwd_device_ms": ms["flash_attention_bwd"]
+            + ms["flash_attention_bwd_bf16"],
             "flash_bwd_launches_by_kernel": bwd_kernels,
+            "top_kernels_ms": sorted(by_kernel, key=lambda r: -r[1])[
+                :TOP_KERNELS],
             "device_ms_by_entry": ms, "trace_launches_by_entry": count,
             "idle_share": (1.0 - busy / 1e3 / wall) if busy
             else "not measured"}
 
 
-def train_cfg(arch: str, n_layers=None, reduced: bool = False):
+def trace_faults(prof: dict, want: dict, flash_bwd: str,
+                 route: str) -> list:
+    """Where a profiled train step's trace (``profiled_step``) disagrees
+    with the launches counted in one step (``want``): every dQ and dK/dV
+    launch of the flash backward (entry ``flash_bwd``) by ``route``'s
+    kernel, every scan and flash launch as counted. Each fault is (what,
+    traced, expected); none where they agree."""
+    kern = {"hopper": "flash_bwd_hopper", "mma_sync": "flash_bwd_kernel"}
+    faults = [(name, prof["flash_bwd_launches_by_kernel"][name], n)
+              for r, name in kern.items()
+              for n in [2 * want[flash_bwd] if r == route else 0]
+              if prof["flash_bwd_launches_by_kernel"][name] != n]
+    for k, n in prof["trace_launches_by_entry"].items():
+        if k.startswith("flash_attention_bwd"):
+            continue   # D and the two launches: by kernel, above
+        if n != TRACE_KERNELS_PER_CALL.get(k, 1) * want.get(k, 0):
+            faults.append((k, n, want.get(k, 0)))
+    return faults
+
+
+def train_cfg(arch: str, n_layers=None, reduced: bool = False,
+              dtype=torch.float32):
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(arch, reduced=reduced),
-                              dtype=torch.float32)
+    cfg = dataclasses.replace(get_config(arch, reduced=reduced), dtype=dtype)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     return cfg
@@ -3647,18 +3864,63 @@ def fresh_train_state(dev, cfg, tcfg):
     return state, time.perf_counter() - t0
 
 
+def moe_executed_rows(cfg, tokens: int) -> tuple:
+    """(the rows the experts' three products run over in one MoE layer's
+    forward of ``tokens`` tokens: E·G·cap, the routing's groups of
+    ``moe``'s ``group_size`` and capacity ``cap`` an expert a group; the
+    rows the model's useful work counts: tokens · top_k)."""
+    import inspect
+    from repro_torch.models.moe import moe
+    g = min(inspect.signature(moe).parameters["group_size"].default, tokens)
+    while tokens % g:
+        g //= 2
+    cap = max(int(np.ceil(cfg.top_k * g / cfg.n_experts
+                          * cfg.capacity_factor)), cfg.top_k)
+    return cfg.n_experts * (tokens // g) * cap, tokens * cfg.top_k
+
+
+def moe_forward_stats(params, cfg, batch) -> dict:
+    """A no-grad train-mode forward of ``batch``'s tokens: each MoE
+    layer's dropped share of its (token, k) picks (its ``MoEStats``,
+    recorded around the model's ``moe``), the summed aux loss and expert
+    counts."""
+    import repro_torch.models.model as M
+    dropped, moe = [], M.moe
+
+    def recorded(*a, **kw):
+        y, stats = moe(*a, **kw)
+        dropped.append(float(stats.dropped_fraction))
+        return y, stats
+
+    M.moe = recorded
+    try:
+        with torch.no_grad():
+            res = M.forward(params, cfg, torch.as_tensor(
+                batch["tokens"], device=params["embed"].device), mode="train")
+    finally:
+        M.moe = moe
+    return {"dropped_share_by_layer": dropped,
+            "aux_loss": float(res.aux_loss),
+            "expert_counts": res.expert_counts.tolist()}
+
+
 def train_steps(dev, cfg, tcfg, published_layers: int):
-    """``TRAIN_STEPS`` f32 train steps of ``cfg`` at batch 8 × 256 through
+    """``TRAIN_STEPS`` train steps of ``cfg`` (its dtype: f32, or bf16
+    weights and gradients with f32 moments) at batch 8 × 256 through
     ``init_train_state`` and ``make_train_step``, with every LM kernel's
     launch count set to 0 just before and read after each step (the last
     step profiled: device ms and launches of each kernel entry by the
     trace's kernel names); the first step taken again from a fresh draw of
-    the same state, bitwise. Prints the ``lm_train`` line and checks
-    finite losses, each step's launches against ``train_expected_launches``
-    (every flash backward through the route of the head width), the
-    trace's launches of every scan entry and of the flash backward's
-    kernels, and the step twice bitwise. Returns (the line, launches of
-    the run)."""
+    the same state, bitwise. Prints the ``lm_train`` line (a MoE model's
+    also with each step's summed expert counts and, from a forward after
+    the steps, the dropped share and aux loss) and checks finite losses,
+    each step's launches against ``train_expected_launches`` (every flash
+    backward through the route of the head width), the trace's launches
+    of every scan and flash entry and of the flash backward's kernels
+    (``trace_faults``; a trace that disagrees is taken once more, over one
+    more step, and if that one disagrees too the steps are replayed
+    unprofiled, bitwise), and the step twice bitwise. Returns (the line,
+    launches of the run)."""
     from repro_torch.analysis.roofline import (PEAK_F32_FLOPS, model_flops,
                                                remat_overhead)
     from repro_torch.configs.shapes import Shape
@@ -3669,6 +3931,8 @@ def train_steps(dev, cfg, tcfg, published_layers: int):
     stream = TokenStream(DataConfig(vocab=cfg.vocab, seq=TRAIN_SEQ,
                                     batch=TRAIN_BATCH))
     want = train_expected_launches(cfg)
+    flash = entry("flash_attention", cfg.dtype)
+    flash_bwd = entry("flash_attention_bwd", cfg.dtype)
 
     (params, opt), init_s = fresh_train_state(dev, cfg, tcfg)
     n_params = sum(t.numel() for t in leaves(params))
@@ -3701,22 +3965,68 @@ def train_steps(dev, cfg, tcfg, published_layers: int):
         steps.append({"step": s, "wall_s": wall, "loss": box["loss"],
                       "grad_norm": float(m["grad_norm"]),
                       "lr": float(m["lr"]), "launches": counts})
+        if cfg.n_experts:
+            steps[-1]["expert_counts"] = m["expert_counts"].tolist()
         if s == 0:
             first = (box["loss"], float(m["grad_norm"]),
                      [t.detach().cpu() for t in leaves(params)])
     routes = dict(FK.flash_attention_bwd.launches_by_route)
     peak = torch.cuda.max_memory_allocated(dev)
+    moe_stats = (moe_forward_stats(params, cfg, stream.batch(TRAIN_STEPS))
+                 if cfg.n_experts else None)
+    dtypes = sorted({str(t.dtype) for t in leaves(params)})
+    moment_dtypes = sorted({str(t.dtype) for t in leaves(opt.mu)})
+    # the trace is a second witness of the launches, and the profiler can
+    # lose a kernel's record: in 2 of 4 full runs on the H100, one of
+    # mixtral-8x22b's two flash forwards was missing from its profiled
+    # step's trace (both profiles of one run), while that step's loss and
+    # gradient norm, and the aux loss of a forward after it, were bit for
+    # bit those of the runs whose trace held both; 41 profiled steps of the
+    # mixtrals and granite-8b, each model in a process of its own, lost
+    # none (tools/trace_record_loss.py). A trace that disagrees is taken again
+    # over one more step; if that one disagrees too, every step is replayed
+    # unprofiled from a fresh draw and must give each step's loss and
+    # gradient norm and the last parameters bit for bit
+    route = FK.bwd_route(cfg.head_dim)
+    batches = list(range(TRAIN_STEPS))
+    trail = [(r["loss"], r["grad_norm"]) for r in steps]
+    faults = first_faults = trace_faults(prof, want, flash_bwd, route)
+    if faults:
+        before = train_launches()
+        batches.append(TRAIN_STEPS + 1)
+        prof = profiled_step(
+            lambda: box.update(out=step(params, opt, stream.batch(
+                batches[-1]))), dev)
+        after = train_launches()
+        counts = {k: after[k] - before[k] for k in want}
+        assert counts == want, (counts, want)
+        for k in want:
+            total[k] += counts[k]
+        m = box["out"][2]
+        trail.append((float(m["loss"]), float(m["grad_norm"])))
+        faults = trace_faults(prof, want, flash_bwd, route)
+    last = [t.detach().cpu() for t in leaves(params)] if faults else None
     del params, opt, m, box
     torch.cuda.empty_cache()
 
-    # the first step again from a fresh draw of the same state
+    # the first step again from a fresh draw of the same state (and, after a
+    # trace that disagreed twice, every step)
     (params, opt), _ = fresh_train_state(dev, cfg, tcfg)
     params, opt, m = step(params, opt, stream.batch(0))
     twice = (float(m["loss"]) == first[0]
              and float(m["grad_norm"]) == first[1]
              and all(torch.equal(a.detach().cpu(), b)
                      for a, b in zip(leaves(params), first[2])))
-    del params, opt, m, first
+    replay = None
+    if faults:
+        got = [(float(m["loss"]), float(m["grad_norm"]))]
+        for b in batches[1:]:
+            params, opt, m = step(params, opt, stream.batch(b))
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+        replay = got == trail and all(
+            torch.equal(a.detach().cpu(), b)
+            for a, b in zip(leaves(params), last))
+    del params, opt, m, first, last
     torch.cuda.empty_cache()
 
     walls = [r["wall_s"] for r in steps[1:-1]]     # warm, unprofiled
@@ -3725,31 +4035,50 @@ def train_steps(dev, cfg, tcfg, published_layers: int):
     # the work the step runs: each layer's forward as often as the code's
     # remat runs it (its mixer's forwards over its backwards: 3·L − L/G
     # over L, the group recompute stopping before its last block), 2·N·D a
-    # forward and 4·N·D a backward; remat_overhead, the reference's
-    # estimate, counts 3
+    # forward and 4·N·D a backward; a MoE layer's experts over their
+    # E·G·cap rows where the useful work counts tokens · top_k;
+    # remat_overhead, the reference's estimate, counts 3 forwards
     mixer = {"mamba1": "selective_scan", "mamba2": "ssd_scan"}.get(
-        cfg.ssm, "flash_attention")
-    fwd = want[mixer] / want[KERNEL_BACKWARD[mixer]]
-    executed = model_flops(cfg, shape, chips=1) * (2 * fwd + 4) / 6
+        cfg.ssm, flash)
+    fwd = want[mixer] / want[{**KERNEL_BACKWARD, flash: flash_bwd}[mixer]]
+    useful = model_flops(cfg, shape, chips=1)
+    run_flops = useful
+    moe_rows = None
+    if cfg.n_experts:
+        rows, counted = moe_executed_rows(cfg, TRAIN_BATCH * TRAIN_SEQ)
+        moe_rows = {"executed": rows, "counted": counted}
+        run_flops += 6.0 * cfg.n_layers * 3 * cfg.d_model * cfg.d_ff * (
+            rows - counted)
+    executed = run_flops * (2 * fwd + 4) / 6
+    peak_flops, peak_name = ((PEAK_BF16_FLOPS, "bf16")
+                             if cfg.dtype == torch.bfloat16
+                             else (PEAK_F32_FLOPS, "f32"))
     ms = prof["device_ms_by_entry"]
-    line = {"phase": "lm_train", "arch": cfg.name, "dtype": "torch.float32",
+    line = {"phase": "lm_train", "arch": cfg.name, "dtype": str(cfg.dtype),
             "n_layers": cfg.n_layers, "published_layers": published_layers,
             "cut": (None if cfg.n_layers == published_layers else
                     f"depth: {cfg.n_layers} of {published_layers} layers, "
                     f"every published width"),
-            "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-            "init_s": init_s, "steps": steps, "step_wall_s": wall,
+            "params": n_params, "param_dtypes": dtypes,
+            "moment_dtypes": moment_dtypes, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "init_s": init_s, "steps": steps,
+            "step_wall_s": wall,
             "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / wall,
-            "model_flops": model_flops(cfg, shape, chips=1),
+            "model_flops": useful,
             "remat_overhead": remat_overhead(cfg, shape),
             "forwards_per_layer": fwd, "executed_flops": executed,
-            "share_of_f32_peak": executed / wall / PEAK_F32_FLOPS,
-            "share_of_f32_peak_by_remat_overhead": model_flops(
-                cfg, shape, chips=1) * remat_overhead(cfg, shape) / wall
-            / PEAK_F32_FLOPS,
+            "moe_expert_rows_per_layer": moe_rows, "moe_forward": moe_stats,
+            "peak": peak_name,
+            f"share_of_{peak_name}_peak": executed / wall / peak_flops,
+            f"share_of_{peak_name}_peak_by_remat_overhead": useful
+            * remat_overhead(cfg, shape) / wall / peak_flops,
             "peak_memory_bytes": peak, "profiled_step": prof,
+            "trace_faults_first_profile": first_faults,
+            "trace_faults": faults,
+            "unprofiled_replay_bitwise_equal": replay,
             "flash_device_ms_per_step": prof["flash_fwd_device_ms"]
             + prof["flash_bwd_device_ms"],
+            "flash_fwd_device_ms_per_step": prof["flash_fwd_device_ms"],
             "flash_bwd_device_ms_per_step": prof["flash_bwd_device_ms"],
             "scan_device_ms_per_step": {k: ms[k] for k in (
                 "selective_scan", "selective_scan_bwd", "ssd_scan",
@@ -3761,20 +4090,9 @@ def train_steps(dev, cfg, tcfg, published_layers: int):
     assert all(np.isfinite(r["loss"]) for r in steps), "non-finite loss"
     for r in steps:
         assert r["launches"] == want, (r["launches"], want)
-    route = FK.bwd_route(cfg.head_dim)
-    assert routes == {r: TRAIN_STEPS * want["flash_attention_bwd"]
+    assert routes == {r: TRAIN_STEPS * want[flash_bwd]
                       if r == route else 0 for r in routes}, routes
-    # the trace's own kernels: every dQ and dK/dV launch of the profiled
-    # step by the route's kernel, every scan launch as counted
-    kern = {"hopper": "flash_bwd_hopper", "mma_sync": "flash_bwd_kernel"}
-    assert prof["flash_bwd_launches_by_kernel"] == {
-        kern[r]: 2 * want["flash_attention_bwd"] if r == route else 0
-        for r in kern}, prof["flash_bwd_launches_by_kernel"]
-    traced = prof["trace_launches_by_entry"]
-    for k in ("flash_attention", "selective_scan", "selective_scan_bwd",
-              "ssd_scan", "ssd_scan_bwd"):
-        assert traced[k] == TRACE_KERNELS_PER_CALL.get(k, 1) * want[k], \
-            (k, traced[k], want[k])
+    assert not faults or replay, (faults, "unprofiled replay differs")
     assert twice, "one train step from the same state differs"
     return line, total
 
@@ -3977,6 +4295,107 @@ def lm_train_card_vs_cpu(dev, arch: str, head_dim=None):
 
 
 
+# Phase 18 in bf16: the same reduced configurations in the reference's
+# default dtype, card against CPU from the same bf16 weights and batches.
+# Two correct bf16 runs round at different places (the kernels against the
+# plain versions, cuBLAS against the CPU's products), so each quantity is
+# held, as tests/test_torch_train_bf16.py holds the port to the reference,
+# within TRAIN_BF16_RATIO × the CPU's own bf16-vs-f32 distance for it (the
+# f32 run from the same weights widened): the RMS over the steps of the
+# losses and of the gradient norms, and over all leaves at once of the
+# first step's first moments. The mixtrals by their losses alone: a bf16
+# router tie moves a token to another expert between any two bf16 runs.
+TRAIN_BF16_RATIO = 2.0
+
+
+def lm_train_card_vs_cpu_bf16(dev, arch: str, head_dim=None):
+    """Phase 18, bf16: ``TRAIN_CPU_STEPS`` bf16 train steps of ``arch``'s
+    reduced configuration on the card and on the CPU (one thread), and in
+    f32 on the CPU from the same weights widened, all on the same batches;
+    the card's losses, gradient norms and first-step first moments within
+    ``TRAIN_BF16_RATIO`` × the CPU's own bf16-vs-f32 distance (a MoE
+    model's losses alone), every weight its dtype and every moment f32
+    after the steps, each card step through the kernels as
+    ``train_expected_launches`` says (the flash backward's through the
+    route of the head width), the CPU's through none."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.train import FrontendStream
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import leaves, tree_map
+    from repro_torch.train import (DataConfig, TokenStream, adam_init,
+                                   make_train_step)
+    cfg, tcfg = train_cfg(arch, reduced=True, dtype=torch.bfloat16), \
+        train_tcfg()
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    stream = FrontendStream(TokenStream(DataConfig(vocab=cfg.vocab, seq=40,
+                                                   batch=4)), cfg)
+    base = init_params(cfg, torch.Generator().manual_seed(LM_SEED))
+    threads = torch.get_num_threads()
+    routes = dict(FK.flash_attention_bwd.launches_by_route)
+    runs = {}
+    for name, c, d, widen in (("card", cfg, dev, False),
+                              ("cpu", cfg, torch.device("cpu"), False),
+                              ("cpu_f32", cfg32, torch.device("cpu"), True)):
+        torch.set_num_threads(1 if d.type == "cpu" else threads)
+        step = make_train_step(c, tcfg)
+        params = tree_map(lambda t: (t.float() if widen else t).clone().to(d),
+                          base)
+        opt = adam_init(params)
+        losses, norms, counts = [], [], []
+        for s in range(TRAIN_CPU_STEPS):
+            before = train_launches()
+            params, opt, m = step(params, opt, stream.batch(s))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            after = train_launches()
+            counts.append({k: after[k] - before[k] for k in after})
+            if s == 0:
+                mu = torch.cat([t.detach().cpu().flatten()
+                                for t in leaves(opt.mu)])
+        runs[name] = dict(losses=torch.tensor(losses, dtype=torch.float64),
+                          norms=torch.tensor(norms, dtype=torch.float64),
+                          mu=mu, counts=counts,
+                          dtypes=[t.dtype for t in leaves(params)],
+                          moment_dtypes={t.dtype for t in leaves(opt.mu)}
+                          | {t.dtype for t in leaves(opt.nu)})
+        del params, opt, m
+    torch.set_num_threads(threads)
+    routes = {r: n - routes[r]
+              for r, n in FK.flash_attention_bwd.launches_by_route.items()}
+    card, cpu, f32 = runs["card"], runs["cpu"], runs["cpu_f32"]
+    ratios, own = {}, {}
+    for q in ("losses", "norms", "mu"):
+        own[q] = rms_share(cpu[q], f32[q], f32[q])
+        ratios[q] = rms_share(card[q], cpu[q], f32[q]) / max(own[q], 1e-30)
+    held = ("losses",) if cfg.n_experts else ("losses", "norms", "mu")
+    want = train_expected_launches(cfg)
+    say({"phase": "lm_train_card_vs_cpu_bf16", "arch": cfg.name,
+         "steps": TRAIN_CPU_STEPS, "losses_card": card["losses"].tolist(),
+         "losses_cpu": cpu["losses"].tolist(),
+         "losses_cpu_f32": f32["losses"].tolist(),
+         "ratio_to_cpu_bf16_vs_f32": ratios, "cpu_bf16_vs_f32_rms_share": own,
+         "held": held, "ratio_limit": TRAIN_BF16_RATIO, "cpu_threads": 1,
+         "launches_per_step": card["counts"][0],
+         "bwd_launches_by_route": routes, "head_dim": cfg.head_dim})
+    assert all(np.isfinite(card["losses"].numpy())), "non-finite loss"
+    assert all(ratios[q] <= TRAIN_BF16_RATIO for q in held), \
+        "card and CPU bf16 training disagree"
+    assert card["dtypes"] == [t.dtype for t in leaves(base)] \
+        and torch.bfloat16 in card["dtypes"], "a weight changed its dtype"
+    assert card["moment_dtypes"] == {torch.float32}, "moments not f32"
+    for c in card["counts"]:
+        assert {k: c[k] for k in want} == want, (c, want)
+    route = FK.bwd_route(cfg.head_dim)
+    assert routes == {r: TRAIN_CPU_STEPS * want["flash_attention_bwd_bf16"]
+                      if r == route else 0 for r in routes}, routes
+    assert not any(v for name in ("cpu", "cpu_f32")
+                   for c in runs[name]["counts"] for v in c.values()), \
+        "the CPU launched"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4071,6 +4490,8 @@ def main() -> int:
 
     errs["flash_attention_bwd"], timing["flash_attention_bwd"] = \
         lm_check_backward(dev)
+    errs["flash_attention_bwd_bf16"], timing["flash_attention_bwd_bf16"] = \
+        lm_check_backward_bf16(dev)
     _, counts = lm_train_path(dev)
     for name, n in counts.items():
         launches[name] = launches.get(name, 0) + n
@@ -4083,8 +4504,18 @@ def main() -> int:
                                 get_config(arch).n_layers)
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
+    train_runs = [(train_cfg(arch, n_layers), published)
+                  for arch, n_layers, published in MOE_TRAIN]
+    train_runs.append((train_cfg(TRAIN_ARCH, GRANITE_BF16_LAYERS,
+                                 dtype=torch.bfloat16), 36))
+    for cfg, published in train_runs:
+        _, counts = train_steps(dev, cfg, train_tcfg(), published)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
     for arch, head_dim in TRAIN_CPU_CASES:
         lm_train_card_vs_cpu(dev, arch, head_dim)
+    for arch, head_dim in TRAIN_CPU_CASES:
+        lm_train_card_vs_cpu_bf16(dev, arch, head_dim)
 
     sph = "src/repro_torch/kernels/sph_pair/csrc/sph_pair.cu"
     source = {"density_pair": sph, "force_pair": sph,
@@ -4118,7 +4549,8 @@ def main() -> int:
                     "src/repro/kernels/mamba_scan/kernel.py:51",
                 "ssd_scan_bwd": "src/repro/kernels/ssd_scan/kernel.py:82"}
     names = ["density_pair", "force_pair"] + LM_ENTRIES + [
-        "flash_attention_bwd", "selective_scan_bwd", "ssd_scan_bwd"]
+        "flash_attention_bwd", "flash_attention_bwd_bf16",
+        "selective_scan_bwd", "ssd_scan_bwd"]
     base = {name: name.replace("_bf16", "") for name in names}
     say({"kernels": [
         {"name": name, "route": "cuda", "source": source[base[name]],

@@ -682,51 +682,14 @@ struct Cfg {
 };
 }  // namespace bf16
 
-__device__ __forceinline__ void cp_async16b(uint16_t* dst, const uint16_t* src,
-                                            bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? 16 : 0;   // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two f32 rounded to bf16, lo in the low half (the lower k or column index)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8 x 8 bf16 matrices, transposed: lanes 8m .. 8m + 7 give the row
-// addresses of matrix m; each thread gets (rows 2t, 2t + 1; column g) of each
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const uint16_t* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s)
-               : "memory");
-}
+#include "bf16_mma.cuh"
 
 template <int HD, bool CAP>
 __global__ void __launch_bounds__(NT, bf16::Cfg<HD>::MINB)
 flash_kernel_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                   const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-                  int S, int T, int H, int K, int causal, int window,
-                  float scale, float cap) {
+                  float* __restrict__ lse, int S, int T, int H, int K,
+                  int causal, int window, float scale, float cap) {
   using CF = bf16::Cfg<HD>;
   constexpr int BK = CF::BK, RS = CF::RS;
   constexpr int KK = HD / 16;   // k-steps of Q K^T
@@ -918,14 +881,17 @@ flash_kernel_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k
       for (int d = 0; d < ND; ++d)
         *reinterpret_cast<uint32_t*>(out + d * 8) =
             pack_bf16(acc[d][2 * r] / den, acc[d][2 * r + 1] / den);
+      if (lse != nullptr && t4 == 0)
+        lse[((size_t)b * H + h) * S + row] = row_lse(m[r], l[r]);
     }
   }
 }
 
 template <int HD, bool CAP>
 cudaError_t launch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
-                        uint16_t* o, int B, int S, int T, int H, int K,
-                        int causal, int window, float cap, cudaStream_t stream) {
+                        uint16_t* o, float* lse, int B, int S, int T, int H,
+                        int K, int causal, int window, float cap,
+                        cudaStream_t stream) {
   const size_t smem = bf16::Cfg<HD>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_kernel_bf16<HD, CAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -933,17 +899,18 @@ cudaError_t launch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
   if (e != cudaSuccess) return e;
   const float scale = 1.0f / sqrtf((float)HD);
   flash_kernel_bf16<HD, CAP><<<dim3(H * B, (S + BQ - 1) / BQ), NT, smem, stream>>>(
-      q, k, v, o, S, T, H, K, causal, window, scale, cap);
+      q, k, v, o, lse, S, T, H, K, causal, window, scale, cap);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t dispatch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
-                          uint16_t* o, int B, int S, int T, int H, int K,
-                          int causal, int window, float cap, cudaStream_t st) {
+                          uint16_t* o, float* lse, int B, int S, int T, int H,
+                          int K, int causal, int window, float cap,
+                          cudaStream_t st) {
   if (cap > 0.f)
-    return launch_bf16<HD, true>(q, k, v, o, B, S, T, H, K, causal, window, cap, st);
-  return launch_bf16<HD, false>(q, k, v, o, B, S, T, H, K, causal, window, cap, st);
+    return launch_bf16<HD, true>(q, k, v, o, lse, B, S, T, H, K, causal, window, cap, st);
+  return launch_bf16<HD, false>(q, k, v, o, lse, B, S, T, H, K, causal, window, cap, st);
 }
 
 
@@ -1171,8 +1138,9 @@ __global__ void __launch_bounds__(hop::NT, 1)
 flash_bf16_hopper(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
-                  uint16_t* __restrict__ o, int S, int T, int H, int K,
-                  int causal, int window, float scale, float cap) {
+                  uint16_t* __restrict__ o, float* __restrict__ lse, int S,
+                  int T, int H, int K, int causal, int window, float scale,
+                  float cap) {
   using CF = hop::Cfg<HD>;
   constexpr int BQ = hop::BQ, BK = CF::BK, NS = CF::NS, NB = CF::NB;
   extern __shared__ __align__(1024) uint8_t hop_smem[];
@@ -1468,6 +1436,9 @@ flash_bf16_hopper(const __grid_constant__ CUtensorMap tq,
         for (int d = 0; d < HD / 8; ++d)
           *reinterpret_cast<uint32_t*>(out + d * 8) =
               pack_bf16(acc[4 * d + 2 * r] * inv, acc[4 * d + 2 * r + 1] * inv);
+        // m is in the units of sc: m * f is the base-2 maximum
+        if (lse != nullptr && t4 == 0)
+          lse[((size_t)b * H + h) * S + row] = row_lse(m[r] * f, l[r]);
       }
     }
   }
@@ -1498,9 +1469,9 @@ bool tensor_map(CUtensorMap* map, const void* x, int HD, int NH, int R, int B,
 
 template <int HD, bool CAP>
 cudaError_t launch_hopper(const uint16_t* q, const uint16_t* k,
-                          const uint16_t* v, uint16_t* o, int B, int S, int T,
-                          int H, int K, int causal, int window, float cap,
-                          cudaStream_t stream) {
+                          const uint16_t* v, uint16_t* o, float* lse, int B,
+                          int S, int T, int H, int K, int causal, int window,
+                          float cap, cudaStream_t stream) {
   using CF = hop::Cfg<HD>;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, HD, H, S, B, hop::BQ) ||
@@ -1514,18 +1485,19 @@ cudaError_t launch_hopper(const uint16_t* q, const uint16_t* k,
   const float scale = 1.0f / sqrtf((float)HD);
   flash_bf16_hopper<HD, CAP>
       <<<dim3(H * B, (S + hop::BQ - 1) / hop::BQ), hop::NT, CF::bytes,
-         stream>>>(tq, tk, tv, o, S, T, H, K, causal, window, scale, cap);
+         stream>>>(tq, tk, tv, o, lse, S, T, H, K, causal, window, scale,
+                   cap);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t dispatch_hopper(const uint16_t* q, const uint16_t* k,
-                            const uint16_t* v, uint16_t* o, int B, int S,
-                            int T, int H, int K, int causal, int window,
+                            const uint16_t* v, uint16_t* o, float* lse, int B,
+                            int S, int T, int H, int K, int causal, int window,
                             float cap, cudaStream_t st) {
   if (cap > 0.f)
-    return launch_hopper<HD, true>(q, k, v, o, B, S, T, H, K, causal, window, cap, st);
-  return launch_hopper<HD, false>(q, k, v, o, B, S, T, H, K, causal, window, cap, st);
+    return launch_hopper<HD, true>(q, k, v, o, lse, B, S, T, H, K, causal, window, cap, st);
+  return launch_hopper<HD, false>(q, k, v, o, lse, B, S, T, H, K, causal, window, cap, st);
 }
 
 }  // namespace
@@ -1565,21 +1537,25 @@ int flash_attention_f32(const float* q, const float* k, const float* v,
 
 // The bf16 entry: q, k, v, o bf16 (2 bytes each), otherwise as
 // flash_attention_f32, at the same head widths: hd 64, 128 and 256 through
-// flash_bf16_hopper, hd 16 and 32 through flash_kernel_bf16.
+// flash_bf16_hopper, hd 16 and 32 through flash_kernel_bf16. lse, if not
+// null, (B,H,S) float32 as flash_attention_f32's, from the same row maximum
+// and normaliser the output divides by (the sum of the unrounded P), what
+// the bf16 backward (flash_attention_bwd_bf16) recomputes P from.
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          int B, int S, int T, int H, int K, int HD,
-                         int causal, int window, float softcap, void* stream) {
+                         int causal, int window, float softcap, float* lse,
+                         void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const uint16_t* qb = (const uint16_t*)q;
   const uint16_t* kb = (const uint16_t*)k;
   const uint16_t* vb = (const uint16_t*)v;
   uint16_t* ob = (uint16_t*)o;
   switch (HD) {
-    case 16: return (int)dispatch_bf16<16>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
-    case 32: return (int)dispatch_bf16<32>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
-    case 64: return (int)dispatch_hopper<64>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
-    case 128: return (int)dispatch_hopper<128>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
-    case 256: return (int)dispatch_hopper<256>(qb, kb, vb, ob, B, S, T, H, K, causal, window, softcap, st);
+    case 16: return (int)dispatch_bf16<16>(qb, kb, vb, ob, lse, B, S, T, H, K, causal, window, softcap, st);
+    case 32: return (int)dispatch_bf16<32>(qb, kb, vb, ob, lse, B, S, T, H, K, causal, window, softcap, st);
+    case 64: return (int)dispatch_hopper<64>(qb, kb, vb, ob, lse, B, S, T, H, K, causal, window, softcap, st);
+    case 128: return (int)dispatch_hopper<128>(qb, kb, vb, ob, lse, B, S, T, H, K, causal, window, softcap, st);
+    case 256: return (int)dispatch_hopper<256>(qb, kb, vb, ob, lse, B, S, T, H, K, causal, window, softcap, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

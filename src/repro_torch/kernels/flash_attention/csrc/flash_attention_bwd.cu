@@ -1,5 +1,5 @@
-// The backward of flash attention's f32 entry for NVIDIA Hopper (sm_90a):
-// given q (B,S,H,hd), k/v (B,T,K,hd), the forward's output o, its row
+// The backwards of flash attention's f32 and bf16 entries for NVIDIA
+// Hopper (sm_90a): given q (B,S,H,hd), k/v (B,T,K,hd), the forward's output o, its row
 // log-sum-exp lse (B,H,S) and the output's gradient dO, it returns dQ, dK
 // and dV, with the forward's masks (causal with query row i at key position
 // i + T - S, a sliding window), soft-cap and GQA (H = K*G, query head h
@@ -108,6 +108,30 @@
 // index runs over (2t, 2t + 1) pairs, so no data moves between threads). A
 // 64-column box and the 128-byte swizzle do not fit those widths. Times:
 // PERF.md, chip_smoke.py phase 16 and tools/flash_bwd_variants.py.
+//
+// The bf16 entry (flash_attention_bwd_bf16: bf16 q, k, v, o, dO and
+// gradients, the f32 LSE of flash_attention_bf16) is the same two launches
+// after D on bf16 operands. bf16 x bf16 products are exact in f32, so each
+// product is one bf16 pass where the f32 entry takes three: at hd 64, 128
+// and 256 flash_bwd_hopper<..., bf16> (the tiles land from TMA already in
+// wgmma's swizzled layout, 64-column boxes, so nothing is split; 64-row
+// streamed tiles at hd 64 and 128, 16 at hd 256), at hd 16 and 32
+// flash_bwd_kernel_bf16 (mma.sync m16n8k16). Its rounding points: P is
+// recomputed in f32 from the LSE and rounded to bf16 for dV += P^T dO, as
+// the forward rounds it before P V; dS is rounded to bf16 for dK and dQ
+// (the products' operands; the plain version keeps dS in f32); s, P, dP,
+// dS and every sum stay f32; D sums dO o O over the bf16 O the forward
+// returned; the gradients are rounded to bf16 once. The plain version's
+// autograd also rounds the gradient that reaches P through its bf16 cast;
+// the kernel keeps dP in f32, since rounding it there rounds another value
+// than the plain version does and adds an error of the same size: emulated
+// on the CPU (tools/flash_bwd_bf16_rounding.py, 20 seeds of each attention
+// case of tests/test_torch_train_bf16.py), that took dq's RMS distance from
+// the plain bf16 backward to 1.87 of the tolerance's 2 (the plain
+// version's own bf16-vs-f32 distance doubled), against 1.51 without (dv
+// 1.57 either way). Its bound on the H100: the same 5 products a live pair in
+// one bf16 pass at 989 TFLOP/s, or its bf16 bytes at 3.35 TB/s
+// (chip_smoke.py phase 16 prints both); the kernel forms 7.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -118,8 +142,11 @@
 
 #include "hopper.cuh"
 
+extern "C" int flash_attention_bwd_route(int HD);
+
 namespace {
 
+#include "bf16_mma.cuh"
 #include "split_tf32.cuh"
 
 constexpr int BR = 64;   // output rows per CTA
@@ -145,19 +172,60 @@ struct Cfg {
   static constexpr size_t bytes = sizeof(float) * (rows + NST * stage);
 };
 
+// The live column tiles [lo, hi) of a CTA whose BR rows start at r_first
+// (for DKV: of each of the G heads), tiles of bc columns, nct of them: DQ
+// skips the key tiles before the window and after the diagonal, DKV the
+// query tiles before the diagonal (causal: query i sees key j iff j <= i +
+// off) and after the window
+__device__ __forceinline__ void live_tiles(bool qrows, int causal, int window,
+                                           int r_first, int off, int bc,
+                                           int nct, int& lo, int& hi) {
+  lo = 0;
+  hi = nct;
+  if (qrows) {
+    if (causal) {
+      const int last = r_first + off + BR - 1;
+      hi = last < 0 ? 0 : min(nct, last / bc + 1);
+    }
+    if (window > 0) {
+      const int first = r_first + off - window + 1;
+      lo = first > 0 ? first / bc : 0;
+    }
+  } else {
+    if (causal) {
+      const int first = r_first - off;
+      lo = first > 0 ? first / bc : 0;
+    }
+    if (window > 0) {
+      const int last = r_first + BR - 1 - off + window - 1;
+      hi = last < 0 ? 0 : min(nct, last / bc + 1);
+    }
+  }
+}
+
+// an element of either entry as f32: float as it is, bf16 (its bits)
+// widened exactly
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(uint16_t x) {
+  return __uint_as_float((uint32_t)x << 16);
+}
+
 // D = rowsum(dO o O): one warp a (b, s, h) row in memory order, lanes over
-// hd in a fixed order, written to dsum (B, H, S)
-__global__ void flash_bwd_dsum(const float* __restrict__ o,
-                               const float* __restrict__ dout,
+// hd in a fixed order, written to dsum (B, H, S); E float or bf16 (the
+// bf16 entry's rounded O: the plain version's D sums the unrounded one)
+template <typename E>
+__global__ void flash_bwd_dsum(const E* __restrict__ o,
+                               const E* __restrict__ dout,
                                float* __restrict__ dsum, int S, int H, int HD,
                                long long nrows) {
   const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row >= nrows) return;
-  const float* a = o + row * HD;
-  const float* b = dout + row * HD;
+  const E* a = o + row * HD;
+  const E* b = dout + row * HD;
   float acc = 0.f;
-  for (int d = lane; d < HD; d += 32) acc = fmaf(a[d], b[d], acc);
+  for (int d = lane; d < HD; d += 32)
+    acc = fmaf(to_f32(a[d]), to_f32(b[d]), acc);
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
   if (lane == 0) {
@@ -198,27 +266,8 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int nrows = QROWS ? S : T, ncols = QROWS ? T : S;
   const int nct = (ncols + BC - 1) / BC;
 
-  // the live column tiles (for DKV: of each of the G heads)
-  int lo = 0, hi = nct;
-  if (QROWS) {
-    if (causal) {
-      const int last = r_first + off + BR - 1;
-      hi = last < 0 ? 0 : min(nct, last / BC + 1);
-    }
-    if (window > 0) {
-      const int first = r_first + off - window + 1;
-      lo = first > 0 ? first / BC : 0;
-    }
-  } else {
-    if (causal) {
-      const int first = r_first - off;
-      lo = first > 0 ? first / BC : 0;
-    }
-    if (window > 0) {
-      const int last = r_first + BR - 1 - off + window - 1;
-      hi = last < 0 ? 0 : min(nct, last / BC + 1);
-    }
-  }
+  int lo, hi;
+  live_tiles(QROWS, causal, window, r_first, off, BC, nct, lo, hi);
   const int span = hi > lo ? hi - lo : 0;
   const int n_it = QROWS ? span : G * span;
 
@@ -452,46 +501,347 @@ flash_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// flash_bwd_kernel_bf16's tiles (hd 16 and 32), bf16 rows of HD + 8 (the
+// forward's flash_kernel_bf16 stride: ldmatrix's eight 16-byte rows fall
+// on distinct banks)
+template <int HD>
+struct CfgB {
+  static_assert(HD <= 32, "hd 64, 128 and 256 take flash_bwd_hopper");
+  static constexpr int BC = 64;                     // columns per streamed tile
+  static constexpr int RS = HD + 8;                 // row stride (bf16)
+  // rows: A [BR][RS] (Q or K), then E [BR][RS] (dO or V), bf16
+  static constexpr size_t rows_bytes = 2 * BR * RS * 2;
+  // a stage: X1 [BC][RS], X2 [BC][RS] bf16, then (DKV) lse*log2(e) and D of
+  // its BC query columns, f32
+  static constexpr size_t stage_bytes = 2 * BC * RS * 2 + 2 * BC * 4;
+  static constexpr size_t bytes = rows_bytes + 2 * stage_bytes;
+};
+
+// The bf16 entry's backward at hd 16 and 32: flash_bwd_kernel's tiles, ring
+// and masks with bf16 operands, so each product is one mma.sync m16n8k16
+// in bf16 (products exact, sums in f32) where the f32 kernel splits into
+// three TF32 passes. The score products read Q, K, V and dO as they are
+// stored; P is rounded to bf16 for dV += P^T dO (the forward's rounding
+// point) and dS for dK += dS^T Q and dQ += dS K; s, P, dP and dS are f32.
 template <int HD, int MODE, bool CAP>
-cudaError_t launch_bwd(const float* q, const float* k, const float* v,
-                       const float* dout, const float* lse, const float* dsum,
-                       float* grad, float* grad_v, int B, int S, int T,
-                       int H, int K, int causal, int window, float cap,
-                       cudaStream_t st) {
-  using CF = Cfg<HD>;
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_kernel_bf16(const uint16_t* __restrict__ q,
+                      const uint16_t* __restrict__ k,
+                      const uint16_t* __restrict__ v,
+                      const uint16_t* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dsum,
+                      uint16_t* __restrict__ grad, uint16_t* __restrict__ grad_v,
+                      int S, int T, int H, int K, int causal, int window,
+                      float scale, float cap) {
+  using CF = CfgB<HD>;
+  constexpr int BC = CF::BC, RS = CF::RS;
+  constexpr bool QROWS = MODE == DQ;   // rows are queries (else keys)
+  constexpr int KK = HD / 16;          // k-steps of the score products
+  constexpr int NK = BC / 8;           // 8-column blocks of a tile
+  constexpr int ND = HD / 8;           // 8-wide blocks of the output columns
+  constexpr int CH = HD / 8;           // 16-byte chunks of a row
+  extern __shared__ __align__(16) uint8_t smb[];
+
+  const int G = H / K;
+  const int nrh = QROWS ? H : K;       // heads of the row side
+  const int rh = blockIdx.x % nrh, b = blockIdx.x / nrh;
+  // causal DQ: the last row blocks see the most keys; DKV: the first
+  const int ib = QROWS ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const float scale2 = scale * LOG2E;
+  const int off = T - S;               // key position of query row 0
+  const int r_first = ib * BR;
+  const int nrows = QROWS ? S : T, ncols = QROWS ? T : S;
+  const int nct = (ncols + BC - 1) / BC;
+  int lo, hi;
+  live_tiles(QROWS, causal, window, r_first, off, BC, nct, lo, hi);
+  const int span = hi > lo ? hi - lo : 0;
+  const int n_it = QROWS ? span : G * span;
+
+  // row-side and column-side tensors: DQ rows Q, dO / columns K, V;
+  // DKV rows K, V / columns Q, dO of head kh * G + gi
+  const int kh = QROWS ? rh / G : rh;
+  const size_t q_row = (size_t)H * HD, kv_row = (size_t)K * HD;
+  const uint16_t* ra = QROWS ? q + (size_t)b * S * q_row + (size_t)rh * HD
+                             : k + (size_t)b * T * kv_row + (size_t)kh * HD;
+  const uint16_t* re = QROWS ? dout + (size_t)b * S * q_row + (size_t)rh * HD
+                             : v + (size_t)b * T * kv_row + (size_t)kh * HD;
+  const size_t r_stride = QROWS ? q_row : kv_row;
+
+  uint16_t* As = reinterpret_cast<uint16_t*>(smb);
+  uint16_t* Es = As + BR * RS;
+  auto stage_at = [&](int st) {
+    return reinterpret_cast<uint16_t*>(smb + CF::rows_bytes +
+                                       st * CF::stage_bytes);
+  };
+
+  auto load_tile = [&](int it, int st) {
+    const int gi = QROWS ? 0 : it / span;
+    const int ct = lo + (QROWS ? it : it % span);
+    uint16_t* X1 = stage_at(st);
+    uint16_t* X2 = X1 + BC * RS;
+    const uint16_t* x1;
+    const uint16_t* x2;
+    size_t c_stride;
+    if (QROWS) {
+      x1 = k + (size_t)b * T * kv_row + (size_t)kh * HD;
+      x2 = v + (size_t)b * T * kv_row + (size_t)kh * HD;
+      c_stride = kv_row;
+    } else {
+      const int h = kh * G + gi;
+      x1 = q + (size_t)b * S * q_row + (size_t)h * HD;
+      x2 = dout + (size_t)b * S * q_row + (size_t)h * HD;
+      c_stride = q_row;
+      float* Ls = reinterpret_cast<float*>(X2 + BC * RS);
+      float* Ds = Ls + BC;
+      const size_t base = ((size_t)b * H + h) * S;
+      for (int i = tid; i < BC; i += NT) {
+        const int qi = ct * BC + i;
+        const bool in = qi < S;
+        Ls[i] = in ? lse[base + qi] * LOG2E : INFINITY;
+        Ds[i] = in ? dsum[base + qi] : 0.f;
+      }
+    }
+    for (int i = tid; i < BC * CH; i += NT) {
+      const int r = i / CH, c = (i % CH) * 8, t = ct * BC + r;
+      const bool in = t < ncols;
+      const size_t o2 = (size_t)(in ? t : 0) * c_stride + c;
+      cp_async16b(X1 + r * RS + c, x1 + o2, in);
+      cp_async16b(X2 + r * RS + c, x2 + o2, in);
+    }
+    cp_async_commit();
+  };
+  if (n_it > 0) load_tile(0, 0);
+
+  // the row tiles, zero past the last row
+  for (int i = tid; i < BR * CH; i += NT) {
+    const int r = i / CH, c = (i % CH) * 8, row = r_first + r;
+    uint4 xa = make_uint4(0u, 0u, 0u, 0u), xe = xa;
+    if (row < nrows) {
+      xa = *reinterpret_cast<const uint4*>(ra + (size_t)row * r_stride + c);
+      xe = *reinterpret_cast<const uint4*>(re + (size_t)row * r_stride + c);
+    }
+    *reinterpret_cast<uint4*>(As + r * RS + c) = xa;
+    *reinterpret_cast<uint4*>(Es + r * RS + c) = xe;
+  }
+  const int ra0 = r_first + warp * 16 + g;   // this thread's rows: ra0, ra0 + 8
+  // DQ: each row's lse (base 2) and D
+  float lr[2] = {INFINITY, INFINITY}, dr[2] = {0.f, 0.f};
+  if (QROWS) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = ra0 + 8 * r;
+      if (row < S) {
+        const size_t idx = ((size_t)b * H + rh) * S + row;
+        lr[r] = lse[idx] * LOG2E;
+        dr[r] = dsum[idx];
+      }
+    }
+  }
+  __syncthreads();
+  // the A fragments of the row tiles at each k-step: rows (g, g + 8) x
+  // columns 16 kk + (2t, 2t + 1), then the same 8 columns on
+  uint32_t af[KK][4], ef[KK][4];
+#pragma unroll
+  for (int kk = 0; kk < KK; ++kk) {
+    const uint16_t* pa = As + (warp * 16 + g) * RS + kk * 16 + 2 * t4;
+    const uint16_t* pe = Es + (warp * 16 + g) * RS + kk * 16 + 2 * t4;
+    af[kk][0] = ld32(pa);
+    af[kk][1] = ld32(pa + 8 * RS);
+    af[kk][2] = ld32(pa + 8);
+    af[kk][3] = ld32(pa + 8 * RS + 8);
+    ef[kk][0] = ld32(pe);
+    ef[kk][1] = ld32(pe + 8 * RS);
+    ef[kk][2] = ld32(pe + 8);
+    ef[kk][3] = ld32(pe + 8 * RS + 8);
+  }
+  // this lane's row address for ldmatrix's B fragments of a 16-row step:
+  // row (l & 7) + 8 ((l >> 3) & 1), columns 8 (l >> 4) of a 16-column pair
+  const int x_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * RS + (lane >> 4) * 8;
+
+  // DQ: dQ; DKV: dK in acc, dV in acc_v
+  float acc[ND][4], acc_v[QROWS ? 1 : ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[n][c] = 0.f;
+      if constexpr (!QROWS) acc_v[n][c] = 0.f;
+    }
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_it) {
+      load_tile(it + 1, st ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint16_t* X1 = stage_at(st);
+    const uint16_t* X2 = X1 + BC * RS;
+    const float* Ls = reinterpret_cast<const float*>(X2 + BC * RS);
+    const float* Ds = Ls + BC;
+    const int cf = (lo + (QROWS ? it : it % span)) * BC;   // first column
+
+    // s = A X1^T and dp = E X2^T for this warp's 16 rows, BC columns: X's B
+    // fragment (k over 2t, 2t + 1 and 8 on; column g) is two 4-byte loads
+    // of its row g
+    float s[NK][4], dp[NK][4];
+#pragma unroll
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KK; ++kk)
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const uint16_t* x1 = X1 + (n * 8 + g) * RS + kk * 16 + 2 * t4;
+        const uint16_t* x2 = X2 + (n * 8 + g) * RS + kk * 16 + 2 * t4;
+        mma_bf16(s[n], af[kk], ld32(x1), ld32(x1 + 8));
+        mma_bf16(dp[n], ef[kk], ld32(x2), ld32(x2 + 8));
+      }
+
+    // P in place of s, dS in place of dp, as the f32 kernel
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = ra0 + 8 * r;
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int cl = n * 8 + 2 * t4 + c;   // column within the tile
+          const int col = cf + cl;
+          const int qi = QROWS ? row : col;    // query row
+          const int kpos = QROWS ? col : row;  // key position
+          const int qpos = qi + off;
+          const bool ok = qi < S && kpos < T && (!causal || kpos <= qpos) &&
+                          (window <= 0 || kpos > qpos - window);
+          const float x = s[n][2 * r + c];
+          float sc, th = 0.f;
+          if constexpr (CAP) {
+            th = tanhf(x * scale / cap);
+            sc = cap * th * LOG2E;
+          } else {
+            sc = x * scale2;
+          }
+          const float l2 = QROWS ? lr[r] : Ls[cl];
+          const float p = ok ? exp2f(sc - l2) : 0.f;
+          const float dq = QROWS ? dr[r] : Ds[cl];
+          float ds = p * (dp[n][2 * r + c] - dq);
+          if constexpr (CAP) ds *= 1.f - th * th;
+          s[n][2 * r + c] = p;
+          dp[n][2 * r + c] = ds;
+        }
+    }
+
+    // acc += dS X1 (X1: K for DQ, Q for DKV); DKV also acc_v += P X2 (X2:
+    // dO), over 16-column steps of the tile: the accumulators of blocks 2j
+    // and 2j + 1 are the step's A fragment, rounded to bf16; X's B
+    // fragments by ldmatrix.trans
+#pragma unroll
+    for (int j = 0; j < BC / 16; ++j) {
+      const uint32_t wa[4] = {pack_bf16(dp[2 * j][0], dp[2 * j][1]),
+                              pack_bf16(dp[2 * j][2], dp[2 * j][3]),
+                              pack_bf16(dp[2 * j + 1][0], dp[2 * j + 1][1]),
+                              pack_bf16(dp[2 * j + 1][2], dp[2 * j + 1][3])};
+      const uint16_t* x1 = X1 + j * 16 * RS + x_lane;
+#pragma unroll
+      for (int d = 0; d < HD / 16; ++d) {
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, x1 + d * 16);
+        mma_bf16(acc[2 * d], wa, r[0], r[1]);
+        mma_bf16(acc[2 * d + 1], wa, r[2], r[3]);
+      }
+      if constexpr (!QROWS) {
+        const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]),
+                                pack_bf16(s[2 * j][2], s[2 * j][3]),
+                                pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                                pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+        const uint16_t* x2 = X2 + j * 16 * RS + x_lane;
+#pragma unroll
+        for (int d = 0; d < HD / 16; ++d) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, x2 + d * 16);
+          mma_bf16(acc_v[2 * d], pa, r[0], r[1]);
+          mma_bf16(acc_v[2 * d + 1], pa, r[2], r[3]);
+        }
+      }
+    }
+    __syncthreads();   // this stage is read: the next load may refill it
+  }
+
+  // dQ and dK carry the score scale; dV does not
+  const size_t o_stride = QROWS ? q_row : kv_row;
+  const size_t o0 = (size_t)b * nrows * o_stride + (size_t)rh * HD + 2 * t4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = ra0 + 8 * r;
+    if (row < nrows) {
+      const size_t o = o0 + (size_t)row * o_stride;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        *reinterpret_cast<uint32_t*>(grad + o + d * 8) =
+            pack_bf16(acc[d][2 * r] * scale, acc[d][2 * r + 1] * scale);
+        if constexpr (!QROWS)
+          *reinterpret_cast<uint32_t*>(grad_v + o + d * 8) =
+              pack_bf16(acc_v[d][2 * r], acc_v[d][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// the mma.sync kernel of each entry (f32: flash_bwd_kernel, bf16:
+// flash_bwd_kernel_bf16) and its shared memory
+template <int HD, int MODE, bool CAP>
+auto small_kernel(const float*) { return flash_bwd_kernel<HD, MODE, CAP>; }
+template <int HD, int MODE, bool CAP>
+auto small_kernel(const uint16_t*) {
+  return flash_bwd_kernel_bf16<HD, MODE, CAP>;
+}
+template <int HD>
+constexpr size_t small_bytes(const float*) { return Cfg<HD>::bytes; }
+template <int HD>
+constexpr size_t small_bytes(const uint16_t*) { return CfgB<HD>::bytes; }
+
+template <int HD, int MODE, bool CAP, typename E>
+cudaError_t launch_bwd(const E* q, const E* k, const E* v, const E* dout,
+                       const float* lse, const float* dsum, E* grad,
+                       E* grad_v, int B, int S, int T, int H, int K,
+                       int causal, int window, float cap, cudaStream_t st) {
+  const auto kernel = small_kernel<HD, MODE, CAP>(q);
+  const size_t bytes = small_bytes<HD>(q);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_kernel<HD, MODE, CAP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CF::bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
   const float scale = 1.0f / sqrtf((float)HD);
   const int heads = MODE == DQ ? H : K;
   const int rows = MODE == DQ ? S : T;
-  const dim3 grid(heads * B, (rows + BR - 1) / BR, HD / CF::DC);
-  flash_bwd_kernel<HD, MODE, CAP><<<grid, NT, CF::bytes, st>>>(
-      q, k, v, dout, lse, dsum, grad, grad_v, S, T, H, K, causal, window,
-      scale, cap);
+  const dim3 grid(heads * B, (rows + BR - 1) / BR);
+  kernel<<<grid, NT, bytes, st>>>(q, k, v, dout, lse, dsum, grad, grad_v, S,
+                                  T, H, K, causal, window, scale, cap);
   return cudaGetLastError();
 }
 
-template <int HD, bool CAP>
-cudaError_t run_bwd(const float* q, const float* k, const float* v,
-                    const float* dout, const float* lse, const float* dsum,
-                    float* dq, float* dk, float* dv, int B, int S, int T,
-                    int H, int K, int causal, int window, float cap,
-                    cudaStream_t st) {
+template <int HD, bool CAP, typename E>
+cudaError_t run_bwd(const E* q, const E* k, const E* v, const E* dout,
+                    const float* lse, const float* dsum, E* dq, E* dk, E* dv,
+                    int B, int S, int T, int H, int K, int causal, int window,
+                    float cap, cudaStream_t st) {
   cudaError_t e = launch_bwd<HD, DQ, CAP>(q, k, v, dout, lse, dsum, dq,
-                                          nullptr, B, S, T, H, K, causal,
+                                          (E*)nullptr, B, S, T, H, K, causal,
                                           window, cap, st);
   if (e != cudaSuccess) return e;
   return launch_bwd<HD, DKV, CAP>(q, k, v, dout, lse, dsum, dk, dv, B, S, T,
                                   H, K, causal, window, cap, st);
 }
 
-template <int HD>
-cudaError_t dispatch_bwd(const float* q, const float* k, const float* v,
-                         const float* dout, const float* lse,
-                         const float* dsum, float* dq, float* dk, float* dv,
-                         int B, int S, int T, int H, int K, int causal,
+template <int HD, typename E>
+cudaError_t dispatch_bwd(const E* q, const E* k, const E* v, const E* dout,
+                         const float* lse, const float* dsum, E* dq, E* dk,
+                         E* dv, int B, int S, int T, int H, int K, int causal,
                          int window, float cap, cudaStream_t st) {
   if (cap > 0.f)
     return run_bwd<HD, true>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H,
@@ -506,16 +856,20 @@ constexpr int BR = 64;          // rows a CTA: wgmma's M
 constexpr int NC = 256;         // consumer threads: two warpgroups
 constexpr int NT = NC + 32;     // and the producer warp
 constexpr int NS = 2;           // stages of the streamed ring
-template <int HD>
+// E float (the f32 entry) or uint16_t (bf16, the bf16 entry)
+template <int HD, typename E>
 struct Cfg {
-  // streamed rows a tile, CTAs an SM: at hd 64 two CTAs of 74 KB (at
-  // most 113 registers a thread) beat one of 64-row tiles
-  static constexpr int BC = HD == 64 ? 32 : (HD == 128 ? 64 : 16);
+  static constexpr bool BF = sizeof(E) == 2;
+  // streamed rows a tile, CTAs an SM: at hd 64 two CTAs (f32: of 74 KB, at
+  // most 113 registers a thread) beat one of 64-row tiles; bf16 tiles take
+  // half the bytes, so 64 rows at hd 64
+  static constexpr int BC = HD == 64 ? (BF ? 64 : 32) : (HD == 128 ? 64 : 16);
   static constexpr int MINB = HD == 64 ? 2 : 1;
-  // one tensor's tile in f32, which the consumers rewrite in place as its
-  // two bf16 pieces (each [HD / 64 boxes][rows][128 bytes], swizzled)
-  static constexpr uint32_t row_bytes = BR * HD * 4;    // A1 (or A2)
-  static constexpr uint32_t tile_bytes = BC * HD * 4;   // X1 (or X2)
+  // one tensor's tile: f32, which the consumers rewrite in place as its
+  // two bf16 pieces, or bf16 as TMA lands it; either piece, and a bf16
+  // tile, [HD / 64 boxes][rows][128 bytes], swizzled
+  static constexpr uint32_t row_bytes = BR * HD * sizeof(E);    // A1 (or A2)
+  static constexpr uint32_t tile_bytes = BC * HD * sizeof(E);   // X1 (or X2)
   static constexpr uint32_t ring_off = 2 * row_bytes;   // A1, A2, the ring
   static constexpr uint32_t stage_bytes = 2 * tile_bytes;          // X1, X2
   static constexpr uint32_t pex_off = ring_off + NS * stage_bytes; // P, f32
@@ -526,7 +880,7 @@ struct Cfg {
   // + 1,024: the base is rounded up to the swizzle's 1,024-byte atom
   static constexpr size_t bytes = bar_off + 8 * nbar + 1024;
   static_assert(bytes <= 232448, "over the 227 KB a CTA may use");
-  static_assert(BC % 16 == 0 && BC <= BR && (BC * HD / 8) % NC == 0,
+  static_assert(BC % 16 == 0 && BC <= BR && (BF || (BC * HD / 8) % NC == 0),
                 "a tile must fit its lse and D slots and split its 8-float "
                 "chunks over the consumers");
 };
@@ -569,12 +923,6 @@ __device__ __forceinline__ void p_post() {
 }
 __device__ __forceinline__ void p_wait() {
   asm volatile("bar.sync 2, 256;\n" ::: "memory");
-}
-
-// two f32 rounded to bf16, lo in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // (lo, hi) as two bf16 pairs, p1 + p2 within 2^-16 of it: p1 rounds the
@@ -784,17 +1132,18 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int HD, int MODE, bool CAP>
-__global__ void __launch_bounds__(hb::NT, hb::Cfg<HD>::MINB)
+template <int HD, int MODE, bool CAP, typename E>
+__global__ void __launch_bounds__(hb::NT, hb::Cfg<HD, E>::MINB)
 flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
                  const __grid_constant__ CUtensorMap ta2,
                  const __grid_constant__ CUtensorMap tx1,
                  const __grid_constant__ CUtensorMap tx2,
                  const float* __restrict__ lse, const float* __restrict__ dsum,
-                 float* __restrict__ grad, float* __restrict__ grad_v, int S,
-                 int T, int H, int K, int causal, int window, float scale,
+                 E* __restrict__ grad, E* __restrict__ grad_v, int S, int T,
+                 int H, int K, int causal, int window, float scale,
                  float cap) {
-  using CF = hb::Cfg<HD>;
+  using CF = hb::Cfg<HD, E>;
+  constexpr bool BF = CF::BF;   // bf16 tiles: one wgmma pass a product
   constexpr int BR = hb::BR, BC = CF::BC, NS = hb::NS;
   constexpr bool QROWS = MODE == DQ;   // rows are queries (else keys)
   constexpr uint32_t ROWP = CF::row_bytes / 2, TILEP = CF::tile_bytes / 2;
@@ -823,27 +1172,8 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
   const int nrows = QROWS ? S : T, ncols = QROWS ? T : S;
   const int nct = (ncols + BC - 1) / BC;
 
-  // the live column tiles (for DKV: of each of the G heads)
-  int lo = 0, hi = nct;
-  if (QROWS) {
-    if (causal) {
-      const int last = r_first + off + BR - 1;
-      hi = last < 0 ? 0 : min(nct, last / BC + 1);
-    }
-    if (window > 0) {
-      const int first = r_first + off - window + 1;
-      lo = first > 0 ? first / BC : 0;
-    }
-  } else {
-    if (causal) {
-      const int first = r_first - off;
-      lo = first > 0 ? first / BC : 0;
-    }
-    if (window > 0) {
-      const int last = r_first + BR - 1 - off + window - 1;
-      hi = last < 0 ? 0 : min(nct, last / BC + 1);
-    }
-  }
+  int lo, hi;
+  live_tiles(QROWS, causal, window, r_first, off, BC, nct, lo, hi);
   const int span = hi > lo ? hi - lo : 0;
   const int n_it = QROWS ? span : G * span;
 
@@ -861,10 +1191,23 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
   if (warp == 8) {
     // ----------------------------------------------------------- producer
     if (n_it == 0) return;
+    // a tile of `rows` rows from r0 of head `head`: f32 one box of HD
+    // columns; bf16 HD / 64 boxes of 64 (the 128-byte swizzle's width),
+    // each rows x 128 bytes on
+    auto tma_tile = [&](uint32_t dst, const CUtensorMap* map, int rows,
+                        int head, int r0, uint32_t bar) {
+      if constexpr (BF) {
+#pragma unroll
+        for (int c = 0; c < HD / 64; ++c)
+          tma_load4(dst + c * rows * 128, map, 64 * c, head, r0, b, bar);
+      } else {
+        tma_load4(dst, map, 0, head, r0, b, bar);
+      }
+    };
     if (lane == 0) {
       mbar_expect_tx(rows_full, 2 * CF::row_bytes);
-      tma_load4(base, &ta1, 0, rh, r_first, b, rows_full);
-      tma_load4(base + CF::row_bytes, &ta2, 0, rh, r_first, b, rows_full);
+      tma_tile(base, &ta1, BR, rh, r_first, rows_full);
+      tma_tile(base + CF::row_bytes, &ta2, BR, rh, r_first, rows_full);
     }
     if (QROWS) {
       const size_t at = ((size_t)b * H + rh) * S;
@@ -886,9 +1229,8 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
       mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
       if (lane == 0) {
         mbar_expect_tx(full(s), CF::stage_bytes);
-        tma_load4(base + x_off(s), &tx1, 0, hx, c0, b, full(s));
-        tma_load4(base + x_off(s) + CF::tile_bytes, &tx2, 0, hx, c0, b,
-                  full(s));
+        tma_tile(base + x_off(s), &tx1, BC, hx, c0, full(s));
+        tma_tile(base + x_off(s) + CF::tile_bytes, &tx2, BC, hx, c0, full(s));
       }
       if (!QROWS) {
         float* ls = lsd + s * 2 * BR;
@@ -922,7 +1264,7 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
 
   if (n_it > 0) {
     mbar_wait(rows_full, 0);
-    {
+    if constexpr (!BF) {
       Split<BR, HD> a;
       a.read(gbase, ct);
       consumers_sync();
@@ -945,19 +1287,25 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
     const uint64_t da = sw128_desc(base + wg * CF::row_bytes, 16, 1024);
     // tile it's f32 stage, once landed, split in place into its pieces,
     // with a barrier after the reads of X1, of X2 and after the writes
-    // (the first call's last also covers A1's and A2's pieces)
+    // (the first call's last also covers A1's and A2's pieces); a bf16
+    // stage is read as it lands. Either way the call ends on barrier 1,
+    // which warpgroup 1 reaches only after it has read P of the tile
+    // before: warpgroup 0 writes the next P (and arrives at barrier 2) only
+    // past it.
     auto split_tile = [&](int it) {
       const int s = it % NS;
-      uint8_t* xg = gbase + x_off(s);
       mbar_wait(full(s), (it / NS) & 1);
-      Split<BC, HD> x;
-      x.read(xg, ct);
-      consumers_sync();
-      x.write(xg, ct);
-      x.read(xg + CF::tile_bytes, ct);
-      consumers_sync();
-      x.write(xg + CF::tile_bytes, ct);
-      fence_async_shared();
+      if constexpr (!BF) {
+        uint8_t* xg = gbase + x_off(s);
+        Split<BC, HD> x;
+        x.read(xg, ct);
+        consumers_sync();
+        x.write(xg, ct);
+        x.read(xg + CF::tile_bytes, ct);
+        consumers_sync();
+        x.write(xg + CF::tile_bytes, ct);
+        fence_async_shared();
+      }
       consumers_sync();
     };
     split_tile(0);
@@ -969,7 +1317,9 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
       const float* ls = lsd + s * 2 * BR;
 
       // warpgroup 0: s = A1 X1^T; warpgroup 1: dP = A2 X2^T, over hd in
-      // 16-deep k-steps, three passes a step: small big, big small, big big
+      // 16-deep k-steps, three passes a step from f32 (small big, big
+      // small, big big), one from bf16 (the tiles as they are: the big
+      // pieces' place)
       float sacc[BC / 2];
       {
         const uint64_t dx = sw128_desc(wg == 0 ? x1 : x2, 16, 1024);
@@ -978,9 +1328,13 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
         for (int kk = 0; kk < HD / 16; ++kk) {
           const uint32_t ao = ((kk / 4) * BR * 128 + (kk % 4) * 32) >> 4;
           const uint32_t xo = ((kk / 4) * BC * 128 + (kk % 4) * 32) >> 4;
-          wgmma_ss<BC>(sacc, da + ao + (ROWP >> 4), dx + xo, kk > 0);
-          wgmma_ss<BC>(sacc, da + ao, dx + xo + (TILEP >> 4), 1);
-          wgmma_ss<BC>(sacc, da + ao, dx + xo, 1);
+          if constexpr (BF) {
+            wgmma_ss<BC>(sacc, da + ao, dx + xo, kk > 0);
+          } else {
+            wgmma_ss<BC>(sacc, da + ao + (ROWP >> 4), dx + xo, kk > 0);
+            wgmma_ss<BC>(sacc, da + ao, dx + xo + (TILEP >> 4), 1);
+            wgmma_ss<BC>(sacc, da + ao, dx + xo, 1);
+          }
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -989,23 +1343,33 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
 
       // the accumulating product's A, P or dS in pieces (a wgmma
       // accumulator's two neighbouring 8-column blocks are one k-step's
-      // register A fragment), and its B: X2 (dO) for dV, X1 for dK or dQ
-      uint32_t pa[2][BC / 16][4];
+      // register A fragment) or, for bf16 tiles, rounded to bf16 (the big
+      // piece alone), and its B: X2 (dO) for dV, X1 for dK or dQ
+      uint32_t pa[BF ? 1 : 2][BC / 16][4];
       auto issue_acc = [&](uint32_t xb) {
 #pragma unroll
         for (int j = 0; j < BC / 16; ++j)
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            pieces(sacc[8 * j + 2 * c], sacc[8 * j + 2 * c + 1], pa[0][j][c],
-                   pa[1][j][c]);
+          for (int c = 0; c < 4; ++c) {
+            if constexpr (BF)
+              pa[0][j][c] = pack_bf16(sacc[8 * j + 2 * c],
+                                      sacc[8 * j + 2 * c + 1]);
+            else
+              pieces(sacc[8 * j + 2 * c], sacc[8 * j + 2 * c + 1],
+                     pa[0][j][c], pa[1][j][c]);
+          }
         const uint64_t db = sw128_desc(xb, BC * 128, 1024);   // MN-major
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < BC / 16; ++j) {
           const uint32_t xo = (j * 16 * 128) >> 4;
-          wgmma_rs<HD>(acc, pa[1][j], db + xo);
-          wgmma_rs<HD>(acc, pa[0][j], db + xo + (TILEP >> 4));
-          wgmma_rs<HD>(acc, pa[0][j], db + xo);
+          if constexpr (BF) {
+            wgmma_rs<HD>(acc, pa[0][j], db + xo);
+          } else {
+            wgmma_rs<HD>(acc, pa[1][j], db + xo);
+            wgmma_rs<HD>(acc, pa[0][j], db + xo + (TILEP >> 4));
+            wgmma_rs<HD>(acc, pa[0][j], db + xo);
+          }
         }
         wgmma_commit();
       };
@@ -1063,7 +1427,7 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
       wgmma_wait<0>();
       pin(acc);
       pin(pa[0]);
-      pin(pa[1]);
+      if constexpr (!BF) pin(pa[1]);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(s));   // this stage is read
     }
@@ -1072,7 +1436,7 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
   // DKV: warpgroup 0 writes dV, 1 dK; DQ: warpgroup 1 writes dQ. dQ and dK
   // carry the score scale; dV does not.
   if (QROWS && wg == 0) return;
-  float* out = wg == 1 ? grad : grad_v;
+  E* out = wg == 1 ? grad : grad_v;
   const float f = wg == 1 ? scale : 1.f;
   const size_t o_stride = (size_t)nrh * HD;
   const size_t o0 = (size_t)b * nrows * o_stride + (size_t)rh * HD + 2 * t4;
@@ -1080,88 +1444,100 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
   for (int r = 0; r < 2; ++r) {
     const int row = r_first + rl0 + 8 * r;
     if (row < nrows) {
-      float* o = out + o0 + (size_t)row * o_stride;
+      E* o = out + o0 + (size_t)row * o_stride;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<float2*>(o + 8 * n) =
-            make_float2(acc[4 * n + 2 * r] * f, acc[4 * n + 2 * r + 1] * f);
+      for (int n = 0; n < HD / 8; ++n) {
+        if constexpr (BF)
+          *reinterpret_cast<uint32_t*>(o + 8 * n) = pack_bf16(
+              acc[4 * n + 2 * r] * f, acc[4 * n + 2 * r + 1] * f);
+        else
+          *reinterpret_cast<float2*>(o + 8 * n) =
+              make_float2(acc[4 * n + 2 * r] * f, acc[4 * n + 2 * r + 1] * f);
+      }
     }
   }
 }
 
-// x (B, R, NH, HD) f32, contiguous: dims (HD, NH, R, B) innermost first,
-// boxes of HD columns x `rows` rows of one head, unswizzled (the consumers
-// write the swizzled pieces); what lies past R reads as zeros
-bool tensor_map_f32(CUtensorMap* map, const float* x, int HD, int NH, int R,
-                    int B, int rows) {
+// x (B, R, NH, HD) of E (f32 or bf16), contiguous: dims (HD, NH, R, B)
+// innermost first, boxes of `rows` rows of one head; what lies past R reads
+// as zeros. f32: boxes of HD columns, unswizzled (the consumers write the
+// swizzled pieces); bf16: boxes of 64 columns with the 128-byte swizzle,
+// wgmma's operand layout as it lands (the forward's tensor maps)
+template <typename E>
+bool tensor_map(CUtensorMap* map, const E* x, int HD, int NH, int R, int B,
+                int rows) {
+  constexpr bool BF = sizeof(E) == 2;
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)NH,
                               (cuuint64_t)R, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {4ull * HD, 4ull * HD * NH,
-                                 4ull * HD * NH * R};
-  const cuuint32_t box[4] = {(cuuint32_t)HD, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {sizeof(E) * HD, sizeof(E) * HD * NH,
+                                 sizeof(E) * HD * NH * R};
+  const cuuint32_t box[4] = {BF ? 64u : (cuuint32_t)HD, 1, (cuuint32_t)rows,
+                             1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(x),
-                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map,
+                BF ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                4, const_cast<E*>(x), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                BF ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                BF ? CU_TENSOR_MAP_L2_PROMOTION_L2_128B
+                   : CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, int MODE, bool CAP>
-cudaError_t launch_hopper(const float* q, const float* k, const float* v,
-                          const float* dout, const float* lse,
-                          const float* dsum, float* grad, float* grad_v,
-                          int B, int S, int T, int H, int K, int causal,
-                          int window, float cap, cudaStream_t st) {
-  using CF = hb::Cfg<HD>;
+template <int HD, int MODE, bool CAP, typename E>
+cudaError_t launch_hopper(const E* q, const E* k, const E* v, const E* dout,
+                          const float* lse, const float* dsum, E* grad,
+                          E* grad_v, int B, int S, int T, int H, int K,
+                          int causal, int window, float cap, cudaStream_t st) {
+  using CF = hb::Cfg<HD, E>;
   CUtensorMap ta1, ta2, tx1, tx2;
   const bool ok =
       MODE == DQ
-          ? tensor_map_f32(&ta1, q, HD, H, S, B, hb::BR) &&
-                tensor_map_f32(&ta2, dout, HD, H, S, B, hb::BR) &&
-                tensor_map_f32(&tx1, k, HD, K, T, B, CF::BC) &&
-                tensor_map_f32(&tx2, v, HD, K, T, B, CF::BC)
-          : tensor_map_f32(&ta1, k, HD, K, T, B, hb::BR) &&
-                tensor_map_f32(&ta2, v, HD, K, T, B, hb::BR) &&
-                tensor_map_f32(&tx1, q, HD, H, S, B, CF::BC) &&
-                tensor_map_f32(&tx2, dout, HD, H, S, B, CF::BC);
+          ? tensor_map(&ta1, q, HD, H, S, B, hb::BR) &&
+                tensor_map(&ta2, dout, HD, H, S, B, hb::BR) &&
+                tensor_map(&tx1, k, HD, K, T, B, CF::BC) &&
+                tensor_map(&tx2, v, HD, K, T, B, CF::BC)
+          : tensor_map(&ta1, k, HD, K, T, B, hb::BR) &&
+                tensor_map(&ta2, v, HD, K, T, B, hb::BR) &&
+                tensor_map(&tx1, q, HD, H, S, B, CF::BC) &&
+                tensor_map(&tx2, dout, HD, H, S, B, CF::BC);
   if (!ok) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_hopper<HD, MODE, CAP>,
+      flash_bwd_hopper<HD, MODE, CAP, E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CF::bytes);
   if (e != cudaSuccess) return e;
   const float scale = 1.0f / sqrtf((float)HD);
   const int heads = MODE == DQ ? H : K;
   const int rows = MODE == DQ ? S : T;
-  flash_bwd_hopper<HD, MODE, CAP>
+  flash_bwd_hopper<HD, MODE, CAP, E>
       <<<dim3(heads * B, (rows + hb::BR - 1) / hb::BR), hb::NT, CF::bytes,
          st>>>(ta1, ta2, tx1, tx2, lse, dsum, grad, grad_v, S, T, H, K,
                causal, window, scale, cap);
   return cudaGetLastError();
 }
 
-template <int HD, bool CAP>
-cudaError_t run_hopper(const float* q, const float* k, const float* v,
-                       const float* dout, const float* lse, const float* dsum,
-                       float* dq, float* dk, float* dv, int B, int S, int T,
-                       int H, int K, int causal, int window, float cap,
-                       cudaStream_t st) {
+template <int HD, bool CAP, typename E>
+cudaError_t run_hopper(const E* q, const E* k, const E* v, const E* dout,
+                       const float* lse, const float* dsum, E* dq, E* dk,
+                       E* dv, int B, int S, int T, int H, int K, int causal,
+                       int window, float cap, cudaStream_t st) {
   cudaError_t e = launch_hopper<HD, DQ, CAP>(q, k, v, dout, lse, dsum, dq,
-                                             nullptr, B, S, T, H, K, causal,
-                                             window, cap, st);
+                                             (E*)nullptr, B, S, T, H, K,
+                                             causal, window, cap, st);
   if (e != cudaSuccess) return e;
   return launch_hopper<HD, DKV, CAP>(q, k, v, dout, lse, dsum, dk, dv, B, S,
                                      T, H, K, causal, window, cap, st);
 }
 
-template <int HD>
-cudaError_t dispatch_hopper(const float* q, const float* k, const float* v,
-                            const float* dout, const float* lse,
-                            const float* dsum, float* dq, float* dk,
-                            float* dv, int B, int S, int T, int H, int K,
-                            int causal, int window, float cap,
-                            cudaStream_t st) {
+template <int HD, typename E>
+cudaError_t dispatch_hopper(const E* q, const E* k, const E* v,
+                            const E* dout, const float* lse,
+                            const float* dsum, E* dq, E* dk, E* dv, int B,
+                            int S, int T, int H, int K, int causal,
+                            int window, float cap, cudaStream_t st) {
   if (cap > 0.f)
     return run_hopper<HD, true>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T,
                                 H, K, causal, window, cap, st);
@@ -1169,13 +1545,39 @@ cudaError_t dispatch_hopper(const float* q, const float* k, const float* v,
                                H, K, causal, window, cap, st);
 }
 
+// Either entry: D, then dQ, then dK and dV together, on the route of HD
+template <typename E>
+int run_entry(const E* q, const E* k, const E* v, const E* o, const E* dout,
+              const float* lse, E* dq, E* dk, E* dv, float* dsum, int B,
+              int S, int T, int H, int K, int HD, int causal, int window,
+              float softcap, cudaStream_t st) {
+  const int route = flash_attention_bwd_route(HD);
+  if (route < 0) return (int)cudaErrorInvalidValue;
+  const long long nrows = (long long)B * S * H;
+  if (nrows > 0) {
+    const int per = 8;   // warps (rows) per block
+    flash_bwd_dsum<E><<<(unsigned)((nrows + per - 1) / per), 32 * per, 0,
+                        st>>>(o, dout, dsum, S, H, HD, nrows);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (route == 0) {
+    if (HD == 16) return (int)dispatch_bwd<16>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+    return (int)dispatch_bwd<32>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+  }
+  if (HD == 64) return (int)dispatch_hopper<64>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+  if (HD == 128) return (int)dispatch_hopper<128>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+  return (int)dispatch_hopper<256>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Which kernel serves head width HD: 1 flash_bwd_hopper (64, 128, 256), 0
-// flash_bwd_kernel (16, 32), -1 none. flash_attention_bwd_f32 dispatches on
-// it.
+// Which kernel serves head width HD in either entry: 1 flash_bwd_hopper
+// (64, 128, 256), 0 the mma.sync kernels (16, 32: flash_bwd_kernel for
+// f32, flash_bwd_kernel_bf16 for bf16), -1 none. The entries dispatch on
+// the same test.
 int flash_attention_bwd_route(int HD) {
   if (HD == 64 || HD == 128 || HD == 256) return 1;
   return HD == 16 || HD == 32 ? 0 : -1;
@@ -1195,35 +1597,50 @@ int flash_attention_bwd_f32(const float* q, const float* k, const float* v,
                             float* dsum, int B, int S, int T, int H, int K,
                             int HD, int causal, int window, float softcap,
                             void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int route = flash_attention_bwd_route(HD);
-  if (route < 0) return (int)cudaErrorInvalidValue;
-  const long long nrows = (long long)B * S * H;
-  if (nrows > 0) {
-    const int per = 8;   // warps (rows) per block
-    flash_bwd_dsum<<<(unsigned)((nrows + per - 1) / per), 32 * per, 0, st>>>(
-        o, dout, dsum, S, H, HD, nrows);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (route == 0) {
-    if (HD == 16) return (int)dispatch_bwd<16>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
-    return (int)dispatch_bwd<32>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
-  }
-  if (HD == 64) return (int)dispatch_hopper<64>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
-  if (HD == 128) return (int)dispatch_hopper<128>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
-  return (int)dispatch_hopper<256>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+  return run_entry(q, k, v, o, dout, lse, dq, dk, dv, dsum, B, S, T, H, K, HD,
+                   causal, window, softcap, (cudaStream_t)stream);
+}
+
+// The bf16 entry's backward: the gradients of flash_attention_bf16's output
+// o, as flash_attention_bwd_f32's, with q, k, v, o, dout, dq, dk and dv
+// bf16 (2 bytes each) and lse (flash_attention_bf16's, f32) and the dsum
+// workspace float32. Three launches on `stream`: dsum from the bf16 o and
+// dout, dq, then dk and dv together (hd 64, 128, 256: flash_bwd_hopper on
+// bf16 tiles; hd 16, 32: flash_bwd_kernel_bf16). Returns a cudaError_t.
+int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                             const void* o, const void* dout,
+                             const float* lse, void* dq, void* dk, void* dv,
+                             float* dsum, int B, int S, int T, int H, int K,
+                             int HD, int causal, int window, float softcap,
+                             void* stream) {
+  using E = uint16_t;
+  return run_entry((const E*)q, (const E*)k, (const E*)v, (const E*)o,
+                   (const E*)dout, lse, (E*)dq, (E*)dk, (E*)dv, dsum, B, S, T,
+                   H, K, HD, causal, window, softcap, (cudaStream_t)stream);
 }
 
 // Dynamic shared memory (bytes) of the dQ and dK/dV kernels that serve head
-// width HD (the same for both), 0 for a width the library is not built for.
+// width HD in the f32 entry (the same for both), 0 for a width the library
+// is not built for.
 int flash_attention_bwd_smem_bytes(int HD) {
   switch (HD) {
     case 16: return (int)Cfg<16>::bytes;
     case 32: return (int)Cfg<32>::bytes;
-    case 64: return (int)hb::Cfg<64>::bytes;
-    case 128: return (int)hb::Cfg<128>::bytes;
-    case 256: return (int)hb::Cfg<256>::bytes;
+    case 64: return (int)hb::Cfg<64, float>::bytes;
+    case 128: return (int)hb::Cfg<128, float>::bytes;
+    case 256: return (int)hb::Cfg<256, float>::bytes;
+    default: return 0;
+  }
+}
+
+// The same for the bf16 entry's kernels.
+int flash_attention_bwd_bf16_smem_bytes(int HD) {
+  switch (HD) {
+    case 16: return (int)CfgB<16>::bytes;
+    case 32: return (int)CfgB<32>::bytes;
+    case 64: return (int)hb::Cfg<64, uint16_t>::bytes;
+    case 128: return (int)hb::Cfg<128, uint16_t>::bytes;
+    case 256: return (int)hb::Cfg<256, uint16_t>::bytes;
     default: return 0;
   }
 }

@@ -11,16 +11,17 @@ and 256; bf16 at hd 64, 128 and 256, the Hopper kernel with TMA and
 For tensors on a CUDA device it launches the hand-written kernel on the
 current stream and raises if the kernel does not take the arguments or the
 launch fails; for tensors on the CPU it calls the plain PyTorch version
-(``ref.py``). There is no other path. With ``return_lse`` the f32 entry
-also returns each row's log-sum-exp (B, H, S), which the backward
+(``ref.py``). There is no other path. With ``return_lse`` either entry
+also returns each row's log-sum-exp (B, H, S) f32, which the backward
 recomputes P from.
 
-``flash_attention_bwd`` is the backward of the f32 entry
+``flash_attention_bwd`` is the backward of either entry
 (``csrc/flash_attention_bwd.cu``, a library of its own, built beside this
-one): dQ, dK and dV from q, k, v, the forward's output and LSE and the
+one: ``flash_attention_bwd_f32`` and ``flash_attention_bwd_bf16``): dQ, dK
+and dV in q's dtype from q, k, v, the forward's output and LSE and the
 output's gradient; on the CPU it differentiates the plain version
 (``flash_attention_bwd_ref``). The autograd function that joins the two
-is ``ops.flash_attention_op``.
+is ``ops.FlashAttentionFn``, through ``ops.flash_attention_op``.
 
 On the card q, k and v are all float32 (``flash_attention_f32``) or all
 bfloat16 (``flash_attention_bf16``, the reference's default dtype: bf16
@@ -31,13 +32,14 @@ widened to reach the f32 kernel.
 ``flash_attention.launches`` counts kernel launches of either entry (one
 per launch, nowhere else), so a run can show that it went through the
 kernel; ``launches_by_dtype`` splits the count by entry.
-``flash_attention_bwd.launches`` counts calls of the backward entry that
-launched its kernels (one per call: its three launches, D, dQ, then dK and
-dV together); ``launches_by_route`` splits the count by the kernel that
-served the call, as the library's ``flash_attention_bwd_route`` gives it
-for the head width (the function the C entry dispatches on): ``"hopper"``
-(``flash_bwd_hopper``, TMA and ``wgmma``, hd 64, 128 and 256) or
-``"mma_sync"`` (``flash_bwd_kernel``, hd 16 and 32).
+``flash_attention_bwd.launches`` counts calls of either backward entry
+that launched their kernels (one per call: its three launches, D, dQ, then
+dK and dV together); ``launches_by_dtype`` splits the count by entry, and
+``launches_by_route`` by the kernel that served the call, as the
+library's ``flash_attention_bwd_route`` gives it for the head width (the
+function both C entries dispatch on): ``"hopper"`` (``flash_bwd_hopper``,
+TMA and ``wgmma``, hd 64, 128 and 256) or ``"mma_sync"``
+(``flash_bwd_kernel`` or, bf16, ``flash_bwd_kernel_bf16``, hd 16 and 32).
 """
 
 from __future__ import annotations
@@ -56,8 +58,9 @@ from .ref import (flash_attention_bwd_ref, flash_attention_lse_ref,
 
 _CSRC = Path(__file__).parent / "csrc"
 SOURCES = [_CSRC / "flash_attention.cu", _CSRC / "split_tf32.cuh",
-           Path(__file__).parent.parent / "hopper.cuh"]
+           _CSRC / "bf16_mma.cuh", Path(__file__).parent.parent / "hopper.cuh"]
 BWD_SOURCES = [_CSRC / "flash_attention_bwd.cu", _CSRC / "split_tf32.cuh",
+               _CSRC / "bf16_mma.cuh",
                Path(__file__).parent.parent / "hopper.cuh"]
 
 _P = ctypes.c_void_p
@@ -74,7 +77,7 @@ def library() -> ctypes.CDLL:
                                             + [ctypes.c_float, _P, _P])
         lib.flash_attention_f32.restype = _I
         lib.flash_attention_bf16.argtypes = ([_P] * 4 + [_I] * 8
-                                             + [ctypes.c_float, _P])
+                                             + [ctypes.c_float, _P, _P])
         lib.flash_attention_bf16.restype = _I
         lib.flash_attention_supported.argtypes = [_I]
         lib.flash_attention_supported.restype = _I
@@ -86,11 +89,13 @@ def library_bwd() -> ctypes.CDLL:
     """The built backward library (built at first use)."""
     lib = load_library("flash_attention_bwd", BWD_SOURCES)
     if not getattr(lib, "_repro_typed", False):
-        lib.flash_attention_bwd_f32.argtypes = ([_P] * 10 + [_I] * 8
-                                                + [ctypes.c_float, _P])
-        lib.flash_attention_bwd_f32.restype = _I
+        for fn in ("flash_attention_bwd_f32", "flash_attention_bwd_bf16"):
+            getattr(lib, fn).argtypes = ([_P] * 10 + [_I] * 8
+                                         + [ctypes.c_float, _P])
+            getattr(lib, fn).restype = _I
         for fn in ("flash_attention_bwd_route",
-                   "flash_attention_bwd_smem_bytes"):
+                   "flash_attention_bwd_smem_bytes",
+                   "flash_attention_bwd_bf16_smem_bytes"):
             getattr(lib, fn).argtypes = [_I]
             getattr(lib, fn).restype = _I
         lib._repro_typed = True
@@ -149,7 +154,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     return_lse: bool = False):
     """q (B, S, H, hd); k/v (B, T, K, hd), H = K·G. → (B, S, H, hd), and
     with ``return_lse`` also each row's log-sum-exp (B, H, S) f32 (+inf for
-    a row with no live key; the f32 entry only).
+    a row with no live key).
 
     ``window`` (> 0) keeps keys within ``window`` positions of the query;
     None keeps all. ``softcap`` (> 0) maps each scaled score s to
@@ -164,9 +169,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return (out, flash_attention_lse_ref(q, k, **kw)) if return_lse \
             else out
     check_kernel_args(q, k, v)
-    if return_lse and q.dtype != torch.float32:
-        raise TypeError("flash_attention: only the f32 entry returns the "
-                        "log-sum-exp")
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     lib = library()
@@ -180,14 +182,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
         return (out, lse) if return_lse else out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, S, T, H, K, hd, int(causal), window or 0,
-                float(softcap or 0.0))
-        if q.dtype == torch.bfloat16:
-            rc = lib.flash_attention_bf16(*args, stream)
-        else:
-            rc = lib.flash_attention_f32(
-                *args, lse.data_ptr() if return_lse else None, stream)
+        entry = (lib.flash_attention_bf16 if q.dtype == torch.bfloat16
+                 else lib.flash_attention_f32)
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   B, S, T, H, K, hd, int(causal), window or 0,
+                   float(softcap or 0.0),
+                   lse.data_ptr() if return_lse else None, stream)
     check_launch(rc, "flash_attention")
     flash_attention.launches += 1
     flash_attention.launches_by_dtype[q.dtype] += 1
@@ -204,7 +204,8 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     """The gradients (dq, dk, dv) of ``flash_attention(q, k, v, ...)``'s
     output, given its gradient ``dout`` (B, S, H, hd), the output ``out``
     and ``lse`` (B, H, S) of the same forward call (``return_lse=True``).
-    On the card all f32 and contiguous; on the CPU the plain version's
+    On the card q, k, v, out and dout all f32 or all bf16 (the gradients in
+    that dtype), lse f32, all contiguous; on the CPU the plain version's
     autograd (``out`` and ``lse`` unused)."""
     dev = _check(q, k, v)
     _check_mask(window, softcap)
@@ -222,15 +223,11 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
         return flash_attention_bwd_ref(q, k, v, dout, causal=causal,
                                        window=window, softcap=softcap)
     check_kernel_args(q, k, v)
-    for name, t in (("out", out), ("dout", dout), ("lse", lse)):
-        if t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_bwd: {name} must be float32, "
+    for name, t, dt in (("out", out, q.dtype), ("dout", dout, q.dtype),
+                        ("lse", lse, torch.float32)):
+        if t.dtype != dt or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} must be {dt}, "
                              f"contiguous and 16-byte aligned")
-    if q.dtype != torch.float32:
-        raise TypeError("flash_attention_bwd: the backward kernel takes "
-                        "float32 (the bf16 entry has none: ROADMAP queue 1, "
-                        "item 13f)")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
@@ -238,19 +235,23 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     lib = library_bwd()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.flash_attention_bwd_f32(
+        entry = (lib.flash_attention_bwd_bf16 if q.dtype == torch.bfloat16
+                 else lib.flash_attention_bwd_f32)
+        rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dsum.data_ptr(), B, S, T, H, K, hd, int(causal),
             window or 0, float(softcap or 0.0), stream)
     check_launch(rc, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_dtype[q.dtype] += 1
     flash_attention_bwd.launches_by_route[bwd_route(hd)] += 1
     return dq, dk, dv
 
 
 BWD_ROUTES = ("hopper", "mma_sync")
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
 flash_attention_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
 
 
@@ -264,16 +265,18 @@ def bwd_route(hd: int) -> str:
 
 
 def bwd_resources(library: str = "flash_attention_bwd") -> dict:
-    """{"flash_bwd_hopper<hd,DQ|DKV,cap|nocap>" (or ``flash_bwd_kernel``):
-    [registers, spill bytes]} of a backward library built in this process
-    (empty if it was found built)."""
+    """{"flash_bwd_hopper<hd,DQ|DKV,cap|nocap>" (the f32 entry's; the bf16
+    entry's with ",bf16" before the ">"; or ``flash_bwd_kernel``,
+    ``flash_bwd_kernel_bf16``): [registers, spill bytes]} of a backward
+    library built in this process (empty if it was found built)."""
     out = {}
     for sym, res in ptxas_resources(library).items():
-        m = re.search(r"(flash_bwd_(?:kernel|hopper))ILi(\d+)ELi(\d)ELb(\d)",
-                      sym)
+        m = re.search(r"(flash_bwd_(?:kernel_bf16|kernel|hopper))ILi(\d+)ELi"
+                      r"(\d)ELb(\d)E(t?)", sym)
         if m:
             out[f"{m[1]}<{m[2]},{('DQ', 'DKV')[int(m[3])]},"
-                f"{('nocap', 'cap')[int(m[4])]}>"] = res
+                f"{('nocap', 'cap')[int(m[4])]}{',bf16' if m[5] else ''}>"] \
+                = res
     return out
 
 
@@ -282,4 +285,5 @@ def reset_launches() -> None:
     flash_attention.launches = 0
     flash_attention.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
     flash_attention_bwd.launches = 0
+    flash_attention_bwd.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
     flash_attention_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)

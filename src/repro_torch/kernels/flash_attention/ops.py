@@ -4,11 +4,10 @@ autograd function where a gradient is wanted.
 
 On the CPU the plain version runs under PyTorch's autograd as it is. On the
 card a call whose inputs require a gradient (with grad mode on) goes
-through ``FlashAttentionF32``: its forward launches the f32 kernel and keeps
-the row log-sum-exp, its backward launches the backward kernel
-(``flash_attention_bwd``). The bf16 entry has no backward kernel yet, so a
-bf16 call that wants a gradient raises rather than return an output cut
-off from its inputs' gradients.
+through ``FlashAttentionFn``: its forward launches the kernel of the
+inputs' dtype (the f32 or the bf16 entry) and keeps the row log-sum-exp,
+its backward launches that entry's backward kernels
+(``flash_attention_bwd``).
 """
 
 from __future__ import annotations
@@ -20,8 +19,9 @@ import torch
 from .kernel import flash_attention, flash_attention_bwd
 
 
-class FlashAttentionF32(torch.autograd.Function):
-    """The f32 kernel forward and its backward kernel, for CUDA tensors."""
+class FlashAttentionFn(torch.autograd.Function):
+    """A kernel forward (f32 or bf16) and its backward kernel, for CUDA
+    tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
@@ -50,10 +50,6 @@ def flash_attention_op(q, k, v, *, causal: bool = True,
     """q (B, S, H, hd); k/v (B, T, K, hd), H = K·G. → (B, S, H, hd)."""
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if q.device.type == "cuda" and wants_grad(q, k, v):
-        if q.dtype != torch.float32:
-            raise NotImplementedError(
-                "flash_attention: the bf16 entry has no backward kernel yet "
-                "(ROADMAP queue 1, item 13f); train in float32")
-        return FlashAttentionF32.apply(q, k, v, causal, window, softcap)
+        return FlashAttentionFn.apply(q, k, v, causal, window, softcap)
     return flash_attention(q, k, v, causal=causal, window=window,
                            softcap=softcap)

@@ -26,9 +26,10 @@ reference's launcher draws them. The Mamba kinds train on the card
 through the scans' f32 kernels and their backward kernels:
 ``--arch zamba2-1.2b`` uncut (~20 GB of f32 train state), ``--arch
 falcon-mamba-7b --n-layers 32`` (every published width; all 64 layers,
-~116 GB, do not fit one 80 GB card). Only the MoE models do not train on
-the card yet (ROADMAP queue 1, item 13f): they raise there and train on the
-CPU.
+~116 GB, do not fit one 80 GB card). The mixtrals train on the card at
+every published width cut in depth: ``--arch mixtral-8x7b --n-layers 2``
+(~51 GB of f32 train state), ``--arch mixtral-8x22b --n-layers 1`` (~47
+GB).
 """
 
 from __future__ import annotations

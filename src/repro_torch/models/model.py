@@ -150,7 +150,10 @@ KERNEL_BACKWARD = {"flash_attention": "flash_attention_bwd",
 
 def train_step_launches(cfg: ModelConfig) -> Dict[str, int]:
     """The kernel launches of one train step of ``cfg`` on the card, by
-    entry (the forwards' f32 entries and ``KERNEL_BACKWARD``): per segment
+    entry (the forwards' f32 entries and ``KERNEL_BACKWARD``; for a bf16
+    ``cfg`` attention's bf16 entry and its backward, ``flash_attention_bf16``
+    and ``flash_attention_bwd_bf16``, while the scans take their f32
+    entries, as the models pass them f32 without ``ssm_bf16``): per segment
     (``plan_segments``, and an enc-dec model's encoder) of R repeats of a
     pattern, in groups of ``_group(R, scan_group)`` repeats, each block's
     calls (``BLOCK_KERNEL_CALLS``) run backward once and forward: with both
@@ -163,6 +166,8 @@ def train_step_launches(cfg: ModelConfig) -> Dict[str, int]:
         segments.append((("enc",), cfg.n_enc_layers))
     out = dict.fromkeys(list(KERNEL_BACKWARD) + list(
         KERNEL_BACKWARD.values()), 0)
+    out.update(flash_attention_bf16=0, flash_attention_bwd_bf16=0)
+    bf16 = cfg.dtype == torch.bfloat16
     for pattern, R in segments:
         groups = R // _group(R, cfg.scan_group)
         for i, kind in enumerate(pattern):
@@ -170,8 +175,9 @@ def train_step_launches(cfg: ModelConfig) -> Dict[str, int]:
             for name, n in BLOCK_KERNEL_CALLS[kind].items():
                 fwd = (3 * R - (groups if last else 0) if cfg.block_remat
                        else 2 * R)
-                out[name] += fwd * n
-                out[KERNEL_BACKWARD[name]] += R * n
+                suffix = "_bf16" if bf16 and name == "flash_attention" else ""
+                out[name + suffix] += fwd * n
+                out[KERNEL_BACKWARD[name] + suffix] += R * n
     return out
 
 
@@ -579,15 +585,7 @@ def lm_loss(params: Params, cfg: ModelConfig, tokens, targets, *,
     logits in f32, logsumexp minus the target's logit, the mean over
     tokens (the VLM's patch positions sliced off first), plus
     ``aux_weight · aux_loss`` for a model with experts. Returns (loss,
-    summed expert counts).
-
-    A MoE model does not train on the card yet (ROADMAP queue 1, item 13f):
-    asked for a gradient there, this raises."""
-    if (cfg.n_experts and torch.is_grad_enabled()
-            and params["embed"].device.type == "cuda"):
-        raise NotImplementedError(
-            "lm_loss: MoE training on the card is not ported yet (ROADMAP "
-            "queue 1, item 13f); it trains on the CPU")
+    summed expert counts)."""
     res = forward(params, cfg, tokens, mode="train", enc_inputs=enc_inputs,
                   patch_embeds=patch_embeds)
     logits = res.logits

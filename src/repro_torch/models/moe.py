@@ -24,9 +24,13 @@ On the card every index operation is deterministic: gathers
 ``torch.bmm`` over (E, G·cap, d), as the reference leaves its einsums to
 XLA outside any Pallas kernel. Training differentiates this layer with
 PyTorch's autograd through the same operations (the combine weights and the
-router's softmax carry the gradient, the aux loss joins ``lm_loss``); it
-runs on the CPU, and on the card ``lm_loss`` raises for a MoE model until
-its training there is ported (ROADMAP queue 1, item 13f).
+router's softmax carry the gradient, the aux loss joins ``lm_loss``), on
+the CPU and on the card alike. The gradients of the two gathers are
+``index_add_``, which sums with atomics on the card; with top-k routing
+each row of x and of the experts' output gets at most k nonzero terms, the
+others ±0 of masked or dropped slots, so the sum is the same in any order
+and a train step is bitwise the same twice (``chip_smoke.py`` phase 17
+checks it at full width).
 """
 
 from __future__ import annotations

@@ -30,10 +30,19 @@ backwards of the scans' f32 entries (``selective_scan_bwd``,
 ``ssd_scan_bwd``) are held to the plain forwards' autograd the same way
 (every gradient within ``BWD_RTOL`` of its scale, h0 and the final state's
 gradient given or not, ragged S, every built width, twice bitwise).
-Training on the card (the ops under autograd, a reduced model's train
-steps against the CPU's within 1e-4 of scale, the Mamba kinds' too) and
-the entries that have no backward kernel yet (the bf16 entries of the
-three kernels) raising under grad are tested at the end of the file.
+The backward of the bf16 flash entry (``flash_attention_bwd`` on bf16
+tensors: ``flash_attention_bwd_bf16``) is held to the plain version's
+autograd in bf16: each of dQ, dK and dV within 2 x the plain bf16
+backward's own RMS distance from the plain f32 backward on the same values
+widened (tests/test_torch_train_bf16.py's rule and its reason), run twice
+bitwise, at every head width with windows and soft-caps; the bf16
+forward's log-sum-exp as the f32 one's, with the output bit for bit the
+one without it. Training on the card (the ops under autograd, a reduced
+model's train steps against the CPU's within 1e-4 of scale, the Mamba
+kinds' and a mixtral's too, a reduced mixtral's f32 step and a reduced
+granite's bf16 step each twice bitwise) and the entries that have no
+backward kernel yet (the scans' bf16 entries) raising under grad are
+tested at the end of the file.
 
 The bf16 entries are held to their plain versions on the same bf16 inputs,
 each output within one bf16 rounding of the plain one (2^-7 of the value)
@@ -867,6 +876,102 @@ def test_cuda_flash_backward_hopper_edges(cuda_device, B, S, T, H, K, hd,
     assert FK.flash_attention_bwd.launches_by_route["hopper"] == n0 + 2
 
 
+def rms_share(got, want, scale) -> float:
+    """RMS of ``got − want`` over the RMS of ``scale``, in f64."""
+    got, want, scale = (t.double().cpu() for t in (got, want, scale))
+    return float((got - want).pow(2).mean().sqrt()
+                 / scale.pow(2).mean().sqrt().clamp_min(1e-30))
+
+
+BWD_BF16_RATIO = 2.0   # the kernel's distance / the plain bf16 one's own
+
+
+def check_backward_bf16(dev, B, S, T, H, K, hd, causal, window, softcap):
+    """The bf16 backward kernel against the plain autograd in bf16 on the
+    same inputs, run twice bitwise, each gradient bf16 and within
+    ``BWD_BF16_RATIO`` × the plain bf16 backward's own distance from the
+    plain f32 backward; one launch of the bf16 entry a call. Returns the
+    ratios."""
+    q, k, v = (t.bfloat16() for t in tt(qkv_inputs(B, S, T, H, K, hd,
+                                                    seed=S + T + hd), dev))
+    dout = torch.from_numpy(np.random.default_rng(hd).standard_normal(
+        (B, S, H, hd)).astype(np.float32)).to(dev).bfloat16()
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    n0 = FK.flash_attention_bwd.launches_by_dtype[torch.bfloat16]
+    got = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    again = flash_attention_bwd(q, k, v, out, dout, lse, **kw)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_bwd.launches_by_dtype[torch.bfloat16] == n0 + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain16 = flash_attention_bwd_ref(q, k, v, dout, **kw)
+    plain32 = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                      dout.float(), **kw)
+    ratios = {}
+    for name, g, p16, p32 in zip(("dq", "dk", "dv"), got, plain16, plain32):
+        assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+        own = rms_share(p16, p32, p32)
+        ratios[name] = rms_share(g, p16, p32) / own
+    assert max(ratios.values()) <= BWD_BF16_RATIO, ratios
+    return ratios
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("B,S,T,H,K,causal,window,softcap", [
+    (1, 150, 190, 4, 2, True, 100, None),       # window, T − S offset, GQA
+    (2, 130, 130, 4, 1, True, None, 30.0),      # soft-capped, MQA
+    (1, 300, 150, 8, 4, True, 40, None),        # S > T: rows with no key
+    (2, 90, 200, 4, 4, False, None, 50.0),      # no mask, capped, S < T
+])
+def test_cuda_flash_bf16_backward_matches_plain(cuda_device, hd, B, S, T, H,
+                                                K, causal, window, softcap):
+    """Every built width; hd 64, 128 and 256 through flash_bwd_hopper on
+    bf16 tiles, hd 16 and 32 through flash_bwd_kernel_bf16, as the
+    wrapper's per-route count shows."""
+    want = FK.bwd_route(hd)
+    before = dict(FK.flash_attention_bwd.launches_by_route)
+    check_backward_bf16(cuda_device, B, S, T, H, K, hd, causal, window,
+                        softcap)
+    moved = {r: n - before[r]
+             for r, n in FK.flash_attention_bwd.launches_by_route.items()}
+    assert moved == {r: 2 if r == want else 0 for r in FK.BWD_ROUTES}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,K,hd,window", [
+    (8, 256, 32, 8, 128, None),        # granite-8b's train shape
+    (8, 256, 48, 8, 128, 4096),        # mixtral-8x22b's, a group of 6
+])
+def test_cuda_flash_bf16_backward_at_train_shapes(cuda_device, B, S, H, K,
+                                                  hd, window):
+    check_backward_bf16(cuda_device, B, S, S, H, K, hd, True, window, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("B,S,T,H,K,causal,window,softcap", [
+    (2, 150, 190, 4, 2, True, 100, None),
+    (1, 300, 150, 8, 4, True, None, 20.0),      # 150 rows with no live key
+])
+def test_cuda_flash_bf16_lse_matches_plain(cuda_device, hd, B, S, T, H, K,
+                                           causal, window, softcap):
+    """The bf16 forward's log-sum-exp against ``flash_attention_lse_ref``
+    on the same bf16 inputs within ``BWD_RTOL`` of its scale, +inf exactly
+    on the rows with no live key; asking for it leaves the output bit for
+    bit as without it."""
+    q, k, v = (t.bfloat16() for t in tt(qkv_inputs(B, S, T, H, K, hd,
+                                                    seed=hd), cuda_device))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H, S)
+    assert torch.equal(out, flash_attention(q, k, v, **kw))
+    want = flash_attention_lse_ref(q, k, **kw)
+    dead = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), dead) and bool((lse[dead] > 0).all())
+    assert rel_err(lse[~dead], want[~dead]) <= BWD_RTOL
+
+
 @pytest.mark.cuda
 def test_cuda_flash_op_carries_gradients(cuda_device):
     """``flash_attention_op`` under autograd on the card: one forward and
@@ -892,16 +997,25 @@ def test_cuda_flash_op_carries_gradients(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_entries_without_a_backward_raise_under_grad(cuda_device):
-    """The bf16 entries of the three kernels have no backward kernel yet: on
-    the card they raise when an input requires grad (no silent detach);
-    without grad they run; under ``no_grad`` they run. The f32 entries of
-    all three carry gradients (the tests above and below)."""
+    """The scans' bf16 entries have no backward kernel yet: on the card
+    they raise when an input requires grad (no silent detach); without
+    grad they run; under ``no_grad`` they run. The bf16 flash entry now has
+    one: under grad it runs its forward with the LSE, and the backward
+    launches the bf16 backward entry. The f32 entries of all three carry
+    gradients (the tests above and below)."""
     from repro_torch.kernels.mamba_scan import selective_scan_op
     from repro_torch.kernels.ssd_scan import ssd_scan_op
     q, k, v = tt(qkv_inputs(1, 64, 64, 2, 2, 64), cuda_device)
     qb = q.bfloat16().requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="13f"):
-        flash_attention_op(qb, k.bfloat16(), v.bfloat16())
+    n0 = (FK.flash_attention.launches_by_dtype[torch.bfloat16],
+          FK.flash_attention_bwd.launches_by_dtype[torch.bfloat16])
+    flash_attention_op(qb, k.bfloat16(), v.bfloat16()).float().sum() \
+        .backward()
+    torch.cuda.synchronize()
+    assert (FK.flash_attention.launches_by_dtype[torch.bfloat16] - n0[0],
+            FK.flash_attention_bwd.launches_by_dtype[torch.bfloat16]
+            - n0[1]) == (1, 1)
+    assert qb.grad.dtype == torch.bfloat16
     with torch.no_grad():
         flash_attention_op(qb, k.bfloat16(), v.bfloat16())
     for op, args in ((ssd_scan_op, ssd_inputs(1, 64, 2, 16, 16)),
@@ -1106,7 +1220,7 @@ def scan_launches():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["granite-8b", "gemma3-27b",
-                                  "seamless-m4t-large-v2"])
+                                  "seamless-m4t-large-v2", "mixtral-8x7b"])
 def test_cuda_reduced_training_matches_cpu(cuda_device, arch):
     """Three train steps of a reduced model (``make_train_step``) on the
     card and on the CPU from the same parameters and batches: each loss and
@@ -1171,3 +1285,50 @@ def test_cuda_reduced_mamba_training_matches_cpu(cuda_device, arch):
     assert c_card == [(want["flash_attention"],
                        want["flash_attention_bwd"])] * 3
     assert c_cpu == [(0, 0)] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,dtype", [("mixtral-8x7b", torch.float32),
+                                        ("granite-8b", torch.bfloat16)])
+def test_cuda_train_step_twice_bitwise(cuda_device, arch, dtype):
+    """A reduced mixtral's f32 train step (its MoE gathers differentiate
+    through ``index_add_``, whose atomics add at most top-k nonzero terms
+    a row) and a reduced granite's bf16 step (through the bf16 flash
+    entry and its backward): taken twice from the same state, every loss,
+    gradient norm, weight and moment bitwise the same; the step's flash
+    launches as ``train_step_launches`` counts them; the weights keep
+    their dtypes and the moments are f32."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import leaves, tree_map
+    from repro_torch.models.model import train_step_launches
+    from repro_torch.train import (AdamConfig, DataConfig, TokenStream,
+                                   TrainConfig, adam_init, make_train_step)
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype=dtype)
+    step = make_train_step(cfg, TrainConfig(adam=AdamConfig(
+        lr=3e-4, warmup_steps=10, total_steps=100)))
+    base = init_params(cfg, torch.Generator().manual_seed(0))
+    batch = TokenStream(DataConfig(vocab=cfg.vocab, seq=40,
+                                   batch=4)).batch(0)
+    want = train_step_launches(cfg)
+    fwd = "flash_attention" + ("_bf16" if dtype == torch.bfloat16 else "")
+    bwd = "flash_attention_bwd" + ("_bf16" if dtype == torch.bfloat16 else "")
+    runs = []
+    for _ in range(2):
+        params = tree_map(lambda t: t.clone().to(cuda_device), base)
+        opt = adam_init(params)
+        n0 = (FK.flash_attention.launches_by_dtype[dtype],
+              FK.flash_attention_bwd.launches_by_dtype[dtype])
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        assert (FK.flash_attention.launches_by_dtype[dtype] - n0[0],
+                FK.flash_attention_bwd.launches_by_dtype[dtype] - n0[1]) \
+            == (want[fwd], want[bwd])
+        runs.append([m["loss"], m["grad_norm"], *leaves(params),
+                     *leaves(opt.mu), *leaves(opt.nu)])
+        assert [t.dtype for t in leaves(params)] == \
+            [t.dtype for t in leaves(base)]
+        assert {t.dtype for t in leaves(opt.mu)} == {torch.float32}
+    assert bool(torch.isfinite(runs[0][0]))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))

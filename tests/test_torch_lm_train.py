@@ -64,7 +64,8 @@ from repro_torch.train import (AdamConfig, DataConfig, TokenStream,
 from torch_threads import one_torch_thread  # noqa: F401
 
 TRAIN_ARCHS = ["granite-8b", "gemma-7b", "gemma3-27b",
-               "seamless-m4t-large-v2", "zamba2-1.2b", "falcon-mamba-7b"]
+               "seamless-m4t-large-v2", "zamba2-1.2b", "falcon-mamba-7b",
+               "mixtral-8x7b", "mixtral-8x22b"]
 B, S, ENC = 2, 24, 13
 
 

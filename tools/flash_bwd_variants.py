@@ -60,7 +60,8 @@ from chip_smoke import bwd_bounds, bwd_cases, bwd_ops_bytes  # noqa: E402
 
 CSRC = ROOT / "src/repro_torch/kernels/flash_attention/csrc"
 OUT = ROOT / "build" / "variants"
-BC = "  static constexpr int BC = HD == 64 ? 32 : (HD == 128 ? 64 : 16);"
+BC = ("  static constexpr int BC = HD == 64 ? (BF ? 64 : 32) : (HD == 128 ? 64 "
+      ": 16);")
 MINB = "  static constexpr int MINB = HD == 64 ? 2 : 1;"
 SPLIT = "      if (it + 1 < n_it) split_tile(it + 1);\n"
 WAIT = "      wgmma_wait<0>();\n      pin(acc);\n"
@@ -83,7 +84,8 @@ def variant(name, edits, src=None):
     OUT.mkdir(parents=True, exist_ok=True)
     path = OUT / f"flash_attention_bwd_{name}.cu"
     path.write_text(src)
-    heads = [CSRC / "split_tf32.cuh", CSRC.parents[1] / "hopper.cuh"]
+    heads = [CSRC / "split_tf32.cuh", CSRC / "bf16_mma.cuh",
+             CSRC.parents[1] / "hopper.cuh"]
     for h in heads:
         shutil.copy(h, OUT / h.name)
     lib = build.load_library(f"flash_bwd_{name}",

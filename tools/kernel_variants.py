@@ -70,6 +70,7 @@ Naming kernels (``flash_attention``, ``force_pair``, ``density_pair``,
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
@@ -259,7 +260,11 @@ def build(name, src, edits):
     with open(path, "w") as f:
         f.write(text)
     lib = os.path.join(OUT, f"lib{name}.so")
-    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", lib, path],
+    # the variant lies in OUT: its source's own headers (split_tf32.cuh,
+    # bf16_mma.cuh) are found beside the source it was made from
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS,
+                           f"-I{os.path.dirname(os.path.abspath(src))}",
+                           f"-I{os.path.dirname(FLASH)}", "-o", lib, path],
                           capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stdout}"
@@ -270,8 +275,15 @@ def build(name, src, edits):
     return name, lib, regs, lines
 
 
+def takes_lse(name, entry):
+    """Whether the variant ``name``'s source gives C entry ``entry`` the
+    nullable ``float* lse`` before its stream (an older source may not)."""
+    text = open(os.path.join(OUT, f"{name}.cu")).read()
+    return re.search(rf"int {entry}\([^)]*float\* lse", text) is not None
+
+
 def flash_caller(lib):
-    lib.flash_attention_f32.argtypes = [_P] * 4 + [_I] * 8 + [_F, _P]
+    lib.flash_attention_f32.argtypes = [_P] * 4 + [_I] * 8 + [_F, _P, _P]
     B, S, H, hd = 4, 2048, 32, 64
     q, k, v = qkv_inputs(B, S, S, H, H, hd, "cuda")
     o = torch.empty_like(q)
@@ -280,7 +292,7 @@ def flash_caller(lib):
     def run():
         rc = lib.flash_attention_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                      o.data_ptr(), B, S, S, H, H, hd, 1, 0,
-                                     0.0, stream)
+                                     0.0, None, stream)
         assert rc == 0, rc
         return [o]
     return run
@@ -360,9 +372,11 @@ def bf16_ab(built, reps):
     libs = {}
     for name, path, _, lines in built:
         lib = ctypes.CDLL(path)
-        lib.flash_attention_bf16.argtypes = [_P] * 4 + [_I] * 8 + [_F, _P]
+        lse = takes_lse(name, "flash_attention_bf16")
+        lib.flash_attention_bf16.argtypes = ([_P] * 4 + [_I] * 8 + [_F]
+                                             + [_P] * (2 if lse else 1))
         lib.flash_attention_bf16.restype = _I
-        libs[name] = (lib, lines)
+        libs[name] = (lib, lines, lse)
     shapes = [(label, shape, window)
               for label, shape, window, cap in bf16_flash_cases()
               if cap is None and label not in ("ragged-gqa-window",
@@ -372,13 +386,14 @@ def bf16_ab(built, reps):
         q, k, v = (t.bfloat16() for t in qkv_inputs(B, S, T, H, K, hd, "cuda"))
         want = flash_attention_ref(q, k, v, window=window)
         runs, outs = {}, {}
-        for name, (lib, _) in libs.items():
+        for name, (lib, _, lse) in libs.items():
             o = torch.empty_like(q)
 
-            def run(lib=lib, o=o):
+            def run(lib=lib, o=o, lse=lse):
                 rc = lib.flash_attention_bf16(
                     q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    B, S, T, H, K, hd, 1, window or 0, 0.0, stream)
+                    B, S, T, H, K, hd, 1, window or 0, 0.0,
+                    *((None,) if lse else ()), stream)
                 assert rc == 0, rc
             runs[name], outs[name] = run, o
         qt = q.transpose(1, 2).contiguous()
@@ -397,7 +412,8 @@ def bf16_ab(built, reps):
             for n in order:
                 turns[n].append(time_ms(runs[n], reps))
         bound = bf16_flash_bound(B, S, T, H, K, hd, window)
-        for name, (lib, lines) in list(libs.items()) + [("sdpa", (None, []))]:
+        for name, (lib, lines, _) in (list(libs.items())
+                                      + [("sdpa", (None, [], False))]):
             row = {"shape": label, "dims": [B, S, T, H, K, hd],
                    "window": window, "source": name, "ms": turns[name],
                    "bound_ms": bound["bound_ms"],
@@ -412,9 +428,7 @@ def bf16_ab(built, reps):
                     smem, smem_from = fn(hd), "library"
                 except AttributeError:
                     smem, smem_from = old_bf16_smem(hd), "bf16::Cfg formula"
-                res = flash_bf16_resources(   # OLD: mma.sync at every width
-                    lines, hd, kernel="flash_kernel_bf16"
-                    if name == "bf16_old" else None)
+                res = flash_bf16_resources(lines, hd)
                 # what ptxas said of the wgmma sequences (a serialization
                 # would show here)
                 row["ptxas_notes"] = [
