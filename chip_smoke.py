@@ -208,7 +208,10 @@ and for the training slice (``python -m repro_torch.launch.train``), f32:
     its LSE): each gradient within 2 × the plain bf16 backward's own RMS
     distance from the plain f32 backward, the output with the LSE bit for
     bit the one without it, its bound in one bf16 pass a product, bf16
-    SDPA's backward beside;
+    SDPA's backward beside, and what serves it (at hd 64, 128, 256
+    ``flash_bwd_bf16_hopper``, one launch after D, 5 products a live pair:
+    its registers, spills, shared memory, CTAs an SM, grid and the bytes
+    its design moves, the dQ workspace's traffic among them);
 16b. the scans' backward kernels (``selective_scan_bwd``,
     ``ssd_scan_bwd``, each a library of its own) against their plain
     versions on the same tensors, every gradient within 2e-4 of its scale,
@@ -3132,7 +3135,10 @@ BWD_ROUTE_ARITHMETIC = {"hopper": (3, PEAK_BF16_FLOPS, "3×bf16"),
                         "bf16": (1, PEAK_BF16_FLOPS, "bf16")}
 # Phase 16's bf16 half: the bf16 entry's backward (``flash_attention_bwd``
 # on bf16 tensors: ``flash_attention_bwd_bf16``, one bf16 pass a product
-# on either route) at the same cases, each of dq, dk and dv within
+# on either route; at hd 64, 128 and 256 one launch of
+# ``flash_bwd_bf16_hopper`` after D forms 5 products a live pair
+# (``BWD_PRODUCTS``), at hd 16 and 32 the mma.sync kernel's two launches
+# form ``BWD_KERNEL_PRODUCTS``) at the same cases, each of dq, dk and dv within
 # BWD_BF16_RATIO × the plain bf16 backward's own RMS distance from the
 # plain f32 backward on the same (widened) values (tests/
 # test_torch_train_bf16.py's rule), its bound the same 5 products in one
@@ -3258,6 +3264,17 @@ def bwd_bounds(ops, moved, route) -> dict:
             else f"operations ({kind})"}
 
 
+def bwd_bf16_bound(ops, moved) -> dict:
+    """The bf16 backward's bound over its bf16 bytes: its operations in
+    one bf16 pass a product at the bf16 peak
+    (``BWD_ROUTE_ARITHMETIC["bf16"]``)."""
+    passes, peak, kind = BWD_ROUTE_ARITHMETIC["bf16"]
+    roof = Roofline(moved, passes * ops, peak)
+    return {"bound_ms": roof.t_bound * 1e3,
+            "bound_by": "bytes" if roof.bottleneck == "bytes"
+            else f"operations ({kind})"}
+
+
 def sdpa_train_mask(dev, S, T, causal, window) -> dict:
     """``scaled_dot_product_attention``'s mask for the flash mask (query
     row i at key position i + T − S): ``is_causal`` for S = T without a
@@ -3378,6 +3395,37 @@ def rms_share(got, want, scale) -> float:
                  / scale.pow(2).mean().sqrt().clamp_min(1e-30))
 
 
+def bwd_bf16_kernel_info(lib, resources, route, B, S, T, H, K, hd, causal,
+                         window, cap) -> dict:
+    """What serves a bf16 backward case: the route, the products a live
+    pair its kernels form, their shared memory, CTAs an SM and ptxas
+    registers and spill bytes; for ``flash_bwd_bf16_hopper`` also its
+    grid, its tiles and the bytes its design moves, the dQ workspace's
+    traffic among them (``kernel.bf16_bwd_design``)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    smem = lib.flash_attention_bwd_bf16_smem_bytes(hd)
+    cap_tag = "cap" if cap else "nocap"
+    found = "not reported: the library was found built"
+    info = {"route": route, "passes_per_product": 1, "smem_bytes": smem,
+            "ctas_per_sm": lib.flash_attention_bwd_bf16_ctas_per_sm(hd)}
+    if route != "hopper":
+        return {**info, "kernel": "flash_bwd_kernel_bf16",
+                "products_per_live_pair": BWD_KERNEL_PRODUCTS,
+                "registers_spill_bytes": {
+                    m: resources.get(f"flash_bwd_kernel_bf16<{hd},{m},"
+                                     f"{cap_tag}>", found)
+                    for m in ("DQ", "DKV")}}
+    design = FK.bf16_bwd_design(B, S, T, H, K, hd, causal, window)
+    return {**info, "kernel": "flash_bwd_bf16_hopper",
+            "products_per_live_pair": BWD_PRODUCTS,
+            "registers_spill_bytes": resources.get(
+                f"flash_bwd_bf16_hopper<{hd},{cap_tag}>", found),
+            "grid_ctas": design["ctas"], "tiles_queries_keys": design["tiles"],
+            "iterations": sum(map(len, design["iterations"])),
+            "design_bytes": design["bytes"],
+            "design_workspace_bytes": design["workspace_bytes"]}
+
+
 def lm_check_backward_bf16(dev):
     """Phase 16, bf16: ``flash_attention_bwd`` on bf16 tensors (the
     ``flash_attention_bwd_bf16`` entry, after ``flash_attention_bf16``
@@ -3401,18 +3449,8 @@ def lm_check_backward_bf16(dev):
     worst, row_of_path = 0.0, None
     for label, (B, S, T, H, K, hd), causal, window, cap in bwd_cases():
         route = FK.bwd_route(hd)
-        kern = ("flash_bwd_hopper" if route == "hopper"
-                else "flash_bwd_kernel_bf16")
-        tag = f"{'cap' if cap else 'nocap'}" + (",bf16" if route == "hopper"
-                                                 else "")
-        kernel_info = {
-            "route": route, "products_per_live_pair": BWD_KERNEL_PRODUCTS,
-            "passes_per_product": 1,
-            "smem_bytes": lib.flash_attention_bwd_bf16_smem_bytes(hd),
-            "registers_spill_bytes": {
-                m: resources.get(f"{kern}<{hd},{m},{tag}>",
-                                 "not reported: the library was found built")
-                for m in ("DQ", "DKV")}}
+        kernel_info = bwd_bf16_kernel_info(lib, resources, route, B, S, T, H,
+                                           K, hd, causal, window, cap)
         n_entry = FK.flash_attention_bwd.launches_by_dtype[bf16]
         q, k, v = (t.to(bf16) for t in qkv_inputs(B, S, T, H, K, hd, dev,
                                                     seed=S + T + hd))
@@ -3454,8 +3492,6 @@ def lm_check_backward_bf16(dev):
         dt = dout.transpose(1, 2).contiguous()
         lib_out = F.scaled_dot_product_attention(
             qt, kt, vt, **sdpa_train_mask(dev, S, T, causal, window))
-        passes, peak, kind = BWD_ROUTE_ARITHMETIC["bf16"]
-        roof = Roofline(moved, passes * ops, peak)
         row = dict(
             ms=cuda_time_ms(lambda: flash_attention_bwd(
                 q, k, v, out, dout, lse, **kw), reps=10),
@@ -3465,9 +3501,10 @@ def lm_check_backward_bf16(dev):
                 lib_out, (qt, kt, vt), dt, retain_graph=True), reps=10),
             operations=ops, bytes=moved, shape=[B, S, T, H, K, hd],
             causal=causal, window=window, softcap=cap,
-            bound_ms=roof.t_bound * 1e3,
-            bound_by="bytes" if roof.bottleneck == "bytes"
-            else f"operations ({kind})")
+            **bwd_bf16_bound(ops, moved))
+        if "design_bytes" in kernel_info:
+            kernel_info["design_bytes_ms"] = (kernel_info["design_bytes"]
+                                              / HBM_BYTES_PER_S * 1e3)
         say({"phase": "lm_backward_bf16", "kernel": "flash_attention_bwd_bf16",
              "case": label, **kernel_info, **row,
              "share_of_bound": row["bound_ms"] / row["ms"],
@@ -3741,6 +3778,7 @@ def train_expected_launches(cfg) -> dict:
 # entry by ``trace_entry``
 TRACE_KERNELS = {"flash_attention": ("flash_kernel", "flash_bf16_hopper"),
                  "flash_attention_bwd": ("flash_bwd_hopper", "flash_bwd_kernel",
+                                         "flash_bwd_bf16_hopper",
                                          "flash_bwd_dsum"),
                  "selective_scan": ("selective_scan_kernel",),
                  "selective_scan_bwd": ("selective_scan_bwd_kernel",),
@@ -3748,6 +3786,15 @@ TRACE_KERNELS = {"flash_attention": ("flash_kernel", "flash_bf16_hopper"),
                  "ssd_scan_bwd": ("ssd_bwd_states", "ssd_bwd_chunks")}
 # kernels the trace shows a call of each entry (1 where not named)
 TRACE_KERNELS_PER_CALL = {"ssd_scan_bwd": 2}
+# the flash backward's main kernel by (route, dtype) and its launches a
+# call: the f32 Hopper route dQ, then dK and dV (two launches of
+# flash_bwd_hopper); the bf16 one all three in one (flash_bwd_bf16_hopper);
+# the mma.sync route two of flash_bwd_kernel (its bf16 one,
+# flash_bwd_kernel_bf16, carries the name)
+BWD_TRACE_KERNELS = {("hopper", torch.float32): ("flash_bwd_hopper", 2),
+                     ("hopper", torch.bfloat16): ("flash_bwd_bf16_hopper", 1),
+                     ("mma_sync", torch.float32): ("flash_bwd_kernel", 2),
+                     ("mma_sync", torch.bfloat16): ("flash_bwd_kernel", 2)}
 # a profiled step's kernels listed by device time (where the rest of the
 # step's device time goes: GEMMs, the optimizer's elementwise passes)
 TOP_KERNELS = 12
@@ -3770,8 +3817,9 @@ def profiled_step(fn, dev) -> dict:
     """One call of ``fn`` under ``torch.profiler`` (CUDA activity): its
     wall, the device time of all its kernels, each LM kernel entry's
     device ms and launches by the trace's kernel names (``TRACE_KERNELS``;
-    the flash backward's dQ and dK/dV launches also by the kernel that ran:
-    ``flash_bwd_hopper`` or the mma.sync ``flash_bwd_kernel``), the
+    the flash backward's main launches also by the kernel that ran:
+    ``flash_bwd_hopper``, ``flash_bwd_bf16_hopper`` or the mma.sync
+    ``flash_bwd_kernel``), the
     ``TOP_KERNELS`` kernels of the most device time (name cut to 100
     characters, ms, launches), and the idle share 1 − device time /
     wall."""
@@ -3783,7 +3831,8 @@ def profiled_step(fn, dev) -> dict:
         synchronize(dev)
         wall = time.perf_counter() - t0
     busy = 0.0
-    bwd_kernels = dict.fromkeys(("flash_bwd_hopper", "flash_bwd_kernel"), 0)
+    bwd_kernels = dict.fromkeys({k for k, _ in BWD_TRACE_KERNELS.values()},
+                                0)
     names = [entry(n, d) for n in TRACE_KERNELS
              for d in (torch.float32, torch.bfloat16)]
     ms, count = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
@@ -3819,15 +3868,17 @@ def profiled_step(fn, dev) -> dict:
 def trace_faults(prof: dict, want: dict, flash_bwd: str,
                  route: str) -> list:
     """Where a profiled train step's trace (``profiled_step``) disagrees
-    with the launches counted in one step (``want``): every dQ and dK/dV
-    launch of the flash backward (entry ``flash_bwd``) by ``route``'s
-    kernel, every scan and flash launch as counted. Each fault is (what,
-    traced, expected); none where they agree."""
-    kern = {"hopper": "flash_bwd_hopper", "mma_sync": "flash_bwd_kernel"}
-    faults = [(name, prof["flash_bwd_launches_by_kernel"][name], n)
-              for r, name in kern.items()
-              for n in [2 * want[flash_bwd] if r == route else 0]
-              if prof["flash_bwd_launches_by_kernel"][name] != n]
+    with the launches counted in one step (``want``): every main launch of
+    the flash backward (entry ``flash_bwd``) by ``route``'s kernel for the
+    entry's dtype (``BWD_TRACE_KERNELS``), every scan and flash launch as
+    counted. Each fault is (what, traced, expected); none where they
+    agree."""
+    dtype = torch.bfloat16 if flash_bwd.endswith("bf16") else torch.float32
+    kern, per_call = BWD_TRACE_KERNELS[route, dtype]
+    faults = [(name, traced, n)
+              for name, traced in prof["flash_bwd_launches_by_kernel"].items()
+              for n in [per_call * want[flash_bwd] if name == kern else 0]
+              if traced != n]
     for k, n in prof["trace_launches_by_entry"].items():
         if k.startswith("flash_attention_bwd"):
             continue   # D and the two launches: by kernel, above
@@ -4560,8 +4611,9 @@ def main() -> int:
          "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name].get("route_bound_ms",
                                       timing[name]["bound_ms"]),
+         # the kind of operations (bf16, 3×TF32) is in the phase lines
          "bound_by": timing[name].get("route_bound_by",
-                                      timing[name]["bound_by"]),
+                                      timing[name]["bound_by"]).split()[0],
          "library_ms": timing[name].get("library_ms"),
          **({"bound_3xtf32_ms": timing[name]["bound_ms"]}
             if "route_bound_ms" in timing[name] else {})}

@@ -17,9 +17,11 @@
 //   dS  = P o (dO V^T - D)  [o (1 - tanh^2) under a soft-cap]
 //   dK  = dS^T Q / sqrt(hd),  dQ = dS K / sqrt(hd)
 //
-// Two launches after D, with no atomics: each output row is written by
-// exactly one CTA, so a run is bitwise the next. A CTA owns 64 rows and
-// streams tiles of the other side:
+// The f32 entry (and the bf16 one at hd 16 and 32; the bf16 entry's
+// Hopper kernel is described below): two launches after D, with no
+// atomics: each output row is written by exactly one CTA, so a run is
+// bitwise the next. A CTA owns 64 rows and streams tiles of the other
+// side:
 //
 //   MODE  rows (owned)          columns (streamed)           accumulates
 //   DQ    queries of head h     keys of KV head h / G        dQ: dS K
@@ -110,28 +112,82 @@
 // PERF.md, chip_smoke.py phase 16 and tools/flash_bwd_variants.py.
 //
 // The bf16 entry (flash_attention_bwd_bf16: bf16 q, k, v, o, dO and
-// gradients, the f32 LSE of flash_attention_bf16) is the same two launches
-// after D on bf16 operands. bf16 x bf16 products are exact in f32, so each
-// product is one bf16 pass where the f32 entry takes three: at hd 64, 128
-// and 256 flash_bwd_hopper<..., bf16> (the tiles land from TMA already in
-// wgmma's swizzled layout, 64-column boxes, so nothing is split; 64-row
-// streamed tiles at hd 64 and 128, 16 at hd 256), at hd 16 and 32
-// flash_bwd_kernel_bf16 (mma.sync m16n8k16). Its rounding points: P is
-// recomputed in f32 from the LSE and rounded to bf16 for dV += P^T dO, as
-// the forward rounds it before P V; dS is rounded to bf16 for dK and dQ
-// (the products' operands; the plain version keeps dS in f32); s, P, dP,
-// dS and every sum stay f32; D sums dO o O over the bf16 O the forward
-// returned; the gradients are rounded to bf16 once. The plain version's
-// autograd also rounds the gradient that reaches P through its bf16 cast;
-// the kernel keeps dP in f32, since rounding it there rounds another value
-// than the plain version does and adds an error of the same size: emulated
-// on the CPU (tools/flash_bwd_bf16_rounding.py, 20 seeds of each attention
-// case of tests/test_torch_train_bf16.py), that took dq's RMS distance from
-// the plain bf16 backward to 1.87 of the tolerance's 2 (the plain
-// version's own bf16-vs-f32 distance doubled), against 1.51 without (dv
-// 1.57 either way). Its bound on the H100: the same 5 products a live pair in
-// one bf16 pass at 989 TFLOP/s, or its bf16 bytes at 3.35 TB/s
-// (chip_smoke.py phase 16 prints both); the kernel forms 7.
+// gradients, the f32 LSE of flash_attention_bf16). bf16 x bf16 products are
+// exact in f32, so each product is one bf16 pass where the f32 entry takes
+// three. Its rounding points: P is recomputed in f32 from the LSE and
+// rounded to bf16 for dV += P^T dO, as the forward rounds it before P V;
+// dS is rounded to bf16 for dK and dQ (the products' operands; the plain
+// version keeps dS in f32); s, P, dP, dS and every sum stay f32; D sums dO
+// o O over the bf16 O the forward returned; the gradients are rounded to
+// bf16 once. The plain version's autograd also rounds the gradient that
+// reaches P through its bf16 cast; the kernel keeps dP in f32, since
+// rounding it there rounds another value than the plain version does and
+// adds an error of the same size: emulated on the CPU
+// (tools/flash_bwd_bf16_rounding.py, 20 seeds of each attention case of
+// tests/test_torch_train_bf16.py), that took dq's RMS distance from the
+// plain bf16 backward to 1.87 of the tolerance's 2 (the plain version's own
+// bf16-vs-f32 distance doubled), against 1.51 without (dv 1.57 either
+// way). Its bound on the H100: the same 5 products a live pair in one bf16
+// pass at 989 TFLOP/s, or its bf16 bytes at 3.35 TB/s (chip_smoke.py phase
+// 16 prints both). At hd 16 and 32 it keeps D, then dQ and dK/dV as two
+// launches of flash_bwd_kernel_bf16 (mma.sync m16n8k16, 7 products a pair).
+// At hd 64, 128 and 256 it is D, then one launch of flash_bwd_bf16_hopper,
+// which forms the 5 products of every live pair once:
+//
+// - A CTA owns BN keys of one KV head, keeps K and V in shared memory and
+//   streams the query tiles its keys reach (BM rows: causal from the
+//   diagonal on, a window up to its end) of its G query heads, tile by
+//   tile, each tile's G heads in turn, through a TMA ring (NS stages of Q
+//   and dO; a producer warp also writes each stage's lse * log2(e) and D).
+//   It forms S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in registers, and
+//   accumulates dV += P^T dO and dK += dS^T Q in registers over all G
+//   heads: no atomics for GQA, dK and dV written once.
+// - hd 64 and 128: BN = 128, two consumer warpgroups of 64 keys each, so
+//   no P crosses between them; P and dS are the register A operand of dV's
+//   and dK's wgmma (m64n{hd}k16, the accumulator's two neighbouring
+//   8-column blocks are one k-step's A fragment), the scores m64n{BM}k16
+//   (BM = 128 at hd 64, 64 at hd 128, where dK and dV take 128 registers a
+//   thread). hd 256: dK and dV of 64 keys are 64 x 256 f32 each, 256
+//   registers a thread for one warpgroup, so BN = BM = 64 and the
+//   warpgroups split dK and dV by columns (128 each) and S^T and dP^T by
+//   queries (32 each), handing P^T and dS^T over in shared memory; one
+//   stage of Q and dO (64 KB) fits beside the rest.
+// - dQ of a query tile is summed over the key blocks that reach it in a
+//   fixed order, FlashAttention-3's deterministic mode: each CTA forms its
+//   partial dS K (dS^T from shared memory, read M-major; K read MN-major)
+//   in f32 and adds it into an f32 workspace chunk a (b, h, query tile)
+//   behind a counter a tile, the tile's last key block first (causal: the
+//   CTA before a tile in the order reaches it G or 2 G tiles earlier, so a
+//   CTA seldom waits). The first adder stores, so the workspace is never
+//   zeroed; the last adds the sum so far to its partial in registers,
+//   scales, rounds and writes dQ in bf16, so no conversion launch follows.
+//   A writer thread in the producer warpgroup moves the partials (bulk
+//   copies from shared memory: a store or an f32 add in L2, then the
+//   counter moved on with a release once the add landed) and fetches a
+//   tile's sum for its last adder as soon as it is complete; the
+//   consumers only hand a partial over through shared memory. A run is
+//   bitwise the next.
+// - Deadlock-free whatever order the card starts CTAs in: each CTA takes
+//   its work item from a ticket (an atomic counter), and the items are
+//   listed last key block first, so every item whose adds come before one's
+//   is already taken by a running CTA. Waits on a counter trap after ~10 s,
+//   as the barrier waits do.
+// - D's launch zeroes the counters and the ticket, and dQ's rows in query
+//   tiles that no key block reaches (S > T), so a call is two launches.
+// - The producer warpgroup gives its registers up (setmaxnreg.dec to 24),
+//   the consumers take them (setmaxnreg.inc to 240). P is formed while
+//   dP's product runs; dV's and dK's products are issued before the
+//   warpgroups meet (once a tile, before dQ: dS is double-buffered); the
+//   mask's test runs only on the blocks that are not all live.
+// - Ticket order: a call whose f32 workspace fits in 24 MB takes its (b,
+//   kv head) groups all at once, key block by key block (the best balance
+//   over 132 SMs); a larger one takes them one group at a time, so only the
+//   sums of the groups in flight are live and stay in the 50 MB L2 (taken
+//   all at once, granite-8b's serve shape sends every add to HBM).
+//
+// Times, shared memory, registers and the design's own bytes (the
+// workspace's traffic, kernel.bf16_bwd_design): PERF.md row 3d,
+// chip_smoke.py phase 16 and tools/flash_bwd_variants.py's bf16 mode.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -139,6 +195,8 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -203,32 +261,117 @@ __device__ __forceinline__ void live_tiles(bool qrows, int causal, int window,
   }
 }
 
-// an element of either entry as f32: float as it is, bf16 (its bits)
-// widened exactly
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(uint16_t x) {
-  return __uint_as_float((uint32_t)x << 16);
+// The bf16 route's live (query tile, key block) pairs, one test read both
+// ways: the key blocks [klo, khi) (BN keys each, nkb of them) that query
+// tile m (rows m BM .. m BM + BM - 1, query row 0 at key position off)
+// reaches, and the query tiles [mlo, mhi) (nqt of them) that key block n
+// reaches (causal: query i sees key j iff j <= i + off; a window: iff
+// j > i + off - window). A tile with klo >= khi has no live key.
+__host__ __device__ __forceinline__ void tile_kblocks(int m, int BM, int BN,
+                                                      int nkb, int off,
+                                                      int causal, int window,
+                                                      int& klo, int& khi) {
+  klo = 0;
+  khi = nkb;
+  if (causal) {
+    const int last = m * BM + BM - 1 + off;
+    khi = last < 0 ? 0 : (last / BN + 1 < nkb ? last / BN + 1 : nkb);
+  }
+  if (window > 0) {
+    const int first = m * BM + off - window + 1;
+    klo = first > 0 ? (first / BN < nkb ? first / BN : nkb) : 0;
+  }
+}
+__host__ __device__ __forceinline__ void kblock_tiles(int n, int BM, int BN,
+                                                      int nqt, int off,
+                                                      int causal, int window,
+                                                      int& mlo, int& mhi) {
+  mlo = 0;
+  mhi = nqt;
+  if (causal) {
+    const int first = n * BN - off;
+    mlo = first > 0 ? (first / BM < nqt ? first / BM : nqt) : 0;
+  }
+  if (window > 0) {
+    const int last = n * BN + BN - 1 - off + window - 1;
+    mhi = last < 0 ? 0 : (last / BM + 1 < nqt ? last / BM + 1 : nqt);
+  }
 }
 
-// D = rowsum(dO o O): one warp a (b, s, h) row in memory order, lanes over
-// hd in a fixed order, written to dsum (B, H, S); E float or bf16 (the
-// bf16 entry's rounded O: the plain version's D sums the unrounded one)
-template <typename E>
-__global__ void flash_bwd_dsum(const E* __restrict__ o,
-                               const E* __restrict__ dout,
+// D = rowsum(dO o O), written to dsum (B, H, S), each row's sum in a fixed
+// order. f32 (flash_bwd_dsum): one warp a (b, s, h) row in memory order,
+// lanes over hd. bf16 (flash_bwd_dsum_bf16, over the bf16 O the forward
+// returned: the plain version's D sums the unrounded one): 8 elements a
+// lane (one 16-byte load of each tensor), HD / 8 lanes a row, their sums
+// in a fixed tree.
+//
+// For the bf16 entry's Hopper route the same launch readies the main one:
+// it zeroes the dQ order's counters and ticket (ts.cnt, ts.ncnt of them)
+// and the dQ rows of every query tile that no key block reaches (ts.dq; no
+// CTA adds to those). Otherwise ts.cnt and ts.dq are null.
+struct TileSetup {
+  int* cnt;
+  long long ncnt;
+  uint16_t* dq;
+  int BM, BN, nkb, off, causal, window;
+};
+
+__global__ void flash_bwd_dsum(const float* __restrict__ o,
+                               const float* __restrict__ dout,
                                float* __restrict__ dsum, int S, int H, int HD,
                                long long nrows) {
   const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (row >= nrows) return;
-  const E* a = o + row * HD;
-  const E* b = dout + row * HD;
+  const float* a = o + row * HD;
+  const float* b = dout + row * HD;
   float acc = 0.f;
-  for (int d = lane; d < HD; d += 32)
-    acc = fmaf(to_f32(a[d]), to_f32(b[d]), acc);
+  for (int d = lane; d < HD; d += 32) acc = fmaf(a[d], b[d], acc);
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
   if (lane == 0) {
+    const long long h = row % H, bs = row / H;
+    const long long s = bs % S, bb = bs / S;
+    dsum[(bb * H + h) * S + s] = acc;
+  }
+}
+
+__global__ void flash_bwd_dsum_bf16(const uint16_t* __restrict__ o,
+                                    const uint16_t* __restrict__ dout,
+                                    float* __restrict__ dsum, int S, int H,
+                                    int HD, long long nrows, TileSetup ts) {
+  const int L = HD / 8;   // lanes a row: 2 .. 32, a power of two
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = t / L;
+  const int j = (int)(t % L);   // this lane's 8 elements: 8 j .. 8 j + 7
+  if (ts.cnt)
+    for (long long i = t; i < ts.ncnt; i += (long long)gridDim.x * blockDim.x)
+      ts.cnt[i] = 0;
+  const bool in = row < nrows;  // every lane takes part in the shuffles
+  float acc = 0.f;
+  if (in) {
+    const uint4 x = *reinterpret_cast<const uint4*>(o + row * HD + 8 * j);
+    const uint4 y = *reinterpret_cast<const uint4*>(dout + row * HD + 8 * j);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc = fmaf(__uint_as_float(xs[c] << 16), __uint_as_float(ys[c] << 16),
+                 acc);
+      acc = fmaf(__uint_as_float(xs[c] & 0xFFFF0000u),
+                 __uint_as_float(ys[c] & 0xFFFF0000u), acc);
+    }
+    if (ts.dq) {
+      int klo, khi;
+      tile_kblocks((int)((row / H) % S) / ts.BM, ts.BM, ts.BN, ts.nkb,
+                   ts.off, ts.causal, ts.window, klo, khi);
+      if (khi <= klo)
+        *reinterpret_cast<uint4*>(ts.dq + row * HD + 8 * j) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  for (int w = L / 2; w > 0; w >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (in && j == 0) {
     const long long h = row % H, bs = row / H;
     const long long s = bs % S, bb = bs / S;
     dsum[(bb * H + h) * S + s] = acc;
@@ -856,20 +999,16 @@ constexpr int BR = 64;          // rows a CTA: wgmma's M
 constexpr int NC = 256;         // consumer threads: two warpgroups
 constexpr int NT = NC + 32;     // and the producer warp
 constexpr int NS = 2;           // stages of the streamed ring
-// E float (the f32 entry) or uint16_t (bf16, the bf16 entry)
-template <int HD, typename E>
+template <int HD>
 struct Cfg {
-  static constexpr bool BF = sizeof(E) == 2;
-  // streamed rows a tile, CTAs an SM: at hd 64 two CTAs (f32: of 74 KB, at
-  // most 113 registers a thread) beat one of 64-row tiles; bf16 tiles take
-  // half the bytes, so 64 rows at hd 64
-  static constexpr int BC = HD == 64 ? (BF ? 64 : 32) : (HD == 128 ? 64 : 16);
+  // streamed rows a tile, CTAs an SM: at hd 64 two CTAs (of 74 KB, at most
+  // 113 registers a thread) beat one of 64-row tiles
+  static constexpr int BC = HD == 64 ? 32 : (HD == 128 ? 64 : 16);
   static constexpr int MINB = HD == 64 ? 2 : 1;
-  // one tensor's tile: f32, which the consumers rewrite in place as its
-  // two bf16 pieces, or bf16 as TMA lands it; either piece, and a bf16
-  // tile, [HD / 64 boxes][rows][128 bytes], swizzled
-  static constexpr uint32_t row_bytes = BR * HD * sizeof(E);    // A1 (or A2)
-  static constexpr uint32_t tile_bytes = BC * HD * sizeof(E);   // X1 (or X2)
+  // one tensor's f32 tile, which the consumers rewrite in place as its two
+  // bf16 pieces, each [HD / 64 boxes][rows][128 bytes], swizzled
+  static constexpr uint32_t row_bytes = BR * HD * 4;    // A1 (or A2)
+  static constexpr uint32_t tile_bytes = BC * HD * 4;   // X1 (or X2)
   static constexpr uint32_t ring_off = 2 * row_bytes;   // A1, A2, the ring
   static constexpr uint32_t stage_bytes = 2 * tile_bytes;          // X1, X2
   static constexpr uint32_t pex_off = ring_off + NS * stage_bytes; // P, f32
@@ -880,7 +1019,7 @@ struct Cfg {
   // + 1,024: the base is rounded up to the swizzle's 1,024-byte atom
   static constexpr size_t bytes = bar_off + 8 * nbar + 1024;
   static_assert(bytes <= 232448, "over the 227 KB a CTA may use");
-  static_assert(BC % 16 == 0 && BC <= BR && (BF || (BC * HD / 8) % NC == 0),
+  static_assert(BC % 16 == 0 && BC <= BR && (BC * HD / 8) % NC == 0,
                 "a tile must fit its lse and D slots and split its 8-float "
                 "chunks over the consumers");
 };
@@ -1132,18 +1271,18 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int HD, int MODE, bool CAP, typename E>
-__global__ void __launch_bounds__(hb::NT, hb::Cfg<HD, E>::MINB)
+template <int HD, int MODE, bool CAP>
+__global__ void __launch_bounds__(hb::NT, hb::Cfg<HD>::MINB)
 flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
                  const __grid_constant__ CUtensorMap ta2,
                  const __grid_constant__ CUtensorMap tx1,
                  const __grid_constant__ CUtensorMap tx2,
                  const float* __restrict__ lse, const float* __restrict__ dsum,
-                 E* __restrict__ grad, E* __restrict__ grad_v, int S, int T,
+                 float* __restrict__ grad, float* __restrict__ grad_v,
+                 int S, int T,
                  int H, int K, int causal, int window, float scale,
                  float cap) {
-  using CF = hb::Cfg<HD, E>;
-  constexpr bool BF = CF::BF;   // bf16 tiles: one wgmma pass a product
+  using CF = hb::Cfg<HD>;
   constexpr int BR = hb::BR, BC = CF::BC, NS = hb::NS;
   constexpr bool QROWS = MODE == DQ;   // rows are queries (else keys)
   constexpr uint32_t ROWP = CF::row_bytes / 2, TILEP = CF::tile_bytes / 2;
@@ -1191,18 +1330,11 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
   if (warp == 8) {
     // ----------------------------------------------------------- producer
     if (n_it == 0) return;
-    // a tile of `rows` rows from r0 of head `head`: f32 one box of HD
-    // columns; bf16 HD / 64 boxes of 64 (the 128-byte swizzle's width),
-    // each rows x 128 bytes on
+    // a tile of `rows` rows from r0 of head `head`: one f32 box of HD
+    // columns
     auto tma_tile = [&](uint32_t dst, const CUtensorMap* map, int rows,
                         int head, int r0, uint32_t bar) {
-      if constexpr (BF) {
-#pragma unroll
-        for (int c = 0; c < HD / 64; ++c)
-          tma_load4(dst + c * rows * 128, map, 64 * c, head, r0, b, bar);
-      } else {
-        tma_load4(dst, map, 0, head, r0, b, bar);
-      }
+      tma_load4(dst, map, 0, head, r0, b, bar);
     };
     if (lane == 0) {
       mbar_expect_tx(rows_full, 2 * CF::row_bytes);
@@ -1264,7 +1396,7 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
 
   if (n_it > 0) {
     mbar_wait(rows_full, 0);
-    if constexpr (!BF) {
+    {
       Split<BR, HD> a;
       a.read(gbase, ct);
       consumers_sync();
@@ -1287,15 +1419,14 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
     const uint64_t da = sw128_desc(base + wg * CF::row_bytes, 16, 1024);
     // tile it's f32 stage, once landed, split in place into its pieces,
     // with a barrier after the reads of X1, of X2 and after the writes
-    // (the first call's last also covers A1's and A2's pieces); a bf16
-    // stage is read as it lands. Either way the call ends on barrier 1,
-    // which warpgroup 1 reaches only after it has read P of the tile
-    // before: warpgroup 0 writes the next P (and arrives at barrier 2) only
-    // past it.
+    // (the first call's last also covers A1's and A2's pieces). The call
+    // ends on barrier 1, which warpgroup 1 reaches only after it has read
+    // P of the tile before: warpgroup 0 writes the next P (and arrives at
+    // barrier 2) only past it.
     auto split_tile = [&](int it) {
       const int s = it % NS;
       mbar_wait(full(s), (it / NS) & 1);
-      if constexpr (!BF) {
+      {
         uint8_t* xg = gbase + x_off(s);
         Split<BC, HD> x;
         x.read(xg, ct);
@@ -1328,13 +1459,9 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
         for (int kk = 0; kk < HD / 16; ++kk) {
           const uint32_t ao = ((kk / 4) * BR * 128 + (kk % 4) * 32) >> 4;
           const uint32_t xo = ((kk / 4) * BC * 128 + (kk % 4) * 32) >> 4;
-          if constexpr (BF) {
-            wgmma_ss<BC>(sacc, da + ao, dx + xo, kk > 0);
-          } else {
-            wgmma_ss<BC>(sacc, da + ao + (ROWP >> 4), dx + xo, kk > 0);
-            wgmma_ss<BC>(sacc, da + ao, dx + xo + (TILEP >> 4), 1);
-            wgmma_ss<BC>(sacc, da + ao, dx + xo, 1);
-          }
+          wgmma_ss<BC>(sacc, da + ao + (ROWP >> 4), dx + xo, kk > 0);
+          wgmma_ss<BC>(sacc, da + ao, dx + xo + (TILEP >> 4), 1);
+          wgmma_ss<BC>(sacc, da + ao, dx + xo, 1);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -1343,33 +1470,23 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
 
       // the accumulating product's A, P or dS in pieces (a wgmma
       // accumulator's two neighbouring 8-column blocks are one k-step's
-      // register A fragment) or, for bf16 tiles, rounded to bf16 (the big
-      // piece alone), and its B: X2 (dO) for dV, X1 for dK or dQ
-      uint32_t pa[BF ? 1 : 2][BC / 16][4];
+      // register A fragment), and its B: X2 (dO) for dV, X1 for dK or dQ
+      uint32_t pa[2][BC / 16][4];
       auto issue_acc = [&](uint32_t xb) {
 #pragma unroll
         for (int j = 0; j < BC / 16; ++j)
 #pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            if constexpr (BF)
-              pa[0][j][c] = pack_bf16(sacc[8 * j + 2 * c],
-                                      sacc[8 * j + 2 * c + 1]);
-            else
-              pieces(sacc[8 * j + 2 * c], sacc[8 * j + 2 * c + 1],
-                     pa[0][j][c], pa[1][j][c]);
-          }
+          for (int c = 0; c < 4; ++c)
+            pieces(sacc[8 * j + 2 * c], sacc[8 * j + 2 * c + 1],
+                   pa[0][j][c], pa[1][j][c]);
         const uint64_t db = sw128_desc(xb, BC * 128, 1024);   // MN-major
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < BC / 16; ++j) {
           const uint32_t xo = (j * 16 * 128) >> 4;
-          if constexpr (BF) {
-            wgmma_rs<HD>(acc, pa[0][j], db + xo);
-          } else {
-            wgmma_rs<HD>(acc, pa[1][j], db + xo);
-            wgmma_rs<HD>(acc, pa[0][j], db + xo + (TILEP >> 4));
-            wgmma_rs<HD>(acc, pa[0][j], db + xo);
-          }
+          wgmma_rs<HD>(acc, pa[1][j], db + xo);
+          wgmma_rs<HD>(acc, pa[0][j], db + xo + (TILEP >> 4));
+          wgmma_rs<HD>(acc, pa[0][j], db + xo);
         }
         wgmma_commit();
       };
@@ -1427,7 +1544,7 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
       wgmma_wait<0>();
       pin(acc);
       pin(pa[0]);
-      if constexpr (!BF) pin(pa[1]);
+      pin(pa[1]);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(s));   // this stage is read
     }
@@ -1436,7 +1553,7 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
   // DKV: warpgroup 0 writes dV, 1 dK; DQ: warpgroup 1 writes dQ. dQ and dK
   // carry the score scale; dV does not.
   if (QROWS && wg == 0) return;
-  E* out = wg == 1 ? grad : grad_v;
+  float* out = wg == 1 ? grad : grad_v;
   const float f = wg == 1 ? scale : 1.f;
   const size_t o_stride = (size_t)nrh * HD;
   const size_t o0 = (size_t)b * nrows * o_stride + (size_t)rh * HD + 2 * t4;
@@ -1444,16 +1561,11 @@ flash_bwd_hopper(const __grid_constant__ CUtensorMap ta1,
   for (int r = 0; r < 2; ++r) {
     const int row = r_first + rl0 + 8 * r;
     if (row < nrows) {
-      E* o = out + o0 + (size_t)row * o_stride;
+      float* o = out + o0 + (size_t)row * o_stride;
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n) {
-        if constexpr (BF)
-          *reinterpret_cast<uint32_t*>(o + 8 * n) = pack_bf16(
-              acc[4 * n + 2 * r] * f, acc[4 * n + 2 * r + 1] * f);
-        else
-          *reinterpret_cast<float2*>(o + 8 * n) =
-              make_float2(acc[4 * n + 2 * r] * f, acc[4 * n + 2 * r + 1] * f);
-      }
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<float2*>(o + 8 * n) =
+            make_float2(acc[4 * n + 2 * r] * f, acc[4 * n + 2 * r + 1] * f);
     }
   }
 }
@@ -1487,12 +1599,13 @@ bool tensor_map(CUtensorMap* map, const E* x, int HD, int NH, int R, int B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD, int MODE, bool CAP, typename E>
-cudaError_t launch_hopper(const E* q, const E* k, const E* v, const E* dout,
-                          const float* lse, const float* dsum, E* grad,
-                          E* grad_v, int B, int S, int T, int H, int K,
+template <int HD, int MODE, bool CAP>
+cudaError_t launch_hopper(const float* q, const float* k, const float* v,
+                          const float* dout, const float* lse,
+                          const float* dsum, float* grad, float* grad_v,
+                          int B, int S, int T, int H, int K,
                           int causal, int window, float cap, cudaStream_t st) {
-  using CF = hb::Cfg<HD, E>;
+  using CF = hb::Cfg<HD>;
   CUtensorMap ta1, ta2, tx1, tx2;
   const bool ok =
       MODE == DQ
@@ -1506,36 +1619,38 @@ cudaError_t launch_hopper(const E* q, const E* k, const E* v, const E* dout,
                 tensor_map(&tx2, dout, HD, H, S, B, CF::BC);
   if (!ok) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_hopper<HD, MODE, CAP, E>,
+      flash_bwd_hopper<HD, MODE, CAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CF::bytes);
   if (e != cudaSuccess) return e;
   const float scale = 1.0f / sqrtf((float)HD);
   const int heads = MODE == DQ ? H : K;
   const int rows = MODE == DQ ? S : T;
-  flash_bwd_hopper<HD, MODE, CAP, E>
+  flash_bwd_hopper<HD, MODE, CAP>
       <<<dim3(heads * B, (rows + hb::BR - 1) / hb::BR), hb::NT, CF::bytes,
          st>>>(ta1, ta2, tx1, tx2, lse, dsum, grad, grad_v, S, T, H, K,
                causal, window, scale, cap);
   return cudaGetLastError();
 }
 
-template <int HD, bool CAP, typename E>
-cudaError_t run_hopper(const E* q, const E* k, const E* v, const E* dout,
-                       const float* lse, const float* dsum, E* dq, E* dk,
-                       E* dv, int B, int S, int T, int H, int K, int causal,
+template <int HD, bool CAP>
+cudaError_t run_hopper(const float* q, const float* k, const float* v,
+                       const float* dout, const float* lse,
+                       const float* dsum, float* dq, float* dk, float* dv,
+                       int B, int S, int T, int H, int K, int causal,
                        int window, float cap, cudaStream_t st) {
   cudaError_t e = launch_hopper<HD, DQ, CAP>(q, k, v, dout, lse, dsum, dq,
-                                             (E*)nullptr, B, S, T, H, K,
+                                             (float*)nullptr, B, S, T, H, K,
                                              causal, window, cap, st);
   if (e != cudaSuccess) return e;
   return launch_hopper<HD, DKV, CAP>(q, k, v, dout, lse, dsum, dk, dv, B, S,
                                      T, H, K, causal, window, cap, st);
 }
 
-template <int HD, typename E>
-cudaError_t dispatch_hopper(const E* q, const E* k, const E* v,
-                            const E* dout, const float* lse,
-                            const float* dsum, E* dq, E* dk, E* dv, int B,
+template <int HD>
+cudaError_t dispatch_hopper(const float* q, const float* k, const float* v,
+                            const float* dout, const float* lse,
+                            const float* dsum, float* dq, float* dk,
+                            float* dv, int B,
                             int S, int T, int H, int K, int causal,
                             int window, float cap, cudaStream_t st) {
   if (cap > 0.f)
@@ -1545,19 +1660,723 @@ cudaError_t dispatch_hopper(const E* q, const E* k, const E* v,
                                H, K, causal, window, cap, st);
 }
 
-// Either entry: D, then dQ, then dK and dV together, on the route of HD
+// ------------------------------ bf16 entry, hd 64, 128, 256: flash_bwd_bf16_hopper
+// One launch forms the 5 products of every live (query, key) pair: a CTA
+// owns BN keys of one KV head (K and V stay in shared memory) and streams
+// the query tiles of its G heads, forming S^T and dP^T once, accumulating
+// dV and dK in registers over all G heads and handing each tile's dQ
+// partial, dS K, to a per-(b, h, query tile) sum in a fixed key-block order
+// (the header comment above, "The bf16 entry").
+namespace bb {
+constexpr int NT = 384;   // the producer warpgroup and two consumer ones
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+template <int HD>
+struct Cfg {
+  // hd 256: the warpgroups split dK and dV by columns (64 x 256 f32 of each
+  // is 256 registers a thread for one warpgroup), S^T and dP^T by queries,
+  // and hand P^T and dS^T over in shared memory; hd 64 and 128: each
+  // warpgroup owns 64 keys, and nothing crosses between them but dS for dQ
+  static constexpr bool SPLIT_HD = HD == 256;
+  static constexpr int BN = HD == 256 ? 64 : 128;   // keys a CTA
+  static constexpr int BM = HD == 64 ? 128 : 64;    // queries a streamed tile
+  static constexpr int NS = HD == 256 ? 1 : 2;      // stages of the Q, dO ring
+  static constexpr int NB = HD / 64;                // 64-column boxes a row
+  // every tile [NB boxes][rows][128 bytes], swizzled, as TMA lands it
+  static constexpr uint32_t kv_bytes = BN * HD * 2;   // K (or V)
+  static constexpr uint32_t qt_bytes = BM * HD * 2;   // a Q (or dO) tile
+  static constexpr uint32_t k_off = 0, v_off = kv_bytes;
+  static constexpr uint32_t ring_off = 2 * kv_bytes;
+  static constexpr uint32_t stage_bytes = 2 * qt_bytes;   // Q, then dO
+  // dS^T in bf16, [BM / 64 boxes][BN keys][64 queries], swizzled: dQ's A
+  // (M-major) and, at hd 256, dK's (K-major); P^T the same (hd 256: dV's
+  // A). Two of each, tile it in it % 2, so the warpgroups meet once a tile
+  static constexpr uint32_t ds_bytes = BN * BM * 2;
+  static constexpr uint32_t ds_off = ring_off + NS * stage_bytes;
+  static constexpr uint32_t p_off = ds_off + 2 * ds_bytes;
+  static constexpr uint32_t p_bytes = SPLIT_HD ? 2 * BN * BM * 2 : 0;
+  // a tile's dQ partial in f32, element e of consumer thread t at e * 256 +
+  // t: the layout of its (b, h, tile) chunk of the workspace
+  static constexpr int R = BM * HD / 256;   // dQ registers a consumer thread
+  static constexpr uint32_t dq_off = p_off + p_bytes;
+  static constexpr uint32_t dq_bytes = BM * HD * 4;
+  // [NS][2][BM] f32: a stage's lse * log2(e), then D
+  static constexpr uint32_t lsd_off = dq_off + dq_bytes;
+  // mbarriers: K and V full; full, empty a stage; dQ partial full, empty;
+  // a tile's sum so far full, free
+  static constexpr uint32_t bar_off = lsd_off + NS * 2 * BM * 4;
+  static constexpr int nbar = 5 + 2 * NS;
+  static constexpr uint32_t item_off = bar_off + 8 * nbar;   // the ticket
+  // + 1,024: the base is rounded up to the swizzle's 1,024-byte atom
+  static constexpr size_t bytes = item_off + 16 + 1024;
+  static_assert(bytes <= 232448, "over the 227 KB a CTA may use");
+};
+}  // namespace bb
+
+// D (64 x N, f32) {=, +=} A B over one 16-deep k-step, A and B bf16 in
+// shared memory, each K-major (0) or MN-major (1): TA, TB are wgmma's
+// transpose bits
+template <int TA, int TB>
+__device__ __forceinline__ void wg_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wg_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wg_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                      int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+
+// 2^x on the SFU: ex2.approx.ftz, within 2 ulp; a result under 2^-126
+// flushes to 0, far below what a bf16 P holds (the forward's exponential)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_release(int* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(v)
+               : "memory");
+}
+// wait until counter *c reaches n; trap after ~10 s of clock
+__device__ __forceinline__ void wait_count(const int* c, int n) {
+  long long t0 = 0;
+  while (ld_acquire(c) < n) {
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+// orders this thread's global accesses of the generic proxy with those of
+// the async one (the bulk copies)
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// `bytes` of global memory at src into shared memory at dst, completing on
+// mbarrier bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const float* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// `bytes` of shared memory at src into global memory at dst: stored, or
+// added element by element in f32 (a reduction in L2)
+__device__ __forceinline__ void bulk_store(float* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_add(float* dst, uint32_t src,
+                                         uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], "
+      "%2;\n" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+// The bf16 route's dQ sums and their order live in `dsum` after D: D (B H
+// S floats), then the counters (one a (b, h, query tile), then the ticket)
+// as int32, then the f32 workspace, one chunk of BM x HD a (b, h, query
+// tile); each part starts on 16 bytes, 4 words
+__host__ __device__ __forceinline__ long long align4(long long n) {
+  return (n + 3) & ~3ll;
+}
+
+template <int HD, bool CAP>
+__global__ void __launch_bounds__(bb::NT, 1)
+flash_bwd_bf16_hopper(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ dsum, int* __restrict__ cnt,
+                      float* __restrict__ ws, uint16_t* __restrict__ dq,
+                      uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+                      int B, int S, int T, int H, int K, int causal,
+                      int window, float scale, float cap, int P) {
+  using CF = bb::Cfg<HD>;
+  constexpr int BN = CF::BN, BM = CF::BM, NS = CF::NS, NB = CF::NB;
+  constexpr bool SH = CF::SPLIT_HD;
+  extern __shared__ __align__(1024) uint8_t bb_smem[];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(bb_smem) + 1023u) & ~1023u;
+  uint8_t* gbase =
+      bb_smem + (base - (uint32_t)__cvta_generic_to_shared(bb_smem));
+  float* lsd = reinterpret_cast<float*>(gbase + CF::lsd_off);
+  float* dqs = reinterpret_cast<float*>(gbase + CF::dq_off);
+  int* item_s = reinterpret_cast<int*>(gbase + CF::item_off);
+  const uint32_t kv_full = base + CF::bar_off;
+  auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8 * (1 + NS + s); };
+  const uint32_t dq_full = kv_full + 8 * (1 + 2 * NS), dq_empty = dq_full + 8;
+  const uint32_t sum_full = dq_full + 16, sum_free = dq_full + 24;
+
+  const int G = H / K, off = T - S;
+  const int nkb = (T + BN - 1) / BN, nqt = (S + BM - 1) / BM;
+  if (threadIdx.x == 0) {
+    // the ticket: CTAs take work items in the order they start, so every
+    // item whose dQ adds come before this one's is already taken
+    *item_s = atomicAdd(cnt + (size_t)B * H * nqt, 1);
+    mbar_init(kv_full, 1);     // expect_tx with K and V
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 2);   // expect_tx with Q and dO, the warp's
+      mbar_init(empty(s), 8);  // the consumers' eight warps
+    }
+    mbar_init(dq_full, 8);     // the consumers' eight warps
+    mbar_init(dq_empty, 1);    // the writer
+    mbar_init(sum_full, 1);    // expect_tx with a tile's sum so far
+    mbar_init(sum_free, 8);    // the consumers' eight warps
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // item i: chunk i / (P nkb) of P (b, kv head) groups (the last chunk may
+  // hold fewer), within it key block nkb - 1 - j / P' (the last first: a
+  // tile's adds run from its last key block down), then the group
+  const int item = *item_s;
+  const int chunk = item / (P * nkb), j = item % (P * nkb);
+  const int ng = min(P, B * K - chunk * P);
+  const int n = nkb - 1 - j / ng, bk = chunk * P + j % ng;
+  const int b = bk / K, kh = bk % K;
+  int mlo, mhi;
+  kblock_tiles(n, BM, BN, nqt, off, causal, window, mlo, mhi);
+  // iteration it: query tile mlo + it / G of head kh G + it % G
+  const int n_it = mhi > mlo ? (mhi - mlo) * G : 0;
+  // this key block's place among the adders of tile m's dQ (0 first), and
+  // their number
+  auto order = [&](int m, int& rank, int& count) {
+    int klo, khi;
+    tile_kblocks(m, BM, BN, nkb, off, causal, window, klo, khi);
+    rank = khi - 1 - n;
+    count = khi - klo;
+  };
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+
+  if (wg == 0) {
+    // ------------------------------------------ producer and dQ writer
+    setmaxnreg_dec<bb::PRODUCER_REGS>();
+    if (warp == 0 && n_it > 0) {
+      // K and V once; then Q, dO (TMA), lse * log2(e) and D (the lanes)
+      // of iteration it into stage it % NS once the consumers freed it
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * CF::kv_bytes);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          tma_load4(base + CF::k_off + c * BN * 128, &tk, 64 * c, kh, n * BN,
+                    b, kv_full);
+          tma_load4(base + CF::v_off + c * BN * 128, &tv, 64 * c, kh, n * BN,
+                    b, kv_full);
+        }
+      }
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % NS, m = mlo + it / G, h = kh * G + it % G;
+        const uint32_t qs = base + CF::ring_off + s * CF::stage_bytes;
+        mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(full(s), CF::stage_bytes);
+#pragma unroll
+          for (int c = 0; c < NB; ++c) {
+            tma_load4(qs + c * BM * 128, &tq, 64 * c, h, m * BM, b, full(s));
+            tma_load4(qs + CF::qt_bytes + c * BM * 128, &tdo, 64 * c, h,
+                      m * BM, b, full(s));
+          }
+        }
+        float* ls = lsd + s * 2 * BM;
+        const size_t at = ((size_t)b * H + h) * S;
+        for (int i = lane; i < BM; i += 32) {
+          const int qi = m * BM + i;
+          ls[i] = qi < S ? lse[at + qi] * LOG2E : INFINITY;
+          ls[BM + i] = qi < S ? dsum[at + qi] : 0.f;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(full(s));
+      }
+      // the last stages' loads have landed (a load that never completes
+      // traps here)
+      for (int it = max(n_it - NS, 0); it < n_it; ++it)
+        mbar_wait(full(it % NS), (it / NS) & 1);
+    } else if (warp == 1 && lane == 0) {
+      // the dQ traffic, in the consumers' order of tiles: each partial but
+      // a tile's last to the workspace once its predecessors' adds are
+      // done (stored by the first adder, added by the others: bulk copies
+      // from shared memory), the tile's counter moved on once the add has
+      // landed; for a tile's last adder, the sum so far into shared memory
+      // as soon as it is complete and the buffer is free
+      int k = 0, f = 0;   // partials taken, sums fetched
+      for (int it = 0; it < n_it; ++it) {
+        const int m = mlo + it / G, h = kh * G + it % G;
+        int rank, count;
+        order(m, rank, count);
+        if (count == 1) continue;   // the consumers write dQ as it is
+        const size_t tile = ((size_t)b * H + h) * nqt + m;
+        float* chunk = ws + tile * (size_t)(BM * HD);
+        if (rank == count - 1) {
+          // the consumers have read the last sum fetched
+          if (f > 0) mbar_wait(sum_free, (f - 1) & 1);
+          wait_count(cnt + tile, rank);
+          fence_proxy_async_global();
+          mbar_expect_tx(sum_full, CF::dq_bytes);
+          bulk_load(base + CF::dq_off, chunk, CF::dq_bytes, sum_full);
+          ++f;
+          continue;
+        }
+        mbar_wait(dq_full, k & 1);
+        wait_count(cnt + tile, rank);
+        fence_proxy_async_global();
+        if (rank == 0) bulk_store(chunk, base + CF::dq_off, CF::dq_bytes);
+        else bulk_add(chunk, base + CF::dq_off, CF::dq_bytes);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(dq_empty);   // the partial's buffer is free
+        asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+        fence_proxy_async_global();
+        st_release(cnt + tile, rank + 1);
+        ++k;
+      }
+    }
+    return;
+  }
+
+  // -------------------------------------------------------------- consumers
+  setmaxnreg_inc<bb::CONSUMER_REGS>();
+  const int cw = wg - 1;                 // consumer warpgroup 0 or 1
+  const int ct = threadIdx.x - 128;      // 0 .. 255
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rl0 = 16 * warp + g;         // this thread's rows rl0, rl0 + 8
+  const float scale2 = scale * LOG2E;
+  constexpr int NSC = SH ? BM / 2 : BM;  // score columns (queries) a warpgroup
+  constexpr int NKV = SH ? HD / 2 : HD;  // dK and dV columns a warpgroup
+  constexpr int NQ = SH ? HD / 2 : 64;   // dQ columns a warpgroup
+  // this warpgroup's part: its first key row of the block, first score
+  // column, first dK and dV column, first dQ row and column
+  const int krow = SH ? 0 : 64 * cw, qcol = SH ? 32 * cw : 0;
+  const int kvcol = SH ? 128 * cw : 0;
+  const int dqrow = HD == 64 ? 64 * cw : 0;
+  const int dqcol = HD == 128 ? 64 * cw : (SH ? 128 * cw : 0);
+  float dka[NKV / 2], dva[NKV / 2];
+#pragma unroll
+  for (int i = 0; i < NKV / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  if (n_it > 0) {
+    mbar_wait(kv_full, 0);
+    const uint32_t ks = base + CF::k_off, vs = base + CF::v_off;
+    // S^T's and dP^T's A: this warpgroup's key rows of K and V (K-major);
+    // dQ's A: dS^T read M-major (its 64 queries), dQ's B: K read MN-major
+    const uint64_t ka = sw128_desc(ks + krow * 128, 16, 1024);
+    const uint64_t va = sw128_desc(vs + krow * 128, 16, 1024);
+    const uint64_t dsa = sw128_desc(base + CF::ds_off + (dqrow / 64) * BN * 128,
+                                    BN * 128, 1024);
+    const uint64_t kb = sw128_desc(ks + (dqcol / 64) * BN * 128, BN * 128,
+                                   1024);
+    int k = 0, f = 0;   // partials handed to the writer, sums read
+    // tile it's dQ partial: 64 query rows (dqrow on) x NQ columns (dqcol
+    // on), in flight from its issue until the next tile begins
+    float dqa[CF::R];
+    // tile it's dQ, once its product is done: the last adder's sum plus
+    // this partial, times the score scale, rounded to bf16 once (element 4
+    // j + 2 r + c is row dqrow + rl0 + 8 r, column dqcol + 8 j + 2 t4 + c);
+    // any other adder's partial to the writer through shared memory
+    auto finish_dq = [&](int it) {
+      const int m = mlo + it / G, h = kh * G + it % G;
+      int rank, count;
+      order(m, rank, count);
+      if (rank == count - 1) {
+        if (count > 1) mbar_wait(sum_full, f & 1);
+#pragma unroll
+        for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 4 * j + 2 * r;
+            const int row = m * BM + dqrow + rl0 + 8 * r;
+            float x0 = dqa[e], x1 = dqa[e + 1];
+            if (count > 1) {
+              x0 = dqs[e * 256 + ct] + x0;
+              x1 = dqs[(e + 1) * 256 + ct] + x1;
+            }
+            if (row < S)
+              *reinterpret_cast<uint32_t*>(
+                  dq + (((size_t)b * S + row) * H + h) * HD + dqcol + 8 * j +
+                  2 * t4) = pack_bf16(x0 * scale, x1 * scale);
+          }
+        if (count > 1) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(sum_free);
+          ++f;
+        }
+      } else {
+        mbar_wait(dq_empty, (k & 1) ^ 1);
+#pragma unroll
+        for (int e = 0; e < CF::R; ++e) dqs[e * 256 + ct] = dqa[e];
+        fence_async_shared();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(dq_full);
+        ++k;
+      }
+    };
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % NS, m = mlo + it / G;
+      const uint32_t qs = base + CF::ring_off + s * CF::stage_bytes;
+      const uint32_t dos = qs + CF::qt_bytes;
+      const float* ls = lsd + s * 2 * BM;
+      mbar_wait(full(s), (it / NS) & 1);
+
+      // the last tile's dQ (finished while the next S^T product runs, it
+      // measured no faster), then S^T = K Q^T and dP^T = V dO^T: this
+      // warpgroup's keys x its queries
+      if (it > 0) {
+        wgmma_wait<0>();
+        pin(dqa);
+        finish_dq(it - 1);
+      }
+      float sacc[NSC / 2], pacc[NSC / 2];
+      {
+        const uint64_t qb = sw128_desc(qs + qcol * 128, 16, 1024);
+        const uint64_t ob = sw128_desc(dos + qcol * 128, 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wg_ss<0, 0>(sacc, ka + (((kk / 4) * BN * 128 + (kk % 4) * 32) >> 4),
+                      qb + (((kk / 4) * BM * 128 + (kk % 4) * 32) >> 4),
+                      kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wg_ss<0, 0>(pacc, va + (((kk / 4) * BN * 128 + (kk % 4) * 32) >> 4),
+                      ob + (((kk / 4) * BM * 128 + (kk % 4) * 32) >> 4),
+                      kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        pin(sacc);
+      }
+
+      // P^T while dP^T's product runs: element 4 j + 2 r + c is key row
+      // krow + rl0 + 8 r, query column qcol + 8 j + 2 t4 + c; P rounded to
+      // bf16 (a wgmma accumulator's two neighbouring 8-column blocks are
+      // one 16-deep k-step's register A fragment), and in its place P (times
+      // 1 - tanh^2 under a cap) for dS. The mask's test runs only where this
+      // warpgroup's keys x queries are not all live (a separate loop: one
+      // loop with the test inside predicates every element)
+      uint32_t pa[NSC / 16][4], da[NSC / 16][4];
+      const int k0 = n * BN + krow, q0 = m * BM + qcol + off;
+      const bool all_live = m * BM + qcol + NSC <= S && k0 + 64 <= T &&
+                            (!causal || k0 + 63 <= q0) &&
+                            (window <= 0 || k0 > q0 + NSC - 1 - window);
+      auto form_p = [&](auto masked) {
+#pragma unroll
+        for (int j = 0; j < NSC / 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float pp[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int e = 4 * j + 2 * r + c;
+              const int cl = qcol + 8 * j + 2 * t4 + c;   // column in the tile
+              const float x = sacc[e];
+              float sc, th = 0.f;
+              if constexpr (CAP) {
+                th = tanhf(x * scale / cap);
+                sc = cap * th * LOG2E;
+              } else {
+                sc = x * scale2;
+              }
+              pp[c] = fast_exp2(sc - ls[cl]);
+              if constexpr (decltype(masked)::value) {
+                const int kpos = k0 + rl0 + 8 * r;
+                const int qi = m * BM + cl, qpos = qi + off;
+                const bool ok = qi < S && kpos < T &&
+                                (!causal || kpos <= qpos) &&
+                                (window <= 0 || kpos > qpos - window);
+                pp[c] = ok ? pp[c] : 0.f;
+              }
+              sacc[e] = CAP ? pp[c] * (1.f - th * th) : pp[c];
+            }
+            pa[j / 2][2 * (j % 2) + r] = pack_bf16(pp[0], pp[1]);
+          }
+      };
+      if (all_live) form_p(std::false_type());
+      else form_p(std::true_type());
+      wgmma_wait<0>();
+      pin(pacc);
+      // dS^T = P^T o (dP^T - D), rounded to bf16
+#pragma unroll
+      for (int j = 0; j < NSC / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int e = 4 * j + 2 * r, cl = qcol + 8 * j + 2 * t4;
+          da[j / 2][2 * (j % 2) + r] =
+              pack_bf16(sacc[e] * (pacc[e] - ls[BM + cl]),
+                        sacc[e + 1] * (pacc[e + 1] - ls[BM + cl + 1]));
+        }
+      // dS^T (and at hd 256 P^T) to this tile's buffers (the other ones
+      // hold the last tile's, whose dQ may still read them); fragment (j,
+      // c) is key row krow + rl0 + 8 (c % 2), query columns qcol + 16 j +
+      // 8 (c / 2) + 2 t4 and on
+      const uint32_t dsb = CF::ds_off + (it & 1) * CF::ds_bytes;
+      const uint32_t pb = CF::p_off + (it & 1) * CF::ds_bytes;
+#pragma unroll
+      for (int j = 0; j < NSC / 16; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int kr = krow + rl0 + 8 * (c % 2);
+          const int qc = qcol + 16 * j + 8 * (c / 2) + 2 * t4;
+          const uint32_t at = (qc / 64) * BN * 128 + kr * 128 +
+                              ((((qc % 64) >> 3) ^ (kr & 7)) << 4) +
+                              (qc & 7) * 2;
+          *reinterpret_cast<uint32_t*>(gbase + dsb + at) = da[j][c];
+          if constexpr (SH)
+            *reinterpret_cast<uint32_t*>(gbase + pb + at) = pa[j][c];
+        }
+      fence_async_shared();
+
+      // dV += P^T dO and dK += dS^T Q (dO and Q MN-major); hd 64, 128: A
+      // from registers, all of the tile's queries, issued before the
+      // warpgroups meet (the other one's dS is only dQ's); hd 256: A from
+      // shared memory (both halves), this warpgroup's 128 columns
+      if constexpr (SH) consumers_sync();
+      wgmma_fence();
+      if constexpr (!SH) {
+        const uint64_t ob = sw128_desc(dos, BM * 128, 1024);
+        const uint64_t qb = sw128_desc(qs, BM * 128, 1024);
+#pragma unroll
+        for (int j = 0; j < BM / 16; ++j)
+          wgmma_rs<HD>(dva, pa[j], ob + ((j * 16 * 128) >> 4));
+#pragma unroll
+        for (int j = 0; j < BM / 16; ++j)
+          wgmma_rs<HD>(dka, da[j], qb + ((j * 16 * 128) >> 4));
+      } else {
+        const uint64_t pt = sw128_desc(base + pb, 16, 1024);
+        const uint64_t dt = sw128_desc(base + dsb, 16, 1024);
+        const uint64_t ob = sw128_desc(dos + (kvcol / 64) * BM * 128,
+                                       BM * 128, 1024);
+        const uint64_t qb = sw128_desc(qs + (kvcol / 64) * BM * 128,
+                                       BM * 128, 1024);
+#pragma unroll
+        for (int j = 0; j < BM / 16; ++j)
+          wg_ss<0, 1>(dva, pt + ((j * 32) >> 4), ob + ((j * 16 * 128) >> 4),
+                      1);
+#pragma unroll
+        for (int j = 0; j < BM / 16; ++j)
+          wg_ss<0, 1>(dka, dt + ((j * 32) >> 4), qb + ((j * 16 * 128) >> 4),
+                      1);
+      }
+      wgmma_commit();
+      if constexpr (!SH) consumers_sync();
+      // this tile's dQ partial, dS K over the block's keys
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wg_ss<1, 1>(dqa, dsa + (((it & 1) * CF::ds_bytes + kk * 16 * 128) >> 4),
+                    kb + ((kk * 16 * 128) >> 4), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      pin(dka);
+      pin(dva);
+      pin(pa);
+      pin(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));   // Q, dO and the lse are read
+    }
+    wgmma_wait<0>();
+    pin(dqa);
+    finish_dq(n_it - 1);
+  }
+
+  // dK (times the score scale) and dV of this warpgroup's rows and
+  // columns: element 4 j + 2 r + c is key row krow + rl0 + 8 r, column
+  // kvcol + 8 j + 2 t4 + c
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = n * BN + krow + rl0 + 8 * r;
+    if (key < T) {
+      const size_t o = (((size_t)b * T + key) * K + kh) * HD + kvcol + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < NKV / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + o + 8 * j) =
+            pack_bf16(dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + o + 8 * j) =
+            pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// (b, kv head) groups a chunk of the bf16 route's ticket order (BM query
+// rows a tile). A call whose f32 workspace (B H ceil(S / BM) BM HD 4
+// bytes) fits in L2_SUMS takes every group at once, key block by key
+// block: the best balance, and it stays in the 50 MB L2. A larger one
+// takes the groups one at a time: a group's key blocks run together, so
+// only the dQ sums of the groups in flight are live, and they stay in L2
+// (at granite-8b's serve shape the workspace is 134 MB; taken all at once,
+// every add goes to HBM).
+constexpr long long L2_SUMS = 24ll << 20;
+inline int bf16_chunk_groups(int B, int S, int H, int K, int HD, int BM) {
+  const long long ws = (long long)B * H * ((S + BM - 1) / BM) * BM * HD * 4;
+  return ws <= L2_SUMS ? B * K : 1;
+}
+
+// the bf16 route's tiles: queries a streamed tile, keys a CTA
+__host__ __device__ __forceinline__ void bf16_tiles(int HD, int& BM, int& BN) {
+  BM = HD == 64 ? 128 : 64;
+  BN = HD == 256 ? 64 : 128;
+}
+
+template <int HD, bool CAP>
+cudaError_t launch_bf16_hopper(const uint16_t* q, const uint16_t* k,
+                               const uint16_t* v, const uint16_t* dout,
+                               const float* lse, float* dsum, uint16_t* dq,
+                               uint16_t* dk, uint16_t* dv, int B, int S, int T,
+                               int H, int K, int causal, int window, float cap,
+                               cudaStream_t st) {
+  using CF = bb::Cfg<HD>;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!(tensor_map(&tq, q, HD, H, S, B, CF::BM) &&
+        tensor_map(&tdo, dout, HD, H, S, B, CF::BM) &&
+        tensor_map(&tk, k, HD, K, T, B, CF::BN) &&
+        tensor_map(&tv, v, HD, K, T, B, CF::BN)))
+    return cudaErrorInvalidValue;
+  const auto kernel = flash_bwd_bf16_hopper<HD, CAP>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)CF::bytes);
+  if (e != cudaSuccess) return e;
+  const long long tiles = (long long)B * H * ((S + CF::BM - 1) / CF::BM);
+  int* cnt = reinterpret_cast<int*>(dsum + align4((long long)B * H * S));
+  float* ws = reinterpret_cast<float*>(cnt + align4(tiles + 1));
+  const int nkb = (T + CF::BN - 1) / CF::BN;
+  const float scale = 1.0f / sqrtf((float)HD);
+  kernel<<<nkb * B * K, bb::NT, CF::bytes, st>>>(
+      tq, tdo, tk, tv, lse, dsum, cnt, ws, dq, dk, dv, B, S, T, H, K, causal,
+      window, scale, cap, bf16_chunk_groups(B, S, H, K, HD, CF::BM));
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t dispatch_bf16_hopper(const uint16_t* q, const uint16_t* k,
+                                 const uint16_t* v, const uint16_t* dout,
+                                 const float* lse, float* dsum, uint16_t* dq,
+                                 uint16_t* dk, uint16_t* dv, int B, int S,
+                                 int T, int H, int K, int causal, int window,
+                                 float cap, cudaStream_t st) {
+  if (cap > 0.f)
+    return launch_bf16_hopper<HD, true>(q, k, v, dout, lse, dsum, dq, dk, dv,
+                                        B, S, T, H, K, causal, window, cap, st);
+  return launch_bf16_hopper<HD, false>(q, k, v, dout, lse, dsum, dq, dk, dv,
+                                       B, S, T, H, K, causal, window, cap, st);
+}
+
+// Either entry: D, then the route of HD. The f32 entry at hd 64, 128 and
+// 256: dQ, then dK and dV together (flash_bwd_hopper); the bf16 entry
+// there: one launch of all three (flash_bwd_bf16_hopper); both at hd 16 and
+// 32: dQ, then dK and dV (the mma.sync kernels)
 template <typename E>
 int run_entry(const E* q, const E* k, const E* v, const E* o, const E* dout,
               const float* lse, E* dq, E* dk, E* dv, float* dsum, int B,
               int S, int T, int H, int K, int HD, int causal, int window,
               float softcap, cudaStream_t st) {
+  constexpr bool BF = sizeof(E) == 2;
   const int route = flash_attention_bwd_route(HD);
   if (route < 0) return (int)cudaErrorInvalidValue;
   const long long nrows = (long long)B * S * H;
+  TileSetup ts{};
+  if (BF && route == 1) {
+    bf16_tiles(HD, ts.BM, ts.BN);
+    ts.nkb = (T + ts.BN - 1) / ts.BN;
+    ts.off = T - S;
+    ts.causal = causal;
+    ts.window = window;
+    ts.ncnt = (long long)B * H * ((S + ts.BM - 1) / ts.BM) + 1;
+    ts.cnt = reinterpret_cast<int*>(dsum + align4(nrows));
+    // dead tiles come first (the masks only drop a tile's keys from the
+    // end of the sequence of tiles for S > T): none if tile 0 is live
+    int klo, khi;
+    tile_kblocks(0, ts.BM, ts.BN, ts.nkb, ts.off, causal, window, klo, khi);
+    if (khi <= klo) ts.dq = reinterpret_cast<uint16_t*>(dq);
+  }
   if (nrows > 0) {
-    const int per = 8;   // warps (rows) per block
-    flash_bwd_dsum<E><<<(unsigned)((nrows + per - 1) / per), 32 * per, 0,
-                        st>>>(o, dout, dsum, S, H, HD, nrows);
+    if constexpr (BF) {
+      const long long threads = nrows * (HD / 8);
+      flash_bwd_dsum_bf16<<<(unsigned)((threads + 255) / 256), 256, 0, st>>>(
+          o, dout, dsum, S, H, HD, nrows, ts);
+    } else {
+      const int per = 8;   // warps (rows) per block
+      flash_bwd_dsum<<<(unsigned)((nrows + per - 1) / per), 32 * per, 0,
+                       st>>>(o, dout, dsum, S, H, HD, nrows);
+    }
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -1565,19 +2384,26 @@ int run_entry(const E* q, const E* k, const E* v, const E* o, const E* dout,
     if (HD == 16) return (int)dispatch_bwd<16>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
     return (int)dispatch_bwd<32>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
   }
-  if (HD == 64) return (int)dispatch_hopper<64>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
-  if (HD == 128) return (int)dispatch_hopper<128>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
-  return (int)dispatch_hopper<256>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+  if constexpr (BF) {
+    if (HD == 64) return (int)dispatch_bf16_hopper<64>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+    if (HD == 128) return (int)dispatch_bf16_hopper<128>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+    return (int)dispatch_bf16_hopper<256>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+  } else {
+    if (HD == 64) return (int)dispatch_hopper<64>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+    if (HD == 128) return (int)dispatch_hopper<128>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+    return (int)dispatch_hopper<256>(q, k, v, dout, lse, dsum, dq, dk, dv, B, S, T, H, K, causal, window, softcap, st);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Which kernel serves head width HD in either entry: 1 flash_bwd_hopper
-// (64, 128, 256), 0 the mma.sync kernels (16, 32: flash_bwd_kernel for
-// f32, flash_bwd_kernel_bf16 for bf16), -1 none. The entries dispatch on
-// the same test.
+// Which kernel serves head width HD in either entry: 1 the Hopper kernels
+// (64, 128, 256: flash_bwd_hopper for f32, flash_bwd_bf16_hopper for bf16),
+// 0 the mma.sync kernels (16, 32: flash_bwd_kernel for f32,
+// flash_bwd_kernel_bf16 for bf16), -1 none. The entries dispatch on the
+// same test.
 int flash_attention_bwd_route(int HD) {
   if (HD == 64 || HD == 128 || HD == 256) return 1;
   return HD == 16 || HD == 32 ? 0 : -1;
@@ -1603,10 +2429,13 @@ int flash_attention_bwd_f32(const float* q, const float* k, const float* v,
 
 // The bf16 entry's backward: the gradients of flash_attention_bf16's output
 // o, as flash_attention_bwd_f32's, with q, k, v, o, dout, dq, dk and dv
-// bf16 (2 bytes each) and lse (flash_attention_bf16's, f32) and the dsum
-// workspace float32. Three launches on `stream`: dsum from the bf16 o and
-// dout, dq, then dk and dv together (hd 64, 128, 256: flash_bwd_hopper on
-// bf16 tiles; hd 16, 32: flash_bwd_kernel_bf16). Returns a cudaError_t.
+// bf16 (2 bytes each) and lse (flash_attention_bf16's, f32). dsum is a
+// float32 workspace of flash_attention_bwd_workspace(B, S, H, HD, 1)
+// floats: D, then (hd 64, 128, 256) the dQ order's counters and the f32
+// dQ partials' sums. hd 64, 128, 256: two launches on `stream`, D (which
+// also zeroes the counters) and flash_bwd_bf16_hopper (dq, dk and dv
+// together); hd 16, 32: three, D, dq, then dk and dv together
+// (flash_bwd_kernel_bf16). Returns a cudaError_t.
 int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                              const void* o, const void* dout,
                              const float* lse, void* dq, void* dk, void* dv,
@@ -1619,6 +2448,21 @@ int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                    H, K, HD, causal, window, softcap, (cudaStream_t)stream);
 }
 
+// Floats of the dsum workspace that flash_attention_bwd_f32 (bf16 = 0) or
+// flash_attention_bwd_bf16 (bf16 = 1) takes at these sizes: D's B H S, and
+// for the bf16 entry's Hopper route (hd 64, 128, 256) the counters (one a
+// (b, h, query tile), and the ticket) and a BM x HD f32 chunk a (b, h,
+// query tile), each part 16-byte aligned.
+long long flash_attention_bwd_workspace(int B, int S, int H, int HD,
+                                        int bf16) {
+  const long long d = (long long)B * H * S;
+  if (!bf16 || flash_attention_bwd_route(HD) != 1) return d;
+  int BM, BN;
+  bf16_tiles(HD, BM, BN);
+  const long long tiles = (long long)B * H * ((S + BM - 1) / BM);
+  return align4(d) + align4(tiles + 1) + tiles * BM * HD;
+}
+
 // Dynamic shared memory (bytes) of the dQ and dK/dV kernels that serve head
 // width HD in the f32 entry (the same for both), 0 for a width the library
 // is not built for.
@@ -1626,23 +2470,49 @@ int flash_attention_bwd_smem_bytes(int HD) {
   switch (HD) {
     case 16: return (int)Cfg<16>::bytes;
     case 32: return (int)Cfg<32>::bytes;
-    case 64: return (int)hb::Cfg<64, float>::bytes;
-    case 128: return (int)hb::Cfg<128, float>::bytes;
-    case 256: return (int)hb::Cfg<256, float>::bytes;
+    case 64: return (int)hb::Cfg<64>::bytes;
+    case 128: return (int)hb::Cfg<128>::bytes;
+    case 256: return (int)hb::Cfg<256>::bytes;
     default: return 0;
   }
 }
 
-// The same for the bf16 entry's kernels.
+// The same for the bf16 entry's kernels (hd 64, 128, 256: its one main
+// kernel, flash_bwd_bf16_hopper).
 int flash_attention_bwd_bf16_smem_bytes(int HD) {
   switch (HD) {
     case 16: return (int)CfgB<16>::bytes;
     case 32: return (int)CfgB<32>::bytes;
-    case 64: return (int)hb::Cfg<64, uint16_t>::bytes;
-    case 128: return (int)hb::Cfg<128, uint16_t>::bytes;
-    case 256: return (int)hb::Cfg<256, uint16_t>::bytes;
+    case 64: return (int)bb::Cfg<64>::bytes;
+    case 128: return (int)bb::Cfg<128>::bytes;
+    case 256: return (int)bb::Cfg<256>::bytes;
     default: return 0;
   }
+}
+
+// CTAs an SM of the bf16 entry's main kernel at head width HD (hd 64, 128,
+// 256: flash_bwd_bf16_hopper; hd 16, 32: the dQ launch of
+// flash_bwd_kernel_bf16) by the occupancy calculator, 0 for a width the
+// library is not built for or on error.
+int flash_attention_bwd_bf16_ctas_per_sm(int HD) {
+  int n = 0;
+  auto occ = [&](auto kernel, int threads, size_t bytes) {
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes) != cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                      bytes) != cudaSuccess)
+      n = 0;
+  };
+  switch (HD) {
+    case 16: occ(flash_bwd_kernel_bf16<16, DQ, false>, NT, CfgB<16>::bytes); break;
+    case 32: occ(flash_bwd_kernel_bf16<32, DQ, false>, NT, CfgB<32>::bytes); break;
+    case 64: occ(flash_bwd_bf16_hopper<64, false>, bb::NT, bb::Cfg<64>::bytes); break;
+    case 128: occ(flash_bwd_bf16_hopper<128, false>, bb::NT, bb::Cfg<128>::bytes); break;
+    case 256: occ(flash_bwd_bf16_hopper<256, false>, bb::NT, bb::Cfg<256>::bytes); break;
+    default: break;
+  }
+  return n;
 }
 
 }  // extern "C"

@@ -33,13 +33,22 @@ widened to reach the f32 kernel.
 per launch, nowhere else), so a run can show that it went through the
 kernel; ``launches_by_dtype`` splits the count by entry.
 ``flash_attention_bwd.launches`` counts calls of either backward entry
-that launched their kernels (one per call: its three launches, D, dQ, then
-dK and dV together); ``launches_by_dtype`` splits the count by entry, and
-``launches_by_route`` by the kernel that served the call, as the
+that launched their kernels (one per call: D, then dQ and dK/dV as two
+launches, or, for the bf16 entry at hd 64, 128 and 256, as one);
+``launches_by_dtype`` splits the count by entry, and
+``launches_by_route`` by the kernels that served the call, as the
 library's ``flash_attention_bwd_route`` gives it for the head width (the
-function both C entries dispatch on): ``"hopper"`` (``flash_bwd_hopper``,
-TMA and ``wgmma``, hd 64, 128 and 256) or ``"mma_sync"``
-(``flash_bwd_kernel`` or, bf16, ``flash_bwd_kernel_bf16``, hd 16 and 32).
+function both C entries dispatch on): ``"hopper"`` (TMA and ``wgmma``, hd
+64, 128 and 256: ``flash_bwd_hopper`` for f32, ``flash_bwd_bf16_hopper``
+for bf16) or ``"mma_sync"`` (``flash_bwd_kernel`` or, bf16,
+``flash_bwd_kernel_bf16``, hd 16 and 32).
+
+``flash_bwd_bf16_hopper`` sums each query tile's dQ over the key blocks
+that reach it in a fixed order, in an f32 workspace behind a counter a
+tile; the wrapper allocates them (``torch.empty``) as the tail of the
+``dsum`` workspace, sized by ``flash_attention_bwd_workspace``.
+``bf16_bwd_design`` mirrors that kernel's work list and add order in
+Python (its tests, and ``chip_smoke.py``'s CTA counts and bytes).
 """
 
 from __future__ import annotations
@@ -95,9 +104,12 @@ def library_bwd() -> ctypes.CDLL:
             getattr(lib, fn).restype = _I
         for fn in ("flash_attention_bwd_route",
                    "flash_attention_bwd_smem_bytes",
-                   "flash_attention_bwd_bf16_smem_bytes"):
+                   "flash_attention_bwd_bf16_smem_bytes",
+                   "flash_attention_bwd_bf16_ctas_per_sm"):
             getattr(lib, fn).argtypes = [_I]
             getattr(lib, fn).restype = _I
+        lib.flash_attention_bwd_workspace.argtypes = [_I] * 5
+        lib.flash_attention_bwd_workspace.restype = ctypes.c_longlong
         lib._repro_typed = True
     return lib
 
@@ -231,8 +243,10 @@ def flash_attention_bwd(q, k, v, out, dout, lse, *, causal: bool = True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty((B, H, S), dtype=torch.float32, device=dev)
     lib = library_bwd()
+    dsum = torch.empty(lib.flash_attention_bwd_workspace(
+        B, S, H, hd, int(q.dtype == torch.bfloat16)), dtype=torch.float32,
+        device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         entry = (lib.flash_attention_bwd_bf16 if q.dtype == torch.bfloat16
@@ -265,10 +279,12 @@ def bwd_route(hd: int) -> str:
 
 
 def bwd_resources(library: str = "flash_attention_bwd") -> dict:
-    """{"flash_bwd_hopper<hd,DQ|DKV,cap|nocap>" (the f32 entry's; the bf16
-    entry's with ",bf16" before the ">"; or ``flash_bwd_kernel``,
-    ``flash_bwd_kernel_bf16``): [registers, spill bytes]} of a backward
-    library built in this process (empty if it was found built)."""
+    """{"flash_bwd_hopper<hd,DQ|DKV,cap|nocap>" (the f32 entry's; or
+    ``flash_bwd_kernel``, ``flash_bwd_kernel_bf16``; an older library's
+    bf16 ``flash_bwd_hopper`` with ",bf16" before the ">"), or
+    "flash_bwd_bf16_hopper<hd,cap|nocap>": [registers, spill bytes]} of a
+    backward library built in this process (empty if it was found
+    built)."""
     out = {}
     for sym, res in ptxas_resources(library).items():
         m = re.search(r"(flash_bwd_(?:kernel_bf16|kernel|hopper))ILi(\d+)ELi"
@@ -277,6 +293,10 @@ def bwd_resources(library: str = "flash_attention_bwd") -> dict:
             out[f"{m[1]}<{m[2]},{('DQ', 'DKV')[int(m[3])]},"
                 f"{('nocap', 'cap')[int(m[4])]}{',bf16' if m[5] else ''}>"] \
                 = res
+        m = re.search(r"flash_bwd_bf16_hopperILi(\d+)ELb(\d)E", sym)
+        if m:
+            out[f"flash_bwd_bf16_hopper<{m[1]},"
+                f"{('nocap', 'cap')[int(m[2])]}>"] = res
     return out
 
 
@@ -287,3 +307,110 @@ def reset_launches() -> None:
     flash_attention_bwd.launches = 0
     flash_attention_bwd.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
     flash_attention_bwd.launches_by_route = dict.fromkeys(BWD_ROUTES, 0)
+
+
+# flash_bwd_bf16_hopper's tiles by head width: (queries a streamed tile,
+# keys a CTA), csrc's bf16_tiles
+BF16_BWD_TILES = {64: (128, 128), 128: (64, 128), 256: (64, 64)}
+
+
+# bytes of f32 dQ workspace up to which the ticket order takes every
+# (b, kv head) group at once (csrc's L2_SUMS)
+L2_SUMS = 24 << 20
+
+
+def bf16_chunk_groups(B, S, H, K, hd) -> int:
+    """(b, kv head) groups a chunk of the ticket order (csrc's
+    ``bf16_chunk_groups``): all of them if the call's f32 workspace fits
+    in ``L2_SUMS`` bytes, else one."""
+    BM = BF16_BWD_TILES[hd][0]
+    return B * K if B * H * -(-S // BM) * BM * hd * 4 <= L2_SUMS else 1
+
+
+def tile_kblocks(m, BM, BN, nkb, off, causal, window):
+    """The key blocks [klo, khi) that query tile ``m`` reaches (csrc's
+    ``tile_kblocks``): causal, query i sees key j iff j <= i + off; a
+    window, iff j > i + off − window."""
+    klo, khi = 0, nkb
+    if causal:
+        last = m * BM + BM - 1 + off
+        khi = 0 if last < 0 else min(nkb, last // BN + 1)
+    if window:
+        first = m * BM + off - window + 1
+        klo = min(nkb, first // BN) if first > 0 else 0
+    return klo, khi
+
+
+def kblock_tiles(n, BM, BN, nqt, off, causal, window):
+    """The query tiles [mlo, mhi) that key block ``n`` reaches (csrc's
+    ``kblock_tiles``), the same test read the other way."""
+    mlo, mhi = 0, nqt
+    if causal:
+        first = n * BN - off
+        mlo = min(nqt, first // BM) if first > 0 else 0
+    if window:
+        last = n * BN + BN - 1 - off + window - 1
+        mhi = 0 if last < 0 else min(nqt, last // BM + 1)
+    return mlo, mhi
+
+
+def bf16_bwd_design(B, S, T, H, K, hd, causal=True, window=None) -> dict:
+    """``flash_bwd_bf16_hopper``'s launch, as the kernel orders its work:
+
+    * ``items``: the CTAs' work items in ticket order, (key block n, b, kv
+      head): chunk by chunk of ``bf16_chunk_groups`` (b, kv head) groups,
+      within a chunk the last key block first, then the groups in turn;
+    * ``iterations``: each item's (query tile m, head h, rank, count): the
+      rank of its dQ partial among the tile's adders (0 stores, each next
+      one adds, count − 1, the last, adds the sum to its own, scales and
+      rounds to bf16), in the order the CTA visits them;
+    * ``dead_tiles``: the (b, h, m) that no key block reaches, which D's
+      launch zeroes;
+    * ``bytes``: what the design moves (each operand tile as the CTAs load
+      it, D's launch, the dQ workspace traffic: 4 bytes an element written
+      by a tile's first adder, read and written by each middle one's add
+      in L2, read by the last, then dq in bf16), and ``workspace_bytes``,
+      that traffic alone."""
+    BM, BN = BF16_BWD_TILES[hd]
+    G, off = H // K, T - S
+    nkb, nqt = -(-T // BN), -(-S // BM)
+    window = window or 0
+    items, iterations = [], []
+    P = bf16_chunk_groups(B, S, H, K, hd)
+    for i in range(nkb * B * K):
+        chunk, j = divmod(i, P * nkb)
+        ng = min(P, B * K - chunk * P)
+        n, bk = nkb - 1 - j // ng, chunk * P + j % ng
+        b, kh = divmod(bk, K)
+        items.append((n, b, kh))
+        mlo, mhi = kblock_tiles(n, BM, BN, nqt, off, causal, window)
+        its = []
+        for m in range(mlo, mhi):
+            klo, khi = tile_kblocks(m, BM, BN, nkb, off, causal, window)
+            for gi in range(G):
+                its.append((m, kh * G + gi, khi - 1 - n, khi - klo))
+        iterations.append(its)
+    dead = [(b, h, m) for b in range(B) for h in range(H) for m in range(nqt)
+            if (lambda lo, hi: hi <= lo)(*tile_kblocks(
+                m, BM, BN, nkb, off, causal, window))]
+    rows = lambda m: min(BM, S - m * BM)              # noqa: E731
+    keys = lambda n: min(BN, T - n * BN)              # noqa: E731
+    ws = 0
+    moved = 2 * 2 * B * S * H * hd + 4 * B * H * S + 4 * (B * H * nqt + 1)
+    moved += 2 * hd * sum(rows(m) for _, _, m in dead)
+    for (n, _, _), its in zip(items, iterations):
+        moved += 2 * 2 * keys(n) * hd * 2          # K, V in; dK, dV out
+        for m, _, rank, count in its:
+            moved += 2 * 2 * rows(m) * hd + 8 * rows(m)   # Q, dO, lse, D
+            chunk = 4 * BM * hd
+            if count == 1:
+                ws += 2 * rows(m) * hd
+            elif rank == 0:
+                ws += chunk
+            elif rank < count - 1:
+                ws += 2 * chunk
+            else:
+                ws += chunk + 2 * rows(m) * hd
+    return {"tiles": (BM, BN), "ctas": len(items), "items": items,
+            "iterations": iterations, "dead_tiles": dead,
+            "bytes": moved + ws, "workspace_bytes": ws}

@@ -890,8 +890,8 @@ def check_backward_bf16(dev, B, S, T, H, K, hd, causal, window, softcap):
     """The bf16 backward kernel against the plain autograd in bf16 on the
     same inputs, run twice bitwise, each gradient bf16 and within
     ``BWD_BF16_RATIO`` × the plain bf16 backward's own distance from the
-    plain f32 backward; one launch of the bf16 entry a call. Returns the
-    ratios."""
+    plain f32 backward, dQ 0 on the rows with no live key; one launch of
+    the bf16 entry a call. Returns the ratios."""
     q, k, v = (t.bfloat16() for t in tt(qkv_inputs(B, S, T, H, K, hd,
                                                     seed=S + T + hd), dev))
     dout = torch.from_numpy(np.random.default_rng(hd).standard_normal(
@@ -913,6 +913,9 @@ def check_backward_bf16(dev, B, S, T, H, K, hd, causal, window, softcap):
         own = rms_share(p16, p32, p32)
         ratios[name] = rms_share(g, p16, p32) / own
     assert max(ratios.values()) <= BWD_BF16_RATIO, ratios
+    # a query row with no live key (LSE +inf) has dQ = 0
+    dead = torch.isinf(lse).transpose(1, 2)          # (B, S, H)
+    assert bool((got[0][dead] == 0).all())
     return ratios
 
 
@@ -926,9 +929,9 @@ def check_backward_bf16(dev, B, S, T, H, K, hd, causal, window, softcap):
 ])
 def test_cuda_flash_bf16_backward_matches_plain(cuda_device, hd, B, S, T, H,
                                                 K, causal, window, softcap):
-    """Every built width; hd 64, 128 and 256 through flash_bwd_hopper on
-    bf16 tiles, hd 16 and 32 through flash_bwd_kernel_bf16, as the
-    wrapper's per-route count shows."""
+    """Every built width; hd 64, 128 and 256 through flash_bwd_bf16_hopper,
+    hd 16 and 32 through flash_bwd_kernel_bf16, as the wrapper's per-route
+    count shows."""
     want = FK.bwd_route(hd)
     before = dict(FK.flash_attention_bwd.launches_by_route)
     check_backward_bf16(cuda_device, B, S, T, H, K, hd, causal, window,
@@ -942,10 +945,30 @@ def test_cuda_flash_bf16_backward_matches_plain(cuda_device, hd, B, S, T, H,
 @pytest.mark.parametrize("B,S,H,K,hd,window", [
     (8, 256, 32, 8, 128, None),        # granite-8b's train shape
     (8, 256, 48, 8, 128, 4096),        # mixtral-8x22b's, a group of 6
+    (4, 2048, 32, 8, 128, None),       # granite-8b's serve shape
 ])
 def test_cuda_flash_bf16_backward_at_train_shapes(cuda_device, B, S, H, K,
                                                   hd, window):
+    """The train shapes, and granite-8b's serve shape: 16 key blocks of
+    128 reach its last query tiles, so each of their dQ sums runs through
+    15 adds in flash_bwd_bf16_hopper's fixed order (twice bitwise)."""
     check_backward_bf16(cuda_device, B, S, S, H, K, hd, True, window, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,H,K,hd,causal,window,softcap",
+                         HOPPER_BWD_CASES)
+def test_cuda_flash_bf16_backward_hopper_edges(cuda_device, B, S, T, H, K,
+                                               hd, causal, window, softcap):
+    """flash_bwd_bf16_hopper at the f32 Hopper kernel's edges: GQA groups
+    of 1, 4 and 6, S and T off its tiles (128 keys a CTA and 64 queries a
+    tile at hd 128, 128 and 128 at hd 64, 64 and 64 at hd 256), windows
+    with T − S ≠ 0, the soft-cap at hd 256, and query tiles that no key
+    reaches (their dQ zeroed by D's launch)."""
+    n0 = FK.flash_attention_bwd.launches_by_route["hopper"]
+    check_backward_bf16(cuda_device, B, S, T, H, K, hd, causal, window,
+                        softcap)
+    assert FK.flash_attention_bwd.launches_by_route["hopper"] == n0 + 2
 
 
 @pytest.mark.cuda
