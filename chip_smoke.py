@@ -17,6 +17,10 @@ wrong. Phases, one line each:
    density entry that gathers through the pair list as it loads) bit for bit
    the block entry on the same pairs; the pair momentum antisymmetry; and a
    padded, masked pair list contributing +0.0;
+3b. the density → ghost → force chain (``engine.compute_accelerations``,
+   through the pair kernels) against the port's O(N²) oracle
+   (``sph.ref_nsquared``), both on the card, at a 16³ lattice (4,096
+   particles) with random velocities: the engine test's tolerances;
 4. kernel times (``cuda_time_ms``: calls back to back between two CUDA
    events, the card given a head start) at the full pair list
    (P = 307,328), beside the bound (the live slots' work; for the density
@@ -223,7 +227,13 @@ and for the training slice (``python -m repro_torch.launch.train``), f32:
     split-TF32 ``mma.sync``; and the exponentials), what bounds the design
     (its exponentials at the MUFU rate, its bytes with the scratch it
     writes and reads back), the plain backward's time, each kernel's
-    registers, spills, shared memory and CTAs an SM;
+    registers, spills, shared memory and CTAs an SM; then the bf16 entry's
+    backward (``ssd_scan_bwd`` on bf16 u, B, C and dy, the C entry
+    ``ssd_scan_bwd_bf16``) at the same three cases against the plain
+    backward on the same bf16 tensors: du, dB and dC (bf16, each rounded
+    once) within one bf16 rounding plus 2e-4 of scale, the f32 gradients
+    within 2e-4, twice bitwise, its time beside the f32 entry's on the same
+    values widened, its bound with the stream tensors' bytes in bf16;
 17. granite-8b trained at full width, 16 of its 36 layers
     (``TRAIN_LAYERS``), f32, batch 8 × 256, 4 steps through
     ``init_train_state`` and ``make_train_step`` (``train_steps``), every LM
@@ -254,8 +264,11 @@ and for the training slice (``python -m repro_torch.launch.train``), f32:
     share of the peak with the experts' E·G·cap rows; and granite-8b in
     bf16 at 24 of 36 layers (``GRANITE_BF16_LAYERS``: bf16 weights and
     gradients, f32 moments; the bf16 flash entry and its backward), its
-    share of the bf16 peak; each profiled step's top kernels by device
-    time;
+    share of the bf16 peak; and zamba2-1.2b uncut in bf16 under the
+    reference's ``ssm_bf16`` variant (111 ``ssd_scan_bf16`` and 38
+    ``ssd_scan_bwd_bf16`` launches a step, two kernels a backward call in
+    the trace, beside 18 bf16 flash forwards and 6 backwards); each
+    profiled step's top kernels by device time;
 18. granite-8b, gemma-7b, gemma3-27b, seamless-m4t-large-v2, zamba2-1.2b,
     falcon-mamba-7b and both mixtrals reduced (hd 16 and 32: the mma.sync
     backward), and granite-8b reduced at hd 128 (``flash_bwd_hopper``), 3
@@ -267,7 +280,11 @@ and for the training slice (``python -m repro_torch.launch.train``), f32:
     then every one of them in bf16, card against CPU, and in f32 on the
     CPU from the same weights widened: the card's losses, gradient norms
     and first moments within 2 × the CPU's own bf16-vs-f32 distance (the
-    mixtrals' losses alone).
+    mixtrals' losses alone); and zamba2-1.2b reduced in bf16 under
+    ``ssm_bf16`` the same way (its f32 CPU run without the variant);
+19. the six examples (``examples_torch/``, the port of ``examples/``), each
+    run on the card as a subprocess at a small size, all six at once: exit
+    0, one line each with its wall.
 
 All libraries are built at the start, one ``nvcc`` each, in parallel
 (each wrapper's ``library()`` from its own thread, and the three
@@ -277,7 +294,7 @@ calls back to back between two CUDA events, the card given a head start
 ``kernels`` JSON line (one row per entry: ``flash_attention`` and
 ``flash_attention_bf16`` and so on, and the backwards
 ``flash_attention_bwd``, ``flash_attention_bwd_bf16``,
-``selective_scan_bwd`` and ``ssd_scan_bwd`` with
+``selective_scan_bwd``, ``ssd_scan_bwd`` and ``ssd_scan_bwd_bf16`` with
 their launches in phase 17; ``selective_scan_bf16`` is on no
 model's path, so its launches are 0), the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Nothing is imported from JAX or from the
@@ -3558,6 +3575,11 @@ def scan_bwd_cases():
             ("zamba2-train", (TRAIN_BATCH, TRAIN_SEQ) + heads(za), False),
             ("ragged-h0-dh", (2, 1000) + heads(za), True),
             ("reduced-h0-dh", (4, 40) + heads(zr), True)],
+        # the bf16 entry's backward (zamba2 under ssm_bf16), the same cases
+        "ssd_scan_bwd_bf16": [
+            ("zamba2-train", (TRAIN_BATCH, TRAIN_SEQ) + heads(za), False),
+            ("ragged-h0-dh", (2, 1000) + heads(za), True),
+            ("reduced-h0-dh", (4, 40) + heads(zr), True)],
     }
 
 
@@ -3609,19 +3631,21 @@ def ssd_bwd_chunked_ops(S, N, hp, Q):
     return full * chunk(Q) + (chunk(last) if last else 0)
 
 
-def ssd_bwd_ops_bytes(B, S, H, hp, N, with_h0, Q=64):
+def ssd_bwd_ops_bytes(B, S, H, hp, N, with_h0, Q=64, elem=4):
     """Operations and bytes of the SSD scan's gradients as a function, as
     ``ssd_ops_bytes`` counts the forward: the least operation count over
     chunk lengths (``ssd_bwd_chunked_ops``); exponentials: the triangle's W
     at the kernels' chunk Q; bytes: u, dy, dt, B, C, A, D (h0, dh) read
-    once, du, ddt, dB, dC, dA, dD (dh0) written once."""
+    once, du, ddt, dB, dC, dA, dD (dh0) written once, the stream tensors
+    (u, dy, du, B, C, dB, dC) ``elem`` bytes each (4 f32, 2 bf16), the
+    rest f32."""
     ops = B * H * min(ssd_bwd_chunked_ops(S, N, hp, q)
                       for q in range(1, S + 1))
     full, last = divmod(S, Q)
     exps = B * H * (full * Q * (Q + 1) / 2 + last * (last + 1) / 2)
     state = B * H * N * hp * (3 if with_h0 else 0)
-    moved = 4.0 * (3 * B * S * H * hp + 2 * B * S * H + 4 * B * S * N
-                   + 4 * H + state)
+    moved = (elem * (3 * B * S * H * hp + 4 * B * S * N)
+             + 4.0 * (2 * B * S * H + 4 * H + state))
     return float(ops), moved, float(exps)
 
 
@@ -3655,10 +3679,18 @@ def lm_check_scan_backward(dev):
         * max_sm_clock_hz()
     resources = {name: build.ptxas_resources(name)
                  for name in ("selective_scan_bwd", "ssd_scan_bwd")}
+    # the bf16 entry's kernels by their mangled names' element type
+    resources["ssd_scan_bwd_bf16"] = {
+        k: v for k, v in resources["ssd_scan_bwd"].items() if "bfloat16" in k}
+    resources["ssd_scan_bwd"] = {
+        k: v for k, v in resources["ssd_scan_bwd"].items()
+        if "bfloat16" not in k}
     worst, rows = {}, {}
     for name, cases in scan_bwd_cases().items():
+        bf16 = name.endswith("_bf16")
         for label, shape, extra in cases:
             g = torch.Generator(dev).manual_seed(len(label))
+            f32_entry_ms = None
             if name == "selective_scan_bwd":
                 B, S, dI, N = shape
                 args = scan_inputs(B, S, dI, N, dev, seed=S)
@@ -3676,14 +3708,20 @@ def lm_check_scan_backward(dev):
             else:
                 B, S, H, hp, N = shape
                 args = ssd_inputs(B, S, H, hp, N, dev, seed=S)
+                if bf16:
+                    for i in (0, 3, 4):        # u, B, C
+                        args[i] = args[i].bfloat16()
                 h_shape = (B, H, N, hp)
                 kern, plain = SK.ssd_scan_bwd, ssd_scan_bwd_ref
-                ops, moved, exps = ssd_bwd_ops_bytes(*shape, extra)
+                ops, moved, exps = ssd_bwd_ops_bytes(*shape, extra,
+                                                     elem=2 if bf16 else 4)
                 lib = SK.library_bwd()
                 design = ssd_bwd_design(B, S, H, hp, N)
+                ctas = (lib.ssd_scan_bwd_bf16_ctas_per_sm if bf16
+                        else lib.ssd_scan_bwd_ctas_per_sm)
                 kernels = {k: {
                     "smem_bytes": lib.ssd_scan_bwd_kernel_smem_bytes(N, hp, i),
-                    "ctas_per_sm": lib.ssd_scan_bwd_ctas_per_sm(N, hp, i)}
+                    "ctas_per_sm": ctas(N, hp, i)}
                     for i, k in enumerate(("ssd_bwd_states",
                                            "ssd_bwd_chunks"))}
                 # the route: split-TF32 mma.sync, three TF32 products each
@@ -3691,6 +3729,8 @@ def lm_check_scan_backward(dev):
                           **bwd_bounds(ops, moved, "mma_sync")}
                 kw = {"chunk": SK.KERNEL_CHUNK}
             dy = torch.randn(args[0].shape, device=dev, generator=g)
+            if bf16:
+                dy = dy.bfloat16()
             h0 = torch.randn(h_shape, device=dev, generator=g) if extra \
                 else None
             dh = torch.randn(h_shape, device=dev, generator=g) if extra \
@@ -3702,10 +3742,21 @@ def lm_check_scan_backward(dev):
                                if t is not None])
             launched = kern.launches - n0
             want = plain(*args, dy, h0=h0, dh=dh, **kw)
-            errs = {n: rel_err(a, b) for n, a, b in zip(
-                ("du", "ddt", "dA", "dB", "dC", "dD", "dh0"), got, want)
-                if b is not None}
-            abs_err = max(float((a - b).abs().max())
+            # bf16 outputs (du, dB, dC of the bf16 entry): the excess over
+            # one bf16 rounding as a share of the scale (``bf16_err``)
+            errs = {n: (bf16_err(a, b, SCAN_BWD_RTOL)[1]
+                        if b.dtype == torch.bfloat16 else rel_err(a, b))
+                    for n, a, b in zip(("du", "ddt", "dA", "dB", "dC", "dD",
+                                        "dh0"), got, want) if b is not None}
+            dtypes_ok = all(a.dtype == b.dtype for a, b in zip(got, want)
+                            if b is not None)
+            if bf16:
+                # the f32 entry on the same values widened, in this call
+                wide = [t.float() for t in (*args, dy)]
+                f32_entry_ms = cuda_time_ms(
+                    lambda: kern(*wide, h0=h0, dh=dh, **kw), reps=20)
+                del wide
+            abs_err = max(float((a.float() - b.float()).abs().max())
                           for a, b in zip(got, want) if b is not None)
             finite = all(bool(torch.isfinite(t).all()) for t in got
                          if t is not None)
@@ -3716,6 +3767,9 @@ def lm_check_scan_backward(dev):
                                                     **kw), reps=1),
                 library_ms=None, operations=ops, bytes=moved,
                 exponentials=exps, shape=list(shape))
+            if bf16:
+                row["f32_entry_ms"] = f32_entry_ms
+                row["bytes_bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
             row.update(bounds)
             row["exp_bound_ms"] = exps / exp_rate * 1e3
             # the design's own floor: its exponentials, its bytes with the
@@ -3733,8 +3787,9 @@ def lm_check_scan_backward(dev):
                  "not reported: the library was found built",
                  "rel_err": errs, "max_abs_err": abs_err,
                  "rtol": SCAN_BWD_RTOL, "finite": finite,
-                 "launches": launched, "run_twice_bitwise_equal": same})
-            assert max(errs.values()) <= SCAN_BWD_RTOL, \
+                 "launches": launched, "run_twice_bitwise_equal": same,
+                 "dtypes_as_plain": dtypes_ok})
+            assert max(errs.values()) <= SCAN_BWD_RTOL and dtypes_ok, \
                 f"{name} disagrees with its plain version"
             assert finite and same and launched == 2, \
                 f"{name}: non-finite, not bitwise run to run, or not launched"
@@ -3755,8 +3810,9 @@ def train_launches() -> dict:
     return {**lm_launches(),
             **{entry("flash_attention_bwd", d): n for d, n in
                FK.flash_attention_bwd.launches_by_dtype.items()},
-            "selective_scan_bwd": MK.selective_scan_bwd.launches,
-            "ssd_scan_bwd": SK.ssd_scan_bwd.launches}
+            **{entry("ssd_scan_bwd", d): n for d, n in
+               SK.ssd_scan_bwd.launches_by_dtype.items()},
+            "selective_scan_bwd": MK.selective_scan_bwd.launches}
 
 
 def reset_train_launches() -> None:
@@ -3774,7 +3830,8 @@ def train_expected_launches(cfg) -> dict:
 
 # the trace's kernel names of each LM kernel (a substring of the demangled
 # name; the flash backward's D kernel, flash_bwd_dsum, is its own; a call of
-# ssd_scan_bwd runs its two kernels, the states, then the chunks), the
+# ssd_scan_bwd runs its two kernels, the states, then the chunks, in either
+# entry; the bf16 SSD entry at N = hp = 64 runs ssd_bf16_hopper), the
 # entry by ``trace_entry``
 TRACE_KERNELS = {"flash_attention": ("flash_kernel", "flash_bf16_hopper"),
                  "flash_attention_bwd": ("flash_bwd_hopper", "flash_bwd_kernel",
@@ -3782,10 +3839,10 @@ TRACE_KERNELS = {"flash_attention": ("flash_kernel", "flash_bf16_hopper"),
                                          "flash_bwd_dsum"),
                  "selective_scan": ("selective_scan_kernel",),
                  "selective_scan_bwd": ("selective_scan_bwd_kernel",),
-                 "ssd_scan": ("ssd_scan_kernel",),
+                 "ssd_scan": ("ssd_scan_kernel", "ssd_bf16_hopper"),
                  "ssd_scan_bwd": ("ssd_bwd_states", "ssd_bwd_chunks")}
 # kernels the trace shows a call of each entry (1 where not named)
-TRACE_KERNELS_PER_CALL = {"ssd_scan_bwd": 2}
+TRACE_KERNELS_PER_CALL = {"ssd_scan_bwd": 2, "ssd_scan_bwd_bf16": 2}
 # the flash backward's main kernel by (route, dtype) and its launches a
 # call: the f32 Hopper route dQ, then dK and dV (two launches of
 # flash_bwd_hopper); the bf16 one all three in one (flash_bwd_bf16_hopper);
@@ -3888,10 +3945,11 @@ def trace_faults(prof: dict, want: dict, flash_bwd: str,
 
 
 def train_cfg(arch: str, n_layers=None, reduced: bool = False,
-              dtype=torch.float32):
+              dtype=torch.float32, ssm_bf16: bool = False):
     import dataclasses
     from repro_torch.configs import get_config
-    cfg = dataclasses.replace(get_config(arch, reduced=reduced), dtype=dtype)
+    cfg = dataclasses.replace(get_config(arch, reduced=reduced), dtype=dtype,
+                              ssm_bf16=ssm_bf16)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     return cfg
@@ -4090,8 +4148,12 @@ def train_steps(dev, cfg, tcfg, published_layers: int):
     # E·G·cap rows where the useful work counts tokens · top_k;
     # remat_overhead, the reference's estimate, counts 3 forwards
     mixer = {"mamba1": "selective_scan", "mamba2": "ssd_scan"}.get(
-        cfg.ssm, flash)
-    fwd = want[mixer] / want[{**KERNEL_BACKWARD, flash: flash_bwd}[mixer]]
+        cfg.ssm, "flash_attention")
+    mixer_dtype = (cfg.dtype if mixer == "flash_attention"
+                   or (mixer == "ssd_scan" and cfg.ssm_bf16)
+                   else torch.float32)
+    fwd = want[entry(mixer, mixer_dtype)] / want[
+        entry(KERNEL_BACKWARD[mixer], mixer_dtype)]
     useful = model_flops(cfg, shape, chips=1)
     run_flops = useful
     moe_rows = None
@@ -4106,6 +4168,7 @@ def train_steps(dev, cfg, tcfg, published_layers: int):
                              else (PEAK_F32_FLOPS, "f32"))
     ms = prof["device_ms_by_entry"]
     line = {"phase": "lm_train", "arch": cfg.name, "dtype": str(cfg.dtype),
+            "ssm_bf16": cfg.ssm_bf16,
             "n_layers": cfg.n_layers, "published_layers": published_layers,
             "cut": (None if cfg.n_layers == published_layers else
                     f"depth: {cfg.n_layers} of {published_layers} layers, "
@@ -4133,7 +4196,11 @@ def train_steps(dev, cfg, tcfg, published_layers: int):
             "flash_bwd_device_ms_per_step": prof["flash_bwd_device_ms"],
             "scan_device_ms_per_step": {k: ms[k] for k in (
                 "selective_scan", "selective_scan_bwd", "ssd_scan",
-                "ssd_scan_bwd")},
+                "ssd_scan_bwd", "ssd_scan_bf16", "ssd_scan_bwd_bf16")},
+            "scan_trace_launches_per_step": {
+                k: prof["trace_launches_by_entry"][k] for k in (
+                    "selective_scan", "selective_scan_bwd", "ssd_scan",
+                    "ssd_scan_bwd", "ssd_scan_bf16", "ssd_scan_bwd_bf16")},
             "bwd_launches_by_route": routes,
             "expected_launches_per_step": want,
             "step_twice_bitwise_equal": twice}
@@ -4359,10 +4426,13 @@ def lm_train_card_vs_cpu(dev, arch: str, head_dim=None):
 TRAIN_BF16_RATIO = 2.0
 
 
-def lm_train_card_vs_cpu_bf16(dev, arch: str, head_dim=None):
+def lm_train_card_vs_cpu_bf16(dev, arch: str, head_dim=None,
+                              ssm_bf16: bool = False):
     """Phase 18, bf16: ``TRAIN_CPU_STEPS`` bf16 train steps of ``arch``'s
-    reduced configuration on the card and on the CPU (one thread), and in
-    f32 on the CPU from the same weights widened, all on the same batches;
+    reduced configuration (with the reference's ``ssm_bf16`` variant where
+    asked: the SSD scan's bf16 entry and its backward) on the card and on
+    the CPU (one thread), and in f32 on the CPU from the same weights
+    widened (without the variant), all on the same batches;
     the card's losses, gradient norms and first-step first moments within
     ``TRAIN_BF16_RATIO`` × the CPU's own bf16-vs-f32 distance (a MoE
     model's losses alone), every weight its dtype and every moment f32
@@ -4376,11 +4446,11 @@ def lm_train_card_vs_cpu_bf16(dev, arch: str, head_dim=None):
     from repro_torch.models.convert import leaves, tree_map
     from repro_torch.train import (DataConfig, TokenStream, adam_init,
                                    make_train_step)
-    cfg, tcfg = train_cfg(arch, reduced=True, dtype=torch.bfloat16), \
-        train_tcfg()
+    cfg, tcfg = train_cfg(arch, reduced=True, dtype=torch.bfloat16,
+                          ssm_bf16=ssm_bf16), train_tcfg()
     if head_dim is not None:
         cfg = dataclasses.replace(cfg, head_dim=head_dim)
-    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32, ssm_bf16=False)
     stream = FrontendStream(TokenStream(DataConfig(vocab=cfg.vocab, seq=40,
                                                    batch=4)), cfg)
     base = init_params(cfg, torch.Generator().manual_seed(LM_SEED))
@@ -4424,6 +4494,7 @@ def lm_train_card_vs_cpu_bf16(dev, arch: str, head_dim=None):
     held = ("losses",) if cfg.n_experts else ("losses", "norms", "mu")
     want = train_expected_launches(cfg)
     say({"phase": "lm_train_card_vs_cpu_bf16", "arch": cfg.name,
+         "ssm_bf16": ssm_bf16,
          "steps": TRAIN_CPU_STEPS, "losses_card": card["losses"].tolist(),
          "losses_cpu": cpu["losses"].tolist(),
          "losses_cpu_f32": f32["losses"].tolist(),
@@ -4445,6 +4516,124 @@ def lm_train_card_vs_cpu_bf16(dev, arch: str, head_dim=None):
     assert not any(v for name in ("cpu", "cpu_f32")
                    for c in runs[name]["counts"] for v in c.values()), \
         "the CPU launched"
+
+
+# Phase 3b: the O(N²) oracle's size, 16³ = 4,096 particles (its (N, N, 3)
+# f32 offsets are 201 MB); the tolerances of tests/test_torch_engine.py's
+# test_port_matches_nsquared_oracle
+NSQ_NSIDE = 16
+NSQ_RTOL = {"rho": 2e-4, "dv": 2e-3, "du": 2e-3}
+
+
+def sph_nsquared_check(dev) -> dict:
+    """Phase 3b: the card's density → ghost → force chain
+    (``engine.compute_accelerations``, through the pair kernels) against the
+    port's O(N²) oracle (``sph.ref_nsquared``), both on the card, at a
+    uniform 16³ lattice with random velocities (the engine test's set-up at
+    a larger size, viscosity on): rho within 2e-4, dv and du within 2e-3 of
+    the oracle (and 2e-3 of their scale), neighbour counts exact."""
+    from repro_torch.kernels.sph_pair import kernel as K
+    from repro_torch.sph import SPHConfig, uniform_ic
+    from repro_torch.sph.cellgrid import (bin_particles, build_pair_list,
+                                          choose_grid)
+    from repro_torch.sph.engine import compute_accelerations
+    from repro_torch.sph.ref_nsquared import nsq_density, nsq_forces
+    ic = uniform_ic(NSQ_NSIDE, seed=0)
+    rng = np.random.default_rng(1)
+    ic["vel"] = (ic["vel"] + 0.1 * rng.standard_normal(ic["vel"].shape)
+                 ).astype(np.float32)
+    pos, vel, mass, u, h, box = (ic[k] for k in
+                                 ("pos", "vel", "mass", "u", "h", "box"))
+    cfg = SPHConfig(alpha_visc=0.8)
+    t0 = time.perf_counter()
+    rho_o, drho_o, nngb_o = nsq_density(pos, mass, h, box, device=dev)
+    omega_o = 1.0 + (torch.from_numpy(h).to(dev) / (3 * rho_o)) * drho_o
+    dv_o, du_o = nsq_forces(pos, vel, mass, u, h, rho_o, omega_o, box,
+                            alpha_visc=cfg.alpha_visc, device=dev)
+    synchronize(dev)
+    oracle_s = time.perf_counter() - t0
+    spec = choose_grid(box, float(h.max()), len(pos))
+    cells, perm = bin_particles(spec, pos, vel, mass, u, h, device=dev)
+    pairs = build_pair_list(spec, device=dev)
+    n0 = launch_counts(K)
+    dv, du, rho, nngb = compute_accelerations(cells, pairs, cfg)
+    synchronize(dev)
+    launched = {k: v - n0[k] for k, v in launch_counts(K).items()}
+    valid = torch.from_numpy(perm >= 0).to(dev)
+    idx = torch.from_numpy(perm[perm >= 0]).to(dev)
+
+    def flat(a):
+        out = torch.zeros((len(pos),) + tuple(a.shape[2:]),
+                          dtype=a.dtype, device=dev)
+        out[idx] = a[valid]
+        return out
+
+    errs = {}
+    for name, got, want in (("rho", flat(rho), rho_o), ("dv", flat(dv), dv_o),
+                            ("du", flat(du), du_o)):
+        rt = NSQ_RTOL[name]
+        atol = 0.0 if name == "rho" else rt * float(want.abs().max())
+        excess = float(((got - want).abs() - rt * want.abs() - atol).max())
+        errs[name] = {"max_abs": float((got - want).abs().max()),
+                      "within": excess <= 0.0}
+    nngb_diff = int((flat(nngb) != nngb_o).sum())
+    say({"phase": "sph_nsquared", "n_side": NSQ_NSIDE, "particles": len(pos),
+         "C": spec.capacity, "pairs": int(pairs.ci.shape[0]),
+         "pair_tensor_bytes": 4 * 3 * len(pos) ** 2,
+         "oracle_s": oracle_s, "errors": errs, "rtol": NSQ_RTOL,
+         "nngb_differ": nngb_diff, "launches": launched})
+    assert all(e["within"] for e in errs.values()), errs
+    assert nngb_diff == 0, "neighbour counts differ from the oracle's"
+    assert launched["density_pair_cells"] > 0 and launched["force_pair"] > 0
+    return {k: e["max_abs"] for k, e in errs.items()}
+
+
+# Phase 19: the examples (``examples_torch/``, the port of ``examples/``)
+# on the card, each as a subprocess at a small size: (script, arguments)
+EXAMPLES = (("quickstart.py", []),
+            ("sedov_blast.py", ["8", "2", "--max-depth", "6"]),
+            ("sph_strong_scaling.py", ["1000", "--ranks", "1,2,4"]),
+            ("fleet_serve.py", ["--trace", "{tmp}/fleet_trace.json"]),
+            ("serve_lm.py", []),
+            ("train_lm.py", ["--steps", "2", "--ckpt", "{tmp}/ckpt"]))
+
+
+def examples_on_the_card() -> None:
+    """Phase 19: every example run on the card (no ``--device``: the card
+    by default) as a subprocess of its own, all six at once (each process
+    spends seconds reaching the card), each in a temporary directory; each
+    must exit 0. One line each with its wall (beside the others) and its
+    output's last line."""
+    import shutil
+    import tempfile
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+    def run(example):
+        script, args = example
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_example_")
+        try:
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "examples_torch", script),
+                 *(a.format(tmp=tmp) for a in args)], cwd=tmp, env=env,
+                capture_output=True, text=True, timeout=300)
+            return res, time.perf_counter() - t0
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(EXAMPLES)) as pool:
+        results = list(pool.map(run, EXAMPLES))
+    total = time.perf_counter() - t0
+    for (script, args), (res, wall) in zip(EXAMPLES, results):
+        lines = res.stdout.strip().splitlines()
+        say({"phase": "example", "script": f"examples_torch/{script}",
+             "args": args, "wall_s": wall, "all_six_wall_s": total,
+             "rc": res.returncode,
+             "last_line": lines[-1] if lines else None,
+             "stderr_tail": res.stderr[-1500:] if res.returncode else ""})
+    for (script, _), (res, _) in zip(EXAMPLES, results):
+        assert res.returncode == 0, f"examples_torch/{script} failed"
 
 
 def main() -> int:
@@ -4486,6 +4675,7 @@ def main() -> int:
 
     spec, cells, pairs, thermo = sedov_setup(dev)
     errs = check_kernels(dev, spec, cells, pairs, thermo)
+    sph_nsquared_check(dev)
     timing = time_kernels(spec, cells, pairs, thermo)
     del cells, pairs, thermo
     torch.cuda.empty_cache()
@@ -4559,6 +4749,11 @@ def main() -> int:
                   for arch, n_layers, published in MOE_TRAIN]
     train_runs.append((train_cfg(TRAIN_ARCH, GRANITE_BF16_LAYERS,
                                  dtype=torch.bfloat16), 36))
+    # zamba2-1.2b uncut in bf16 under ssm_bf16: the bf16 SSD entry and its
+    # backward
+    train_runs.append((train_cfg(LM_ARCH, dtype=torch.bfloat16,
+                                 ssm_bf16=True),
+                       get_config(LM_ARCH).n_layers))
     for cfg, published in train_runs:
         _, counts = train_steps(dev, cfg, train_tcfg(), published)
         for name, n in counts.items():
@@ -4567,6 +4762,8 @@ def main() -> int:
         lm_train_card_vs_cpu(dev, arch, head_dim)
     for arch, head_dim in TRAIN_CPU_CASES:
         lm_train_card_vs_cpu_bf16(dev, arch, head_dim)
+    lm_train_card_vs_cpu_bf16(dev, LM_ARCH, ssm_bf16=True)
+    examples_on_the_card()
 
     sph = "src/repro_torch/kernels/sph_pair/csrc/sph_pair.cu"
     source = {"density_pair": sph, "force_pair": sph,
@@ -4601,7 +4798,7 @@ def main() -> int:
                 "ssd_scan_bwd": "src/repro/kernels/ssd_scan/kernel.py:82"}
     names = ["density_pair", "force_pair"] + LM_ENTRIES + [
         "flash_attention_bwd", "flash_attention_bwd_bf16",
-        "selective_scan_bwd", "ssd_scan_bwd"]
+        "selective_scan_bwd", "ssd_scan_bwd", "ssd_scan_bwd_bf16"]
     base = {name: name.replace("_bf16", "") for name in names}
     say({"kernels": [
         {"name": name, "route": "cuda", "source": source[base[name]],

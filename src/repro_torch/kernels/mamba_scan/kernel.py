@@ -190,8 +190,9 @@ def selective_scan_bwd(u, dt, A, Bm, Cm, D, dy, *,
             continue
         if t.dtype != torch.float32:
             raise TypeError(f"selective_scan_bwd: {name} is {t.dtype}; the "
-                            f"backward kernel takes float32 (the bf16 entry "
-                            f"has none: ROADMAP queue 1, item 13f)")
+                            f"backward kernel takes float32 (no model trains "
+                            f"through a bf16 Mamba-1 scan: the reference "
+                            f"upcasts u before it)")
         if not t.is_contiguous():
             raise ValueError(f"selective_scan_bwd: {name} is not contiguous")
     if N not in KERNEL_N:

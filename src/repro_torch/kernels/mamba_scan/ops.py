@@ -7,8 +7,10 @@ card a call whose inputs require a gradient (with grad mode on) goes
 through ``SelectiveScanF32``: its forward launches the f32 kernel and keeps
 only the inputs (so a remat region keeps its memory), its backward
 launches the backward kernel (``selective_scan_bwd``). The bf16 entry has no
-backward kernel yet, so a bf16 call that wants a gradient raises rather
-than return outputs cut off from their inputs' gradients.
+backward kernel: no model trains through a bf16 Mamba-1 scan, because the
+reference upcasts u to f32 before it (``repro/models/mamba.py:130``) and
+the port's model does the same. So a bf16 call that wants a gradient
+raises rather than return outputs cut off from their inputs' gradients.
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ def selective_scan_op(u, dt, A, Bm, Cm, D, *,
             () if h0 is None else (h0,))):
         if u.dtype != torch.float32:
             raise NotImplementedError(
-                "selective_scan: the bf16 entry has no backward kernel yet "
-                "(ROADMAP queue 1, item 13f); train in float32")
+                "selective_scan: the bf16 entry has no backward kernel: no "
+                "model trains through a bf16 Mamba-1 scan (the reference "
+                "upcasts u to float32 before it); pass float32")
         return SelectiveScanF32.apply(*args, h0)
     return selective_scan(*args, h0=h0)

@@ -1,5 +1,5 @@
-// Backward of the fused SSD (Mamba-2) scan's f32 entry for NVIDIA Hopper
-// (sm_90a), products on the tensor cores at f32 accuracy.
+// Backward of the fused SSD (Mamba-2) scan's f32 and bf16 entries for
+// NVIDIA Hopper (sm_90a), products on the tensor cores at f32 accuracy.
 //
 // Replaces no TPU kernel. The reference has no backward Pallas kernel: it
 // trains through the plain chunked matmul (SSD) form that JAX
@@ -66,6 +66,20 @@
 // and dD as one a (batch, head, chunk); the wrapper sums them with
 // torch.sum over their axes, so a train step is bitwise equal run to run.
 //
+// The bf16 entry (ssd_scan_bwd_bf16, the backward of ssd_scan_bf16, which
+// zamba2 trains through under the reference's ssm_bf16 variant) runs the
+// same two kernels on the stream type TS = bf16: u, B, C and dy are read
+// as bf16 in 16-byte pieces (8 values) and widened into the same f32
+// tiles, each piece one 8-float block that the swizzle keeps whole (so
+// 16-wide rows of 24 floats and the 32/64-wide XOR layout carry over as
+// they are); every product then reads f32 tiles, as in the f32 entry. A
+// widened bf16 value is its own TF32 part, so products of two stream
+// tiles (B C^T, u dy^T) are exact in the first of the three passes. du is
+// rounded to bf16 once from its f32 sum; dB and dC stay f32 partials a
+// head, which the wrapper sums and then rounds (never a partial). The
+// bf16 pieces are read by plain loads, not cp.async: a simple first
+// version, its load latency not hidden.
+//
 // What bounds it: at zamba2-1.2b's train shape (B 8, S 256, 64 heads,
 // hp = N = 64) the function reads u and dy and writes du (33.5 MB each),
 // with dt, B, C, ddt, dB and dC 0.104 GB: 0.031 ms at 3.35 TB/s. Its least
@@ -81,6 +95,7 @@
 // the chunk kernel runs 8 warps an SM, each a chain of dependent loads,
 // splits and mma.sync.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -127,6 +142,38 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool val
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// the stream tensors' element type (u, dy, B, C, du): float, or bf16
+using bf16_t = __nv_bfloat16;
+
+// stream values in a 16-byte piece
+template <typename T>
+constexpr int kPiece = 16 / (int)sizeof(T);
+
+// one 16-byte piece of a stream row into an f32 tile in shared memory
+// (zeros if !valid): f32 by cp.async as it is; bf16 read into registers
+// and widened, its 8 values one 8-float block of the tile (whole under
+// the swizzle), so every product reads f32 tiles in either entry
+__device__ __forceinline__ void load_piece(float* dst, const float* src, bool valid) {
+  cp_async16(dst, src, valid);
+}
+__device__ __forceinline__ void load_piece(float* dst, const bf16_t* src, bool valid) {
+  uint4 x = make_uint4(0u, 0u, 0u, 0u);
+  if (valid) x = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
+  *reinterpret_cast<float4*>(dst) = make_float4(a.x, a.y, b.x, b.y);
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(c.x, c.y, d.x, d.y);
+}
+
+// two neighbouring values of a row of du, rounded once to its type
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16_t* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // until at most n of this thread's copy groups are in flight
@@ -267,16 +314,16 @@ struct StateCfg {
   static constexpr int TPW = TILES >= NW ? TILES / NW : 1;
 };
 
-template <int N, int HP>
+template <int N, int HP, typename TS>
 __global__ void __launch_bounds__(NT)
-ssd_bwd_states(const float* __restrict__ u, const float* __restrict__ dt,
-               const float* __restrict__ A, const float* __restrict__ Bm,
-               const float* __restrict__ Cm, const float* __restrict__ h0,
-               const float* __restrict__ dy, const float* __restrict__ dh,
+ssd_bwd_states(const TS* __restrict__ u, const float* __restrict__ dt,
+               const float* __restrict__ A, const TS* __restrict__ Bm,
+               const TS* __restrict__ Cm, const float* __restrict__ h0,
+               const TS* __restrict__ dy, const float* __restrict__ dh,
                float* __restrict__ dh0, float* __restrict__ scratch, int S,
                int H) {
   using CF = StateCfg<N, HP>;
-  constexpr int TPW = CF::TPW, PB = CF::PB;
+  constexpr int TPW = CF::TPW, PB = CF::PB, EP = kPiece<TS>;
   extern __shared__ __align__(16) float sm[];
   // adj 0: H_in, the chunks first to last; 1: dH, last to first
   const int hh = blockIdx.x, b = blockIdx.y, adj = blockIdx.z;
@@ -287,8 +334,8 @@ ssd_bwd_states(const float* __restrict__ u, const float* __restrict__ dt,
   float* Fw = sm + 2 * CF::STAGE + warp * QC;   // this warp's w_s or exp(L_t)
 
   const size_t row = (size_t)H * HP;            // stride of a step in u, dy
-  const float* xb = (adj ? dy : u) + (size_t)b * S * row + (size_t)hh * HP;
-  const float* yb = (adj ? Cm : Bm) + (size_t)b * S * N;
+  const TS* xb = (adj ? dy : u) + (size_t)b * S * row + (size_t)hh * HP;
+  const TS* yb = (adj ? Cm : Bm) + (size_t)b * S * N;
   const float* db = dt + (size_t)b * S * H + hh;
   const size_t bh = (size_t)b * H + hh;
   float* out = scratch + ((size_t)adj * gridDim.y * H + bh) * T * N * HP;
@@ -323,15 +370,15 @@ ssd_bwd_states(const float* __restrict__ u, const float* __restrict__ dt,
     float* Y = X + CF::XS;
     float* Dc = Y + CF::YS;
     const int c0 = ck * QC;
-    for (int i = tid; i < QC * HP / 4; i += NT) {
-      const int r = i / (HP / 4), p = (i % (HP / 4)) * 4;
+    for (int i = tid; i < QC * HP / EP; i += NT) {
+      const int r = i / (HP / EP), p = (i % (HP / EP)) * EP;
       const bool in = c0 + r < S;
-      cp_async16(X + Tl<HP>::at(r, p), xb + (in ? (size_t)(c0 + r) * row + p : 0), in);
+      load_piece(X + Tl<HP>::at(r, p), xb + (in ? (size_t)(c0 + r) * row + p : 0), in);
     }
-    for (int i = tid; i < QC * N / 4; i += NT) {
-      const int r = i / (N / 4), n = (i % (N / 4)) * 4;
+    for (int i = tid; i < QC * N / EP; i += NT) {
+      const int r = i / (N / EP), n = (i % (N / EP)) * EP;
       const bool in = c0 + r < S;
-      cp_async16(Y + Tl<N>::at(r, n), yb + (in ? (size_t)(c0 + r) * N + n : 0), in);
+      load_piece(Y + Tl<N>::at(r, n), yb + (in ? (size_t)(c0 + r) * N + n : 0), in);
     }
     for (int r = tid; r < QC; r += NT) {
       const bool in = c0 + r < S;
@@ -404,20 +451,20 @@ struct ChunkCfg {
   static_assert(F64 % 2 == 0, "f64 sums 8-byte aligned");
 };
 
-template <int N, int HP>
+template <int N, int HP, typename TS>
 __global__ void __launch_bounds__(NT, 2)
-ssd_bwd_chunks(const float* __restrict__ u, const float* __restrict__ dt,
-               const float* __restrict__ A, const float* __restrict__ Bm,
-               const float* __restrict__ Cm, const float* __restrict__ D,
-               const float* __restrict__ dy, const float* __restrict__ scratch,
-               float* __restrict__ du, float* __restrict__ ddt,
+ssd_bwd_chunks(const TS* __restrict__ u, const float* __restrict__ dt,
+               const float* __restrict__ A, const TS* __restrict__ Bm,
+               const TS* __restrict__ Cm, const float* __restrict__ D,
+               const TS* __restrict__ dy, const float* __restrict__ scratch,
+               TS* __restrict__ du, float* __restrict__ ddt,
                float* __restrict__ dAp, float* __restrict__ dBp,
                float* __restrict__ dCp, float* __restrict__ dDp, int S, int H) {
   using CF = ChunkCfg<N, HP>;
   using TU = typename CF::TU;
   using TN = typename CF::TN;
   using TQ = typename CF::TQ;
-  constexpr int PB = HP / 8, NB = N / 8;
+  constexpr int PB = HP / 8, NB = N / 8, EP = kPiece<TS>;
   extern __shared__ __align__(16) float sm[];
   float* Us = sm + CF::U;
   float* DYs = sm + CF::DY;
@@ -450,23 +497,23 @@ ssd_bwd_chunks(const float* __restrict__ u, const float* __restrict__ dt,
 
   // ---- the chunk's tiles and its two states
   {
-    const float* ub = u + ((size_t)b * S + t0) * row + (size_t)hh * HP;
-    const float* yb = dy + ((size_t)b * S + t0) * row + (size_t)hh * HP;
-    for (int i = tid; i < QC * HP / 4; i += NT) {
-      const int r = i / (HP / 4), p = (i % (HP / 4)) * 4;
+    const TS* ub = u + ((size_t)b * S + t0) * row + (size_t)hh * HP;
+    const TS* yb = dy + ((size_t)b * S + t0) * row + (size_t)hh * HP;
+    for (int i = tid; i < QC * HP / EP; i += NT) {
+      const int r = i / (HP / EP), p = (i % (HP / EP)) * EP;
       const bool in = t0 + r < S;
       const size_t off = in ? (size_t)r * row + p : 0;
-      cp_async16(Us + TU::at(r, p), ub + off, in);
-      cp_async16(DYs + TU::at(r, p), yb + off, in);
+      load_piece(Us + TU::at(r, p), ub + off, in);
+      load_piece(DYs + TU::at(r, p), yb + off, in);
     }
-    const float* bb = Bm + ((size_t)b * S + t0) * N;
-    const float* cb = Cm + ((size_t)b * S + t0) * N;
-    for (int i = tid; i < QC * N / 4; i += NT) {
-      const int r = i / (N / 4), n = (i % (N / 4)) * 4;
+    const TS* bb = Bm + ((size_t)b * S + t0) * N;
+    const TS* cb = Cm + ((size_t)b * S + t0) * N;
+    for (int i = tid; i < QC * N / EP; i += NT) {
+      const int r = i / (N / EP), n = (i % (N / EP)) * EP;
       const bool in = t0 + r < S;
       const size_t off = in ? (size_t)r * N + n : 0;
-      cp_async16(Bs + TN::at(r, n), bb + off, in);
-      cp_async16(Cs + TN::at(r, n), cb + off, in);
+      load_piece(Bs + TN::at(r, n), bb + off, in);
+      load_piece(Cs + TN::at(r, n), cb + off, in);
     }
     const float* db = dt + ((size_t)b * S + t0) * H + hh;
     for (int r = tid; r < QC; r += NT) {
@@ -603,9 +650,8 @@ ssd_bwd_chunks(const float* __restrict__ u, const float* __restrict__ dt,
         ddp = fma((double)yv.x, (double)uv.x, ddp);
         ddp = fma((double)yv.y, (double)uv.y, ddp);
         if (t0 + s < S)
-          *reinterpret_cast<float2*>(du + (((size_t)b * S + t0 + s) * H + hh) * HP + p) =
-              make_float2(fmaf(Dh, yv.x, acc[pb][2 * r]),
-                          fmaf(Dh, yv.y, acc[pb][2 * r + 1]));
+          store2(du + (((size_t)b * S + t0 + s) * H + hh) * HP + p,
+                 fmaf(Dh, yv.x, acc[pb][2 * r]), fmaf(Dh, yv.y, acc[pb][2 * r + 1]));
       }
     }
   }
@@ -780,41 +826,41 @@ ssd_bwd_chunks(const float* __restrict__ u, const float* __restrict__ dt,
   }
 }
 
-template <int N, int HP>
-cudaError_t launch(const float* u, const float* dt, const float* A,
-                   const float* Bm, const float* Cm, const float* D,
-                   const float* h0, const float* dy, const float* dh,
-                   float* du, float* ddt, float* dAp, float* dBp, float* dCp,
+template <int N, int HP, typename TS>
+cudaError_t launch(const TS* u, const float* dt, const float* A,
+                   const TS* Bm, const TS* Cm, const float* D,
+                   const float* h0, const TS* dy, const float* dh,
+                   TS* du, float* ddt, float* dAp, float* dBp, float* dCp,
                    float* dDp, float* dh0, float* scratch, int B, int S,
                    int H, cudaStream_t stream) {
   const int T = (S + QC - 1) / QC;
   const size_t smem1 = sizeof(float) * StateCfg<N, HP>::kFloats;
   const size_t smem2 = sizeof(float) * ChunkCfg<N, HP>::kFloats;
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_bwd_states<N, HP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_bwd_states<N, HP, TS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem1);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(ssd_bwd_chunks<N, HP>,
+  err = cudaFuncSetAttribute(ssd_bwd_chunks<N, HP, TS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem2);
   if (err != cudaSuccess) return err;
-  ssd_bwd_states<N, HP><<<dim3(H, B, 2), NT, smem1, stream>>>(
+  ssd_bwd_states<N, HP, TS><<<dim3(H, B, 2), NT, smem1, stream>>>(
       u, dt, A, Bm, Cm, h0, dy, dh, dh0, scratch, S, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ssd_bwd_chunks<N, HP><<<dim3(T, H, B), NT, smem2, stream>>>(
+  ssd_bwd_chunks<N, HP, TS><<<dim3(T, H, B), NT, smem2, stream>>>(
       u, dt, A, Bm, Cm, D, dy, scratch, du, ddt, dAp, dBp, dCp, dDp, S, H);
   return cudaGetLastError();
 }
 
 // CTAs of each kernel an SM (the occupancy calculator, with the kernel's
 // dynamic shared memory): which 0 the states, 1 the chunks; -1 on an error
-template <int N, int HP>
+template <int N, int HP, typename TS>
 int occupancy(int which) {
   const size_t smem = sizeof(float) * (which == 0 ? StateCfg<N, HP>::kFloats
                                                   : ChunkCfg<N, HP>::kFloats);
-  const void* fn = which == 0 ? (const void*)ssd_bwd_states<N, HP>
-                              : (const void*)ssd_bwd_chunks<N, HP>;
+  const void* fn = which == 0 ? (const void*)ssd_bwd_states<N, HP, TS>
+                              : (const void*)ssd_bwd_chunks<N, HP, TS>;
   int n = 0;
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem) != cudaSuccess ||
@@ -830,19 +876,44 @@ int smem_bytes(int which) {
                                           : ChunkCfg<N, HP>::kFloats);
 }
 
-}  // namespace
-
 // every built (N, hp)
 #define SSD_BWD_PAIRS(X) \
   X(16, 16) X(16, 32) X(16, 64) X(32, 16) X(32, 32) X(32, 64) X(64, 16) \
   X(64, 32) X(64, 64)
+
+template <typename TS>
+int ctas_per_sm(int N, int hp, int which) {
+#define SSD_BWD_CASE(n, p) \
+  if (N == n && hp == p) return occupancy<n, p, TS>(which);
+  SSD_BWD_PAIRS(SSD_BWD_CASE)
+#undef SSD_BWD_CASE
+  return 0;
+}
+
+template <typename TS>
+int run(const TS* u, const float* dt, const float* A, const TS* Bm,
+        const TS* Cm, const float* D, const float* h0, const TS* dy,
+        const float* dh, TS* du, float* ddt, float* dAp, float* dBp,
+        float* dCp, float* dDp, float* dh0, float* scratch, int B, int S,
+        int H, int N, int hp, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+#define SSD_BWD_CASE(n, p)                                                     \
+  if (N == n && hp == p)                                                       \
+    return (int)launch<n, p, TS>(u, dt, A, Bm, Cm, D, h0, dy, dh, du, ddt, dAp, \
+                                dBp, dCp, dDp, dh0, scratch, B, S, H, st);
+  SSD_BWD_PAIRS(SSD_BWD_CASE)
+#undef SSD_BWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
 
 extern "C" {
 
 int ssd_scan_bwd_chunk() { return QC; }
 
 // shared memory of the state kernel (which 0) or the chunk kernel (1) at
-// (N, hp), bytes; 0 if not built
+// (N, hp), bytes (either entry: both keep f32 tiles); 0 if not built
 int ssd_scan_bwd_kernel_smem_bytes(int N, int hp, int which) {
 #define SSD_BWD_CASE(n, p) \
   if (N == n && hp == p) return smem_bytes<n, p>(which);
@@ -851,14 +922,14 @@ int ssd_scan_bwd_kernel_smem_bytes(int N, int hp, int which) {
   return 0;
 }
 
-// CTAs an SM of the state kernel (which 0) or the chunk kernel (1) at
-// (N, hp) on the current device (0 if not built, -1 on a CUDA error)
+// CTAs an SM of the f32 entry's state kernel (which 0) or chunk kernel (1)
+// at (N, hp) on the current device (0 if not built, -1 on a CUDA error);
+// the bf16 entry's likewise
 int ssd_scan_bwd_ctas_per_sm(int N, int hp, int which) {
-#define SSD_BWD_CASE(n, p) \
-  if (N == n && hp == p) return occupancy<n, p>(which);
-  SSD_BWD_PAIRS(SSD_BWD_CASE)
-#undef SSD_BWD_CASE
-  return 0;
+  return ctas_per_sm<float>(N, hp, which);
+}
+int ssd_scan_bwd_bf16_ctas_per_sm(int N, int hp, int which) {
+  return ctas_per_sm<bf16_t>(N, hp, which);
 }
 
 // Inputs as ssd_scan_f32's, dy (B,S,H,hp) and dh (B,H,N,hp) or null; du
@@ -874,14 +945,21 @@ int ssd_scan_bwd_f32(const float* u, const float* dt, const float* A,
                      float* du, float* ddt, float* dAp, float* dBp,
                      float* dCp, float* dDp, float* dh0, float* scratch,
                      int B, int S, int H, int N, int hp, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-#define SSD_BWD_CASE(n, p)                                                  \
-  if (N == n && hp == p)                                                    \
-    return (int)launch<n, p>(u, dt, A, Bm, Cm, D, h0, dy, dh, du, ddt, dAp, \
-                             dBp, dCp, dDp, dh0, scratch, B, S, H, st);
-  SSD_BWD_PAIRS(SSD_BWD_CASE)
-#undef SSD_BWD_CASE
-  return (int)cudaErrorInvalidValue;
+  return run<float>(u, dt, A, Bm, Cm, D, h0, dy, dh, du, ddt, dAp, dBp, dCp,
+                    dDp, dh0, scratch, B, S, H, N, hp, stream);
+}
+
+// The backward of ssd_scan_bf16: as ssd_scan_bwd_f32, but u, B, C, dy and
+// du bf16 (du rounded once from its f32 sum; the partials of dB and dC stay
+// f32, for the caller to sum and round).
+int ssd_scan_bwd_bf16(const bf16_t* u, const float* dt, const float* A,
+                      const bf16_t* Bm, const bf16_t* Cm, const float* D,
+                      const float* h0, const bf16_t* dy, const float* dh,
+                      bf16_t* du, float* ddt, float* dAp, float* dBp,
+                      float* dCp, float* dDp, float* dh0, float* scratch,
+                      int B, int S, int H, int N, int hp, void* stream) {
+  return run<bf16_t>(u, dt, A, Bm, Cm, D, h0, dy, dh, du, ddt, dAp, dBp, dCp,
+                     dDp, dh0, scratch, B, S, H, N, hp, stream);
 }
 
 }  // extern "C"

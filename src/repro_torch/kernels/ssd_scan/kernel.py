@@ -28,17 +28,22 @@ and C to f32 as it loads them. Neither falls back to the other.
 launch, nowhere else), so a run can show that it went through the kernel;
 ``launches_by_dtype`` splits the count by entry (u's dtype).
 
-``ssd_scan_bwd`` is the backward of the f32 entry (``csrc/ssd_scan_bwd.cu``,
-a library of its own, built beside this one): the gradients of u, dt, A, B,
-C, D and h0 from the same inputs, the gradient of y and that of the final
-state, in the kernel's chunks of ``KERNEL_CHUNK``; on the CPU the plain
-version (``ssd_scan_bwd_ref``). ``ssd_scan_bwd.launches`` counts its
-launches: one a call, which runs two kernels (the chunks' entering states
-and leaving adjoints into a scratch tensor, then every chunk at once). They
-write dB and dC as one partial a head and dA and dD as one a (batch, head,
-chunk); the wrapper sums them with ``torch.sum`` over those axes (no float
-atomics: bitwise run to run). The autograd function that joins the two is
-``ops.SsdScanF32``.
+``ssd_scan_bwd`` is the backward of both entries (``csrc/ssd_scan_bwd.cu``,
+a library of its own, built beside this one, with an entry for each:
+``ssd_scan_bwd_f32`` and ``ssd_scan_bwd_bf16``): the gradients of u, dt, A,
+B, C, D and h0 from the same inputs, the gradient of y and that of the
+final state, in the kernel's chunks of ``KERNEL_CHUNK``; on the CPU the
+plain version (``ssd_scan_bwd_ref``). The bf16 entry takes u, B, C and dy
+in bf16 (dy is y's gradient, and y is bf16) and gives du, dB and dC in
+bf16, each rounded once from its f32 sum; dt, A, D, h0, dh and their
+gradients are f32, as in the forward. ``ssd_scan_bwd.launches`` counts its
+launches (``launches_by_dtype`` by entry): one a call, which runs two
+kernels (the chunks' entering states and leaving adjoints into a scratch
+tensor, then every chunk at once). They write dB and dC as one f32 partial
+a head and dA and dD as one a (batch, head, chunk); the wrapper sums them
+with ``torch.sum`` over those axes (no float atomics: bitwise run to run)
+and only then rounds dB and dC to bf16. The autograd function that joins
+forward and backward is ``ops.SsdScan``.
 """
 
 from __future__ import annotations
@@ -84,12 +89,15 @@ def library_bwd() -> ctypes.CDLL:
     """The built backward library (built at first use)."""
     lib = load_library("ssd_scan_bwd", BWD_SOURCES)
     if not getattr(lib, "_repro_typed", False):
-        lib.ssd_scan_bwd_f32.argtypes = [_P] * 17 + [_I] * 5 + [_P]
-        lib.ssd_scan_bwd_f32.restype = _I
+        for fn in (lib.ssd_scan_bwd_f32, lib.ssd_scan_bwd_bf16):
+            fn.argtypes = [_P] * 17 + [_I] * 5 + [_P]
+            fn.restype = _I
         lib.ssd_scan_bwd_kernel_smem_bytes.argtypes = [_I, _I, _I]
         lib.ssd_scan_bwd_kernel_smem_bytes.restype = _I
-        lib.ssd_scan_bwd_ctas_per_sm.argtypes = [_I, _I, _I]
-        lib.ssd_scan_bwd_ctas_per_sm.restype = _I
+        for fn in (lib.ssd_scan_bwd_ctas_per_sm,
+                   lib.ssd_scan_bwd_bf16_ctas_per_sm):
+            fn.argtypes = [_I, _I, _I]
+            fn.restype = _I
         lib.ssd_scan_bwd_chunk.argtypes = []
         lib.ssd_scan_bwd_chunk.restype = _I
         lib._repro_typed = True
@@ -192,9 +200,10 @@ def ssd_scan_bwd(u, dt, A, Bm, Cm, D, dy, *, chunk: Optional[int] = None,
     (CPU only).
 
     Returns (du, ddt, dA, dB, dC, dD, dh0): dh0 is None unless h0 is
-    given. On the card all float32 and contiguous (the bf16 entry has no
-    backward), N and hp each 16, 32 or 64, any S; on the CPU the plain
-    version."""
+    given; du, dB and dC in u's dtype, the rest float32. On the card u,
+    Bm, Cm and dy all float32 (``ssd_scan_bwd_f32``) or all bfloat16
+    (``ssd_scan_bwd_bf16``), dt, A, D, h0 and dh float32, all contiguous;
+    N and hp each 16, 32 or 64, any S. On the CPU the plain version."""
     dev = _check(u, dt, A, Bm, Cm, D, h0)
     B_, S, H, hp = u.shape
     N = Bm.shape[-1]
@@ -206,15 +215,12 @@ def ssd_scan_bwd(u, dt, A, Bm, Cm, D, dy, *, chunk: Optional[int] = None,
     if dev.type == "cpu":
         return ssd_scan_bwd_ref(u, dt, A, Bm, Cm, D, dy,
                                 chunk=chunk or KERNEL_CHUNK, h0=h0, dh=dh)
-    named = {"u": u, "dt": dt, "A": A, "Bm": Bm, "Cm": Cm, "D": D, "dy": dy,
-             "h0": h0, "dh": dh}
-    for name, t in named.items():
-        if t is None:
-            continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"ssd_scan_bwd: {name} is {t.dtype}; the backward "
-                            f"kernel takes float32 (the bf16 entry has none: "
-                            f"ROADMAP queue 1, item 13f)")
+    streamed = {"u": u, "Bm": Bm, "Cm": Cm, "dy": dy}
+    f32_args = {name: t for name, t in (("dt", dt), ("A", A), ("D", D),
+                                        ("h0", h0), ("dh", dh))
+                if t is not None}
+    check_dtypes("ssd_scan_bwd", streamed, f32_args)
+    for name, t in {**streamed, **f32_args}.items():
         if not t.is_contiguous():
             raise ValueError(f"ssd_scan_bwd: {name} is not contiguous")
     lib = library_bwd()
@@ -227,6 +233,8 @@ def ssd_scan_bwd(u, dt, A, Bm, Cm, D, dy, *, chunk: Optional[int] = None,
                      for t in (u, dy, Bm, Cm))
     f32 = dict(dtype=torch.float32, device=dev)
     chunks = -(-S // lib.ssd_scan_bwd_chunk())
+    entry = lib.ssd_scan_bwd_bf16 if u.dtype == torch.bfloat16 else \
+        lib.ssd_scan_bwd_f32
     du, ddt = torch.empty_like(u), torch.empty_like(dt)
     # the partials, dA's beside dD's and dB's beside dC's: one torch.sum
     # each pair
@@ -243,18 +251,21 @@ def ssd_scan_bwd(u, dt, A, Bm, Cm, D, dy, *, chunk: Optional[int] = None,
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ssd_scan_bwd_f32(
+        rc = entry(
             *(ptr(t) for t in (u, dt, A, Bm, Cm, D, h0, dy, dh, du, ddt,
                                dA_p, dB_p, dC_p, dD_p, dh0, scratch)),
             B_, S, H, N, hp, stream)
     check_launch(rc, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
+    ssd_scan_bwd.launches_by_dtype[u.dtype] += 1
     dA, dD = ad_p.sum((1, 3))
-    dB, dC = bc_p.sum(2)
+    # summed in f32, then rounded once to the stream dtype
+    dB, dC = bc_p.sum(2).to(Bm.dtype)
     return du, ddt, dA, dB, dC, dD, dh0
 
 
 ssd_scan_bwd.launches = 0
+ssd_scan_bwd.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
 
 
 def reset_launches() -> None:
@@ -262,3 +273,4 @@ def reset_launches() -> None:
     ssd_scan.launches = 0
     ssd_scan.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)
     ssd_scan_bwd.launches = 0
+    ssd_scan_bwd.launches_by_dtype = dict.fromkeys(ENTRY_DTYPES, 0)

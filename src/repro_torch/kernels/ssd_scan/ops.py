@@ -4,11 +4,11 @@ autograd function where a gradient is wanted.
 
 On the CPU the plain version runs under PyTorch's autograd as it is. On the
 card a call whose inputs require a gradient (with grad mode on) goes
-through ``SsdScanF32``: its forward launches the f32 kernel and keeps only
-the inputs (so a remat region keeps its memory), its backward launches the
-backward kernel (``ssd_scan_bwd``). The bf16 entry has no backward kernel
-yet, so a bf16 call that wants a gradient raises rather than return outputs
-cut off from their inputs' gradients.
+through ``SsdScan``, in either entry (u, B and C all f32, or all bf16 as a
+bf16 model passes them under ``ssm_bf16``): its forward launches that
+entry's kernel and keeps only the inputs (so a remat region keeps its
+memory), its backward launches the same entry's backward kernel
+(``ssd_scan_bwd``).
 """
 
 from __future__ import annotations
@@ -21,10 +21,10 @@ from ..flash_attention.ops import wants_grad
 from .kernel import ssd_scan, ssd_scan_bwd
 
 
-class SsdScanF32(torch.autograd.Function):
-    """The f32 kernel forward and its backward kernel, for CUDA tensors
-    (on CPU tensors the wrappers' plain versions, in chunks of
-    ``chunk``)."""
+class SsdScan(torch.autograd.Function):
+    """The kernel forward and its backward kernel, f32 or bf16 entry by u's
+    dtype, for CUDA tensors (on CPU tensors the wrappers' plain versions,
+    in chunks of ``chunk``)."""
 
     @staticmethod
     def forward(ctx, u, dt, A, Bm, Cm, D, h0, chunk):
@@ -51,9 +51,5 @@ def ssd_scan_op(u, dt, A, Bm, Cm, D, *, chunk: Optional[int] = None,
     h0 = None if h0 is None else h0.contiguous()
     if u.device.type == "cuda" and wants_grad(*args, *(
             () if h0 is None else (h0,))):
-        if u.dtype != torch.float32:
-            raise NotImplementedError(
-                "ssd_scan: the bf16 entry has no backward kernel yet (ROADMAP "
-                "queue 1, item 13f); train in float32")
-        return SsdScanF32.apply(*args, h0, chunk)
+        return SsdScan.apply(*args, h0, chunk)
     return ssd_scan(*args, chunk=chunk, h0=h0)

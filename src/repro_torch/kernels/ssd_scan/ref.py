@@ -117,12 +117,18 @@ def ssd_scan_bwd_ref(u, dt, A, Bm, Cm, D, dy, *, chunk: int = 64,
       within the chunk: ddt += A·dla, dA = Σ dt·dla over (b, s);
     * dD = Σ dy·u over (b, s, p).
 
+    u, B, C and dy may be bf16 (the bf16 entry's backward: dy is y's
+    gradient, and y is bf16): the terms are computed in f32 from their
+    values all the same, and du, dB and dC are rounded once to their
+    inputs' dtype at the end.
+
     Returns (du, ddt, dA, dB, dC, dD, dh0 or None: None unless h0 is
-    given), all f32.
+    given): du, dB and dC in u's, B's and C's dtype, the rest f32.
     """
     B_, S, H, hp = u.shape
     N = Bm.shape[-1]
     f32 = torch.float32
+    du_dtype, dB_dtype, dC_dtype = u.dtype, Bm.dtype, Cm.dtype
     u, dt, Bm, Cm, dy = (t.to(f32) for t in (u, dt, Bm, Cm, dy))
     A, D = A.to(f32), D.to(f32)
     la = dt * A[None, None, :]
@@ -206,5 +212,5 @@ def ssd_scan_bwd_ref(u, dt, A, Bm, Cm, D, dy, *, chunk: int = 64,
 
     du = unchunk(du) + D[None, None, :, None] * dy
     dD = (dy * u).sum((0, 1, 3))
-    return (du, unchunk(ddt), dA, unchunk(dB), unchunk(dC), dD,
-            None if h0 is None else g)
+    return (du.to(du_dtype), unchunk(ddt), dA, unchunk(dB).to(dB_dtype),
+            unchunk(dC).to(dC_dtype), dD, None if h0 is None else g)

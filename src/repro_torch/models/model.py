@@ -152,8 +152,9 @@ def train_step_launches(cfg: ModelConfig) -> Dict[str, int]:
     """The kernel launches of one train step of ``cfg`` on the card, by
     entry (the forwards' f32 entries and ``KERNEL_BACKWARD``; for a bf16
     ``cfg`` attention's bf16 entry and its backward, ``flash_attention_bf16``
-    and ``flash_attention_bwd_bf16``, while the scans take their f32
-    entries, as the models pass them f32 without ``ssm_bf16``): per segment
+    and ``flash_attention_bwd_bf16``, the SSD scan's, ``ssd_scan_bf16`` and
+    ``ssd_scan_bwd_bf16``, only under ``ssm_bf16``, while the scans take
+    their f32 entries otherwise, as the models pass them f32): per segment
     (``plan_segments``, and an enc-dec model's encoder) of R repeats of a
     pattern, in groups of ``_group(R, scan_group)`` repeats, each block's
     calls (``BLOCK_KERNEL_CALLS``) run backward once and forward: with both
@@ -166,8 +167,11 @@ def train_step_launches(cfg: ModelConfig) -> Dict[str, int]:
         segments.append((("enc",), cfg.n_enc_layers))
     out = dict.fromkeys(list(KERNEL_BACKWARD) + list(
         KERNEL_BACKWARD.values()), 0)
-    out.update(flash_attention_bf16=0, flash_attention_bwd_bf16=0)
+    out.update(flash_attention_bf16=0, flash_attention_bwd_bf16=0,
+               ssd_scan_bf16=0, ssd_scan_bwd_bf16=0)
     bf16 = cfg.dtype == torch.bfloat16
+    bf16_kernels = {"flash_attention"} | ({"ssd_scan"} if cfg.ssm_bf16
+                                          else set())
     for pattern, R in segments:
         groups = R // _group(R, cfg.scan_group)
         for i, kind in enumerate(pattern):
@@ -175,7 +179,7 @@ def train_step_launches(cfg: ModelConfig) -> Dict[str, int]:
             for name, n in BLOCK_KERNEL_CALLS[kind].items():
                 fwd = (3 * R - (groups if last else 0) if cfg.block_remat
                        else 2 * R)
-                suffix = "_bf16" if bf16 and name == "flash_attention" else ""
+                suffix = "_bf16" if bf16 and name in bf16_kernels else ""
                 out[name + suffix] += fwd * n
                 out[KERNEL_BACKWARD[name] + suffix] += R * n
     return out

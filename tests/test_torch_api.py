@@ -152,6 +152,7 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 import chip_smoke
 for m in ("repro_torch.distributed.transport", "repro_torch.sph.collectives",
           "repro_torch.sph.dist_timebins", "repro_torch.sph.adaptive",
+          "repro_torch.sph.ref_nsquared",
           "repro_torch.observability.metrics",
           "repro_torch.observability.sinks",
           "repro_torch.observability.device_metrics",

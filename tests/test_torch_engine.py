@@ -6,7 +6,10 @@ initial conditions. The port's pair passes run the kernels' plain versions
 its vmapped blocks (f32 sums), so the fields agree to float32 rounding of
 the pair sums: positions within 1e-6 of the box, the other fields within
 1e-4 of each field's scale. The conservation checks are the reference's
-(tests/test_sph_physics.py), run on the port.
+(tests/test_sph_physics.py), run on the port. The port's O(N²) oracle
+(``repro_torch.sph.ref_nsquared``) is the density → ghost → force chain's
+ground truth here, and is held to the reference's oracle on the same
+inputs.
 """
 
 import warnings
@@ -17,11 +20,13 @@ import torch
 
 from repro.sph import SPHConfig as RefConfig
 from repro.sph import Simulation as RefSimulation
-from repro.sph.ref_nsquared import nsq_density, nsq_forces
+from repro.sph.ref_nsquared import nsq_density as ref_nsq_density
+from repro.sph.ref_nsquared import nsq_forces as ref_nsq_forces
 from repro_torch.sph import SPHConfig, Simulation, sedov_ic, uniform_ic
 from repro_torch.sph.cellgrid import bin_particles, build_pair_list, \
     choose_grid
 from repro_torch.sph.engine import compute_accelerations
+from repro_torch.sph.ref_nsquared import nsq_density, nsq_forces
 from torch_threads import one_torch_thread  # noqa: F401
 
 NSTEPS = 3
@@ -109,15 +114,16 @@ def _setup(n_side=8, seed=0, vel_scale=0.1):
 
 
 def test_port_matches_nsquared_oracle():
-    """The port's density → ghost → force chain against the reference's
-    O(N²) oracle, at the reference test's tolerances."""
+    """The port's density → ghost → force chain against the port's O(N²)
+    oracle, at the reference test's tolerances."""
     ic = _setup()
     pos, vel, mass, u, h, box = (ic[k] for k in
                                  ("pos", "vel", "mass", "u", "h", "box"))
-    rho_ref, drho_ref, nngb_ref = nsq_density(pos, mass, h, box)
-    omega_ref = 1.0 + (h / (3 * rho_ref)) * drho_ref
+    rho_ref, drho_ref, nngb_ref = nsq_density(pos, mass, h, box,
+                                              device="cpu")
+    omega_ref = 1.0 + (torch.from_numpy(h) / (3 * rho_ref)) * drho_ref
     dv_ref, du_ref = nsq_forces(pos, vel, mass, u, h, rho_ref, omega_ref,
-                                box, alpha_visc=0.8)
+                                box, alpha_visc=0.8, device="cpu")
     spec = choose_grid(box, float(h.max()), len(pos))
     cells, perm = bin_particles(spec, pos, vel, mass, u, h, device="cpu")
     pairs = build_pair_list(spec)
@@ -139,6 +145,54 @@ def test_port_matches_nsquared_oracle():
                                atol=2e-3 * np.abs(dv_ref).max())
     np.testing.assert_allclose(flat(du), du_ref, rtol=2e-3,
                                atol=2e-3 * np.abs(du_ref).max())
+
+
+@pytest.mark.parametrize("alpha_visc", [0.0, 0.8])
+def test_port_nsquared_oracle_matches_reference_oracle(alpha_visc):
+    """The port's O(N²) oracle against the reference's on the same numpy
+    inputs from a seed (the forces from the same densities): rho, drho_dh,
+    dv and du within 1e-5 of each field's scale (the same terms, summed
+    over j in other orders), the neighbour counts exact, and a pair on
+    which the two disagree (r on the edge of h) named in the failure."""
+    ic = _setup(seed=3, vel_scale=0.2)
+    pos, vel, mass, u, h, box = (ic[k] for k in
+                                 ("pos", "vel", "mass", "u", "h", "box"))
+    want = [np.asarray(a) for a in ref_nsq_density(pos, mass, h, box)]
+    got = [a.numpy() for a in nsq_density(pos, mass, h, box, device="cpu")]
+    if not np.array_equal(got[2], want[2]):
+        i = int(np.flatnonzero(got[2] != want[2])[0])
+        dx = pos[i] - pos
+        dx -= box * np.round(dx / box)
+        r = np.sqrt((dx.astype(np.float64) ** 2).sum(-1))
+        j = int(np.argmin(np.abs(r - h[i])))
+        pytest.fail(f"neighbour count of particle {i}: {got[2][i]} against "
+                    f"{want[2][i]}; pair ({i}, {j}) at r = {r[j]!r}, "
+                    f"h = {h[i]!r}")
+    for name, g, w in zip(("rho", "drho_dh"), got, want):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+    rho, drho = want[0], want[1]
+    omega = 1.0 + (h / (3 * rho)) * drho
+    want = [np.asarray(a) for a in ref_nsq_forces(
+        pos, vel, mass, u, h, rho, omega, box, alpha_visc=alpha_visc)]
+    got = [a.numpy() for a in nsq_forces(
+        pos, vel, mass, u, h, rho, omega, box, alpha_visc=alpha_visc,
+        device="cpu")]
+    for name, g, w in zip(("dv", "du"), got, want):
+        np.testing.assert_allclose(g, w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
+def test_nsquared_oracle_defaults_to_the_card():
+    """Without ``device`` the oracle runs on the CUDA device and raises
+    where there is none (it never carries on on the CPU unasked)."""
+    ic = _setup(n_side=4)
+    if torch.cuda.is_available():
+        rho, _, _ = nsq_density(ic["pos"], ic["mass"], ic["h"], ic["box"])
+        assert rho.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            nsq_density(ic["pos"], ic["mass"], ic["h"], ic["box"])
 
 
 def test_momentum_conserved():

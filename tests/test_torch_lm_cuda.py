@@ -37,12 +37,16 @@ backward's own RMS distance from the plain f32 backward on the same values
 widened (tests/test_torch_train_bf16.py's rule and its reason), run twice
 bitwise, at every head width with windows and soft-caps; the bf16
 forward's log-sum-exp as the f32 one's, with the output bit for bit the
-one without it. Training on the card (the ops under autograd, a reduced
-model's train steps against the CPU's within 1e-4 of scale, the Mamba
-kinds' and a mixtral's too, a reduced mixtral's f32 step and a reduced
-granite's bf16 step each twice bitwise) and the entries that have no
-backward kernel yet (the scans' bf16 entries) raising under grad are
-tested at the end of the file.
+one without it. The backward of the bf16 SSD entry
+(``ssd_scan_bwd`` on bf16 u, B, C and dy) is held to the plain backward on
+the same bf16 tensors by the bf16 scans' rule below (du, dB and dC each
+rounded once), twice bitwise, at zamba2's train shape, ragged with h0 and
+dh, and every built width. Training on the card (the ops under autograd, a
+reduced model's train steps against the CPU's within 1e-4 of scale, the
+Mamba kinds' and a mixtral's too, a reduced mixtral's f32 step and a
+reduced granite's bf16 step each twice bitwise) and the entry that has no
+backward kernel (the Mamba-1 scan's bf16 entry, on no model's training
+path) raising under grad are tested at the end of the file.
 
 The bf16 entries are held to their plain versions on the same bf16 inputs,
 each output within one bf16 rounding of the plain one (2^-7 of the value)
@@ -1020,12 +1024,14 @@ def test_cuda_flash_op_carries_gradients(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_entries_without_a_backward_raise_under_grad(cuda_device):
-    """The scans' bf16 entries have no backward kernel yet: on the card
-    they raise when an input requires grad (no silent detach); without
-    grad they run; under ``no_grad`` they run. The bf16 flash entry now has
-    one: under grad it runs its forward with the LSE, and the backward
-    launches the bf16 backward entry. The f32 entries of all three carry
-    gradients (the tests above and below)."""
+    """The Mamba-1 scan's bf16 entry has no backward kernel (no model
+    trains through it: the reference upcasts before the scan): on the card
+    it raises when an input requires grad (no silent detach); without grad
+    it runs; under ``no_grad`` it runs. The bf16 flash and SSD entries have
+    one: under grad each runs its forward (the flash with the LSE), and the
+    backward launches the bf16 backward entry once, the gradients of the
+    bf16 inputs bf16. The f32 entries of all three carry gradients (the
+    tests above and below)."""
     from repro_torch.kernels.mamba_scan import selective_scan_op
     from repro_torch.kernels.ssd_scan import ssd_scan_op
     q, k, v = tt(qkv_inputs(1, 64, 64, 2, 2, 64), cuda_device)
@@ -1041,16 +1047,26 @@ def test_cuda_entries_without_a_backward_raise_under_grad(cuda_device):
     assert qb.grad.dtype == torch.bfloat16
     with torch.no_grad():
         flash_attention_op(qb, k.bfloat16(), v.bfloat16())
-    for op, args in ((ssd_scan_op, ssd_inputs(1, 64, 2, 16, 16)),
-                     (selective_scan_op, scan_inputs(1, 64, 32, 16))):
-        ts = tt(args, cuda_device)
-        ts[0], ts[3], ts[4] = (t.bfloat16() for t in (ts[0], ts[3], ts[4]))
-        op(*ts)
-        ts[0].requires_grad_(True)
-        with pytest.raises(NotImplementedError, match="13f"):
-            op(*ts)
-        with torch.no_grad():
-            op(*ts)
+    ts = tt(ssd_inputs(1, 64, 2, 16, 16), cuda_device)
+    ts[0], ts[3], ts[4] = (t.bfloat16().requires_grad_(True)
+                           for t in (ts[0], ts[3], ts[4]))
+    n0 = (SK.ssd_scan.launches_by_dtype[torch.bfloat16],
+          SK.ssd_scan_bwd.launches_by_dtype[torch.bfloat16])
+    y, _ = ssd_scan_op(*ts)
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (SK.ssd_scan.launches_by_dtype[torch.bfloat16] - n0[0],
+            SK.ssd_scan_bwd.launches_by_dtype[torch.bfloat16] - n0[1]) \
+        == (1, 1)
+    assert all(ts[i].grad.dtype == torch.bfloat16 for i in (0, 3, 4))
+    ts = tt(scan_inputs(1, 64, 32, 16), cuda_device)
+    ts[0], ts[3], ts[4] = (t.bfloat16() for t in (ts[0], ts[3], ts[4]))
+    selective_scan_op(*ts)
+    ts[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="Mamba-1"):
+        selective_scan_op(*ts)
+    with torch.no_grad():
+        selective_scan_op(*ts)
 
 
 def check_scan_backward(kernel_bwd, plain_fwd, dev, args, h0, dh, **kw):
@@ -1139,6 +1155,62 @@ def test_cuda_ssd_backward_matches_plain_autograd(cuda_device, B, S, H, hp,
           if with_dh else None)
     check_scan_backward(SK.ssd_scan_bwd, ssd_scan_ref, cuda_device, args, h0,
                         dh, chunk=SK.KERNEL_CHUNK)
+
+
+def check_ssd_backward_bf16(dev, B, S, H, hp, N, with_h0, with_dh):
+    """The bf16 entry's backward kernel against the plain backward on the
+    same bf16 tensors on the card, run twice bitwise, one launch of the
+    bf16 entry a call: du, dB and dC bf16 within one bf16 rounding plus
+    ``BWD_RTOL`` of scale (the bf16 scans' rule), the f32 gradients within
+    ``BWD_RTOL``."""
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_ref
+    args = tt(ssd_inputs(B, S, H, hp, N, seed=S + hp + N), dev)
+    for i in (0, 3, 4):
+        args[i] = args[i].bfloat16()
+    g = torch.Generator(dev).manual_seed(S + N)
+    dy = torch.randn(B, S, H, hp, device=dev, generator=g).bfloat16()
+    h0 = (torch.randn(B, H, N, hp, device=dev, generator=g)
+          if with_h0 else None)
+    dh = (torch.randn(B, H, N, hp, device=dev, generator=g)
+          if with_dh else None)
+    n0 = SK.ssd_scan_bwd.launches_by_dtype[torch.bfloat16]
+    got = SK.ssd_scan_bwd(*args, dy, h0=h0, dh=dh)
+    again = SK.ssd_scan_bwd(*args, dy, h0=h0, dh=dh)
+    torch.cuda.synchronize()
+    assert SK.ssd_scan_bwd.launches_by_dtype[torch.bfloat16] == n0 + 2
+    assert all((a is None and b is None) or torch.equal(a, b)
+               for a, b in zip(got, again))
+    want = ssd_scan_bwd_ref(*args, dy, chunk=SK.KERNEL_CHUNK, h0=h0, dh=dh)
+    assert (got[6] is None) == (h0 is None)
+    for name, a, w in zip(("du", "ddt", "dA", "dB", "dC", "dD", "dh0"),
+                          got, want):
+        if w is None:
+            continue
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        if a.dtype == torch.bfloat16:
+            within_bf16_rounding(a, w, BWD_RTOL)
+        else:
+            assert rel_err(a, w) <= BWD_RTOL, (name, rel_err(a, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,hp,N,with_h0,with_dh", [
+    (8, 256, 64, 64, 64, False, False),   # zamba2-1.2b's train shape
+    (2, 1000, 64, 64, 64, True, True),    # ragged, 16 chunks
+    (4, 40, 8, 16, 16, True, True),       # the reduced widths
+    (1, 1, 2, 32, 16, True, True),        # S = 1
+])
+def test_cuda_ssd_backward_bf16_matches_plain(cuda_device, B, S, H, hp, N,
+                                              with_h0, with_dh):
+    check_ssd_backward_bf16(cuda_device, B, S, H, hp, N, with_h0, with_dh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16, 32, 64])
+@pytest.mark.parametrize("hp", [16, 32, 64])
+def test_cuda_ssd_backward_bf16_every_width(cuda_device, N, hp):
+    check_ssd_backward_bf16(cuda_device, 2, 150, 3, hp, N, True, True)
 
 
 @pytest.mark.cuda

@@ -436,3 +436,28 @@ def test_chip_smoke_ssd_backward_bound_as_the_forward():
     assert b["bound_ms"] == 3 * ops / 495e12 * 1e3
     assert b["fma_bound_ms"] == ops / 67e12 * 1e3
     assert abs(b["bound_ms"] - 0.0354) < 0.0001
+
+
+def test_chip_smoke_ssd_backward_bf16_bound_counts_bf16_stream_bytes():
+    """The bf16 entry's backward bound: the same operations, the stream
+    tensors (u, dy, du, B, C, dB, dC) at 2 bytes, dt, ddt, A, D, dA, dD
+    (and h0, dh, dh0) at 4; at zamba2-1.2b's train shape 52.4 MB, 0.0157
+    ms at 3.35 TB/s, half of the f32 entry's bytes bound, so the route's
+    operations (3×TF32, 0.0354 ms) bound it."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke as C
+    ops32, moved32, _ = C.ssd_bwd_ops_bytes(1, 12, 1, 64, 64, True)
+    ops, moved, _ = C.ssd_bwd_ops_bytes(1, 12, 1, 64, 64, True, elem=2)
+    assert ops == ops32
+    assert moved == 2 * (3 * 12 * 64 + 4 * 12 * 64) + 4 * (2 * 12 + 4
+                                                           + 3 * 64 * 64)
+    ops, moved, _ = C.ssd_bwd_ops_bytes(8, 256, 64, 64, 64, False, elem=2)
+    _, moved32, _ = C.ssd_bwd_ops_bytes(8, 256, 64, 64, 64, False)
+    assert moved == 2 * (3 * 8 * 256 * 64 * 64 + 4 * 8 * 256 * 64) \
+        + 4 * (2 * 8 * 256 * 64 + 4 * 64)
+    assert abs(moved / 3.35e12 * 1e3 - 0.0157) < 0.0001
+    assert abs(moved / moved32 - 0.5) < 0.01
+    b = C.bwd_bounds(ops, moved, "mma_sync")
+    assert b["route_bound_by"] == "operations (3×TF32)"
+    assert abs(b["route_bound_ms"] - 0.0354) < 0.0001

@@ -12,8 +12,15 @@ S under, at and over one chunk, ragged S, an initial state, a gradient of
 the final state, and every state width (and head width) the kernels are
 built for.
 
+The plain SSD backward also takes the bf16 entry's inputs (u, B, C and dy
+in bf16, the rest f32): there it is held to ``torch.autograd`` of the plain
+forward on the same bf16 tensors, du, dB and dC (bf16, each rounded once)
+within one bf16 rounding of the value plus 2e-4 of the scale, the f32
+gradients within 2e-4 of their scale (the rule of the bf16 scans on the
+card, tests/test_torch_lm_cuda.py).
+
 The autograd functions that carry the kernels on the card
-(``SelectiveScanF32``, ``SsdScanF32``) run here on CPU tensors, where their
+(``SelectiveScanF32``, ``SsdScan``) run here on CPU tensors, where their
 wrappers take the plain versions: through a reduced model's ``lm_loss``
 they give the plain autograd's gradients (within 1e-4 of each leaf's
 scale, the model-level pin), and under both remat levels they
@@ -36,7 +43,7 @@ from repro_torch.kernels.mamba_scan import (SelectiveScanF32,
                                             selective_scan_bwd,
                                             selective_scan_bwd_ref,
                                             selective_scan_ref)
-from repro_torch.kernels.ssd_scan import (SsdScanF32, ssd_scan_bwd,
+from repro_torch.kernels.ssd_scan import (SsdScan, ssd_scan_bwd,
                                           ssd_scan_bwd_ref, ssd_scan_ref)
 from repro_torch.models import init_params, lm_loss
 from repro_torch.models import mamba as M
@@ -46,6 +53,8 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL = 2e-4
 NAMES = ("du", "ddt", "dA", "dB", "dC", "dD", "dh0")
+BF16_REL = 2.0 ** -7       # one bf16 rounding step, relative to the value
+BF16_OUT = ("du", "dB", "dC")
 
 
 def rel(got, want) -> float:
@@ -195,9 +204,102 @@ def test_ssd_scan_bwd_ref_stays_finite_where_exp_of_minus_l_overflows():
         assert rel(g, w) <= RTOL, name
 
 
+def within_bf16_rounding(got, want, rtol=RTOL) -> float:
+    """max(|got − want| − 2^-7 |want|) over the scale of ``want``: at most
+    ``rtol`` for two f32 values within rtol of the scale, each rounded to
+    bf16 once."""
+    got, want = got.double(), want.double()
+    scale = max(float(want.abs().max()), 1e-30)
+    return float(((got - want).abs() - BF16_REL * want.abs()).max()) / scale
+
+
+def check_bf16(got, want):
+    """The bf16 entry's gradients against another computation of them: du,
+    dB and dC bf16 within one rounding plus ``RTOL`` of scale, the rest
+    f32 within ``RTOL``."""
+    for name, g, w in zip(NAMES, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype == (torch.bfloat16 if name in BF16_OUT
+                                      else torch.float32), (name, g.dtype)
+        assert g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        err = (within_bf16_rounding(g, w) if name in BF16_OUT
+               else rel(g, w))
+        assert err <= RTOL, (name, err)
+
+
+def bf16_stream(ts):
+    """The SSD inputs as the bf16 entry takes them: u, B and C bf16."""
+    ts = list(ts)
+    for i in (0, 3, 4):
+        ts[i] = ts[i].bfloat16()
+    return ts
+
+
+# (B, S, H, hp, N, chunk, h0, dh): ragged over three chunks, zamba2's
+# widths at one chunk, under a chunk at the reduced models' chunk
+SSD_BF16_CASES = [(2, 150, 3, 16, 32, 64, True, True),
+                  (1, 64, 2, 64, 64, 64, False, True),
+                  (2, 40, 3, 16, 16, 16, True, False)]
+
+
+@pytest.mark.parametrize("B,S,H,hp,N,chunk,with_h0,with_dh", SSD_BF16_CASES)
+def test_bf16_ssd_scan_bwd_ref_matches_bf16_autograd(B, S, H, hp, N, chunk,
+                                                     with_h0, with_dh):
+    """``ssd_scan_bwd_ref`` on bf16 u, B, C and dy against autograd of
+    ``ssd_scan_ref`` on the same bf16 tensors (its y bf16, its casts
+    rounding each input's gradient once); the wrapper on CPU tensors is the
+    plain version."""
+    args = ssd_inputs(B, S, H, hp, N, seed=S + N + hp + 1)
+    h0, dy, dh = extras(np.random.default_rng(S * N + hp + 1), (B, S, H, hp),
+                        (B, H, N, hp), with_h0, with_dh)
+    maybe = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    ts = bf16_stream(torch.from_numpy(a) for a in args)
+    dyb = torch.from_numpy(dy).bfloat16()
+    ins = [t.clone().requires_grad_(True)
+           for t in (*ts, *(() if h0 is None else (maybe(h0),)))]
+    y, h = ssd_scan_ref(*ins[:6], chunk=chunk,
+                        h0=ins[6] if h0 is not None else None)
+    assert y.dtype == torch.bfloat16
+    outs, cots = [y], [dyb]
+    if dh is not None:
+        outs.append(h)
+        cots.append(maybe(dh))
+    want = list(torch.autograd.grad(outs, ins, cots)) + (
+        [None] if h0 is None else [])
+    got = ssd_scan_bwd_ref(*ts, dyb, chunk=chunk, h0=maybe(h0), dh=maybe(dh))
+    check_bf16(got, want)
+    again = ssd_scan_bwd(*ts, dyb, chunk=chunk, h0=maybe(h0), dh=maybe(dh))
+    for a, b in zip(got, again):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_ssd_autograd_function_on_cpu_bf16_tensors():
+    """``SsdScan`` on the bf16 entry's CPU tensors (the plain versions)
+    against autograd of the plain forward, with an initial state and a
+    loss on both outputs: the same dtypes, within the bf16 rule."""
+    args = ssd_inputs(2, 70, 3, 16, 16, seed=2)
+    h0 = np.random.default_rng(3).standard_normal((2, 3, 16, 16)).astype(
+        np.float32)
+    grads = []
+    for run in ("function", "plain"):
+        ts = [t.requires_grad_(True) for t in bf16_stream(
+            torch.from_numpy(a) for a in (*args, h0))]
+        if run == "function":
+            y, h = SsdScan.apply(*ts, 16)
+        else:
+            y, h = ssd_scan_ref(*ts[:6], chunk=16, h0=ts[6])
+        assert y.dtype == torch.bfloat16 and h.dtype == torch.float32
+        ((y.float() ** 2).sum() + (h * h.detach()).sum()).backward()
+        grads.append([t.grad for t in ts])
+    check_bf16(grads[0], grads[1])
+
+
 @pytest.mark.parametrize("fn,args,kw", [
     (SelectiveScanF32, selective_inputs(2, 21, 12, 8, seed=1), ()),
-    (SsdScanF32, ssd_inputs(2, 70, 3, 16, 16, seed=2), (16,)),
+    (SsdScan, ssd_inputs(2, 70, 3, 16, 16, seed=2), (16,)),
 ])
 def test_autograd_functions_on_cpu_tensors_match_plain_autograd(fn, args,
                                                                 kw):
@@ -249,7 +351,7 @@ def through_functions(monkeypatch):
 
     monkeypatch.setattr(M, "selective_scan_op",
                         counted(SelectiveScanF32, False))
-    monkeypatch.setattr(M, "ssd_scan_op", counted(SsdScanF32, True))
+    monkeypatch.setattr(M, "ssd_scan_op", counted(SsdScan, True))
     return calls
 
 

@@ -17,7 +17,11 @@ held against the port's plain backward ``ssd_scan_bwd_ref``, against
 and, through a whole Mamba-2 layer, against ``jax.vjp`` of the reference's
 chunked SSD (``repro/models/mamba.py:mamba2_forward``); the split keeps
 every gradient within 2e-4 of its scale (``SCAN_BWD_RTOL``) at zamba2's
-widths, the one-product form does not.
+widths, the one-product form does not. The bf16 entry
+(``ssd_scan_bwd_bf16``) runs the same form on bf16 stream tensors widened
+to f32: emulated with its one rounding of du, dB and dC, it stays within
+one bf16 rounding plus 2e-4 of scale of the plain backward on the same
+bf16 tensors.
 
 ``selective_scan_bwd`` (csrc/selective_scan_bwd.cu) sums the dB and dC
 terms over a warp's channels in registers: a reduce-scatter over the lanes
@@ -365,6 +369,54 @@ def test_mamba2_layer_gradients_through_the_chunk_parallel_form(
         assert rel(tp[k].grad, want_p[k]) <= SCAN_BWD_RTOL, k
     assert rel(tx.grad, want_x) <= SCAN_BWD_RTOL
     assert rel(ts.grad, want_s) <= SCAN_BWD_RTOL
+
+
+# ------------------------------------ the SSD backward's bf16 entry, emulated
+BF16_REL = 2.0 ** -7       # one bf16 rounding step, relative to the value
+
+
+def test_widened_bf16_is_its_own_tf32_part():
+    """A bf16 value widened to f32 has 8 significant bits, within TF32's
+    11: the split's small part is 0, so the bf16 entry's products of two
+    stream tiles (B Cᵀ, u dyᵀ) are exact in the first pass."""
+    x = torch.randn(4096).bfloat16().float()
+    assert torch.equal(tf32(x), x)
+    assert not bool(tf32(x - tf32(x)).any())
+
+
+@pytest.mark.parametrize("B,S,H,hp,N,with_h0,with_dh", [
+    (1, 300, 2, 64, 64, True, True),      # zamba2's widths, five chunks
+    (2, 150, 3, 16, 32, False, True),     # ragged over three chunks
+])
+def test_bf16_entry_split_tf32_and_one_rounding_within_the_bf16_rule(
+        B, S, H, hp, N, with_h0, with_dh):
+    """``ssd_scan_bwd_bf16``'s arithmetic: u, B, C and dy bf16 widened to
+    f32, the f32 entry's split-TF32 products and f64 sums, du rounded to
+    bf16 once, dB and dC summed over heads in f32 and only then rounded.
+    Against the plain backward on the same bf16 tensors: du, dB and dC
+    within one bf16 rounding plus 2e-4 of scale, the f32 gradients within
+    2e-4 of scale."""
+    arrs = ssd_arrays(B, S, H, hp, N, seed=S + hp)
+    ts = [torch.from_numpy(a) for a in arrs]
+    for i in (0, 3, 4, 6):                  # u, B, C, dy
+        ts[i] = ts[i].bfloat16()
+    h0 = ts[7] if with_h0 else None
+    dh = ts[8] if with_dh else None
+    got = list(ssd_bwd_chunk_parallel(*(t.float() for t in ts[:7]), h0=h0,
+                                      dh=dh, mm=mm_split3))
+    for i in (0, 3, 4):                     # du, dB, dC: rounded once
+        got[i] = got[i].bfloat16()
+    want = ssd_scan_bwd_ref(*ts[:7], chunk=QC, h0=h0, dh=dh)
+    for name, a, w in zip(NAMES, got, want):
+        if w is None:
+            assert a is None, name
+            continue
+        assert a.dtype == w.dtype, name
+        a, w = a.double(), w.double()
+        scale = max(float(w.abs().max()), 1e-30)
+        slack = BF16_REL * w.abs() if name in ("du", "dB", "dC") else 0.0
+        err = float(((a - w).abs() - slack).max()) / scale
+        assert err <= SCAN_BWD_RTOL, (name, err)
 
 
 # --------------------------------------- the selective backward's channel sums

@@ -244,16 +244,24 @@ def ref_loss_and_grads(rcfg, rparams, toks, front):
         jax.tree.map(np.asarray, grads)))]
 
 
-@pytest.mark.parametrize("arch", TRAIN_ARCHS)
+@pytest.mark.parametrize("arch", TRAIN_ARCHS + ["zamba2-1.2b-ssm_bf16"])
 def test_bf16_lm_loss_and_gradients_within_twice_the_references_error(arch):
     """A reduced model in bf16 from the reference's bf16 weights: the port's
     ``lm_loss`` and every gradient against ``jax.value_and_grad`` of the
     reference's in bf16, and the reference in f32 on the same weights
     widened; the gradients within 2 x the reference's own distance over all
-    leaves at once, each the dtype of its weight."""
+    leaves at once, each the dtype of its weight. ``zamba2-1.2b-ssm_bf16``
+    is zamba2 with the reference's ``ssm_bf16`` variant on both sides (the
+    SSD's u, B and C in bf16: on the card the scan's bf16 entry and its
+    backward kernel), against the reference's f32 run without it."""
+    ssm_bf16 = arch.endswith("-ssm_bf16")
+    arch = arch.removesuffix("-ssm_bf16")
     rcfg = ref_config(arch, reduced=True)
     cfg = get_config(arch, reduced=True)
     assert rcfg.dtype == jnp.bfloat16 and cfg.dtype == BF16
+    if ssm_bf16:
+        rcfg = dataclasses.replace(rcfg, ssm_bf16=True)
+        cfg = dataclasses.replace(cfg, ssm_bf16=True)
     rparams = ref_init(rcfg, jax.random.PRNGKey(0))
     widen = lambda x: x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x
     rng = np.random.default_rng(0)
@@ -261,7 +269,7 @@ def test_bf16_lm_loss_and_gradients_within_twice_the_references_error(arch):
     front = frontend(cfg, rng)
     loss16, ref16 = ref_loss_and_grads(rcfg, rparams, toks, front)
     loss32, ref32 = ref_loss_and_grads(
-        dataclasses.replace(rcfg, dtype=jnp.float32),
+        dataclasses.replace(rcfg, dtype=jnp.float32, ssm_bf16=False),
         jax.tree.map(widen, rparams), toks, front)
 
     params = params_from_numpy(jax.tree.map(np.asarray, rparams))

@@ -8,7 +8,7 @@ warmup steps; batch 4 × 40, as ``chip_smoke.py`` phase 18), from the same
 parameters and batches drawn from each seed, two CPU runs: the scans under
 PyTorch's autograd of the plain forwards (the CPU path of the ops), and the
 scans through the autograd functions that carry the kernels on the card
-(``SelectiveScanF32``, ``SsdScanF32``) with the plain backwards (the same
+(``SelectiveScanF32``, ``SsdScan``) with the plain backwards (the same
 gradients, summed in another order). Prints, after each step, the largest
 difference of each group of leaves over its own scale (max |a − b| over
 max |b|, as phase 18 measures): the leaves the model initialises at zero
@@ -37,7 +37,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.mamba_scan import SelectiveScanF32  # noqa: E402
-from repro_torch.kernels.ssd_scan import SsdScanF32  # noqa: E402
+from repro_torch.kernels.ssd_scan import SsdScan  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models import mamba as M  # noqa: E402
 from repro_torch.models.convert import (leaves, tree_map,  # noqa: E402
@@ -53,7 +53,7 @@ def rel(a, b) -> float:
 def through_functions(u, dt, A, Bm, Cm, D, *, chunk=None, h0=None):
     args = [t.contiguous() for t in (u, dt, A, Bm, Cm, D)]
     if u.dim() == 4:
-        return SsdScanF32.apply(*args, h0, chunk)
+        return SsdScan.apply(*args, h0, chunk)
     return SelectiveScanF32.apply(*args, h0)
 
 
