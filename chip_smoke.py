@@ -233,7 +233,12 @@ and for the training slice (``python -m repro_torch.launch.train``), f32:
     backward on the same bf16 tensors: du, dB and dC (bf16, each rounded
     once) within one bf16 rounding plus 2e-4 of scale, the f32 gradients
     within 2e-4, twice bitwise, its time beside the f32 entry's on the same
-    values widened, its bound with the stream tensors' bytes in bf16;
+    values widened, its bound with the stream tensors' bytes in bf16; at
+    (N, hp) = (64, 64) the route that serves it is the Hopper pair
+    (``ssd_bwd_states_bf16_hopper``, ``ssd_bwd_chunks_bf16_hopper``), its
+    own bound beside (one bf16 pass for the products of two stream
+    tensors, two for those with an f32 operand, at the bf16 peak), and the
+    design's bytes count the scratch and the dB / dC partials;
 17. granite-8b trained at full width, 16 of its 36 layers
     (``TRAIN_LAYERS``), f32, batch 8 × 256, 4 steps through
     ``init_train_state`` and ``make_train_step`` (``train_steps``), every LM
@@ -3611,24 +3616,46 @@ def selective_bwd_design(B, S, dI, N, chunk):
 def ssd_bwd_design(B, S, H, hp, N, Q=64):
     """What the SSD backward kernels' design itself moves beyond the
     function: the scratch of the states entering and the adjoints leaving
-    each chunk, written by the first kernel and read by the second."""
-    return {"scratch_bytes": 2 * 2 * 4.0 * B * H * -(-S // Q) * N * hp}
+    each chunk, written by the first kernel and read by the second (4
+    bytes an element on either route: f32, or two bf16 pieces), and the f32
+    partials of dB and dC, one a head, written for ``torch.sum``."""
+    return {"scratch_bytes": 2 * 2 * 4.0 * B * H * -(-S // Q) * N * hp,
+            "partial_bytes": 2 * 4.0 * B * H * S * N}
 
 
-def ssd_bwd_chunked_ops(S, N, hp, Q):
+def ssd_bwd_chunked_ops(S, N, hp, Q, stream_passes=1, f32_passes=1):
     """Operations of one (batch, head) strip of the SSD scan's gradients in
     the chunked form at chunk length Q, the ragged last chunk at its own
     length L: per chunk the triangular (s ≤ t) products C·Bᵀ and dy·uᵀ
     (N + hp each), Mᵀ·dy (hp), G·B and Gᵀ·C (N each) and the masked
     products (6), five products of L·N·hp (dy·H_inᵀ, u·dHᵀ, B·dH, the
     adjoint's update and the entering state again) and the decay of the
-    state and of its adjoint (N·hp each); an FMA counts 2."""
+    state and of its adjoint (N·hp each); an FMA counts 2. With passes: the
+    products of two stream tensors (C·Bᵀ, dy·uᵀ) counted ``stream_passes``
+    times, those with an f32 operand ``f32_passes`` times (the Hopper
+    route of the bf16 entry: 1 and 2 bf16 passes)."""
     def chunk(L):
         tri = L * (L + 1) / 2
-        return (tri * (2 * (N + hp) + 2 * hp + 4 * N + 6) + 10 * L * N * hp
-                + 2 * N * hp)
+        return (tri * (stream_passes * 2 * (N + hp)
+                       + f32_passes * (2 * hp + 4 * N) + 6)
+                + f32_passes * 10 * L * N * hp + 2 * N * hp)
     full, last = divmod(S, Q)
     return full * chunk(Q) + (chunk(last) if last else 0)
+
+
+def ssd_bwd_hopper_bound(B, S, H, hp, N, moved) -> dict:
+    """The bf16 backward's Hopper route priced in its own arithmetic: the
+    least count over chunk lengths (``ssd_bwd_chunked_ops``) with one bf16
+    pass for the products of two stream tensors and two for those with an
+    f32 operand, at the bf16 peak, against the bf16 bytes."""
+    ops = B * H * min(ssd_bwd_chunked_ops(S, N, hp, q, 1, 2)
+                      for q in range(1, S + 1))
+    roof = Roofline(moved, ops, PEAK_BF16_FLOPS)
+    return {"route_bound_ms": roof.t_bound * 1e3,
+            "route_bound_by": "bytes" if roof.bottleneck == "bytes"
+            else "operations (bf16 pieces: 1 pass stream x stream, 2 "
+                 "with an f32 operand)",
+            "route_operations": float(ops)}
 
 
 def ssd_bwd_ops_bytes(B, S, H, hp, N, with_h0, Q=64, elem=4):
@@ -3680,11 +3707,13 @@ def lm_check_scan_backward(dev):
     resources = {name: build.ptxas_resources(name)
                  for name in ("selective_scan_bwd", "ssd_scan_bwd")}
     # the bf16 entry's kernels by their mangled names' element type
+    # (the mma.sync kernels' bf16 instantiations, the Hopper route's
+    # ssd_bwd_*_bf16_hopper)
+    is_bf16 = lambda k: "bfloat16" in k or "bf16" in k   # noqa: E731
     resources["ssd_scan_bwd_bf16"] = {
-        k: v for k, v in resources["ssd_scan_bwd"].items() if "bfloat16" in k}
+        k: v for k, v in resources["ssd_scan_bwd"].items() if is_bf16(k)}
     resources["ssd_scan_bwd"] = {
-        k: v for k, v in resources["ssd_scan_bwd"].items()
-        if "bfloat16" not in k}
+        k: v for k, v in resources["ssd_scan_bwd"].items() if not is_bf16(k)}
     worst, rows = {}, {}
     for name, cases in scan_bwd_cases().items():
         bf16 = name.endswith("_bf16")
@@ -3717,16 +3746,26 @@ def lm_check_scan_backward(dev):
                                                      elem=2 if bf16 else 4)
                 lib = SK.library_bwd()
                 design = ssd_bwd_design(B, S, H, hp, N)
+                hopper = bf16 and SK.bwd_hopper_route(N, hp)
                 ctas = (lib.ssd_scan_bwd_bf16_ctas_per_sm if bf16
                         else lib.ssd_scan_bwd_ctas_per_sm)
-                kernels = {k: {
-                    "smem_bytes": lib.ssd_scan_bwd_kernel_smem_bytes(N, hp, i),
-                    "ctas_per_sm": ctas(N, hp, i)}
-                    for i, k in enumerate(("ssd_bwd_states",
-                                           "ssd_bwd_chunks"))}
-                # the route: split-TF32 mma.sync, three TF32 products each
+                smem = (lib.ssd_scan_bwd_bf16_kernel_smem_bytes if bf16
+                        else lib.ssd_scan_bwd_kernel_smem_bytes)
+                names = (("ssd_bwd_states_bf16_hopper",
+                          "ssd_bwd_chunks_bf16_hopper") if hopper
+                         else ("ssd_bwd_states", "ssd_bwd_chunks"))
+                kernels = {k: {"smem_bytes": smem(N, hp, i),
+                               "ctas_per_sm": ctas(N, hp, i)}
+                           for i, k in enumerate(names)}
+                # the route: split-TF32 mma.sync, three TF32 products each;
+                # beside it, at (64, 64) in bf16, the Hopper route's own
+                # arithmetic (bf16 pieces on wgmma)
                 bounds = {"route": "mma_sync split-TF32",
                           **bwd_bounds(ops, moved, "mma_sync")}
+                if hopper:
+                    bounds.update(route="hopper TMA + wgmma, bf16 pieces",
+                                  **ssd_bwd_hopper_bound(B, S, H, hp, N,
+                                                         moved))
                 kw = {"chunk": SK.KERNEL_CHUNK}
             dy = torch.randn(args[0].shape, device=dev, generator=g)
             if bf16:
@@ -3778,7 +3817,8 @@ def lm_check_scan_backward(dev):
                 **design,
                 "exp_bound_ms": design.get("exponentials", exps) / exp_rate
                 * 1e3,
-                "bytes_bound_ms": (moved + design["scratch_bytes"])
+                "bytes_bound_ms": (moved + design["scratch_bytes"]
+                                   + design.get("partial_bytes", 0.0))
                 / HBM_BYTES_PER_S * 1e3}
             say({"phase": "lm_backward_scans", "kernel": name, "case": label,
                  **row, "share_of_bound": row["bound_ms"] / row["ms"],
@@ -3831,8 +3871,8 @@ def train_expected_launches(cfg) -> dict:
 # the trace's kernel names of each LM kernel (a substring of the demangled
 # name; the flash backward's D kernel, flash_bwd_dsum, is its own; a call of
 # ssd_scan_bwd runs its two kernels, the states, then the chunks, in either
-# entry; the bf16 SSD entry at N = hp = 64 runs ssd_bf16_hopper), the
-# entry by ``trace_entry``
+# entry, at N = hp = 64 in bf16 the Hopper pair; the bf16 SSD entry at N =
+# hp = 64 runs ssd_bf16_hopper), the entry by ``trace_entry``
 TRACE_KERNELS = {"flash_attention": ("flash_kernel", "flash_bf16_hopper"),
                  "flash_attention_bwd": ("flash_bwd_hopper", "flash_bwd_kernel",
                                          "flash_bwd_bf16_hopper",
@@ -3840,7 +3880,9 @@ TRACE_KERNELS = {"flash_attention": ("flash_kernel", "flash_bf16_hopper"),
                  "selective_scan": ("selective_scan_kernel",),
                  "selective_scan_bwd": ("selective_scan_bwd_kernel",),
                  "ssd_scan": ("ssd_scan_kernel", "ssd_bf16_hopper"),
-                 "ssd_scan_bwd": ("ssd_bwd_states", "ssd_bwd_chunks")}
+                 "ssd_scan_bwd": ("ssd_bwd_states", "ssd_bwd_chunks",
+                                  "ssd_bwd_states_bf16_hopper",
+                                  "ssd_bwd_chunks_bf16_hopper")}
 # kernels the trace shows a call of each entry (1 where not named)
 TRACE_KERNELS_PER_CALL = {"ssd_scan_bwd": 2, "ssd_scan_bwd_bf16": 2}
 # the flash backward's main kernel by (route, dtype) and its launches a

@@ -42,8 +42,14 @@ kernels (the chunks' entering states and leaving adjoints into a scratch
 tensor, then every chunk at once). They write dB and dC as one f32 partial
 a head and dA and dD as one a (batch, head, chunk); the wrapper sums them
 with ``torch.sum`` over those axes (no float atomics: bitwise run to run)
-and only then rounds dB and dC to bf16. The autograd function that joins
-forward and backward is ``ops.SsdScan``.
+and only then rounds dB and dC to bf16. The bf16 backward has the
+forward's two routes, fixed by (N, hp) (``bwd_hopper_route``): (64, 64)
+runs ``ssd_bwd_states_bf16_hopper`` and ``ssd_bwd_chunks_bf16_hopper``
+(TMA loads of the bf16 tiles and of the states' bf16 pieces, ``wgmma`` with
+the bf16 operands as they are and the f32 ones in two bf16 pieces); the
+other eight pairs run the ``mma.sync`` kernels that widen to f32 tiles.
+Neither falls back to the other. The autograd function that joins forward
+and backward is ``ops.SsdScan``.
 """
 
 from __future__ import annotations
@@ -58,9 +64,10 @@ from ..build import check_launch, load_library
 from ..dtypes import ENTRY_DTYPES, check_dtypes
 from .ref import ssd_scan_bwd_ref, ssd_scan_ref
 
-SOURCES = [Path(__file__).parent / "csrc" / "ssd_scan.cu",
-           Path(__file__).parent.parent / "hopper.cuh"]
-BWD_SOURCES = [Path(__file__).parent / "csrc" / "ssd_scan_bwd.cu"]
+_HEADERS = [Path(__file__).parent.parent / "hopper.cuh",
+            Path(__file__).parent.parent / "ssd_hopper.cuh"]
+SOURCES = [Path(__file__).parent / "csrc" / "ssd_scan.cu", *_HEADERS]
+BWD_SOURCES = [Path(__file__).parent / "csrc" / "ssd_scan_bwd.cu", *_HEADERS]
 KERNEL_CHUNK = 64          # the kernel's chunk length, ssd_scan_chunk()
 
 _P = ctypes.c_void_p
@@ -92,12 +99,14 @@ def library_bwd() -> ctypes.CDLL:
         for fn in (lib.ssd_scan_bwd_f32, lib.ssd_scan_bwd_bf16):
             fn.argtypes = [_P] * 17 + [_I] * 5 + [_P]
             fn.restype = _I
-        lib.ssd_scan_bwd_kernel_smem_bytes.argtypes = [_I, _I, _I]
-        lib.ssd_scan_bwd_kernel_smem_bytes.restype = _I
-        for fn in (lib.ssd_scan_bwd_ctas_per_sm,
+        for fn in (lib.ssd_scan_bwd_kernel_smem_bytes,
+                   lib.ssd_scan_bwd_bf16_kernel_smem_bytes,
+                   lib.ssd_scan_bwd_ctas_per_sm,
                    lib.ssd_scan_bwd_bf16_ctas_per_sm):
             fn.argtypes = [_I, _I, _I]
             fn.restype = _I
+        lib.ssd_scan_bwd_bf16_hopper.argtypes = [_I, _I]
+        lib.ssd_scan_bwd_bf16_hopper.restype = _I
         lib.ssd_scan_bwd_chunk.argtypes = []
         lib.ssd_scan_bwd_chunk.restype = _I
         lib._repro_typed = True
@@ -108,6 +117,13 @@ def hopper_route(N: int, hp: int) -> bool:
     """True if the bf16 entry takes (N, hp) through ``ssd_bf16_hopper``,
     False if through the ``mma.sync`` kernel (asks the built library)."""
     return bool(library().ssd_scan_bf16_hopper(N, hp))
+
+
+def bwd_hopper_route(N: int, hp: int) -> bool:
+    """True if the bf16 entry's backward takes (N, hp) through the Hopper
+    kernels (``ssd_bwd_states_bf16_hopper``, ``ssd_bwd_chunks_bf16_hopper``),
+    False if through the ``mma.sync`` ones (asks the built library)."""
+    return bool(library_bwd().ssd_scan_bwd_bf16_hopper(N, hp))
 
 
 def _check(u, dt, A, Bm, Cm, D, h0):
@@ -227,8 +243,9 @@ def ssd_scan_bwd(u, dt, A, Bm, Cm, D, dy, *, chunk: Optional[int] = None,
     if not lib.ssd_scan_bwd_kernel_smem_bytes(N, hp, 1):
         raise ValueError(f"ssd_scan_bwd: (N, hp) = ({N}, {hp}) not built "
                          f"(each of 16, 32, 64)")
-    # the kernels copy u, dy, B and C in 16-byte pieces: a view that starts
-    # off a 16-byte boundary is copied to a fresh allocation
+    # the kernels copy u, dy, B and C in 16-byte pieces (the Hopper route
+    # by TMA, whose tensor maps want 16-byte aligned bases): a view that
+    # starts off a 16-byte boundary is copied to a fresh allocation
     u, dy, Bm, Cm = (t if t.data_ptr() % 16 == 0 else t.clone()
                      for t in (u, dy, Bm, Cm))
     f32 = dict(dtype=torch.float32, device=dev)
@@ -246,7 +263,8 @@ def ssd_scan_bwd(u, dt, A, Bm, Cm, D, dy, *, chunk: Optional[int] = None,
     if B_ * H == 0:
         return (du, ddt, torch.zeros_like(A), torch.zeros_like(Bm),
                 torch.zeros_like(Cm), torch.zeros_like(D), dh0)
-    # the states entering and the adjoints leaving each chunk
+    # the states entering and the adjoints leaving each chunk (the Hopper
+    # route holds each element as two bf16 pieces in the same 4 bytes)
     scratch = torch.empty((2, B_, H, chunks, N, hp), **f32)
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     with torch.cuda.device(dev):

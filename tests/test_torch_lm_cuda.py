@@ -41,7 +41,9 @@ one without it. The backward of the bf16 SSD entry
 (``ssd_scan_bwd`` on bf16 u, B, C and dy) is held to the plain backward on
 the same bf16 tensors by the bf16 scans' rule below (du, dB and dC each
 rounded once), twice bitwise, at zamba2's train shape, ragged with h0 and
-dh, and every built width. Training on the card (the ops under autograd, a
+dh, and every built width; at (N, hp) = (64, 64) through its Hopper route
+(TMA + ``wgmma``, ``kernel.bwd_hopper_route``) at the sequence and batch
+edges and from views off a 16-byte boundary. Training on the card (the ops under autograd, a
 reduced model's train steps against the CPU's within 1e-4 of scale, the
 Mamba kinds' and a mixtral's too, a reduced mixtral's f32 step and a
 reduced granite's bf16 step each twice bitwise) and the entry that has no
@@ -1211,6 +1213,59 @@ def test_cuda_ssd_backward_bf16_matches_plain(cuda_device, B, S, H, hp, N,
 @pytest.mark.parametrize("hp", [16, 32, 64])
 def test_cuda_ssd_backward_bf16_every_width(cuda_device, N, hp):
     check_ssd_backward_bf16(cuda_device, 2, 150, 3, hp, N, True, True)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_backward_bf16_routes(cuda_device):
+    """The bf16 backward's route by (N, hp): (64, 64), zamba2-1.2b's,
+    through the Hopper kernels, the other eight pairs through the mma.sync
+    ones (the built library's answer)."""
+    assert SK.bwd_hopper_route(64, 64)
+    assert not any(SK.bwd_hopper_route(N, hp) for N in (16, 32, 64)
+                   for hp in (16, 32, 64) if (N, hp) != (64, 64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,with_h0,with_dh", [
+    (2, 1, 3, True, True),        # S = 1
+    (2, 40, 3, True, False),      # S under a chunk
+    (2, 128, 3, False, True),     # S a multiple of the chunk
+    (1, 200, 4, True, True),      # B = 1, ragged
+    (3, 130, 5, True, True),      # an odd H, one step into a third chunk
+])
+def test_cuda_ssd_backward_bf16_hopper_route_matches_plain(
+        cuda_device, B, S, H, with_h0, with_dh):
+    """The Hopper route of the bf16 backward (N = hp = 64) at the sequence
+    and batch edges, by the bf16 scans' rule, twice bitwise."""
+    check_ssd_backward_bf16(cuda_device, B, S, H, 64, 64, with_h0, with_dh)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_backward_bf16_takes_views_off_a_16_byte_boundary(
+        cuda_device):
+    """The Hopper route reads u, dy, B and C by TMA, whose tensor maps want
+    16-byte aligned bases: views that start 2 bytes past a boundary get
+    aligned copies, and the gradients are the aligned call's bit for bit."""
+    def off(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+    args = tt(ssd_inputs(2, 130, 3, 64, 64, seed=9), cuda_device)
+    for i in (0, 3, 4):
+        args[i] = args[i].bfloat16()
+    g = torch.Generator(cuda_device).manual_seed(9)
+    dy = torch.randn(2, 130, 3, 64, device=cuda_device,
+                     generator=g).bfloat16()
+    h0 = torch.randn(2, 3, 64, 64, device=cuda_device, generator=g)
+    dh = torch.randn(2, 3, 64, 64, device=cuda_device, generator=g)
+    want = SK.ssd_scan_bwd(*args, dy, h0=h0, dh=dh)
+    moved = list(args)
+    for i in (0, 3, 4):
+        moved[i] = off(args[i])
+    got = SK.ssd_scan_bwd(*moved, off(dy), h0=h0, dh=dh)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
 
 
 @pytest.mark.cuda

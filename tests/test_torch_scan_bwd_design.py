@@ -21,7 +21,11 @@ widths, the one-product form does not. The bf16 entry
 (``ssd_scan_bwd_bf16``) runs the same form on bf16 stream tensors widened
 to f32: emulated with its one rounding of du, dB and dC, it stays within
 one bf16 rounding plus 2e-4 of scale of the plain backward on the same
-bf16 tensors.
+bf16 tensors. At (N, hp) = (64, 64) the bf16 entry takes its Hopper route
+(``wgmma``): a product of two bf16 tiles in one exact pass, an f32 operand
+as two bf16 pieces (``mm_bf16_pieces``), the states in the scratch as their
+pieces (``hopper=True``); every gradient stays within 2e-4 of its scale of
+the float64 oracle (~1e-5 at zamba2's widths), one piece does not.
 
 ``selective_scan_bwd`` (csrc/selective_scan_bwd.cu) sums the dB and dC
 terms over a warp's channels in registers: a reduce-scatter over the lanes
@@ -68,11 +72,18 @@ def tf32(x):
     return (x.view(torch.int32) & -8192).view(torch.float32)
 
 
-def mm_exact(a, b):
-    return a @ b
+def mm_exact(a, b, acc=None):
+    """a @ b, added to ``acc`` where given (every product takes the
+    accumulator it continues, as the kernels' do)."""
+    return a @ b if acc is None else acc + a @ b
 
 
-def mm_split3(a, b):
+def zeros_for(a, b, acc):
+    return (torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+            if acc is None else acc)
+
+
+def mm_split3(a, b, acc=None):
     """a @ b as the kernel's mma.sync forms it: each 8-deep step three TF32
     products (small·big, big·small, big·big), each exact, added to the f32
     accumulator in that order."""
@@ -80,7 +91,7 @@ def mm_split3(a, b):
     as_ = tf32(a - ab)
     bb = tf32(b)
     bs = tf32(b - bb)
-    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    acc = zeros_for(a, b, acc)
     for k in range(0, a.shape[-1], 8):
         sl = slice(k, k + 8)
         for x, y in ((as_, bb), (ab, bs), (ab, bb)):
@@ -89,9 +100,9 @@ def mm_split3(a, b):
     return acc
 
 
-def mm_single(a, b):
+def mm_single(a, b, acc=None):
     """One TF32 product (big·big): the split's control."""
-    acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float32)
+    acc = zeros_for(a, b, acc)
     ab, bb = tf32(a), tf32(b)
     for k in range(0, a.shape[-1], 8):
         sl = slice(k, k + 8)
@@ -100,16 +111,62 @@ def mm_single(a, b):
     return acc
 
 
-PRODUCTS = {"exact": mm_exact, "split3": mm_split3, "single": mm_single}
+def bf16_pieces(x, n=2):
+    """x (f32) as n bf16 values, as f32: piece k rounds (to nearest even)
+    what the pieces before it leave (ssd_hopper.cuh: pieces)."""
+    out = []
+    for _ in range(n):
+        p = x.bfloat16().float()
+        out.append(p)
+        x = x - p
+    return out
+
+
+def is_bf16(x) -> bool:
+    return torch.equal(x.bfloat16().float(), x)
+
+
+def mm_bf16_pieces(a, b, acc=None, pieces=2):
+    """a @ b as the Hopper route's wgmma forms it: a bf16 operand as it is,
+    an f32 one as ``pieces`` bf16 pieces (at most one operand is f32), each
+    product of bf16 values exact; the pieces in order, each over 16-deep
+    k-steps in order, every step added to the f32 accumulator."""
+    if not is_bf16(a) and not is_bf16(b):
+        raise ValueError("the route takes no product of two f32 operands")
+    ap = bf16_pieces(a, pieces) if not is_bf16(a) else [a]
+    bp = bf16_pieces(b, pieces) if not is_bf16(b) else [b]
+    acc = zeros_for(a, b, acc)
+    for x, y in [(x, y) for x in ap for y in bp]:
+        for k in range(0, a.shape[-1], 16):
+            sl = slice(k, k + 16)
+            acc = (acc.double() + x[..., sl].double() @ y[..., sl, :].double()
+                   ).float()
+    return acc
+
+
+def mm_one_piece(a, b, acc=None):
+    """The Hopper route with one bf16 piece of each f32 operand: the
+    pieces' control."""
+    return mm_bf16_pieces(a, b, acc, pieces=1)
+
+
+PRODUCTS = {"exact": mm_exact, "split3": mm_split3, "single": mm_single,
+            "pieces2": mm_bf16_pieces, "pieces1": mm_one_piece}
 
 
 # ------------------------------------------------- the SSD backward, emulated
 def ssd_bwd_chunk_parallel(u, dt, A, Bm, Cm, D, dy, *, h0=None, dh=None,
-                           mm=mm_exact, Q=QC):
+                           mm=mm_exact, Q=QC, hopper=False):
     """The gradients of ``ssd_scan(u, dt, A, Bm, Cm, D, h0=h0)`` as
     ssd_scan_bwd.cu forms them (log-decays in base 2, the per-head scalar
     sums in float64, dA and dD one partial a (batch, head, chunk), dB and
-    dC one a head), in the inputs' dtype; ``mm`` takes every product."""
+    dC one a head), in the inputs' dtype; ``mm`` takes every product, each
+    continuing the accumulator where the kernels' do. ``hopper``: the bf16
+    entry's Hopper route at (64, 64), whose state recurrences put their
+    factor (w, or e^L) on the bf16 tile of u or dy (the f32 operand then)
+    and not on B or C, and whose scratch holds each state as its two bf16
+    pieces (``bf16_pieces``), which the chunks' products and <dH, H_in>
+    read."""
     dtype = u.dtype
     f64 = torch.float64
     B_, S, H, hp = u.shape
@@ -133,23 +190,33 @@ def ssd_bwd_chunk_parallel(u, dt, A, Bm, Cm, D, dy, *, h0=None, dh=None,
     eEnd = EL[..., -1]                                      # (B,H,T)
     tr = lambda x: x.transpose(-1, -2)                      # noqa: E731
 
+    def update(state, c, Y, F, X):
+        """e^(L_Q) state + (F Y)^T X over chunk c, F a factor a step."""
+        f = F[:, :, c, :, None]
+        acc = eEnd[:, :, c, None, None] * state
+        if hopper:
+            return mm(tr(Y[:, :, c]), f * X[:, :, c], acc=acc)
+        return mm(tr(Y[:, :, c] * f), X[:, :, c], acc=acc)
+
+    def stored(state):
+        """A state as the scratch holds it."""
+        return sum(bf16_pieces(state)) if hopper else state
+
     # pass 1: the states entering each chunk, forwards
     zero = torch.zeros((B_, H, N, hp), dtype=dtype)
     state = zero if h0 is None else h0
     hin = []
     for c in range(T):
-        hin.append(state)
+        hin.append(stored(state))
         if c < T - 1:
-            state = eEnd[:, :, c, None, None] * state + mm(
-                tr(bc[:, :, c] * WS[:, :, c, :, None]), uc[:, :, c])
+            state = update(state, c, bc, WS, uc)
     # ... and the adjoints of the states leaving each chunk, backwards
     g = zero if dh is None else dh
     dho = [None] * T
     for c in reversed(range(T)):
-        dho[c] = g
+        dho[c] = stored(g)
         if c > 0 or h0 is not None:
-            g = eEnd[:, :, c, None, None] * g + mm(
-                tr(cc[:, :, c] * EL[:, :, c, :, None]), dyc[:, :, c])
+            g = update(g, c, cc, EL, dyc)
     hin, dho = torch.stack(hin, 2), torch.stack(dho, 2)     # (B,H,T,N,hp)
 
     # pass 2: every chunk alone, rows s and columns t of the Q x Q products
@@ -164,13 +231,13 @@ def ssd_bwd_chunk_parallel(u, dt, A, Bm, Cm, D, dy, *, h0=None, dh=None,
     Yt = (DYUt * St) * Wt
     colY = Yt.to(f64).sum(-1)                               # Σ_t, by s
     rowY = (Yt.to(f64) * dtc.to(f64)[..., :, None]).sum(-2)   # Σ_s, by t
-    du = WS[..., None] * mm(bc, dho) + mm(Mt, dyc)
+    du = mm(Mt, dyc, acc=WS[..., None] * mm(bc, dho))
     R = mm(uc, tr(dho))                                     # u dHᵀ
     z = DEC.to(f64) * (bc.to(f64) * R.to(f64)).sum(-1)
-    dB = WS[..., None] * R + mm(Gt, cc)
+    dB = mm(Gt, cc, acc=WS[..., None] * R)
     V = mm(dyc, tr(hin))                                    # dy H_inᵀ
     cv = (cc.to(f64) * V.to(f64)).sum(-1)
-    dC = EL[..., None] * V + mm(tr(Gt), bc)
+    dC = mm(tr(Gt), bc, acc=EL[..., None] * V)
     dot = (dho.to(f64) * hin.to(f64)).sum((-1, -2))
     d64 = dtc.to(f64)
     dL = rowY - d64 * colY + EL.to(f64) * cv - d64 * z
@@ -417,6 +484,95 @@ def test_bf16_entry_split_tf32_and_one_rounding_within_the_bf16_rule(
         slack = BF16_REL * w.abs() if name in ("du", "dB", "dC") else 0.0
         err = float(((a - w).abs() - slack).max()) / scale
         assert err <= SCAN_BWD_RTOL, (name, err)
+
+
+# ----------------------- the bf16 entry's Hopper route at (N, hp) = (64, 64)
+def hopper_errors(case, product):
+    """The Hopper route's arithmetic (``hopper=True``, ``product`` in
+    PRODUCTS) on bf16 u, B, C and dy against the float64 oracle on the same
+    values, with h0 and dh: each gradient's largest error over its scale."""
+    (B, S, H, hp, N, decay) = case
+    arrs = ssd_arrays(B, S, H, hp, N, seed=7 * S + H, decay=decay)
+    ts = [torch.from_numpy(a) for a in arrs]
+    for i in (0, 3, 4, 6):                  # u, B, C, dy
+        ts[i] = ts[i].bfloat16().float()
+    want = f64_oracle(ts, ts[7], ts[8])
+    got = ssd_bwd_chunk_parallel(*ts[:7], h0=ts[7], dh=ts[8],
+                                 mm=PRODUCTS[product], hopper=True)
+    return {n: rel(a, w) for n, a, w in zip(NAMES, got, want)}
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=[f"S{c[1]}-{c[5]}" for c in SPLIT_CASES])
+def test_hopper_route_keeps_every_ssd_gradient_within_rtol(case):
+    """The Hopper route (ssd_bwd_states_bf16_hopper, ssd_bwd_chunks_bf16_
+    hopper): bf16 x bf16 products in one exact pass, an f32 operand as two
+    bf16 pieces, the states in the scratch as their pieces; every gradient
+    within SCAN_BWD_RTOL of its scale of the float64 oracle at zamba2's
+    widths."""
+    errs = hopper_errors(case, "pieces2")
+    print(case, "pieces2:", {n: f"{e:.3g}" for n, e in errs.items()})
+    assert all(math.isfinite(e) for e in errs.values())
+    assert max(errs.values()) <= SCAN_BWD_RTOL, errs
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES[:2],
+                         ids=[f"S{c[1]}-{c[5]}" for c in SPLIT_CASES[:2]])
+def test_one_bf16_piece_fails_rtol(case):
+    """One bf16 piece of each f32 operand (and of each state) lands above
+    SCAN_BWD_RTOL: the margin the route keeps is the second piece."""
+    errs = hopper_errors(case, "pieces1")
+    print(case, "pieces1:", {n: f"{e:.3g}" for n, e in errs.items()})
+    assert max(errs.values()) > SCAN_BWD_RTOL, errs
+
+
+@pytest.mark.parametrize("B,S,H,with_h0,with_dh", [
+    (1, 300, 2, True, True),      # five chunks, ragged
+    (2, 128, 3, False, True),     # two whole chunks
+])
+def test_hopper_route_and_one_rounding_within_the_bf16_rule(
+        B, S, H, with_h0, with_dh):
+    """``ssd_scan_bwd_bf16`` at (64, 64): the Hopper route's arithmetic on
+    bf16 u, B, C and dy, du rounded to bf16 once, dB and dC summed over
+    heads in f32 and only then rounded. Against the plain backward on the
+    same bf16 tensors: du, dB and dC within one bf16 rounding plus 2e-4 of
+    scale, the f32 gradients within 2e-4 of scale."""
+    arrs = ssd_arrays(B, S, H, 64, 64, seed=S + H)
+    ts = [torch.from_numpy(a) for a in arrs]
+    for i in (0, 3, 4, 6):                  # u, B, C, dy
+        ts[i] = ts[i].bfloat16()
+    h0 = ts[7] if with_h0 else None
+    dh = ts[8] if with_dh else None
+    got = list(ssd_bwd_chunk_parallel(*(t.float() for t in ts[:7]), h0=h0,
+                                      dh=dh, mm=mm_bf16_pieces, hopper=True))
+    for i in (0, 3, 4):                     # du, dB, dC: rounded once
+        got[i] = got[i].bfloat16()
+    want = ssd_scan_bwd_ref(*ts[:7], chunk=QC, h0=h0, dh=dh)
+    for name, a, w in zip(NAMES, got, want):
+        if w is None:
+            assert a is None, name
+            continue
+        assert a.dtype == w.dtype, name
+        a, w = a.double(), w.double()
+        scale = max(float(w.abs().max()), 1e-30)
+        slack = BF16_REL * w.abs() if name in ("du", "dB", "dC") else 0.0
+        err = float(((a - w).abs() - slack).max()) / scale
+        assert err <= SCAN_BWD_RTOL, (name, err)
+
+
+def test_bf16_pieces_sum_within_two_to_the_minus_16():
+    """Two bf16 pieces hold an f32 value to within 2^-16 of it (2^-8 for
+    one), and their sum is exact in f32 and splits again into pieces of the
+    same sum (not always the same pieces: a sum on a tie rounds to even):
+    the emulation's states, kept as the sum of their pieces, are the values
+    the kernel's chunks read."""
+    x = torch.randn(1 << 16) * torch.exp(4 * torch.randn(1 << 16))
+    p1, p2 = bf16_pieces(x)
+    assert float(((p1 - x).abs() / x.abs()).max()) <= 2.0 ** -8
+    assert float(((p1 + p2 - x).abs() / x.abs()).max()) <= 2.0 ** -16
+    assert torch.equal((p1.double() + p2.double()).float(), p1 + p2)
+    q1, q2 = bf16_pieces(p1 + p2)
+    assert torch.equal(q1 + q2, p1 + p2)
 
 
 # --------------------------------------- the selective backward's channel sums

@@ -40,7 +40,8 @@ OUT = os.path.join(ROOT, "build", "sass")
 KERNELS = os.path.join(ROOT, "src", "repro_torch", "kernels")
 SHIPPED = {"flash_attention.cu": "flash_attention",
            "flash_attention_bwd.cu": "flash_attention",
-           "ssd_scan.cu": "ssd_scan", "selective_scan.cu": "mamba_scan"}
+           "ssd_scan.cu": "ssd_scan", "ssd_scan_bwd.cu": "ssd_scan",
+           "selective_scan.cu": "mamba_scan"}
 NAME = re.compile(r"\d+(flash_kernel_wide|flash_kernel_bf16|flash_kernel|"
                   r"ssd_scan_kernel|selective_scan_kernel)I(.*?)EE")
 

@@ -4,6 +4,7 @@
     python3 tools/scan_variants.py [reps=20] ssd_scan_bf16 [OLD.cu]
     python3 tools/scan_variants.py [reps=20] selective_scan_bwd [OLD.cu]
     python3 tools/scan_variants.py [reps=20] ssd_scan_bwd [OLD.cu]
+    python3 tools/scan_variants.py [reps=20] ssd_scan_bwd_bf16 [OLD.cu]
 
 Builds variants of ``src/repro_torch/kernels/mamba_scan/csrc/
 selective_scan.cu`` and ``src/repro_torch/kernels/ssd_scan/csrc/
@@ -74,6 +75,28 @@ costs). Each line carries every kernel's registers and
 spills, its shared memory and CTAs an SM (the occupancy calculator's where
 the source exports it, else, for OLD, from registers and shared memory), and the
 largest error of du and ddt against the plain version.
+
+``ssd_scan_bwd_bf16`` times the bf16 entry's backward at (N, hp) = (64,
+64), zamba2-1.2b's, at phase 16b's two cases there (the train shape, the
+ragged S with h0 and dh), in turns: the shipped Hopper route
+(``ssd_bwd_states_bf16_hopper``, ``ssd_bwd_chunks_bf16_hopper``), OLD's
+bf16 entry and these variants: ``one_piece`` (one bf16 piece of each f32
+operand and state, not two: what the second costs; not accurate enough to
+ship), ``one_cta`` (shared memory asked for so that one chunk CTA runs an
+SM, not two), ``no_overlap`` (each wgmma group waited for before the next
+one's operands are formed: what the overlap of products buys),
+``states_ns3`` (a ring of 3 chunk stages in the states kernel, not 2),
+``unstaged`` (the states' pieces and du stored from the accumulators' layout,
+4 bytes a lane, not staged in shared memory and stored as whole rows), and
+the diagnostics (wrong results, what each part costs) ``states_only`` and
+``chunks_only`` (one of the two kernels left out), ``no_scratch_store``,
+``no_fx`` (F X's pieces not written), ``no_partials`` (dB's and dC's
+partials not stored) and ``no_du_store``. Each line carries the kernels'
+registers and spills, shared memory and CTAs an SM, and the largest
+errors of du, ddt and dB against the plain version. Then, with OLD, the
+f32 entry of the shipped source and of OLD on the same f32 inputs at the
+same cases, every output compared bitwise: the shared source leaves the
+f32 entry as it was.
 
 Prints one JSON line per variant (its ms per turn, registers and spills,
 and its largest error against the plain version), after the card line.
@@ -407,6 +430,100 @@ def build_bwd(kernel, name, src, edits):
     return lib, ptxas_entries(proc.stdout)
 
 
+# the bf16 entry's backward at (N, hp) = (64, 64): the Hopper route's
+# variants (edits of csrc/ssd_scan_bwd.cu)
+SSD_BWD_HOPPER_LAUNCH_STATES = (
+    "  ssd_bwd_states_bf16_hopper<<<dim3(H, B, 2), hop::NT, hop::st_bytes, "
+    "stream>>>(\n      tu, tdy, tb, tc, dt, A, h0, dh, dh0, (uint16_t*)scratch,"
+    " S, H);\n")
+SSD_BWD_HOPPER_LAUNCH_CHUNKS = (
+    "  ssd_bwd_chunks_bf16_hopper<<<dim3(T, H, B), hop::NT, hop::c_bytes, "
+    "stream>>>(\n")
+# the states' pieces and du stored through shared memory, whole rows 16
+# bytes a lane (shipped), or straight from the accumulator's layout, 4
+# bytes a lane (``unstaged``)
+SSD_BWD_STAGED_STATE = """      __syncwarp();
+      uint16_t* dst = scratch + ((((size_t)adj * gridDim.y + b) * H + hh) * T +
+                                 chunk_of(i)) * NP * 64 * 64;
+#pragma unroll
+      for (int k = 0; k < NP; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * warp + (lane >> 3) + 4 * e, blk = lane & 7;
+          *reinterpret_cast<uint4*>(dst + k * 64 * 64 + row * 64 + 8 * blk) =
+              *reinterpret_cast<const uint4*>(fx_g + k * TILE + sw128(row, blk));
+        }
+      __syncwarp();"""
+SSD_BWD_UNSTAGED_STATE = """      __syncwarp();
+      uint16_t* dst = scratch + ((((size_t)adj * gridDim.y + b) * H + hh) * T +
+                                 chunk_of(i)) * NP * 64 * 64;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          uint32_t p[NP];
+          pieces(st[4 * j + 2 * r], st[4 * j + 2 * r + 1], p);
+#pragma unroll
+          for (int k = 0; k < NP; ++k)
+            *reinterpret_cast<uint32_t*>(dst + k * 64 * 64 + (n0 + 8 * r) * 64
+                                         + 8 * j + 2 * t4) = p[k];
+        }"""
+SSD_BWD_STAGED_DU = """  __syncwarp();
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int s = 16 * warp + (lane >> 3) + 4 * e, blk = lane & 7;
+    if (t0 + s < S)
+      *reinterpret_cast<uint4*>(du + (((size_t)b * S + t0 + s) * H + hh) * 64 +
+                                8 * blk) =
+          *reinterpret_cast<const uint4*>(Ug + sw128(s, blk));
+  }"""
+SSD_BWD_UNSTAGED_DU = """#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = s0 + 8 * r;
+    if (t0 + s >= S) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t at = sw128(s, j) + 4 * t4;
+      *reinterpret_cast<uint32_t*>(du + (((size_t)b * S + t0 + s) * H + hh) *
+                                   64 + 8 * j + 2 * t4) =
+          *reinterpret_cast<const uint32_t*>(Ug + at);
+    }
+  }"""
+SSD_BWD_BF16_VARIANTS = {
+    "one_piece": [("constexpr int NP = 2;                    // bf16 pieces",
+                   "constexpr int NP = 1;                    // bf16 pieces")],
+    "one_cta": [("  ssd_bwd_chunks_bf16_hopper<<<dim3(T, H, B), hop::NT, "
+                 "hop::c_bytes,", "  ssd_bwd_chunks_bf16_hopper<<<dim3(T, H, "
+                 "B), hop::NT, 120 * 1024,"),
+                ("                             (int)hop::c_bytes);",
+                 "                             120 * 1024);")],
+    "no_overlap": [("  wgmma_wait<1>();\n", "  wgmma_wait<0>();\n")],
+    "states_only": [(SSD_BWD_HOPPER_LAUNCH_CHUNKS,
+                     "  if (false) " + SSD_BWD_HOPPER_LAUNCH_CHUNKS.lstrip())],
+    "chunks_only": [(SSD_BWD_HOPPER_LAUNCH_STATES,
+                     "  if (false)\n" + SSD_BWD_HOPPER_LAUNCH_STATES)],
+    "states_ns3": [("constexpr int NS = 2;\nconstexpr uint32_t st_stage",
+                    "constexpr int NS = 3;\nconstexpr uint32_t st_stage")],
+    "unstaged": [(SSD_BWD_STAGED_STATE, SSD_BWD_UNSTAGED_STATE),
+                 (SSD_BWD_STAGED_DU, SSD_BWD_UNSTAGED_DU)],
+    "no_scratch_store": [(
+        "          *reinterpret_cast<uint4*>(dst + k * 64 * 64",
+        "          if (false) *reinterpret_cast<uint4*>(dst + k * 64 * 64")],
+    "no_fx": [("        *reinterpret_cast<uint4*>(fx_g + j * TILE + 16 * q) =",
+               "        if (false) *reinterpret_cast<uint4*>(fx_g + j * TILE "
+               "+ 16 * q) =")],
+    "no_partials": [(
+        "      *reinterpret_cast<float2*>(dBp + (bh * S + t0 + s) * 64",
+        "      if (false) *reinterpret_cast<float2*>(dBp + (bh * S + t0 + s) "
+        "* 64"), (
+        "      *reinterpret_cast<float2*>(dCp + (bh * S + t0 + t) * 64",
+        "      if (false) *reinterpret_cast<float2*>(dCp + (bh * S + t0 + t) "
+        "* 64")],
+    "no_du_store": [("    if (t0 + s < S)\n      *reinterpret_cast<uint4*>(du",
+                     "    if (false)\n      *reinterpret_cast<uint4*>(du")],
+}
+
+
 def ctas_from_resources(regs: int, smem: int, threads: int = 128) -> int:
     """CTAs an SM on an H100 from a kernel's registers a thread and dynamic
     shared memory, for a source that does not export its occupancy (65,536 registers in 256-register units a warp, 228 KB
@@ -536,6 +653,127 @@ def bwd(kernel: str, reps: int, old: str = "") -> None:
         print(json.dumps(row), flush=True)
 
 
+def bwd_bf16(reps: int, old: str = "") -> None:
+    """The bf16 entry's backward at (N, hp) = (64, 64): the shipped Hopper
+    route, its variants (``SSD_BWD_BF16_VARIANTS``) and OLD's bf16 entry
+    (an older ``ssd_scan_bwd.cu``), in turns at phase 16b's two (64, 64)
+    cases; then the f32 entry of the shipped source and of OLD on the same
+    f32 inputs, output for output, bitwise."""
+    from chip_smoke import scan_bwd_cases
+    from repro_torch.kernels.ssd_scan import ssd_scan_bwd_ref
+    dev = torch.device("cuda")
+    src = SK.BWD_SOURCES[0]
+    jobs = [("shipped", src, [])] + [
+        (n, src, e) for n, e in SSD_BWD_BF16_VARIANTS.items()]
+    if old:
+        jobs.append(("old", old, []))
+
+    def make(job):
+        try:
+            lib, regs = build_bwd("ssd_scan_bwd", *job)
+        except SystemExit as e:           # ptxas of CUDA 12.9 may crash
+            return None, str(e)[-400:]
+        lib.bf16 = lib.ssd_scan_bwd_bf16
+        lib.bf16.argtypes = lib.entry.argtypes
+        lib.bf16.restype = _I
+        return lib, regs
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(make, jobs))
+    print(card_line(), flush=True)
+    for (name, _, _), (lib, info) in zip(jobs, built):
+        if lib is None:
+            print(json.dumps({"kernel": "ssd_scan_bwd_bf16", "variant": name,
+                              "built": False, "nvcc": info}), flush=True)
+    order = [(j[0], lib, regs) for j, (lib, regs) in zip(jobs, built)
+             if lib is not None]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    f32 = dict(dtype=torch.float32, device=dev)
+    cases = []
+    for label, shape, extra in scan_bwd_cases()["ssd_scan_bwd_bf16"]:
+        B, S, H, hp, N = shape
+        if (N, hp) != (64, 64):
+            continue
+        g = torch.Generator(dev).manual_seed(len(label))
+        wide = ssd_inputs(B, S, H, hp, N, dev, seed=S)
+        dyw = torch.randn(wide[0].shape, device=dev, generator=g)
+        h0 = torch.randn((B, H, N, hp), device=dev, generator=g) \
+            if extra else None
+        dh = torch.randn((B, H, N, hp), device=dev, generator=g) \
+            if extra else None
+        args = list(wide)
+        for i in (0, 3, 4):
+            args[i] = args[i].bfloat16()
+        dy = dyw.bfloat16()
+        want = ssd_scan_bwd_ref(*args, dy, chunk=SK.KERNEL_CHUNK, h0=h0,
+                                dh=dh)
+        cases.append((label, shape, args, dy, h0, dh, want, wide, dyw))
+
+    def runner(entry, case, bf16=True):
+        _, (B, S, H, hp, N), args, dy, h0, dh, _, wide, dyw = case
+        if not bf16:
+            args, dy = wide, dyw
+        T = -(-S // 64)
+        outs = [torch.empty_like(args[0]), torch.empty_like(args[1]),
+                torch.empty((B, H, T), **f32),
+                torch.empty((B, H, S, N), **f32),
+                torch.empty((B, H, S, N), **f32),
+                torch.empty((B, H, T), **f32),
+                None if h0 is None else torch.empty((B, H, N, hp), **f32),
+                torch.empty((2, B, H, T, N, hp), **f32)]
+        ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+
+        def run():
+            rc = entry(*(ptr(t) for t in (*args, h0, dy, dh, *outs)),
+                       B, S, H, N, hp, stream)
+            if rc != 0:
+                raise SystemExit(f"scan_variants: launch failed ({rc})")
+        return run, outs
+
+    ms = {(n, c[0]): [] for n, _, _ in order for c in cases}
+    for name, lib, _ in order + order[::-1]:
+        for case in cases:
+            ms[name, case[0]].append(timed(runner(lib.bf16, case)[0], reps))
+    for name, lib, regs in order:
+        row = {"kernel": "ssd_scan_bwd_bf16", "variant": name,
+               "ptxas": regs}
+        smem = getattr(lib, "ssd_scan_bwd_bf16_kernel_smem_bytes", None)
+        occ = getattr(lib, "ssd_scan_bwd_bf16_ctas_per_sm", None)
+        for fn in (smem, occ):
+            if fn is not None:
+                fn.argtypes, fn.restype = [_I] * 3, _I
+        for case in cases:
+            run, outs = runner(lib.bf16, case)
+            run()
+            torch.cuda.synchronize()
+            want = case[6]
+            dB = outs[3].sum(1)
+            row[case[0]] = {
+                "ms": ms[name, case[0]], "shape": list(case[1]),
+                "smem_bytes": None if smem is None else
+                [smem(64, 64, 0), smem(64, 64, 1)],
+                "ctas_per_sm": None if occ is None else
+                [occ(64, 64, 0), occ(64, 64, 1)],
+                "max_abs_err_du": float((outs[0].float()
+                                         - want[0].float()).abs().max()),
+                "max_abs_err_ddt": float((outs[1] - want[1]).abs().max()),
+                "max_abs_err_dB": float((dB - want[3].float()).abs().max())}
+        print(json.dumps(row), flush=True)
+    # the f32 entry: the shipped source against OLD, bitwise
+    libs = dict((n, lib) for n, lib, _ in order)
+    if "old" in libs:
+        for case in cases:
+            got = []
+            for name in ("shipped", "old"):
+                run, outs = runner(libs[name].entry, case, bf16=False)
+                run()
+                torch.cuda.synchronize()
+                got.append([o for o in outs[:7] if o is not None])
+            print(json.dumps({
+                "kernel": "ssd_scan_bwd", "case": case[0],
+                "f32_entry_bitwise_equal_to_old": all(
+                    torch.equal(a, b) for a, b in zip(*got))}), flush=True)
+
+
 def main(reps: int = 20, only: str = "", old: str = "") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("scan_variants: needs a CUDA device")
@@ -543,6 +781,9 @@ def main(reps: int = 20, only: str = "", old: str = "") -> None:
     os.makedirs(OUT, exist_ok=True)
     if only == "ssd_scan_bf16":
         ssd_bf16(reps, old)
+        return
+    if only == "ssd_scan_bwd_bf16":
+        bwd_bf16(reps, old)
         return
     if only in BWD_VARIANTS:
         bwd(only, reps, old)
