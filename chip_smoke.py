@@ -172,13 +172,19 @@ and in bf16, the reference's default dtype (phases 8–11 stay f32):
     soft-cap, gemma3's windowed local layers, qwen1.5-32b's 40/40 at B = 1,
     ragged S and T ≠ S, and the enc-dec, VLM and MoE cases of phase 8; both
     scans at the serve shapes and ragged with an initial state; bf16 out
-    on both sides, each run twice bitwise;
+    on both sides, each run twice bitwise; the Mamba-1 scan's bf16 entry
+    also bit for bit the f32 entry on the same values widened (h, and y
+    rounded once to bf16) at both falcon shapes;
 13. their times beside the bf16 bound, the plain version's time, the f32
     entry's on the same shapes and ``scaled_dot_product_attention`` in
-    bf16 on the same tensors; beside each attention row and the bf16 SSD
-    row the registers, spill bytes and dynamic shared memory of the kernel
-    that ran (the SSD's at zamba2's N = hp = 64: ``ssd_bf16_hopper``), and
-    beside the SSD row its time at batch 1;
+    bf16 on the same tensors; beside each attention row and both bf16 scan
+    rows the registers, spill bytes and dynamic shared memory of the
+    kernel that ran (the SSD's at zamba2's N = hp = 64:
+    ``ssd_bf16_hopper``; the Mamba-1 scan's
+    ``selective_scan_bf16_hopper``, with its CTAs an SM and the floor of
+    its exponentials, one a state-step at 16 a clock an SM at the card's
+    highest SM clock, and its share of that floor), and beside the SSD row
+    its time at batch 1;
 14. every model served in bf16 at full width (``BF16_SERVE``): zamba2
     with and without ``ssm_bf16``, falcon-mamba-7b, granite-8b, gemma-7b,
     gemma3-27b at all 62 layers, qwen1.5-32b at full size and batch 1,
@@ -301,7 +307,9 @@ calls back to back between two CUDA events, the card given a head start
 ``flash_attention_bwd``, ``flash_attention_bwd_bf16``,
 ``selective_scan_bwd``, ``ssd_scan_bwd`` and ``ssd_scan_bwd_bf16`` with
 their launches in phase 17; ``selective_scan_bf16`` is on no
-model's path, so its launches are 0), the card line, and as the last line
+model's path, since both packages widen u before the Mamba-1 scan, so its
+launches are 0 and phases 12–13 alone drive and time its kernel,
+``selective_scan_bf16_hopper``), the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Nothing is imported from JAX or from the
 reference package ``repro``.
 """
@@ -2892,6 +2900,15 @@ def lm_check_kernels_bf16(dev) -> dict:
         y_p, h_p = plain(*args, h0=h0)
         e, excess, ok = bf16_err(y, y_p, LM_RTOL)
         eh, ok_h = max_err([h], [h_p], LM_RTOL)
+        bitwise = {}
+        if name == "selective_scan_bf16":
+            # the f32 entry on the same values widened: h bit for bit, y
+            # that entry's rounded once to bf16
+            wide = [t.float() for t in args]
+            y32, h32 = kern(*wide, h0=h0)
+            bitwise["bitwise_f32_entry"] = (torch.equal(h, h32) and
+                                            torch.equal(y, y32.bfloat16()))
+            del wide, y32, h32
         say({"phase": "lm_parity_bf16", "kernel": name,
              "shape": list(u.shape) + ([N] if name.startswith("selective")
                                        else [sN]),
@@ -2899,11 +2916,13 @@ def lm_check_kernels_bf16(dev) -> dict:
                                       str(h.dtype)],
              "max_abs_err": e, "excess_over_one_rounding": excess,
              "state_max_abs_err": eh, "rtol": LM_RTOL, "ok": ok and ok_h,
-             "run_twice_bitwise_equal": same})
+             "run_twice_bitwise_equal": same, **bitwise})
         assert y.dtype == y_p.dtype == torch.bfloat16
         assert h.dtype == torch.float32
         assert ok and ok_h, f"{name} disagrees with its plain version"
         assert same, f"{name} differs from run to run"
+        assert bitwise.get("bitwise_f32_entry", True), \
+            f"{name} is not the f32 entry's arithmetic bit for bit"
         errs[name] = max(errs[name], e, eh)
         del args, y, y2, h, h2, y_p, h_p
         torch.cuda.empty_cache()
@@ -3030,6 +3049,8 @@ def lm_time_kernels_bf16(dev) -> dict:
         del args, b16
         if name == "ssd_scan_bf16":
             row.update(ssd_bf16_details(dev, sS, sH, shp, sN))
+        else:
+            row.update(selective_bf16_details(dev, *falcon, row["ms"]))
         say({"phase": "lm_timing_bf16", "kernel": name, **row,
              "share_of_bound": row["bound_ms"] / row["ms"]})
         rows[name] = row
@@ -3060,6 +3081,37 @@ def ssd_bf16_details(dev, S, H, hp, N) -> dict:
             "dynamic_smem_bytes": smem(N, hp),
             "ms_batch1": cuda_time_ms(lambda: ssd_scan(*b16), reps=20),
             "bound_ms_batch1": bf16_ssd_bound(1, S, H, hp, N)["bound_ms"]}
+
+
+def exp_floor_ms(B, S, dI, N, sms: int, clock_hz: float) -> float:
+    """The Mamba-1 scan's exponentials at the MUFU rate: one a state-step
+    (B·S·dI·N) at 16 a clock an SM, ms."""
+    return B * S * dI * N / (16.0 * sms * clock_hz) * 1e3
+
+
+def selective_bf16_details(dev, B, S, dI, N, ms: float) -> dict:
+    """Beside phase 13's ``selective_scan_bf16`` row: the kernel's
+    function, registers, spill bytes, dynamic shared memory and CTAs an SM,
+    and the floor of its exponentials (``exp_floor_ms`` at the card's
+    highest SM clock) with the share of it that ``ms`` reaches."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.mamba_scan import kernel as MK
+    lib = MK.library()
+    fn = f"selective_scan_bf16_hopperILi{N}E"
+    res = next((r for sym, r in ptxas_resources(build.BUILD_LOG.get(
+        "selective_scan", {}).get("ptxas", [])).items() if fn in sym), {})
+    clock = max_sm_clock_hz()
+    floor = exp_floor_ms(B, S, dI, N,
+                         torch.cuda.get_device_properties(dev)
+                         .multi_processor_count, clock)
+    return {"kernel_function": "selective_scan_bf16_hopper",
+            "registers": res.get("registers"),
+            "spill_bytes": (res["spill_stores"] + res["spill_loads"]
+                            if "spill_stores" in res else None),
+            "dynamic_smem_bytes": lib.selective_scan_bf16_smem_bytes(N),
+            "ctas_per_sm": lib.selective_scan_bf16_ctas_per_sm(N),
+            "sm_clock_max_hz": clock, "exp_floor_ms": floor,
+            "share_of_exp_floor": floor / ms}
 
 
 def lm_card_matches_cpu_bf16(dev, arch: str, *, prompt_len=BF16_CPU_PROMPT,

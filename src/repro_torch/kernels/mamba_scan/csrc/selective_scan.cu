@@ -1,4 +1,5 @@
-// Selective scan (Mamba-1) for NVIDIA Hopper (sm_90a), float32.
+// Selective scan (Mamba-1) for NVIDIA Hopper (sm_90a): an f32 entry and a
+// bf16 entry (below).
 //
 // Replaces the TPU kernel src/repro/kernels/mamba_scan/kernel.py:
 // selective_scan (body _scan_kernel): the diagonal-A recurrence
@@ -48,16 +49,56 @@
 // the SPH kernels). No atomics: bitwise equal run to run.
 //
 // bf16 entry (selective_scan_bf16): u, B, C and y in bf16; dt, A, D, h0
-// and the final state in f32. The same template: u, B and C are read with
-// plain 2-byte loads and widened into the same f32 shared-memory tiles (dt
-// still by cp.async), y is rounded to bf16 once as it is stored (8-byte
-// stores of four channels where dI % 4 == 0). From the tiles on the
-// arithmetic is the f32 entry's, as the TPU kernel upcasts everything.
+// and the final state in f32; a kernel of its own,
+// selective_scan_bf16_hopper<N>. The same lanes and channels a CTA as
+// above and, from the shared tiles on, the f32 entry's arithmetic
+// operation for operation: its h is the f32 entry's bit for bit on the same
+// values widened, and its y is bf16(y_f32) rounded to nearest even
+// (widening a bf16 value is exact, a 16-bit shift). What differs is how
+// the operands reach the steps:
+//   * a ring of kStages = 4 tiles in shared memory, filled by cp.async
+//     three tiles ahead (cp.async.wait_group kStages - 3), each element in
+//     its own type: u bf16 (16-byte copies of 8 channels), dt f32, B and C
+//     bf16 (copies of a row's share of a lane: 16 bytes, 8 at N 4);
+//   * B and C widened once a tile, one tile ahead of their steps, into f32
+//     rows of the stage, which the steps read as the f32 entry does; u
+//     widened where a step uses it, and again in y's epilogue;
+//   * each step's operands read from shared memory one step ahead into
+//     registers, so their loads and the next step's exponentials overlap
+//     this step's FMAs (the compiler does not move a load across the
+//     step's store of its partial);
+//   * y's epilogue done by each warp for its own channels after
+//     __syncwarp, not after a CTA barrier, four channels a lane (8-byte
+//     stores where dI % 4 == 0), from rows of u and of the partials padded
+//     so that its shared loads do not conflict.
+// Where dI % 8 != 0 (no model's width) u cannot go in 16-byte copies: it
+// is read by plain 2-byte loads into the ring (those tiles wait for their
+// loads) and y is stored a channel at a time where dI % 4 != 0; dt keeps
+// its 4-byte copies where dI % 4 != 0.
+//
+// What bounds it, at the falcon-mamba-7b prefill shape: the function moves
+// 0.54 GB (u and y 134 MB each, dt in f32 268 MB), 0.161 ms at 3.35 TB/s;
+// its 1.07 G exponentials, one MUFU operation each at 16 a clock an SM,
+// take 0.257-0.290 ms at 1.98-1.755 GHz, so no design with one MUFU
+// exponential a state-step passes ~60 % of the byte bound. This kernel
+// takes ~0.38-0.39 ms there (H100 80GB HBM3, 700 W; PERF.md,
+// tools/scan_variants.py selective_scan_bf16), ~10 % less than the f32
+// entry on the same values and 1.5 x the f32 template's bf16 instantiation
+// it replaces (~0.58 ms: u, B and C widened through registers as they were
+// loaded, so each tile waited for its loads). The ablations place the
+// rest: without the exponentials ~0.30 ms (the copies, shared loads and
+// FMAs alone), without the copies or without y's epilogue ~0.36; operands
+// read in their own step, or a CTA barrier before the epilogue, ~0.39-0.40;
+// B and C widened in every step ~0.42; rings of 3 or 5 tiles no faster,
+// tiles of 32 steps slower; every fourth exponential on the FMA pipe
+// ~0.46. It is bound by the MUFU and by the issue and latency of each
+// step's chain, not by bytes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -108,22 +149,16 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// the element type of u, B, C and y: float or bf16
-using bf16_t = __nv_bfloat16;
-
-__device__ __forceinline__ float widen(bf16_t x) { return __bfloat162float(x); }
-
-template <int N, typename T>
+template <int N>
 __global__ void __launch_bounds__(NT, kMinCtas)
-selective_scan_kernel(const T* __restrict__ u,
+selective_scan_kernel(const float* __restrict__ u,
                       const float* __restrict__ dt,
                       const float* __restrict__ A,
-                      const T* __restrict__ Bm,
-                      const T* __restrict__ Cm,
+                      const float* __restrict__ Bm,
+                      const float* __restrict__ Cm,
                       const float* __restrict__ D,
-                      const float* __restrict__ h0, T* __restrict__ y,
+                      const float* __restrict__ h0, float* __restrict__ y,
                       float* __restrict__ hout, int S, int dI) {
-  constexpr bool F32 = sizeof(T) == sizeof(float);
   constexpr int L = Tile<N>::L, SPT = Tile<N>::SPT, CH = Tile<N>::CH;
   constexpr int C4 = CH / 4;             // 16-byte chunks of a tile row
   __shared__ __align__(16) float Us[2][TT][CH];
@@ -155,70 +190,38 @@ selective_scan_kernel(const T* __restrict__ u,
   }
   if (tid < CH) Ds[tid] = d0 + tid < dI ? D[d0 + tid] : 0.f;
 
-  const T* ub = u + (size_t)b * S * dI;
+  const float* ub = u + (size_t)b * S * dI;
   const float* dtb = dt + (size_t)b * S * dI;
-  const T* bb = Bm + (size_t)b * S * N;
-  const T* cb = Cm + (size_t)b * S * N;
+  const float* bb = Bm + (size_t)b * S * N;
+  const float* cb = Cm + (size_t)b * S * N;
 
   auto load_tile = [&](int k, int buf) {
     const int t0 = k * TT;
-    if constexpr (!F32) {
-      // dt by cp.async; u, B and C widened through registers
-      if (vec) {
-        for (int e = tid; e < TT * C4; e += NT) {
-          const int r = e / C4, col = (e % C4) * 4;
-          const bool ok = t0 + r < S && d0 + col < dI;
-          cp_async16(&DTs[buf][r][col],
-                     dtb + (ok ? (size_t)(t0 + r) * dI + d0 + col : 0), ok);
-        }
-      } else {
-        for (int e = tid; e < TT * CH; e += NT) {
-          const int r = e / CH, col = e % CH;
-          const bool ok = t0 + r < S && d0 + col < dI;
-          cp_async4(&DTs[buf][r][col],
-                    dtb + (ok ? (size_t)(t0 + r) * dI + d0 + col : 0), ok);
-        }
+    if (vec) {
+      for (int e = tid; e < TT * C4; e += NT) {
+        const int r = e / C4, col = (e % C4) * 4;
+        const bool ok = t0 + r < S && d0 + col < dI;
+        const size_t off = ok ? (size_t)(t0 + r) * dI + d0 + col : 0;
+        cp_async16(&Us[buf][r][col], ub + off, ok);
+        cp_async16(&DTs[buf][r][col], dtb + off, ok);
       }
-      cp_async_commit();
+    } else {
       for (int e = tid; e < TT * CH; e += NT) {
         const int r = e / CH, col = e % CH;
         const bool ok = t0 + r < S && d0 + col < dI;
-        Us[buf][r][col] = ok ? widen(ub[(size_t)(t0 + r) * dI + d0 + col]) : 0.f;
+        const size_t off = ok ? (size_t)(t0 + r) * dI + d0 + col : 0;
+        cp_async4(&Us[buf][r][col], ub + off, ok);
+        cp_async4(&DTs[buf][r][col], dtb + off, ok);
       }
-      for (int e = tid; e < TT * N; e += NT) {
-        const int r = e / N, n = e % N;
-        const bool ok = t0 + r < S;
-        const size_t off = (size_t)(t0 + r) * N + n;
-        Bs[buf][r][n] = ok ? widen(bb[off]) : 0.f;
-        Cs[buf][r][n] = ok ? widen(cb[off]) : 0.f;
-      }
-    } else {
-      if (vec) {
-        for (int e = tid; e < TT * C4; e += NT) {
-          const int r = e / C4, col = (e % C4) * 4;
-          const bool ok = t0 + r < S && d0 + col < dI;
-          const size_t off = ok ? (size_t)(t0 + r) * dI + d0 + col : 0;
-          cp_async16(&Us[buf][r][col], ub + off, ok);
-          cp_async16(&DTs[buf][r][col], dtb + off, ok);
-        }
-      } else {
-        for (int e = tid; e < TT * CH; e += NT) {
-          const int r = e / CH, col = e % CH;
-          const bool ok = t0 + r < S && d0 + col < dI;
-          const size_t off = ok ? (size_t)(t0 + r) * dI + d0 + col : 0;
-          cp_async4(&Us[buf][r][col], ub + off, ok);
-          cp_async4(&DTs[buf][r][col], dtb + off, ok);
-        }
-      }
-      for (int e = tid; e < TT * N / 4; e += NT) {
-        const int r = e / (N / 4), n = (e % (N / 4)) * 4;
-        const bool ok = t0 + r < S;
-        const size_t off = ok ? (size_t)(t0 + r) * N + n : 0;
-        cp_async16(&Bs[buf][r][n], bb + off, ok);
-        cp_async16(&Cs[buf][r][n], cb + off, ok);
-      }
-      cp_async_commit();
     }
+    for (int e = tid; e < TT * N / 4; e += NT) {
+      const int r = e / (N / 4), n = (e % (N / 4)) * 4;
+      const bool ok = t0 + r < S;
+      const size_t off = ok ? (size_t)(t0 + r) * N + n : 0;
+      cp_async16(&Bs[buf][r][n], bb + off, ok);
+      cp_async16(&Cs[buf][r][n], cb + off, ok);
+    }
+    cp_async_commit();
   };
 
   const int ntiles = (S + TT - 1) / TT;
@@ -279,21 +282,8 @@ selective_scan_kernel(const T* __restrict__ u,
           for (int i = 0; i < L; i += 2 * o) p[i] += p[i + o];
         out[q] = p[0] + Us[buf][r][col + q] * Ds[col + q];
       }
-      T* yr = y + ((size_t)b * S + t0 + r) * dI + d0 + col;
-      if constexpr (!F32) {
-        if (vec) {
-          const __nv_bfloat162 lo = __floats2bfloat162_rn(out[0], out[1]);
-          const __nv_bfloat162 hi = __floats2bfloat162_rn(out[2], out[3]);
-          uint2 w;
-          w.x = *reinterpret_cast<const unsigned*>(&lo);
-          w.y = *reinterpret_cast<const unsigned*>(&hi);
-          *reinterpret_cast<uint2*>(yr) = w;
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            if (d0 + col + q < dI) yr[q] = __float2bfloat16_rn(out[q]);
-        }
-      } else if (vec) {
+      float* yr = y + ((size_t)b * S + t0 + r) * dI + d0 + col;
+      if (vec) {
         *reinterpret_cast<float4*>(yr) =
             make_float4(out[0], out[1], out[2], out[3]);
       } else {
@@ -310,17 +300,360 @@ selective_scan_kernel(const T* __restrict__ u,
   }
 }
 
-template <int N, typename T>
-cudaError_t launch(const T* u, const float* dt, const float* A,
-                   const T* Bm, const T* Cm, const float* D,
-                   const float* h0, T* y, float* hout, int B, int S,
+template <int N>
+cudaError_t launch(const float* u, const float* dt, const float* A,
+                   const float* Bm, const float* Cm, const float* D,
+                   const float* h0, float* y, float* hout, int B, int S,
                    int dI, cudaStream_t stream) {
   constexpr int CH = Tile<N>::CH;
   const dim3 grid((dI + CH - 1) / CH, B);
-  selective_scan_kernel<N, T><<<grid, NT, 0, stream>>>(u, dt, A, Bm, Cm, D,
-                                                        h0, y, hout, S, dI);
+  selective_scan_kernel<N><<<grid, NT, 0, stream>>>(u, dt, A, Bm, Cm, D, h0,
+                                                    y, hout, S, dI);
   return cudaGetLastError();
 }
+
+// ------------------------------------------------------------------ bf16
+// selective_scan_bf16_hopper<N>: the bf16 entry (the header comment says
+// how and why). bf16 values travel as their 16-bit patterns (uint16_t).
+namespace b16 {
+
+constexpr int kStages = 4;   // tiles in the ring: kStages - 1 copied ahead
+constexpr int kTT = 16;      // steps per tile
+constexpr int kUPad = 16;    // bf16 after each u row: rows 8 banks apart
+constexpr int kPS = NT + 4;  // floats a row of partials: rows 4 banks apart
+static_assert(kStages >= 3, "B and C are widened one tile ahead");
+
+// one stage of the ring: u, dt, B and C as copied, each in its own type,
+// and B and C widened (once a tile, one tile ahead of their steps)
+template <int N>
+struct __align__(16) Stage {
+  static constexpr int CH = Tile<N>::CH;
+  uint16_t u[kTT][CH + kUPad];   // bf16
+  float dt[kTT][CH];
+  float bf[kTT][N];          // B and C widened
+  float cf[kTT][N];
+  uint16_t b[kTT][N];        // bf16
+  uint16_t c[kTT][N];        // bf16
+};
+
+template <int N>
+struct Cfg {
+  static constexpr int CH = Tile<N>::CH;
+  static constexpr size_t ring = kStages * sizeof(Stage<N>);
+  static constexpr size_t parts = sizeof(float) * kTT * kPS;  // partials
+  static constexpr size_t bytes = ring + parts + sizeof(float) * CH;
+};
+
+// a bf16 value widened to f32: a 16-bit shift, exact
+__device__ __forceinline__ float wide(uint16_t x) {
+  return __uint_as_float((uint32_t)x << 16);
+}
+
+// M consecutive bf16 values from shared memory (one 8- or 16-byte load),
+// widened
+template <int M>
+__device__ __forceinline__ void widen(const uint16_t* src, float* out) {
+  static_assert(M == 4 || M == 8, "four or eight values");
+  uint32_t w[M / 2];
+  if constexpr (M == 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(src);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    w[0] = v.x; w[1] = v.y;
+  }
+#pragma unroll
+  for (int i = 0; i < M / 2; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+
+// M consecutive f32 values from shared memory, 16 bytes a load
+template <int M>
+__device__ __forceinline__ void load(const float* src, float* out) {
+  static_assert(M % 4 == 0, "a multiple of four values");
+#pragma unroll
+  for (int j = 0; j < M; j += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src + j);
+    out[j] = v.x; out[j + 1] = v.y; out[j + 2] = v.z; out[j + 3] = v.w;
+  }
+}
+
+// cp.async of 8 bytes (zero-filled when !valid)
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 8 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
+}
+
+template <int N>
+__global__ void __launch_bounds__(NT, kMinCtas)
+selective_scan_bf16_hopper(const uint16_t* __restrict__ u,
+                           const float* __restrict__ dt,
+                           const float* __restrict__ A,
+                           const uint16_t* __restrict__ Bm,
+                           const uint16_t* __restrict__ Cm,
+                           const float* __restrict__ D,
+                           const float* __restrict__ h0,
+                           uint16_t* __restrict__ y,
+                           float* __restrict__ hout, int S, int dI) {
+  constexpr int L = Tile<N>::L, SPT = Tile<N>::SPT, CH = Tile<N>::CH;
+  constexpr int TT = kTT, NS = kStages;
+  constexpr int C8 = CH / 8, C4 = CH / 4;   // 8- and 4-channel pieces
+  constexpr int RB = 2 * N < 16 ? 2 * N : 16;   // bytes a B/C copy
+  constexpr int RQ = 2 * N / RB;                // copies a B/C row
+  constexpr int Q = TT * N / 8;                 // 8-value pieces of B, C
+  using St = Stage<N>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  St* ring = reinterpret_cast<St*>(smem);
+  // partials <h_t, C_t>, a lane's at [step][lane] (rows kPS apart)
+  float* Ps = reinterpret_cast<float*>(smem + Cfg<N>::ring);
+  float* Ds = Ps + TT * kPS;                                    // [CH]
+
+  const int b = blockIdx.y;
+  const int d0 = blockIdx.x * CH;
+  const int tid = threadIdx.x;
+  const int c = tid / L, g = tid % L;   // channel in the CTA, state group
+  const int d = d0 + c;
+  const bool live = d < dI;
+  constexpr int CW = 32 / L, QW = CW / 4;   // channels of a warp
+  const int lane = tid % 32, cw = tid / 32 * CW;  // its first channel
+  static_assert(TT * QW % 64 == 0, "whole 4- and 8-channel pieces a lane");
+  const bool vec8 = (dI & 7) == 0;      // u rows start on 16 bytes
+  const bool vec4 = (dI & 3) == 0;      // dt and y rows on 16 and 8 bytes
+
+  float a[SPT], h[SPT];
+#pragma unroll
+  for (int j = 0; j < SPT; ++j) a[j] = h[j] = 0.f;
+  if (live) {
+    const size_t row = (size_t)d * N + g * SPT;
+    const size_t hrow = ((size_t)b * dI + d) * N + g * SPT;
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) {
+      a[j] = A[row + j] * kLog2e;
+      h[j] = h0 != nullptr ? h0[hrow + j] : 0.f;
+    }
+  }
+  if (tid < CH) Ds[tid] = d0 + tid < dI ? D[d0 + tid] : 0.f;
+
+  const uint16_t* ub = u + (size_t)b * S * dI;
+  const float* dtb = dt + (size_t)b * S * dI;
+  const uint16_t* bb = Bm + (size_t)b * S * N;
+  const uint16_t* cb = Cm + (size_t)b * S * N;
+
+  // tile k's copies into stage s (one commit group; an empty one past the
+  // last tile keeps the groups counted the same). Where the rows allow it
+  // each thread copies fixed columns of the tile (16 bytes a copy), so the
+  // loops below have fixed trip counts
+  static_assert(NT % C4 == 0 && TT * C8 % NT == 0 && TT * RQ <= NT,
+                "whole 16-byte pieces a thread");
+  auto load_tile = [&](int k, int s) {
+    St& st = ring[s];
+    const int t0 = k * TT;
+    if (t0 < S) {
+      if (vec8) {
+        const int col = tid % C8 * 8;
+#pragma unroll
+        for (int i = 0; i < TT * C8 / NT; ++i) {
+          const int r = (tid + i * NT) / C8;
+          const bool ok = t0 + r < S && d0 + col < dI;
+          const size_t off = ok ? (size_t)(t0 + r) * dI + d0 + col : 0;
+          cp_async16(reinterpret_cast<float*>(&st.u[r][col]),
+                     reinterpret_cast<const float*>(ub + off), ok);
+        }
+      } else {
+        // plain 2-byte loads: these tiles wait for their loads
+        for (int e = tid; e < TT * CH; e += NT) {
+          const int r = e / CH, col = e % CH;
+          const bool ok = t0 + r < S && d0 + col < dI;
+          st.u[r][col] = ok ? ub[(size_t)(t0 + r) * dI + d0 + col] : 0;
+        }
+      }
+      if (vec4) {
+        const int col = tid % C4 * 4;
+#pragma unroll
+        for (int i = 0; i < TT * C4 / NT; ++i) {
+          const int r = (tid + i * NT) / C4;
+          const bool ok = t0 + r < S && d0 + col < dI;
+          const size_t off = ok ? (size_t)(t0 + r) * dI + d0 + col : 0;
+          cp_async16(&st.dt[r][col], dtb + off, ok);
+        }
+      } else {
+        for (int e = tid; e < TT * CH; e += NT) {
+          const int r = e / CH, col = e % CH;
+          const bool ok = t0 + r < S && d0 + col < dI;
+          const size_t off = ok ? (size_t)(t0 + r) * dI + d0 + col : 0;
+          cp_async4(&st.dt[r][col], dtb + off, ok);
+        }
+      }
+      if (tid < TT * RQ) {
+        const int r = tid / RQ, n = tid % RQ * (RB / 2);
+        const bool ok = t0 + r < S;
+        const size_t off = ok ? (size_t)(t0 + r) * N + n : 0;
+        if constexpr (RB == 16) {
+          cp_async16(reinterpret_cast<float*>(&st.b[r][n]),
+                     reinterpret_cast<const float*>(bb + off), ok);
+          cp_async16(reinterpret_cast<float*>(&st.c[r][n]),
+                     reinterpret_cast<const float*>(cb + off), ok);
+        } else {
+          cp_async8(&st.b[r][n], bb + off, ok);
+          cp_async8(&st.c[r][n], cb + off, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  // B and C of the tile in stage s widened, 8 values a thread at a time
+  auto widen_bc = [&](int s) {
+    St& st = ring[s];
+#pragma unroll
+    for (int i = 0; i < (2 * Q + NT - 1) / NT; ++i) {
+      const int e = tid + i * NT;
+      if (e >= 2 * Q) break;
+      const int q = e % Q;
+      float v[8];
+      widen<8>((e < Q ? &st.b[0][0] : &st.c[0][0]) + 8 * q, v);
+      float* dst = (e < Q ? &st.bf[0][0] : &st.cf[0][0]) + 8 * q;
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(dst + 4) =
+          make_float4(v[4], v[5], v[6], v[7]);
+    }
+  };
+
+  const int ntiles = (S + TT - 1) / TT;
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) load_tile(s, s);
+  cp_async_wait<NS - 2>();           // this thread's copies of tile 0
+  __syncthreads();
+  widen_bc(0);
+  for (int k = 0; k < ntiles; ++k) {
+    cp_async_wait<NS - 3>();         // this thread's copies of tiles k, k + 1
+    __syncthreads();                 // everyone's, and tile k's B and C
+                                     // widened; tile k - 1 fully read
+    load_tile(k + NS - 1, (k + NS - 1) % NS);
+    if (k + 1 < ntiles) widen_bc((k + 1) % NS);
+    const St& st = ring[k % NS];
+
+    // step r's operands from the stage, widened
+    auto read_step = [&](int r, float& ut, float& dtt, float* bn,
+                         float* cn) {
+      ut = wide(st.u[r][c]);
+      dtt = st.dt[r][c];
+      load<SPT>(&st.bf[r][g * SPT], bn);
+      load<SPT>(&st.cf[r][g * SPT], cn);
+    };
+
+    // TT steps, straight-line, the f32 entry's arithmetic on the widened
+    // values: zero-filled steps leave h unchanged. Each step's operands are
+    // read from shared memory one step ahead, so their loads overlap the
+    // step before (a step's partial is stored to shared memory, which the
+    // compiler does not move loads across)
+    float nu, ndt, nb[SPT], nc[SPT];
+    read_step(0, nu, ndt, nb, nc);
+#pragma unroll
+    for (int r = 0; r < TT; ++r) {
+      const float ut = nu, dtt = ndt;
+      float bn[SPT], cn[SPT];
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) bn[j] = nb[j], cn[j] = nc[j];
+      if (r + 1 < TT) read_step(r + 1, nu, ndt, nb, nc);
+      const float du = dtt * ut;
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < SPT; ++j) {
+        h[j] = fmaf(ex2(dtt * a[j]), h[j], du * bn[j]);
+        acc = fmaf(h[j], cn[j], acc);
+      }
+      Ps[r * kPS + tid] = acc;
+    }
+    __syncwarp();                    // the warp's partials of the tile
+
+    // y = (sum of a channel's L partials) + u D, rounded once to bf16, by
+    // the warp whose lanes wrote the partials (so no CTA barrier): its CW
+    // channels, four a lane at a time (8-byte stores where dI % 4 == 0)
+    const int t0 = k * TT;
+#pragma unroll
+    for (int i = 0; i < TT * QW / 32; ++i) {
+      const int e = lane + 32 * i, r = e / QW, col = cw + e % QW * 4;
+      if (t0 + r >= S || d0 + col >= dI) continue;
+      float uv[4], out[4];
+      widen<4>(&st.u[r][col], uv);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float p[L];
+#pragma unroll
+        for (int j = 0; j < L; ++j) p[j] = Ps[r * kPS + (col + q) * L + j];
+#pragma unroll
+        for (int o = 1; o < L; o <<= 1)
+#pragma unroll
+          for (int j = 0; j < L; j += 2 * o) p[j] += p[j + o];
+        out[q] = p[0] + uv[q] * Ds[col + q];
+      }
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(out[0], out[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(out[2], out[3]);
+      const uint32_t w[2] = {*reinterpret_cast<const uint32_t*>(&lo),
+                             *reinterpret_cast<const uint32_t*>(&hi)};
+      uint16_t* yr = y + ((size_t)b * S + t0 + r) * dI + d0 + col;
+      if (vec4) {
+        *reinterpret_cast<uint2*>(yr) = make_uint2(w[0], w[1]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (d0 + col + q < dI)
+            yr[q] = (uint16_t)(q & 1 ? w[q / 2] >> 16 : w[q / 2] & 0xFFFFu);
+      }
+    }
+  }
+  cp_async_wait<0>();                // no copy outlives the CTA
+  if (live) {
+    const size_t hrow = ((size_t)b * dI + d) * N + g * SPT;
+#pragma unroll
+    for (int j = 0; j < SPT; ++j) hout[hrow + j] = h[j];
+  }
+}
+
+template <int N>
+cudaError_t launch(const uint16_t* u, const float* dt, const float* A,
+                   const uint16_t* Bm, const uint16_t* Cm, const float* D,
+                   const float* h0, uint16_t* y, float* hout, int B, int S,
+                   int dI, cudaStream_t stream) {
+  constexpr int CH = Tile<N>::CH;
+  constexpr size_t smem = Cfg<N>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      selective_scan_bf16_hopper<N>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((dI + CH - 1) / CH, B);
+  selective_scan_bf16_hopper<N><<<grid, NT, smem, stream>>>(
+      u, dt, A, Bm, Cm, D, h0, y, hout, S, dI);
+  return cudaGetLastError();
+}
+
+// CTAs an SM on the current device (-1 on a CUDA error)
+template <int N>
+int occupancy() {
+  constexpr size_t smem = Cfg<N>::bytes;
+  int n = 0;
+  if (cudaFuncSetAttribute(selective_scan_bf16_hopper<N>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, selective_scan_bf16_hopper<N>, NT, smem) != cudaSuccess)
+    return -1;
+  return n;
+}
+
+}  // namespace b16
 
 }  // namespace
 
@@ -347,26 +680,49 @@ int selective_scan_f32(const float* u, const float* dt, const float* A,
 }
 
 // The bf16 entry: u/y (B,S,dI) and Bm/Cm (B,S,N) bf16 (2 bytes each),
-// everything else as selective_scan_f32 (f32); u and y 8-byte aligned,
-// dt 16-byte aligned.
+// everything else as selective_scan_f32 (f32); u, dt, Bm and Cm 16-byte
+// aligned (y too where dI % 8 == 0).
 int selective_scan_bf16(const void* u, const float* dt, const float* A,
                         const void* Bm, const void* Cm, const float* D,
                         const float* h0, void* y, float* hout, int B, int S,
                         int dI, int N, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const bf16_t* ub = (const bf16_t*)u;
-  const bf16_t* bb = (const bf16_t*)Bm;
-  const bf16_t* cb = (const bf16_t*)Cm;
-  bf16_t* yb = (bf16_t*)y;
+  const uint16_t* ub = (const uint16_t*)u;
+  const uint16_t* bb = (const uint16_t*)Bm;
+  const uint16_t* cb = (const uint16_t*)Cm;
+  uint16_t* yb = (uint16_t*)y;
   switch (N) {
     case 4:
-      return (int)launch<4>(ub, dt, A, bb, cb, D, h0, yb, hout, B, S, dI, st);
+      return (int)b16::launch<4>(ub, dt, A, bb, cb, D, h0, yb, hout, B, S,
+                                 dI, st);
     case 8:
-      return (int)launch<8>(ub, dt, A, bb, cb, D, h0, yb, hout, B, S, dI, st);
+      return (int)b16::launch<8>(ub, dt, A, bb, cb, D, h0, yb, hout, B, S,
+                                 dI, st);
     case 16:
-      return (int)launch<16>(ub, dt, A, bb, cb, D, h0, yb, hout, B, S, dI, st);
+      return (int)b16::launch<16>(ub, dt, A, bb, cb, D, h0, yb, hout, B, S,
+                                  dI, st);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 kernel's dynamic shared memory and CTAs an SM (on the current
+// device) at state width N (0 if N is not built, -1 on a CUDA error).
+int selective_scan_bf16_smem_bytes(int N) {
+  switch (N) {
+    case 4: return (int)b16::Cfg<4>::bytes;
+    case 8: return (int)b16::Cfg<8>::bytes;
+    case 16: return (int)b16::Cfg<16>::bytes;
+    default: return 0;
+  }
+}
+
+int selective_scan_bf16_ctas_per_sm(int N) {
+  switch (N) {
+    case 4: return b16::occupancy<4>();
+    case 8: return b16::occupancy<8>();
+    case 16: return b16::occupancy<16>();
+    default: return 0;
   }
 }
 

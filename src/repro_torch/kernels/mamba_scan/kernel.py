@@ -13,10 +13,17 @@ counterpart: the CUDA kernel tiles channels by the state width itself and
 takes any d_inner.
 
 On the card u, Bm and Cm are all float32 (``selective_scan_f32``) or all
-bfloat16 (``selective_scan_bf16``: widened to f32 as they are loaded, y
-returned in bf16); dt, A, D and h0 are float32 and the final state is
-float32. Any other dtype or a mix raises ``TypeError``; a bf16 input is
-never widened to reach the f32 entry.
+bfloat16 (``selective_scan_bf16``: its own kernel,
+``selective_scan_bf16_hopper``, which copies u, B and C as bf16 into a ring
+of shared-memory tiles filled ahead by ``cp.async``, widens them there (B
+and C once a tile, u where a step uses it) and returns y in bf16: its h is
+the f32 entry's bit for bit on the same values widened, its y that entry's
+y rounded once to bf16); dt, A,
+D and h0 are float32 and the final state is float32. Any other dtype or a
+mix raises ``TypeError``; a bf16 input is never widened to reach the f32
+entry. ``library().selective_scan_bf16_smem_bytes(N)`` and
+``selective_scan_bf16_ctas_per_sm(N)`` give the bf16 kernel's shared memory
+and CTAs an SM.
 
 ``selective_scan.launches`` counts kernel launches of either entry (one
 per launch, nowhere else), so a run can show that it went through the
@@ -61,6 +68,9 @@ def library() -> ctypes.CDLL:
         lib.selective_scan_f32.restype = _I
         lib.selective_scan_bf16.argtypes = [_P] * 9 + [_I] * 4 + [_P]
         lib.selective_scan_bf16.restype = _I
+        for fn in (lib.selective_scan_bf16_smem_bytes,
+                   lib.selective_scan_bf16_ctas_per_sm):
+            fn.argtypes, fn.restype = [_I], _I
         lib._repro_typed = True
     return lib
 

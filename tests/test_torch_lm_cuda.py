@@ -50,6 +50,9 @@ reduced granite's bf16 step each twice bitwise) and the entry that has no
 backward kernel (the Mamba-1 scan's bf16 entry, on no model's training
 path) raising under grad are tested at the end of the file.
 
+The Mamba-1 scan's bf16 entry is also held to its f32 entry on the same
+values widened, bit for bit: h, and y rounded once to bf16.
+
 The bf16 entries are held to their plain versions on the same bf16 inputs,
 each output within one bf16 rounding of the plain one (2^-7 of the value)
 plus a share of the scale: 2e-3 for attention (the kernel rounds P to bf16
@@ -458,12 +461,13 @@ def test_cuda_ssd_kernel_every_width(cuda_device, N, hp, S):
 
 
 def unaligned(t):
-    """A contiguous copy of ``t`` that starts 4 bytes past a 16-byte
-    boundary (a view into a larger buffer)."""
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary (a view into a larger buffer): 4 bytes for f32, 2 for bf16."""
     flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     view = flat[1:].view(t.shape)
     view.copy_(t)
-    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    assert view.is_contiguous()
+    assert view.data_ptr() % 16 == t.element_size()
     return view
 
 
@@ -471,8 +475,15 @@ def unaligned(t):
 def test_cuda_scans_take_views_off_a_16_byte_boundary(cuda_device):
     """The scans copy u, dt, B and C in 16-byte pieces; the wrappers give
     them an aligned copy of a view that starts elsewhere, and the result is
-    the aligned call's bit for bit."""
+    the aligned call's bit for bit (the Mamba-1 scan's bf16 entry too, its
+    u, B and C 2 bytes off)."""
     args = tt(scan_inputs(2, 50, 64, 16, seed=3), cuda_device)
+    want = selective_scan(*args)
+    got = selective_scan(*[unaligned(a) if i in (0, 1, 3, 4) else a
+                           for i, a in enumerate(args)])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    args = [a.bfloat16() if i in (0, 3, 4) else a
+            for i, a in enumerate(args)]
     want = selective_scan(*args)
     got = selective_scan(*[unaligned(a) if i in (0, 1, 3, 4) else a
                            for i, a in enumerate(args)])
@@ -646,6 +657,34 @@ def test_cuda_scan_bf16_kernel_matches_plain(cuda_device, N, B, S, dI,
     y_p, h_p = selective_scan_ref(*args, h0=h0)
     within_bf16_rounding(y, y_p, TOL["rtol"])
     np.testing.assert_allclose(h.cpu().numpy(), h_p.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("B,S,dI,with_h0", [
+    (2, 1, 24, True),          # one step
+    (1, 37, 13, True),         # odd dI: u by 2-byte loads, y by channel
+    (2, 300, 128, False),      # 16-byte copies and stores
+    (4, 64, 1000, True),
+    (2, 300, 70, False),       # dI % 4 != 0 over several CTAs
+    (1, 17, 36, True),         # dI % 8 != 0, the last CTA part-filled
+    (2, 77, 1004, True),       # dI % 8 != 0 over many CTAs, S % 32 != 0
+])
+def test_cuda_scan_bf16_is_the_f32_entry_bit_for_bit(cuda_device, N, B, S,
+                                                     dI, with_h0):
+    """The selective scan's bf16 entry does the f32 entry's arithmetic on
+    the same values widened: h bit for bit, y that entry's y rounded once
+    to bf16 (nearest even)."""
+    u, dt, A, Bm, Cm, D = tt(scan_inputs(B, S, dI, N, seed=S + dI + N),
+                             cuda_device)
+    args = [u.bfloat16(), dt, A, Bm.bfloat16(), Cm.bfloat16(), D]
+    h0 = torch.randn(B, dI, N, device=cuda_device) if with_h0 else None
+    y, h = selective_scan(*args, h0=h0)
+    y32, h32 = selective_scan(*[a.float() for a in args], h0=h0)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y32.dtype == torch.float32
+    assert torch.equal(h, h32)
+    assert torch.equal(y, y32.bfloat16())
 
 
 @pytest.mark.cuda

@@ -461,3 +461,24 @@ def test_chip_smoke_ssd_backward_bf16_bound_counts_bf16_stream_bytes():
     b = C.bwd_bounds(ops, moved, "mma_sync")
     assert b["route_bound_by"] == "operations (3×TF32)"
     assert abs(b["route_bound_ms"] - 0.0354) < 0.0001
+
+
+def test_chip_smoke_selective_exp_floor_counts_one_exponential_a_step():
+    """chip_smoke.py's floor of the Mamba-1 scan's exponentials: one a
+    state-step (B·S·dI·N) at 16 a clock an SM; at the falcon-mamba-7b
+    prefill shape on 132 SMs 0.257 ms at 1.98 GHz and 0.290 at 1.755, above
+    the bf16 entry's byte bound (0.161 ms), which stays as it was."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke as C
+    assert C.exp_floor_ms(1, 3, 5, 4, 1, 1e3) == 3 * 5 * 4 / 16 / 1e3 * 1e3
+    shape = (4, 2048, 8192, 16)
+    assert abs(C.exp_floor_ms(*shape, 132, 1.98e9) - 0.257) < 0.001
+    assert abs(C.exp_floor_ms(*shape, 132, 1.755e9) - 0.290) < 0.001
+    b = C.bf16_selective_bound(*shape)
+    _, moved32 = C.scan_ops_bytes(*shape)
+    assert b["bytes"] == moved32 - 2 * (2 * 4 * 2048 * 8192 + 2 * 4 * 2048
+                                        * 16)
+    assert b["bound_by"] == "bytes"
+    assert abs(b["bound_ms"] - 0.161) < 0.001
+    assert C.exp_floor_ms(*shape, 132, 1.98e9) > b["bound_ms"]

@@ -8,10 +8,12 @@ every f32 kernel instantiation of OLD, compares its instructions with NEW's
 instantiation of the same template arguments. The kernels are the flash
 attention's (``flash_kernel<HD, CAP>``, ``flash_kernel_wide<CAP>``), the
 SSD scan's (``ssd_scan_kernel<N, HP[, T]>``) and the selective scan's
-(``selective_scan_kernel<N[, T]>``): an element type ``T = float`` in NEW
-matches OLD's instantiation without one, and an OLD flash kernel without a
-soft-cap flag matches NEW's ``CAP = false``. Every other kernel (the bf16
-instantiations, ``flash_bf16_hopper``, ``ssd_bf16_hopper``, and
+(``selective_scan_kernel<N[, T]>``): an element type ``T = float`` in
+either source is dropped, so it matches the other's instantiation without
+one, and an OLD flash kernel without a soft-cap flag matches NEW's ``CAP =
+false``. Every other kernel (the bf16 instantiations,
+``flash_bf16_hopper``, ``ssd_bf16_hopper``, ``selective_scan_bf16_hopper``,
+and
 ``flash_attention_bwd.cu``'s ``flash_bwd_kernel`` and ``flash_bwd_dsum``)
 is compared with NEW's function of the same symbol, the anonymous
 namespace's name (which carries the source's path) dropped; one that only

@@ -2,6 +2,7 @@
 
     python3 tools/scan_variants.py [reps=20] [selective_scan|ssd_scan]
     python3 tools/scan_variants.py [reps=20] ssd_scan_bf16 [OLD.cu]
+    python3 tools/scan_variants.py [reps=20] selective_scan_bf16 [OLD.cu]
     python3 tools/scan_variants.py [reps=20] selective_scan_bwd [OLD.cu]
     python3 tools/scan_variants.py [reps=20] ssd_scan_bwd [OLD.cu]
     python3 tools/scan_variants.py [reps=20] ssd_scan_bwd_bf16 [OLD.cu]
@@ -16,9 +17,11 @@ second argument names one kernel:
 
 * the selective scan at the falcon-mamba-7b prefill shape (B 4, S 2048,
   dI 8192, N 16): ``expf`` (the accurate base-e exponential in place of
-  one ``ex2.approx`` of dt·A·log2 e), ``lanes8`` (8 lanes a channel, two
-  states a lane, in place of 4 lanes and four states), ``uncapped``
-  (registers not held to 64, so fewer than 8 CTAs an SM);
+  one ``ex2.approx`` of dt·A·log2 e), ``lanes4``, ``lanes8``, ``lanes1``
+  (4, 8 or 1 lanes a channel, in place of 2: four, two or sixteen states a
+  lane), ``uncapped`` (registers not held to 128 by
+  ``__launch_bounds__(128, 4)``, so fewer than 4 CTAs an SM if ptxas
+  takes more);
 * the SSD scan at the zamba2-1.2b prefill shape (B 4, S 2048, 64 heads,
   hp = N = 64): ``cvt_rna`` (big and small each rounded to TF32 by
   ``cvt.rna.tf32.f32``, as the kernel first did, in place of big cut by a
@@ -52,6 +55,42 @@ chunk), ``no_y_store`` (y not stored). Each line also carries the
 kernel's dynamic shared memory; a variant that does not build (ptxas of
 CUDA 12.9 crashes on some edits of that kernel) is reported as such and
 left out.
+
+``selective_scan_bf16`` times the Mamba-1 scan's bf16 entry
+(``selective_scan_bf16_hopper``) at the falcon-mamba-7b prefill shape, in
+turns as above, beside the f32 entry of the shipped source on the same
+values widened, OLD's bf16 entry (an older ``selective_scan.cu`` with the
+same C entry, for example the parent commit's: ``git show
+HEAD~1:src/repro_torch/kernels/mamba_scan/csrc/selective_scan.cu >
+build/parent/selective_scan.cu``) and these variants, each an edit of the
+bf16 kernel alone: ``stages3``, ``stages5`` (a ring of 3 or 5 tiles, not
+4: copies 2 or 4 tiles ahead, not 3; B and C are widened one tile ahead,
+so a ring of 2 is not built), ``tt32``, ``tt32_stages3`` (tiles of 32
+steps, not 16, in a ring of 4 or 3), ``ctas3`` (registers held to 168,
+not 128: 3 CTAs an SM by the cap, so the falcon grid's 512 CTAs need a
+second wave), ``not_ahead`` (each step's operands
+read from shared memory in the step, not one step ahead),
+``cta_barrier`` (the CTA waits for all its partials before y's epilogue,
+not each warp for its own), ``y16`` (y's epilogue by eight
+channels a thread, one 16-byte store each, not four and 8 bytes), ``bc_at_use`` (B and C widened from
+their bf16 copies in every step, two 16-bit ops a state, not read from
+the tile widened once a tile), and the diagnostics ``no_exp``
+(the exponential a constant, so dt·A goes too: wrong results, how far the
+kernel is from its data movement alone), ``no_copies`` (no copies after the
+prologue's), ``no_epilogue`` (y not formed or stored), ``no_barrier`` (no
+CTA barrier a tile: the copies race), ``no_widen`` (bf16 values used
+as their raw words, not shifted or masked: wrong results, what widening
+costs) and ``poly_exp`` (every fourth state's exponential by a Cody–Waite
+split and a degree-6 polynomial on the FMA pipe, flushed to 0 below
+2^-126 as ``ex2.approx.ftz`` is: not bitwise the f32 entry, so not
+shipped; held to the plain version as the shipped kernel is). The cp.async
+ring is the only load route written (no TMA variant). Each line carries
+the kernel's registers, spills, shared memory (dynamic, or for OLD
+static) and CTAs an SM, its largest errors against the plain version and
+whether they are within its tolerance (y within one bf16 rounding plus
+2e-4 of the scale, h within 2e-4); the shipped line also whether it is
+the f32 entry bit for bit. Then, with OLD, the f32 entry of the shipped
+source and of OLD on the same f32 inputs, bitwise.
 
 ``selective_scan_bwd`` and ``ssd_scan_bwd`` time the scans' backward
 kernels (``csrc/selective_scan_bwd.cu``, ``csrc/ssd_scan_bwd.cu``) at
@@ -184,7 +223,7 @@ def widening_smem_bytes(N=64, hp=64, QC=64, NW=4):
 
 
 VARIANTS = {
-    "selective_scan": (MK.SOURCES[0], "ILi16E", {
+    "selective_scan": (MK.SOURCES[0], "selective_scan_kernelILi16E", {
         "expf": [("a[j] = A[row + j] * kLog2e;", "a[j] = A[row + j];"),
                  ("ex2(dtt * a[j])", "expf(dtt * a[j])")],
         "lanes4": [("SPT = N < 8 ? N : 8;", "SPT = 4;"),
@@ -335,6 +374,275 @@ def ssd_bf16(reps: int, old: str = "") -> None:
             row[f"max_abs_err_h_batch{B}"] = float(
                 (outs[1] - h_p).abs().max())
         print(json.dumps(row), flush=True)
+
+
+# the Mamba-1 scan's bf16 kernel: edits of the text after SEL_BF16_FROM
+SEL_BF16_FROM = "namespace b16 {"
+SEL_BF16_KERNEL = ("template <int N>\n__global__ void __launch_bounds__(NT, "
+                   "kMinCtas)\nselective_scan_bf16_hopper")
+SEL_BF16_STEP = "h[j] = fmaf(ex2(dtt * a[j]), h[j], du * bn[j]);"
+# 2^x, x <= 0, on the FMA pipe: x = n + f with n = rint(x) (the 1.5·2^23
+# trick), 2^f by its Taylor polynomial of degree 6 (|f| <= 1/2: relative
+# error < 2^-22), 2^n added to the exponent; 0 below 2^-126 (ftz)
+SEL_POLY_EXP = """__device__ __forceinline__ float exp2_poly(float x) {
+  const float t = x + 12582912.f;
+  const float n = t - 12582912.f;
+  const float f = x - n;
+  float p = 1.5403530393381610e-4f;
+  p = fmaf(p, f, 1.3333558146428443e-3f);
+  p = fmaf(p, f, 9.6181291076284772e-3f);
+  p = fmaf(p, f, 5.5504108664821580e-2f);
+  p = fmaf(p, f, 2.4022650695910071e-1f);
+  p = fmaf(p, f, 6.9314718055994531e-1f);
+  p = fmaf(p, f, 1.f);
+  const int e = __float_as_int(t) - 0x4B400000;
+  const float r = __int_as_float(__float_as_int(p) + (e << 23));
+  return x < -126.f ? 0.f : r;
+}
+
+"""
+SEL_BF16_BC = ("load<SPT>(&st.bf[r][g * SPT], bn);\n"
+               "      load<SPT>(&st.cf[r][g * SPT], cn);")
+SEL_BF16_AHEAD = "      if (r + 1 < TT) read_step(r + 1, nu, ndt, nb, nc);\n"
+# y's epilogue by four channels a thread, 8-byte stores (shipped), or by
+# eight, one 16-byte store each (``y16``)
+SEL_BF16_Y4 = """    // y = (sum of a channel's L partials) + u D, rounded once to bf16, by
+    // the warp whose lanes wrote the partials (so no CTA barrier): its CW
+    // channels, four a lane at a time (8-byte stores where dI % 4 == 0)
+    const int t0 = k * TT;
+#pragma unroll
+    for (int i = 0; i < TT * QW / 32; ++i) {
+      const int e = lane + 32 * i, r = e / QW, col = cw + e % QW * 4;
+      if (t0 + r >= S || d0 + col >= dI) continue;
+      float uv[4], out[4];
+      widen<4>(&st.u[r][col], uv);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float p[L];
+#pragma unroll
+        for (int j = 0; j < L; ++j) p[j] = Ps[r * kPS + (col + q) * L + j];
+#pragma unroll
+        for (int o = 1; o < L; o <<= 1)
+#pragma unroll
+          for (int j = 0; j < L; j += 2 * o) p[j] += p[j + o];
+        out[q] = p[0] + uv[q] * Ds[col + q];
+      }
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(out[0], out[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(out[2], out[3]);
+      const uint32_t w[2] = {*reinterpret_cast<const uint32_t*>(&lo),
+                             *reinterpret_cast<const uint32_t*>(&hi)};
+      uint16_t* yr = y + ((size_t)b * S + t0 + r) * dI + d0 + col;
+      if (vec4) {
+        *reinterpret_cast<uint2*>(yr) = make_uint2(w[0], w[1]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (d0 + col + q < dI)
+            yr[q] = (uint16_t)(q & 1 ? w[q / 2] >> 16 : w[q / 2] & 0xFFFFu);
+      }
+    }"""
+SEL_BF16_Y8 = """    // y = (sum of a channel's L partials) + u D, rounded once to bf16, by
+    // the warp whose lanes wrote the partials (so no CTA barrier): its CW
+    // channels, eight a lane at a time (16-byte stores where dI % 8 == 0)
+    const int t0 = k * TT;
+#pragma unroll
+    for (int i = 0; i < TT * QW / 64; ++i) {
+      const int e = lane + 32 * i, r = e / (QW / 2), col = cw + e % (QW / 2) * 8;
+      if (t0 + r >= S || d0 + col >= dI) continue;
+      float uv[8], out[8];
+      widen<8>(&st.u[r][col], uv);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        float p[L];
+#pragma unroll
+        for (int j = 0; j < L; ++j) p[j] = Ps[r * kPS + (col + q) * L + j];
+#pragma unroll
+        for (int o = 1; o < L; o <<= 1)
+#pragma unroll
+          for (int j = 0; j < L; j += 2 * o) p[j] += p[j + o];
+        out[q] = p[0] + uv[q] * Ds[col + q];
+      }
+      uint32_t w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const __nv_bfloat162 v =
+            __floats2bfloat162_rn(out[2 * q], out[2 * q + 1]);
+        w[q] = *reinterpret_cast<const uint32_t*>(&v);
+      }
+      uint16_t* yr = y + ((size_t)b * S + t0 + r) * dI + d0 + col;
+      if (vec8) {
+        *reinterpret_cast<uint4*>(yr) = make_uint4(w[0], w[1], w[2], w[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (d0 + col + q < dI)
+            yr[q] = (uint16_t)(q & 1 ? w[q / 2] >> 16 : w[q / 2] & 0xFFFFu);
+      }
+    }"""
+SEL_BF16_VARIANTS = {
+    "stages3": [("constexpr int kStages = 4;", "constexpr int kStages = 3;")],
+    "stages5": [("constexpr int kStages = 4;", "constexpr int kStages = 5;")],
+    "tt32": [("constexpr int kTT = 16;", "constexpr int kTT = 32;")],
+    "tt32_stages3": [("constexpr int kTT = 16;", "constexpr int kTT = 32;"),
+                     ("constexpr int kStages = 4;",
+                      "constexpr int kStages = 3;")],
+    "ctas3": [(SEL_BF16_KERNEL, SEL_BF16_KERNEL.replace("kMinCtas", "3"))],
+    "cta_barrier": [("    __syncwarp();                    // the warp's partials",
+                     "    __syncthreads();                 // the warp's partials")],
+    "not_ahead": [(SEL_BF16_AHEAD, ""),
+                  ("      const float ut = nu, dtt = ndt;\n",
+                   "      read_step(r, nu, ndt, nb, nc);\n"
+                   "      const float ut = nu, dtt = ndt;\n")],
+    "y16": [(SEL_BF16_Y4, SEL_BF16_Y8)],
+    "bc_at_use": [(SEL_BF16_BC,
+                   SEL_BF16_BC.replace("load", "widen")
+                   .replace("st.bf", "st.b").replace("st.cf", "st.c"))],
+    "no_exp": [(SEL_BF16_STEP, "h[j] = fmaf(0.5f, h[j], du * bn[j]);")],
+    "no_copies": [("    load_tile(k + NS - 1, (k + NS - 1) % NS);\n", "")],
+    "no_epilogue": [("    for (int i = 0; i < TT * QW / 32; ++i) {",
+                     "    for (int i = 0; i < 0; ++i) {")],
+    "no_barrier": [("    __syncthreads();                 // everyone's, and tile k's",
+                    "    //                               everyone's, and tile k's")],
+    "no_widen": [("out[2 * i] = __uint_as_float(w[i] << 16);",
+                  "out[2 * i] = __uint_as_float(w[i]);"),
+                 ("out[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);",
+                  "out[2 * i + 1] = __uint_as_float(w[i]);"),
+                 ("return __uint_as_float((uint32_t)x << 16);",
+                  "return __uint_as_float((uint32_t)x);")],
+    "poly_exp": [(SEL_BF16_KERNEL, SEL_POLY_EXP + SEL_BF16_KERNEL),
+                 (SEL_BF16_STEP, SEL_BF16_STEP.replace(
+                     "ex2(dtt * a[j])", "(j % 4 == 3 ? exp2_poly(dtt * a[j])"
+                     " : ex2(dtt * a[j]))"))],
+}
+
+
+def build_sel_bf16(name, src, edits):
+    """A variant of the Mamba-1 scan's source, its edits applied to the
+    bf16 kernel's text alone: (library with ``bf16`` and ``f32`` entries,
+    ptxas lines)."""
+    text = open(src).read()
+    at = text.find(SEL_BF16_FROM) if edits else 0
+    head, tail = text[:at], text[at:]
+    for old, new in edits:
+        if old not in tail:
+            raise SystemExit(f"scan_variants: selective_scan_bf16 no longer "
+                             f"has {old!r}")
+        tail = tail.replace(old, new)
+    cu = os.path.join(OUT, f"selective_scan_bf16_{name}.cu")
+    so = os.path.join(OUT, f"selective_scan_bf16_{name}.so")
+    with open(cu, "w") as f:
+        f.write(head + tail)
+    proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", so, cu],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed on selective_scan_bf16 {name}:\n"
+                         f"{proc.stdout}")
+    lib = ctypes.CDLL(so)
+    for entry in ("bf16", "f32"):
+        fn = getattr(lib, f"selective_scan_{entry}")
+        fn.argtypes, fn.restype = [_P] * 9 + [_I] * 4 + [_P], _I
+        setattr(lib, entry, fn)
+    return lib, proc.stdout
+
+
+def ptxas_smem(stdout: str) -> dict:
+    """{entry: static shared memory bytes} from nvcc -Xptxas -v output."""
+    out, cur = {}, None
+    for ln in stdout.splitlines():
+        m = re.search(r"Compiling entry function '([^']*)'", ln)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"Used \d+ registers,.*?(\d+) bytes smem", ln)
+        if m and cur:
+            out[cur] = int(m.group(1))
+    return out
+
+
+def selective_bf16(reps: int, old: str = "") -> None:
+    """The Mamba-1 scan's bf16 entry: the shipped kernel, its variants
+    (``SEL_BF16_VARIANTS``) and OLD's bf16 entry, in turns at the
+    falcon-mamba-7b prefill shape beside the shipped f32 entry on the same
+    values widened; then, with OLD, both sources' f32 entries bitwise."""
+    from chip_smoke import LM_RTOL, bf16_err, max_err
+    dev = torch.device("cuda")
+    src = MK.SOURCES[0]
+    jobs = [("shipped", src, [])] + [
+        (n, src, e) for n, e in SEL_BF16_VARIANTS.items()]
+    if old:
+        jobs.append(("old", old, []))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(lambda j: build_sel_bf16(*j), jobs))
+    print(card_line(), flush=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    B, S, dI, N = SCAN_SHAPE
+    wide = scan_inputs(*SCAN_SHAPE, dev)
+    args = [t.bfloat16() if i in (0, 3, 4) else t
+            for i, t in enumerate(wide)]
+    # the plain version on the bf16 values; the f32 entry on them widened
+    wide = [t.float() for t in args]
+    y_p, h_p = selective_scan_ref(*args)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def runner(entry, inputs):
+        outs = (torch.empty_like(inputs[0]), torch.empty((B, dI, N), **f32))
+
+        def run():
+            rc = entry(*(a.data_ptr() for a in inputs), None,
+                       *(o.data_ptr() for o in outs), B, S, dI, N, stream)
+            if rc != 0:
+                raise SystemExit(f"scan_variants: launch failed ({rc})")
+        return run, outs
+
+    timed_jobs = [(name, lib.bf16, args) for (name, _, _), (lib, _) in
+                  zip(jobs, built)]
+    timed_jobs.insert(1, ("f32_entry", built[0][0].f32, wide))
+    ms = {name: [] for name, _, _ in timed_jobs}
+    for name, entry, inputs in timed_jobs + timed_jobs[::-1]:
+        ms[name].append(timed(runner(entry, inputs)[0], reps))
+    run, (y32, h32) = runner(built[0][0].f32, wide)
+    run()
+    for (name, _, _), (lib, stdout) in zip(jobs, built):
+        run, (y, h) = runner(lib.bf16, args)
+        run()
+        torch.cuda.synchronize()
+        fn = ("selective_scan_kernelILi16E13__nv_bfloat16E" if name == "old"
+              else "selective_scan_bf16_hopperILi16E")
+        regs = {k: v for k, v in ptxas_entries(stdout).items() if fn in k}
+        smem = getattr(lib, "selective_scan_bf16_smem_bytes", None)
+        occ = getattr(lib, "selective_scan_bf16_ctas_per_sm", None)
+        for f in (smem, occ):
+            if f is not None:
+                f.argtypes, f.restype = [_I], _I
+        static = next((v for k, v in ptxas_smem(stdout).items() if fn in k),
+                      0)
+        e_y, _, ok_y = bf16_err(y, y_p, LM_RTOL)
+        e_h, ok_h = max_err([h], [h_p], LM_RTOL)
+        row = {"kernel": "selective_scan_bf16", "variant": name,
+               "shape": list(SCAN_SHAPE), "ms": ms[name], "ptxas": regs,
+               "dynamic_smem_bytes": smem(N) if smem else 0,
+               "static_smem_bytes": static,
+               "ctas_per_sm": occ(N) if occ else ctas_from_resources(
+                   next(iter(regs.values()), [128])[0], static),
+               "max_abs_err_y": e_y, "max_abs_err_h": e_h,
+               "within_tol": ok_y and ok_h}
+        if name == "shipped":
+            row["bitwise_f32_entry"] = (torch.equal(h, h32) and
+                                        torch.equal(y, y32.bfloat16()))
+            row["f32_entry_ms"] = ms["f32_entry"]
+        print(json.dumps(row), flush=True)
+    if old:
+        got = []
+        for lib, _ in (built[0], built[-1]):
+            run, outs = runner(lib.f32, wide)
+            run()
+            torch.cuda.synchronize()
+            got.append(outs)
+        print(json.dumps({
+            "kernel": "selective_scan", "shape": list(SCAN_SHAPE),
+            "f32_entry_bitwise_equal_to_old": all(
+                torch.equal(a, b) for a, b in zip(*got))}), flush=True)
 
 
 BWD_VARIANTS = {
@@ -781,6 +1089,9 @@ def main(reps: int = 20, only: str = "", old: str = "") -> None:
     os.makedirs(OUT, exist_ok=True)
     if only == "ssd_scan_bf16":
         ssd_bf16(reps, old)
+        return
+    if only == "selective_scan_bf16":
+        selective_bf16(reps, old)
         return
     if only == "ssd_scan_bwd_bf16":
         bwd_bf16(reps, old)
